@@ -1,0 +1,485 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of FastMatch on one NVIDIA GPU and check it.
+
+Run from the root of a checkout (one card; about 6 minutes at the
+default size, most of it generating the dataset on the host):
+
+    python3 chip_smoke.py [--tuples N] [--seed S]
+
+Phases, each of which raises (non-zero exit) when a check fails:
+
+1. Setup: build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one nvcc each, in parallel) and print the card's name and power limit.
+2. Each kernel against its plain PyTorch version on the card, at the
+   main path's shapes: AnyActive on a 512-block window of 236 words;
+   the histogram of 262,144 ids at V_Z = 7548, V_X = 24, with and
+   without row sums; the batched distance at 7548 x 24 for Q in {1, 8}
+   and every metric, and at 256 x 8192 (the reference's two-sweep form).
+   Integer outputs must be equal, tau within 2e-5. Each check prints its
+   device time (CUDA events around launches queued behind a sleep
+   kernel, so the card runs them back to back), the plain version's and,
+   where one PyTorch call computes the same function, that call's.
+3. The engine on the test fixture (3M tuples): FastMatch at seed 3 on the
+   card and on the CPU must return the same ids, counters and counts,
+   and tau within 2e-5.
+4. The engine at the paper's data scale: the TAXI-q1 shape (V_Z = 7548,
+   V_X = 24, zipf 0.3, k = 10, eps = 0.12, delta = 0.01, lookahead 512)
+   with 400M tuples resident on the card. FastMatch (seed 0) runs with
+   every kernel's launch count set to 0 just before and read just
+   after; each must have launched. Then Scan: its tau must equal the
+   generator's true distances within 2e-5, FastMatch must not be exact,
+   must read under half the blocks and must meet Guarantee 1 against
+   Scan's exact distances. A second FastMatch run under torch.profiler
+   gives the device time by kernel.
+
+The last lines are the ``kernels`` JSON line, the card's name and power
+limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
+also go to ``chiprun_out/chip_smoke.json``. Exits 2 without a CUDA
+device or outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+TAU_ATOL = 2e-5
+# Peaks of one H100 SXM (NVIDIA's data sheet), for the bounds.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+T0 = time.perf_counter()
+
+
+def log(msg: str) -> None:
+    print(f"[{time.perf_counter() - T0:8.1f}s] {msg}", flush=True)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+
+class DeviceTimer:
+    """Device time of one call: ``reps`` calls queued behind a sleep kernel
+    long enough to cover their enqueue, timed with CUDA events, so the
+    card runs them back to back and host overhead stays out. Median over
+    ``batches``; also the host's enqueue time per call."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        start, end = self._events()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        self.ms_per_cycle = start.elapsed_time(end) / 10_000_000
+
+    def _events(self):
+        ev = self.torch.cuda.Event
+        return ev(enable_timing=True), ev(enable_timing=True)
+
+    def __call__(self, fn, *, reps: int = 30, batches: int = 5) -> tuple:
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        cycles = int(3.0 * host_ms / self.ms_per_cycle) + 100_000
+        per_call, host = [], []
+        for _ in range(batches):
+            start, end = self._events()
+            torch.cuda._sleep(cycles)
+            start.record()
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host.append((time.perf_counter() - t) * 1e3 / reps)
+            end.record()
+            end.synchronize()
+            per_call.append(start.elapsed_time(end) / reps)
+        return statistics.median(per_call), statistics.median(host)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def _check_fields(row: dict) -> dict:
+    """A kernel measurement as a check line prints it (``kernel_ms``)."""
+    return {("kernel_ms" if k == "ms" else k): v for k, v in row.items()}
+
+
+def phase_setup(torch):
+    from repro_torch.kernels import _build
+
+    t = time.perf_counter()
+    _build.build_all()
+    log(f"built {len(_build.SOURCES)} kernel libraries in {time.perf_counter() - t:.1f}s")
+    for name in _build.SOURCES:
+        report = _build.library_path(name).with_suffix(".log").read_text()
+        for line in report.splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"  {name}.cu ptxas: {line.strip()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0].strip()
+    log(f"card: {smi}")
+    return smi
+
+
+def phase_kernels(torch, timer) -> dict:
+    """Every kernel against its plain version at the main path's shapes.
+    Returns the main-path measurement of each kernel by name."""
+    import numpy as np
+
+    from repro_torch.core.bitmap import words_for
+    from repro_torch.kernels import anyactive, histogram, metrics, ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2024)
+    main = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # -- A: AnyActive, one lookahead window of the TAXI shape
+    L, W = 512, words_for(7548)
+    bm = rng.integers(0, 2**32, size=(L, W), dtype=np.uint32)
+    mask = rng.integers(0, 2**32, size=(W,), dtype=np.uint32)
+    bm[rng.random(L) < 0.5] &= ~mask  # half the blocks hold no active candidate
+    bm[3] = 0
+    bm[3, 7] = 1 << 31  # a block holding only a bit-31 candidate
+    mask[7] |= np.uint32(1 << 31)
+    b, m = t(bm.view(np.int32)), t(mask.view(np.int32))
+    got, want = anyactive.anyactive(b, m), ref.anyactive_ref(b, m)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want) and bool(got[3]), "anyactive disagrees with its plain version")
+    ms, host = timer(lambda: anyactive.anyactive(b, m))
+    plain, _ = timer(lambda: ref.anyactive_ref(b, m))
+    bnd, by = bound_ms(L * W * 4 + W * 4 + L, 2 * L * W)
+    main["anyactive"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
+                             bound_by=by, library_ms=None, host_us=host * 1e3)
+    emit({"check": "anyactive", "shape": [L, W], "marked": int(got.sum()), "equal": True,
+          **_check_fields(main["anyactive"])})
+
+    # -- B: histogram of one fully marked window (512 blocks x 512 tuples)
+    v_z, v_x, n = 7548, 24, 262_144
+    z = t(rng.integers(0, v_z, size=n).astype(np.int32))
+    x = t(rng.integers(0, v_x, size=n).astype(np.int32))
+    zd = t(rng.integers(-2, v_z + 2, size=n).astype(np.int32))  # with dropped ids
+    xd = t(rng.integers(-2, v_x + 2, size=n).astype(np.int32))
+    for zz, xx, tag in ((z, x, "valid ids"), (zd, xd, "out-of-range ids")):
+        c, r = histogram.histogram_with_rowsums(zz, xx, v_z=v_z, v_x=v_x)
+        wc, wr = ref.histogram_with_rowsums_ref(zz, xx, v_z=v_z, v_x=v_x)
+        c1 = histogram.histogram(zz, xx, v_z=v_z, v_x=v_x)
+        torch.cuda.synchronize()
+        check(torch.equal(c, wc) and torch.equal(r, wr) and torch.equal(c1, wc),
+              f"histogram disagrees with its plain version ({tag})")
+    # the library yardstick: one torch.bincount over the flattened ids
+    flat = z.long() * v_x + x.long()
+    lib = torch.bincount(flat, minlength=v_z * v_x).view(v_z, v_x)
+    check(torch.equal(lib.float(), histogram.histogram(z, x, v_z=v_z, v_x=v_x)),
+          "the bincount yardstick disagrees with the histogram")
+    variants = (
+        (True, histogram.histogram_with_rowsums, ref.histogram_with_rowsums_ref),
+        (False, histogram.histogram, ref.histogram_ref),
+    )
+    for with_rows, kernel_fn, plain_fn in variants:
+        ms, host = timer(lambda: kernel_fn(z, x, v_z=v_z, v_x=v_x))
+        plain, _ = timer(lambda: plain_fn(z, x, v_z=v_z, v_x=v_x))
+        library, _ = timer(lambda: torch.bincount(flat, minlength=v_z * v_x))
+        out_bytes = v_z * v_x * 4 + (v_z * 4 if with_rows else 0)
+        bnd, by = bound_ms(8 * n + out_bytes, n * (2 if with_rows else 1))
+        row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                   library_ms=library, host_us=host * 1e3)
+        emit({"check": "histogram", "rows": with_rows, "shape": [n, v_z, v_x], "equal": True,
+              **_check_fields(row)})
+        if with_rows:
+            main["histogram"] = row
+
+    # -- C: batched distance, main-path shape and the two-sweep shape
+    for (vz, vx) in ((7548, 24), (256, 8192)):
+        counts_np = rng.integers(0, 40, size=(vz, vx)).astype(np.float32)
+        counts_np[rng.random(vz) < 0.2] = 0.0
+        counts_np[0] = 0.0  # an empty row
+        counts = t(counts_np)
+        for q in (1, 8):
+            q_hat = t(np.stack([rng.dirichlet(np.ones(vx)) for _ in range(q)]).astype(np.float32))
+            for metric in metrics.METRIC_NAMES:
+                got = metrics.distance_multi(counts, q_hat, metric=metric)
+                want = metrics.distance_multi_ref(counts, q_hat, metric=metric)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                check(err <= TAU_ATOL and bool(torch.isfinite(got).all()),
+                      f"distance_multi {metric} Q={q} {vz}x{vx}: max err {err}")
+                ms, host = timer(lambda: metrics.distance_multi(counts, q_hat, metric=metric))
+                plain, _ = timer(lambda: metrics.distance_multi_ref(counts, q_hat, metric=metric))
+                per_elem = {"l1": 4, "chi2": 6, "hellinger": 7}[metric]
+                bnd, by = bound_ms(vz * vx * 4 + q * vx * 4 + q * vz * 4,
+                                   vz * vx * (1 + q * per_elem))
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                           library_ms=None, host_us=host * 1e3)
+                emit({"check": "distance_multi", "metric": metric, "q": q, "shape": [vz, vx],
+                      **_check_fields(row)})
+                if (vz, vx, q, metric) == (7548, 24, 1, "l1"):
+                    main["distance_multi"] = row
+    return main
+
+
+def _fixture_dataset(num_tuples: int, seed: int):
+    from repro_torch.data.layout import block_layout
+    from repro_torch.data.synth import SynthSpec, make_dataset
+
+    spec = SynthSpec(v_z=80, v_x=16, num_tuples=num_tuples, k=8, n_close=8,
+                     close_distance=0.02, far_distance=0.3, zipf_a=0.9, seed=seed)
+    ds = make_dataset(spec)
+    return ds, block_layout(ds.z, ds.x, v_z=80, v_x=16, block_size=512, seed=seed)
+
+
+def phase_engine_small(torch) -> None:
+    import numpy as np
+
+    from repro_torch.core import engine, histsim
+
+    ds, blocked = _fixture_dataset(3_000_000, 7)
+    params = histsim.HistSimParams(v_z=80, v_x=16, k=8, eps=0.08, delta=0.05)
+    cfg = engine.EngineConfig(variant="fastmatch", seed=3)
+    a = engine.run_engine(blocked, ds.target, params, cfg, device="cuda")
+    b = engine.run_engine(blocked, ds.target, params, cfg, device="cpu")
+    check(np.array_equal(a.ids, b.ids), f"ids differ: card {a.ids} cpu {b.ids}")
+    for f in ("blocks_read", "blocks_considered", "tuples_read", "rounds", "passes", "exact"):
+        check(getattr(a, f) == getattr(b, f), f"{f} differs: {getattr(a, f)} vs {getattr(b, f)}")
+    check(torch.equal(a.state.counts.cpu(), b.state.counts), "counts differ")
+    err = float((a.state.tau.cpu() - b.state.tau).abs().max())
+    check(err <= TAU_ATOL, f"tau differs by {err}")
+    emit({"check": "engine_small", "ids": a.ids.tolist(), "blocks_read": a.blocks_read,
+          "rounds": a.rounds, "exact": a.exact, "tau_max_abs_err": err, "equal": True})
+
+
+def _profile_tables(torch, prof) -> tuple:
+    """(total device ms, device rows, host rows) of a profile; a row is
+    (name, ms, calls), largest first. Device rows are the kernels and
+    copies on the card; host rows are the PyTorch ops by self CPU time
+    (inflated by the profiler itself, so read them for their order)."""
+    device, host = [], []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                device.append((e.key, us / 1e3, e.count))
+        elif e.self_cpu_time_total > 0:
+            host.append((e.key, e.self_cpu_time_total / 1e3, e.count))
+    device.sort(key=lambda r: -r[1])
+    host.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in device), device, host
+
+
+def phase_engine_scale(torch, num_tuples: int, seed: int) -> dict:
+    import numpy as np
+
+    from repro_torch.core import engine, histsim
+    from repro_torch.data.layout import block_layout
+    from repro_torch.data.synth import SynthSpec, make_dataset
+    from repro_torch.io import InMemorySource
+    from repro_torch.kernels import ops
+
+    k, eps, delta = 10, 0.12, 0.01
+    spec = SynthSpec(v_z=7548, v_x=24, num_tuples=num_tuples, k=k, n_close=10,
+                     close_distance=0.05, far_distance=0.45, zipf_a=0.3, close_rank="head",
+                     seed=44)
+    t = time.perf_counter()
+    ds = make_dataset(spec)
+    gen_s = time.perf_counter() - t
+    log(f"generated {num_tuples} tuples in {gen_s:.1f}s")
+    t = time.perf_counter()
+    blocked = block_layout(ds.z, ds.x, v_z=spec.v_z, v_x=spec.v_x, block_size=512, seed=spec.seed)
+    layout_s = time.perf_counter() - t
+    target, true_dists = ds.target, ds.true_dists
+    del ds
+    log(f"laid out {blocked.num_blocks} blocks in {layout_s:.1f}s")
+    nb = blocked.num_blocks
+    resident_gb = (blocked.z_blocks.nbytes + blocked.x_blocks.nbytes + blocked.bitmap.nbytes) / 1e9
+    t = time.perf_counter()
+    source = InMemorySource(blocked, device="cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t
+    del blocked
+    log(f"moved {resident_gb:.2f} GB to the card in {upload_s:.1f}s")
+
+    params = histsim.HistSimParams(v_z=spec.v_z, v_x=spec.v_x, k=k, eps=eps, delta=delta)
+    cfg = engine.EngineConfig(variant="fastmatch", seed=seed, lookahead=512)
+
+    # -- the main path: every launch count at 0 just before, read just after
+    for kern in ops.KERNELS.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    fm = engine.run_engine(source, target, params, cfg)
+    torch.cuda.synchronize()
+    fm_wall = time.perf_counter() - t
+    launches = {name: kern.launches for name, kern in ops.KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"fastmatch: {fm.rounds} rounds, {fm.blocks_read}/{nb} blocks, {fm_wall:.3f}s, "
+        f"{fm.host_syncs} host syncs, launches {launches}")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched on the main path")
+
+    t = time.perf_counter()
+    scan = engine.run_engine(source, target, params, engine.EngineConfig(variant="scan"))
+    torch.cuda.synchronize()
+    scan_wall = time.perf_counter() - t
+    log(f"scan: {scan.rounds} rounds, {scan.blocks_read} blocks, {scan_wall:.3f}s")
+
+    truth = scan.state.tau.cpu().numpy()
+    check(bool(np.isfinite(truth).all()) and truth.shape == (spec.v_z,), "scan tau malformed")
+    scan_err = float(np.abs(truth.astype(np.float64) - true_dists).max())
+    check(scan.exact and scan.blocks_read == nb, "scan did not read every block")
+    check(scan_err <= TAU_ATOL, f"scan tau differs from the generator's by {scan_err}")
+    check(not fm.exact, "fastmatch fell back to an exact read")
+    check(fm.blocks_read < 0.5 * nb, f"fastmatch read {fm.blocks_read} of {nb} blocks")
+    check(fm.delta_upper < delta, f"fastmatch delta_upper {fm.delta_upper} >= {delta}")
+    true_top = set(np.argsort(truth, kind="stable")[:k].tolist())
+    worst = max(float(truth[i]) for i in fm.ids)
+    missing = sorted(true_top - set(fm.ids.tolist()))
+    for j in missing:
+        check(worst - float(truth[j]) < eps, f"Guarantee 1 broken by candidate {j}")
+
+    # -- where the device time goes: the same query under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = engine.run_engine(source, target, params, cfg)
+        torch.cuda.synchronize()
+    check(np.array_equal(again.ids, fm.ids) and again.rounds == fm.rounds,
+          "a repeated fastmatch run differs")
+    device_ms, by_kernel, by_host_op = _profile_tables(torch, prof)
+    busy = device_ms / (fm_wall * 1e3) if device_ms > 0 else None
+    log(f"profiled fastmatch: device time {device_ms:.3f} ms of {fm_wall * 1e3:.1f} ms wall")
+
+    out = dict(
+        tuples=num_tuples, blocks=nb, resident_gb=resident_gb, generate_s=gen_s,
+        layout_s=layout_s, upload_s=upload_s,
+        fastmatch=dict(ids=fm.ids.tolist(), rounds=fm.rounds, passes=fm.passes,
+                       blocks_read=fm.blocks_read, blocks_share=fm.blocks_read / nb,
+                       tuples_read=fm.tuples_read, wall_s=fm_wall, host_syncs=fm.host_syncs,
+                       delta_upper=fm.delta_upper, exact=fm.exact,
+                       ms_per_round=fm_wall * 1e3 / max(fm.rounds, 1),
+                       peak_device_gb=peak_gb, missing_true_top_k=missing),
+        scan=dict(rounds=scan.rounds, blocks_read=scan.blocks_read, wall_s=scan_wall,
+                  tau_max_abs_err_vs_generator=scan_err),
+        launches=launches,
+        profile=dict(device_ms=device_ms, device_busy_share=busy,
+                     top=[dict(name=n, ms=ms, calls=c) for n, ms, c in by_kernel[:15]],
+                     host_top=[dict(name=n, ms=ms, calls=c) for n, ms, c in by_host_op[:15]]),
+    )
+    emit({"check": "engine_scale", **{k2: v for k2, v in out.items() if k2 != "profile"}})
+    emit({"check": "engine_scale_profile", **out["profile"]})
+    return out
+
+
+# kernel name -> (its source, the pallas_call it replaces)
+KERNEL_ROWS = {
+    "anyactive": ("src/repro_torch/kernels/csrc/anyactive.cu",
+                  "src/repro/kernels/anyactive.py:55"),
+    "histogram": ("src/repro_torch/kernels/csrc/histogram.cu",
+                  "src/repro/kernels/histogram.py:108"),
+    "distance_multi": ("src/repro_torch/kernels/csrc/distance.cu",
+                       "src/repro/kernels/metrics.py:373"),
+}
+ALSO_REPLACES = {"distance_multi": "src/repro/kernels/metrics.py:385"}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tuples", type=int, default=400_000_000,
+                    help="tuples in the paper-scale dataset (default 400M)")
+    ap.add_argument("--seed", type=int, default=0, help="FastMatch's start-block seed")
+    args = ap.parse_args(argv)
+
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py must run from a checkout of the repository "
+              f"(no {SRC / 'repro_torch'})", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py runs on a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+
+    smi = phase_setup(torch)
+    timer = DeviceTimer(torch)
+    log("phase 2: kernels against their plain versions")
+    main_rows = phase_kernels(torch, timer)
+    log("phase 3: engine on the test fixture, card against CPU")
+    phase_engine_small(torch)
+    log(f"phase 4: engine at {args.tuples} tuples")
+    scale = phase_engine_scale(torch, args.tuples, args.seed)
+
+    leaked = sorted(m for m in sys.modules if m.startswith("jax") or m == "repro"
+                    or m.startswith("repro."))
+    check(not leaked, f"the port loaded {leaked}")
+
+    kernels = []
+    for name, (source, replaces) in KERNEL_ROWS.items():
+        row = dict(name=name, route="cuda", source=source, replaces=replaces,
+                   launches=scale["launches"][name], **main_rows[name])
+        if name in ALSO_REPLACES:
+            row["also_replaces"] = ALSO_REPLACES[name]
+        kernels.append(row)
+    for row in kernels:
+        check(all(isinstance(row[k], (int, float)) and math.isfinite(row[k])
+                  for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")), f"bad row {row}")
+
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        dict(card=smi, device=device, kernels=kernels, scale=scale,
+             wall_s=time.perf_counter() - T0), indent=1))
+    log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": device})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,78 @@
+"""Carry data and state over from the reference package.
+
+The system has no weights; what it carries is its data and its state.
+These functions take plain numpy arrays (what ``jax.device_get`` of the
+reference's structures gives, or the reference's `BlockedDataset`
+fields) and build the port's counterparts, so both packages can start
+from the same dataset or the same mid-run state. Packed uint32 words
+are reinterpreted as int32 with the same bits; counters widen to int64.
+Nothing here imports the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.multiquery import MultiQueryState, SampleCursor
+from repro_torch.data.layout import BlockedDataset
+
+__all__ = ["dataset_from_numpy", "multi_state_from_numpy", "cursor_from_numpy"]
+
+# Reference state leaves the port does not carry yet (closeness queries
+# and pruning), with the value they hold when unused.
+_UNSUPPORTED_DEFAULTS = {"gap": 0.0, "qtype": 0, "pruned": False}
+
+_INT64_LEAVES = ("k", "round_idx", "blocks_read", "blocks_considered", "tuples_read", "rounds")
+
+
+def dataset_from_numpy(z_blocks, x_blocks, bitmap, v_z: int, v_x: int) -> BlockedDataset:
+    """The port's `BlockedDataset` from the reference's blocked arrays."""
+    z_blocks = np.ascontiguousarray(z_blocks, np.int32)
+    x_blocks = np.ascontiguousarray(x_blocks, np.int32)
+    bitmap = np.asarray(bitmap)
+    if bitmap.dtype != np.uint32:
+        raise TypeError(f"bitmap must be uint32, got {bitmap.dtype}")
+    if z_blocks.shape != x_blocks.shape or bitmap.shape[0] != z_blocks.shape[0]:
+        raise ValueError(
+            f"shape mismatch: z {z_blocks.shape}, x {x_blocks.shape}, bitmap {bitmap.shape}"
+        )
+    if bitmap.shape[1] != -(-v_z // 32):
+        raise ValueError(f"bitmap has {bitmap.shape[1]} words, V_Z={v_z} needs {-(-v_z // 32)}")
+    return BlockedDataset(
+        z_blocks=z_blocks, x_blocks=x_blocks, bitmap=np.ascontiguousarray(bitmap),
+        v_z=int(v_z), v_x=int(v_x),
+    )
+
+
+def _leaf(name: str, value, device: torch.device) -> torch.Tensor:
+    a = np.array(value, order="C")  # a writable copy; keeps 0-d leaves 0-d
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif name in _INT64_LEAVES:
+        a = a.astype(np.int64)
+    return torch.from_numpy(a).to(device)
+
+
+def multi_state_from_numpy(leaves: Mapping, *, device=None) -> MultiQueryState:
+    """The port's `MultiQueryState` from the reference's leaves by name
+    (e.g. ``jax.device_get(state)._asdict()``). Raises if the state uses
+    a feature the port lacks (a closeness slot or pruned candidates)."""
+    device = resolve_device(device)
+    for name, unused in _UNSUPPORTED_DEFAULTS.items():
+        if name in leaves and np.any(np.asarray(leaves[name]) != unused):
+            raise ValueError(f"state leaf {name!r} is in use; the port serves top-k only")
+    return MultiQueryState(
+        **{name: _leaf(name, leaves[name], device) for name in MultiQueryState._fields}
+    )
+
+
+def cursor_from_numpy(leaves: Mapping, *, device=None) -> SampleCursor:
+    """The port's `SampleCursor` from the reference's leaves by name."""
+    device = resolve_device(device)
+    return SampleCursor(
+        **{name: _leaf(name, leaves[name], device) for name in SampleCursor._fields}
+    )

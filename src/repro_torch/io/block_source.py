@@ -1,0 +1,120 @@
+"""Block sources — where the sampling loop's window data comes from.
+
+Port of `repro.io.block_source` (`WindowData`, `InMemorySource`,
+`as_block_source`). A source serves fixed-shape windows of blocked
+(z, x) tuples plus their packed presence bitmap rows. Every window is
+padded to one length (``pad_to``) and padded rows carry
+``valid=False``, so the round masks them out of marking, ingest and the
+read bookkeeping. Padding repeats block id 0 with no effect.
+
+`stream` serves a whole pass: it moves the pass's padded window indices
+to the device in one copy, so the loop issues no host-to-device copy
+per window (a copy from pageable host memory would wait for the
+device). The data-parallel `ShardedSource` and the prefetching source
+are still to be ported.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Iterator, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.data.layout import BlockedDataset
+
+__all__ = ["InMemorySource", "WindowData", "as_block_source"]
+
+
+class WindowData(NamedTuple):
+    """One padded lookahead window of block data, on the round's device."""
+
+    indices: torch.Tensor  # (L,) int64 global block ids (padding repeats id 0)
+    z: torch.Tensor  # (L, B) int32 candidate ids, -1 padded within blocks
+    x: torch.Tensor  # (L, B) int32 attribute values, -1 padded
+    bitmap: torch.Tensor  # (L, W) int32 packed presence rows (uint32 bits)
+    valid: torch.Tensor  # (L,) bool — False on window padding rows
+
+
+def _pad_windows(windows: list, pad_to: Optional[int]) -> tuple:
+    """(num_windows, L) int64 block ids and bool validity, host-side."""
+    sizes = [np.asarray(w).size for w in windows]
+    length = pad_to if pad_to is not None else max(sizes, default=0)
+    idx = np.zeros((len(windows), length), np.int64)
+    valid = np.zeros((len(windows), length), bool)
+    for i, (win, size) in enumerate(zip(windows, sizes)):
+        if size > length:
+            raise ValueError(f"window of {size} blocks exceeds pad_to={length}")
+        idx[i, :size] = np.asarray(win).ravel()
+        valid[i, :size] = True
+    return idx, valid
+
+
+class InMemorySource:
+    """The whole blocked dataset behind the source interface.
+
+    ``device_resident=True`` (default) keeps the blocks and the bitmap on
+    ``device``: a window is a gather on the device. With
+    ``device_resident=False`` they stay in host memory and each window
+    is gathered on the host and copied over.
+    """
+
+    def __init__(self, dataset: BlockedDataset, *, device_resident: bool = True, device=None):
+        self.device = resolve_device(device)
+        self.num_blocks = dataset.num_blocks
+        self.block_size = dataset.block_size
+        self.v_z = dataset.v_z
+        self.v_x = dataset.v_x
+        self.tuples_per_block = (dataset.z_blocks >= 0).sum(axis=1)
+        self.device_resident = device_resident
+        z = np.ascontiguousarray(dataset.z_blocks, np.int32)
+        x = np.ascontiguousarray(dataset.x_blocks, np.int32)
+        bitmap = np.ascontiguousarray(dataset.bitmap, np.uint32).view(np.int32)
+        if device_resident:
+            self._z = torch.from_numpy(z).to(self.device)
+            self._x = torch.from_numpy(x).to(self.device)
+            self._bitmap = torch.from_numpy(bitmap).to(self.device)
+        else:
+            self._z, self._x, self._bitmap = z, x, bitmap
+
+    def _gather(self, idx: torch.Tensor, valid: torch.Tensor) -> WindowData:
+        if self.device_resident:
+            return WindowData(idx, self._z[idx], self._x[idx], self._bitmap[idx], valid)
+        host = idx.cpu().numpy()
+        z, x, bitmap = (
+            torch.from_numpy(a[host]).to(self.device) for a in (self._z, self._x, self._bitmap)
+        )
+        return WindowData(idx, z, x, bitmap, valid)
+
+    def fetch(self, win: np.ndarray, pad_to: Optional[int] = None) -> WindowData:
+        """One window, padded to ``pad_to`` blocks."""
+        idx, valid = _pad_windows([win], pad_to)
+        return self._gather(
+            torch.from_numpy(idx[0]).to(self.device), torch.from_numpy(valid[0]).to(self.device)
+        )
+
+    def stream(
+        self, windows: Iterable[np.ndarray], pad_to: Optional[int] = None
+    ) -> Iterator[WindowData]:
+        """The windows of one pass, in order; one index copy for all."""
+        windows = list(windows)
+        if not windows:
+            return
+        idx, valid = _pad_windows(windows, pad_to)
+        idx = torch.from_numpy(idx).to(self.device)
+        valid = torch.from_numpy(valid).to(self.device)
+        for i in range(len(windows)):
+            yield self._gather(idx[i], valid[i])
+
+
+def as_block_source(data, *, device=None) -> InMemorySource:
+    """BlockedDataset -> InMemorySource on ``device``; a source passes
+    through (and must already be on ``device`` when one is given)."""
+    if isinstance(data, BlockedDataset):
+        return InMemorySource(data, device=device)
+    if isinstance(data, InMemorySource):
+        if device is not None and resolve_device(device) != data.device:
+            raise ValueError(f"source lies on {data.device}, asked for {device}")
+        return data
+    raise TypeError(f"expected BlockedDataset or InMemorySource, got {type(data)!r}")

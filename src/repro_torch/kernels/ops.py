@@ -1,0 +1,98 @@
+"""Entry points of the kernels package, dispatched by the tensor's device.
+
+Port of `repro.kernels.ops`. A CUDA tensor launches the hand-written
+kernel, or raises: there is no fallback to the plain version. A CPU
+tensor runs the plain PyTorch version (`ref` / `metrics`), which is how
+the tests hold the port against the JAX reference on a machine without
+a GPU.
+
+There is no plan registry (the reference's autotuner is still to be
+ported): every call runs what the reference's `autotune.DEFAULT_TAU` /
+`DEFAULT_INGEST` select, the batched one-pass tau and the fused ingest.
+
+  op                      CUDA                         CPU
+  ----------------------  ---------------------------  ---------------------------
+  histogram               kernel B                     ref.histogram_ref
+  histogram_with_rowsums  kernel B, fused row sums     ref.histogram_with_rowsums_ref
+  distance_multi          kernel C                     metrics.distance_multi_ref
+  l1_distance_multi       kernel C, metric l1          ref.l1_distance_multi_ref
+  l1_distance             kernel C, Q = 1              ref.l1_distance_ref
+  anyactive               kernel A                     ref.anyactive_ref
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import anyactive as _anyactive
+from repro_torch.kernels import histogram as _histogram
+from repro_torch.kernels import metrics, ref
+
+__all__ = [
+    "histogram",
+    "histogram_with_rowsums",
+    "distance_multi",
+    "l1_distance",
+    "l1_distance_multi",
+    "anyactive",
+    "KERNELS",
+]
+
+# Every CUDA kernel of the package, with its launch count.
+KERNELS = {
+    "anyactive": _anyactive.KERNEL,
+    "histogram": _histogram.KERNEL,
+    "distance_multi": metrics.KERNEL,
+}
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}; use 'cuda' or 'cpu'")
+
+
+def histogram(z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int) -> torch.Tensor:
+    """(V_Z, V_X) f32 histogram of (z, x) pairs; out-of-range ids dropped."""
+    if _on_cuda(z_idx):
+        return _histogram.histogram(z_idx, x_idx, v_z=v_z, v_x=v_x)
+    return ref.histogram_ref(z_idx, x_idx, v_z=v_z, v_x=v_x)
+
+
+def histogram_with_rowsums(
+    z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int
+) -> tuple:
+    """((V_Z, V_X), (V_Z,)) histogram + row-sum delta, one pass."""
+    if _on_cuda(z_idx):
+        return _histogram.histogram_with_rowsums(z_idx, x_idx, v_z=v_z, v_x=v_x)
+    return ref.histogram_with_rowsums_ref(z_idx, x_idx, v_z=v_z, v_x=v_x)
+
+
+def distance_multi(
+    counts: torch.Tensor, q_hat: torch.Tensor, *, metric: str = "l1"
+) -> torch.Tensor:
+    """(Q, V_Z) f32 batched distances for a (Q, V_X) target matrix."""
+    if _on_cuda(counts):
+        return metrics.distance_multi(counts, q_hat, metric=metric)
+    return metrics.distance_multi_ref(counts, q_hat, metric=metric)
+
+
+def l1_distance_multi(counts: torch.Tensor, q_hat: torch.Tensor) -> torch.Tensor:
+    """`distance_multi` pinned to metric="l1"."""
+    return distance_multi(counts, q_hat, metric="l1")
+
+
+def l1_distance(counts: torch.Tensor, q_hat: torch.Tensor) -> torch.Tensor:
+    """(V_Z,) f32 tau_i = ||normalize(counts_i) - q_hat||_1 (Q = 1)."""
+    if _on_cuda(counts):
+        return metrics.distance(counts, q_hat, metric="l1")
+    return ref.l1_distance_ref(counts, q_hat)
+
+
+def anyactive(bitmap: torch.Tensor, active_words: torch.Tensor) -> torch.Tensor:
+    """(num_blocks,) bool AnyActive marks from a packed bitmap."""
+    if _on_cuda(bitmap):
+        return _anyactive.anyactive(bitmap, active_words)
+    return ref.anyactive_ref(bitmap, active_words)

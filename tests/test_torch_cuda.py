@@ -1,0 +1,92 @@
+"""The port's CUDA kernels and engine on the card.
+
+Each kernel is held against its plain PyTorch version on the same CUDA
+tensors (counts, rows and marks equal; tau within 2e-5), and the engine
+on the card against the engine on the CPU. These tests need a GPU and
+skip elsewhere; they import no JAX, so they run where only PyTorch is
+installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import engine, histsim
+from repro_torch.data.layout import block_layout
+from repro_torch.data.synth import SynthSpec, make_dataset
+from repro_torch.kernels import anyactive, histogram, metrics, ops, ref
+
+TAU_ATOL = 2e-5
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels compile and run only on a GPU")
+    return torch.device("cuda")
+
+
+def _t(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def test_histogram(cuda):
+    rng = np.random.default_rng(0)
+    z = rng.integers(-2, 7550, size=262_144).astype(np.int32)
+    x = rng.integers(-2, 26, size=262_144).astype(np.int32)
+    zc, xc = _t(z, cuda), _t(x, cuda)
+    before = ops.KERNELS["histogram"].launches
+    c, r = histogram.histogram_with_rowsums(zc, xc, v_z=7548, v_x=24)
+    wc, wr = ref.histogram_with_rowsums_ref(zc, xc, v_z=7548, v_x=24)
+    assert torch.equal(c, wc) and torch.equal(r, wr)
+    assert torch.equal(histogram.histogram(zc, xc, v_z=7548, v_x=24), wc)
+    assert ops.KERNELS["histogram"].launches == before + 2
+
+
+@pytest.mark.parametrize("metric", list(metrics.METRIC_NAMES))
+@pytest.mark.parametrize(
+    "q,v_z,v_x", [(1, 7548, 24), (8, 7548, 24), (3, 256, 8192), (2, 100, 1025), (1, 5, 1)]
+)
+def test_distance_multi(cuda, metric, q, v_z, v_x):
+    rng = np.random.default_rng(q + v_x)
+    counts = rng.integers(0, 40, size=(v_z, v_x)).astype(np.float32)
+    counts[rng.random(v_z) < 0.2] = 0.0
+    q_hat = np.stack([rng.dirichlet(np.ones(v_x)) for _ in range(q)]).astype(np.float32)
+    c, t = _t(counts, cuda), _t(q_hat, cuda)
+    got = metrics.distance_multi(c, t, metric=metric)
+    want = metrics.distance_multi_ref(c, t, metric=metric)
+    torch.testing.assert_close(got, want, atol=TAU_ATOL, rtol=0)
+
+
+def test_anyactive_bit_31(cuda):
+    rng = np.random.default_rng(3)
+    bm = rng.integers(0, 2**32, size=(512, 236), dtype=np.uint32)
+    mask = rng.integers(0, 2**32, size=(236,), dtype=np.uint32)
+    bm[rng.random(512) < 0.5] &= ~mask
+    bm[7] = 0
+    bm[7, 5] = 1 << 31
+    mask[5] |= np.uint32(1 << 31)
+    b, m = _t(bm.view(np.int32), cuda), _t(mask.view(np.int32), cuda)
+    got = anyactive.anyactive(b, m)
+    assert torch.equal(got, ref.anyactive_ref(b, m))
+    assert bool(got[7])
+
+
+def test_engine_on_card_equals_cpu(cuda):
+    spec = SynthSpec(v_z=80, v_x=16, num_tuples=600_000, k=8, n_close=8,
+                     close_distance=0.02, far_distance=0.3, zipf_a=0.9, seed=7)
+    ds = make_dataset(spec)
+    blocked = block_layout(ds.z, ds.x, v_z=80, v_x=16, block_size=512, seed=7)
+    params = histsim.HistSimParams(v_z=80, v_x=16, k=8, eps=0.08, delta=0.05)
+    cfg = engine.EngineConfig(variant="fastmatch", seed=3, lookahead=64)
+    a = engine.run_engine(blocked, ds.target, params, cfg, device="cuda")
+    b = engine.run_engine(blocked, ds.target, params, cfg, device="cpu")
+    np.testing.assert_array_equal(a.ids, b.ids)
+    for f in ("blocks_read", "tuples_read", "rounds", "passes", "exact"):
+        assert getattr(a, f) == getattr(b, f), f
+    assert torch.equal(a.state.counts.cpu(), b.state.counts)
+    torch.testing.assert_close(a.state.tau.cpu(), b.state.tau, atol=TAU_ATOL, rtol=0)
