@@ -12,13 +12,20 @@ Phases, each of which raises (non-zero exit) when a check fails:
    (one nvcc each, in parallel) and print the card's name and power limit.
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes: AnyActive on a 512-block window of 236 words;
-   the histogram of 262,144 ids at V_Z = 7548, V_X = 24, with and
-   without row sums; the batched distance at 7548 x 24 for Q in {1, 8}
-   and every metric, and at 256 x 8192 (the reference's two-sweep form).
-   Integer outputs must be equal, tau within 2e-5. Each check prints its
-   device time (CUDA events around launches queued behind a sleep
-   kernel, so the card runs them back to back), the plain version's and,
-   where one PyTorch call computes the same function, that call's.
+   the fused ingest of one 262,144-id window into 7548 x 24 counts, its
+   ids drawn as the main path sends them (z zipf 0.3, the tuples of
+   ~10 % of the blocks -1), and of uniform, out-of-range and empty
+   batches: bitwise equal to its plain version, its inputs unchanged and
+   its scratch back at zero, and the fresh histograms it also serves;
+   the batched distance at 7548 x 24 for Q in {1, 8} and every metric,
+   and at 256 x 8192 (the reference's two-sweep form). Integer outputs
+   must be equal, tau within 2e-5. Each check prints its device time
+   (CUDA events around launches queued behind a sleep kernel, so the
+   card runs them back to back), the kernel alone into preallocated
+   outputs, the plain version's and, where one PyTorch call computes the
+   same function, that call's; beside B and C, the whole
+   `multiquery.ingest` and `multiquery.stats_step` at Q = 1. One ingest
+   under the profiler must run kernel B and nothing else.
 3. The engine on the test fixture (3M tuples): FastMatch at seed 3 on the
    card and on the CPU must return the same ids, counters and counts,
    and tau within 2e-5.
@@ -26,11 +33,11 @@ Phases, each of which raises (non-zero exit) when a check fails:
    V_X = 24, zipf 0.3, k = 10, eps = 0.12, delta = 0.01, lookahead 512)
    with 400M tuples resident on the card. FastMatch (seed 0) runs with
    every kernel's launch count set to 0 just before and read just
-   after; each must have launched. Then Scan: its tau must equal the
+   after; each must have launched, kernel B once per round. Then Scan: its tau must equal the
    generator's true distances within 2e-5, FastMatch must not be exact,
    must read under half the blocks and must meet Guarantee 1 against
    Scan's exact distances. A second FastMatch run under torch.profiler
-   gives the device time by kernel.
+   gives the device time by kernel and the PyTorch launches per round.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
@@ -175,6 +182,10 @@ def phase_kernels(torch, timer) -> dict:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    # the fixed cost of one launch in this timer: a kernel that does nothing
+    floor_ms, _ = timer(lambda: torch.cuda._sleep(0))
+    emit({"check": "launch_floor", "kernel_ms": floor_ms})
+
     # -- A: AnyActive, one lookahead window of the TAXI shape
     L, W = 512, words_for(7548)
     bm = rng.integers(0, 2**32, size=(L, W), dtype=np.uint32)
@@ -195,40 +206,74 @@ def phase_kernels(torch, timer) -> dict:
     emit({"check": "anyactive", "shape": [L, W], "marked": int(got.sum()), "equal": True,
           **_check_fields(main["anyactive"])})
 
-    # -- B: histogram of one fully marked window (512 blocks x 512 tuples)
+    # -- B: the fused ingest of one lookahead window (512 blocks x 512 tuples)
+    from repro_torch.core import multiquery as mq
+
     v_z, v_x, n = 7548, 24, 262_144
-    z = t(rng.integers(0, v_z, size=n).astype(np.int32))
-    x = t(rng.integers(0, v_x, size=n).astype(np.int32))
-    zd = t(rng.integers(-2, v_z + 2, size=n).astype(np.int32))  # with dropped ids
-    xd = t(rng.integers(-2, v_x + 2, size=n).astype(np.int32))
-    for zz, xx, tag in ((z, x, "valid ids"), (zd, xd, "out-of-range ids")):
+    z, x = (t(a) for a in _window_ids(rng, v_z, v_x))
+    uniform = [t(rng.integers(0, v, size=n).astype(np.int32)) for v in (v_z, v_x)]
+    dropped = [t(rng.integers(-2, v + 2, size=n).astype(np.int32)) for v in (v_z, v_x)]
+    empty = [t(np.zeros(0, np.int32))] * 2
+    counts = t(rng.integers(0, 2000, size=(v_z, v_x)).astype(np.float32))
+    rows = counts.sum(dim=1)
+    scratch = histogram.delta_scratch(v_z, v_x, dev)
+    cases = ((z, x, "zipf window ids"), (*uniform, "uniform ids"),
+             (*dropped, "out-of-range ids"), (*empty, "empty batch"))
+    for zz, xx, tag in cases:
+        kept = [a.clone() for a in (counts, rows, zz, xx)]
+        got = histogram.ingest_counts(counts, rows, zz, xx, v_z=v_z, v_x=v_x)
+        want = histogram.ingest_counts_ref(counts, rows, zz, xx, v_z=v_z, v_x=v_x)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"ingest_counts disagrees with its plain version ({tag})")
+        check(all(torch.equal(a, b) for a, b in zip((counts, rows, zz, xx), kept)),
+              f"ingest_counts changed its inputs ({tag})")
+        check(not bool(scratch.any()), f"ingest_counts left the scratch nonzero ({tag})")
         c, r = histogram.histogram_with_rowsums(zz, xx, v_z=v_z, v_x=v_x)
         wc, wr = ref.histogram_with_rowsums_ref(zz, xx, v_z=v_z, v_x=v_x)
         c1 = histogram.histogram(zz, xx, v_z=v_z, v_x=v_x)
         torch.cuda.synchronize()
         check(torch.equal(c, wc) and torch.equal(r, wr) and torch.equal(c1, wc),
               f"histogram disagrees with its plain version ({tag})")
-    # the library yardstick: one torch.bincount over the flattened ids
-    flat = z.long() * v_x + x.long()
+        check(not bool(scratch.any()), f"histogram left the scratch nonzero ({tag})")
+    # the library yardstick: one torch.bincount over the flattened kept ids
+    keep = z >= 0
+    flat = (z.long() * v_x + x.long())[keep]
     lib = torch.bincount(flat, minlength=v_z * v_x).view(v_z, v_x)
     check(torch.equal(lib.float(), histogram.histogram(z, x, v_z=v_z, v_x=v_x)),
           "the bincount yardstick disagrees with the histogram")
-    variants = (
-        (True, histogram.histogram_with_rowsums, ref.histogram_with_rowsums_ref),
-        (False, histogram.histogram, ref.histogram_ref),
-    )
-    for with_rows, kernel_fn, plain_fn in variants:
-        ms, host = timer(lambda: kernel_fn(z, x, v_z=v_z, v_x=v_x))
-        plain, _ = timer(lambda: plain_fn(z, x, v_z=v_z, v_x=v_x))
-        library, _ = timer(lambda: torch.bincount(flat, minlength=v_z * v_x))
-        out_bytes = v_z * v_x * 4 + (v_z * 4 if with_rows else 0)
-        bnd, by = bound_ms(8 * n + out_bytes, n * (2 if with_rows else 1))
-        row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                   library_ms=library, host_us=host * 1e3)
-        emit({"check": "histogram", "rows": with_rows, "shape": [n, v_z, v_x], "equal": True,
-              **_check_fields(row)})
-        if with_rows:
-            main["histogram"] = row
+    counts_out, rows_out = torch.empty_like(counts), torch.empty_like(rows)
+    ptrs = (z.data_ptr(), x.data_ptr(), counts.data_ptr(), rows.data_ptr(),
+            counts_out.data_ptr(), rows_out.data_ptr(), scratch.data_ptr(), n, v_z, v_x)
+    kern_ms, _ = timer(lambda: histogram.KERNEL.launch(*ptrs))
+    flush_ms, _ = timer(lambda: histogram.KERNEL.launch(*ptrs[:7], 0, v_z, v_x))  # no samples
+    ms, host = timer(lambda: histogram.ingest_counts(counts, rows, z, x, v_z=v_z, v_x=v_x))
+    plain, _ = timer(lambda: histogram.ingest_counts_ref(counts, rows, z, x, v_z=v_z, v_x=v_x))
+    library, _ = timer(lambda: torch.bincount(flat, minlength=v_z * v_x))
+    # the whole ingest of the main path, Q = 1: one launch, nothing around it
+    spec = mq.MultiQuerySpec(v_z=v_z, v_x=v_x, max_queries=1, k_cap=10)
+    state = mq.admit_slot(mq.init_multi_state(spec, device=dev), 0,
+                          t(rng.dirichlet(np.ones(v_x)).astype(np.float32)), 10, 0.12, 0.01)
+    state = mq.stats_step(mq.ingest(state, z, x, spec=spec), spec=spec)
+    ingest_ms, ingest_host = timer(lambda: mq.ingest(state, z, x, spec=spec))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mq.ingest(state, z, x, spec=spec)
+        torch.cuda.synchronize()
+    ingest_kernels = sorted({e.name for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA})
+    check(ingest_kernels and all("ingest_" in k for k in ingest_kernels),
+          f"multiquery.ingest ran kernels besides kernel B: {ingest_kernels}")
+    # ids read once, counts and n read once and written once
+    bnd, by = bound_ms(8 * n + 2 * (v_z * v_x * 4 + v_z * 4), int(keep.sum()) + 2 * v_z * v_x)
+    main["histogram"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                             library_ms=library, host_us=host * 1e3)
+    emit({"check": "ingest_counts", "shape": [n, v_z, v_x], "kept": int(keep.sum()),
+          "equal": True, "inputs_unchanged": True, "scratch_zero": True,
+          **_check_fields(main["histogram"]), "kernel_only_ms": kern_ms, "flush_only_ms": flush_ms,
+          "ingest_ms": ingest_ms, "ingest_host_us": ingest_host * 1e3,
+          "ingest_kernels": ingest_kernels})
 
     # -- C: batched distance, main-path shape and the two-sweep shape
     for (vz, vx) in ((7548, 24), (256, 8192)):
@@ -252,11 +297,36 @@ def phase_kernels(torch, timer) -> dict:
                                    vz * vx * (1 + q * per_elem))
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                            library_ms=None, host_us=host * 1e3)
-                emit({"check": "distance_multi", "metric": metric, "q": q, "shape": [vz, vx],
-                      **_check_fields(row)})
+                extra = {}
                 if (vz, vx, q, metric) == (7548, 24, 1, "l1"):
                     main["distance_multi"] = row
+                    tau = torch.empty((q, vz), dtype=torch.float32, device=dev)
+                    extra["kernel_only_ms"], _ = timer(lambda: metrics.KERNEL.launch(
+                        counts.data_ptr(), q_hat.data_ptr(), tau.data_ptr(), vz, vx, q, 0))
+                    # ~100 launches a call: 5 calls stay inside the launch queue, so the
+                    # card runs them back to back
+                    extra["stats_step_ms"], host = timer(lambda: mq.stats_step(state, spec=spec),
+                                                         reps=5)
+                    extra["stats_step_host_us"] = host * 1e3
+                emit({"check": "distance_multi", "metric": metric, "q": q, "shape": [vz, vx],
+                      **_check_fields(row), **extra})
     return main
+
+
+def _window_ids(rng, v_z: int, v_x: int, *, blocks: int = 512, block: int = 512) -> tuple:
+    """One lookahead window's (z, x) as `fused_round` hands them to ingest:
+    z zipf 0.3 over the candidates (as data/synth.py draws them), x
+    uniform, and every tuple of ~10 % of the blocks -1 (blocks left
+    unmarked)."""
+    import numpy as np
+
+    freq = np.arange(1, v_z + 1, dtype=np.float64) ** -0.3
+    z = rng.choice(v_z, size=(blocks, block), p=freq / freq.sum()).astype(np.int32)
+    x = rng.integers(0, v_x, size=(blocks, block)).astype(np.int32)
+    unmarked = rng.random(blocks) < 0.1
+    z[unmarked] = -1
+    x[unmarked] = -1
+    return z.reshape(-1), x.reshape(-1)
 
 
 def _fixture_dataset(num_tuples: int, seed: int):
@@ -359,6 +429,8 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> dict:
         f"{fm.host_syncs} host syncs, launches {launches}")
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
+    check(launches["histogram"] == fm.rounds,
+          f"{launches['histogram']} ingest launches for {fm.rounds} rounds")
 
     t = time.perf_counter()
     scan = engine.run_engine(source, target, params, engine.EngineConfig(variant="scan"))
@@ -390,6 +462,10 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> dict:
           "a repeated fastmatch run differs")
     device_ms, by_kernel, by_host_op = _profile_tables(torch, prof)
     busy = device_ms / (fm_wall * 1e3) if device_ms > 0 else None
+    # what one round costs in launches: runtime launch calls on the host,
+    # kernels (not copies or memsets) on the card
+    host_launches = sum(c for name, _, c in by_host_op if name.startswith("cudaLaunch"))
+    device_kernels = sum(c for name, _, c in by_kernel if not name.startswith(("Memcpy", "Memset")))
     log(f"profiled fastmatch: device time {device_ms:.3f} ms of {fm_wall * 1e3:.1f} ms wall")
 
     out = dict(
@@ -405,6 +481,8 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> dict:
                   tau_max_abs_err_vs_generator=scan_err),
         launches=launches,
         profile=dict(device_ms=device_ms, device_busy_share=busy,
+                     host_launches_per_round=host_launches / again.rounds,
+                     device_kernels_per_round=device_kernels / again.rounds,
                      top=[dict(name=n, ms=ms, calls=c) for n, ms, c in by_kernel[:15]],
                      host_top=[dict(name=n, ms=ms, calls=c) for n, ms, c in by_host_op[:15]]),
     )

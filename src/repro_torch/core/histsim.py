@@ -90,10 +90,12 @@ def init_state(params: HistSimParams, target, *, device=None) -> HistSimState:
 
 
 def ingest(state: HistSimState, z_idx, x_idx, *, params: HistSimParams) -> HistSimState:
-    """Accumulate a padded batch of samples (lines 7-8 of Alg. 1); the
-    histogram kernel emits the row-sum delta from the same pass."""
-    delta_counts, delta_n = ops.histogram_with_rowsums(z_idx, x_idx, v_z=params.v_z, v_x=params.v_x)
-    return state._replace(counts=state.counts + delta_counts, n=state.n + delta_n)
+    """Accumulate a padded batch of samples (lines 7-8 of Alg. 1): one
+    kernel-B launch adds the counts and their row sums."""
+    counts, n = ops.ingest_counts(
+        state.counts, state.n, z_idx, x_idx, v_z=params.v_z, v_x=params.v_x
+    )
+    return state._replace(counts=counts, n=n)
 
 
 def stats_step(state: HistSimState, *, params: HistSimParams) -> HistSimState:

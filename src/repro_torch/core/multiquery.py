@@ -192,10 +192,10 @@ def clear_slot(state: MultiQueryState, slot: int) -> MultiQueryState:
 
 
 def ingest(state: MultiQueryState, z_idx, x_idx, *, spec: MultiQuerySpec) -> MultiQueryState:
-    """Add a padded sample batch into the SHARED counts — one histogram
-    launch serves every slot, and its row sums advance ``n_i``."""
-    delta_counts, delta_n = ops.histogram_with_rowsums(z_idx, x_idx, v_z=spec.v_z, v_x=spec.v_x)
-    return state._replace(counts=state.counts + delta_counts, n=state.n + delta_n)
+    """Add a padded sample batch into the SHARED counts — one kernel-B
+    launch serves every slot and advances ``n_i`` by the row sums."""
+    counts, n = ops.ingest_counts(state.counts, state.n, z_idx, x_idx, v_z=spec.v_z, v_x=spec.v_x)
+    return state._replace(counts=counts, n=n)
 
 
 def apply_stats(state: MultiQueryState, tau, n, *, spec: MultiQuerySpec) -> MultiQueryState:

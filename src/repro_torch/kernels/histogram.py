@@ -1,11 +1,21 @@
-"""CUDA kernel B: per-candidate histogram of (z, x) sample pairs.
+"""CUDA kernel B: the fused ingest of (z, x) sample pairs.
 
-Port of `repro.kernels.histogram`. The reference expresses the histogram
-as a one-hot contraction on the TPU's matrix unit; on Hopper each sample
-is one f32 atomic add into the counts (and into the row sums, in the
-fused form) — see the note in ``csrc/histogram.cu``. Both wrappers
-return fresh, zero-initialised outputs, like the reference's functions.
-The plain version is `repro_torch.kernels.ref.histogram_ref`.
+Port of `repro.kernels.histogram` and of the two adds around it in the
+reference's `ingest`. The reference expresses the histogram as a one-hot
+contraction on the TPU's matrix unit; on Hopper one C call scatters the
+samples with f32 atomics into a scratch that stays in L2, then flushes
+it row by row into fresh counts and row sums (``csrc/histogram.cu``).
+
+`ingest_counts` is functional: it returns ``(counts + hist, n +
+rowsum(hist))`` in new tensors and leaves its inputs as they were.
+`histogram` and `histogram_with_rowsums` are the same launch with no
+input counts, so they return fresh outputs like the reference's
+functions. Each call is one launch; none fills or adds around it.
+
+The scratch is a (V_Z, V_X) float32 tensor kept per (device, stream,
+V_Z, V_X): zeroed once when first made, and left all zero by every
+call. The plain versions are `ingest_counts_ref` here and
+`repro_torch.kernels.ref.histogram_ref`.
 """
 
 from __future__ import annotations
@@ -14,19 +24,42 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels._build import CudaKernel, check_cuda_tensor
 
-__all__ = ["histogram", "histogram_with_rowsums", "KERNEL"]
+__all__ = [
+    "delta_scratch",
+    "histogram",
+    "histogram_with_rowsums",
+    "ingest_counts",
+    "ingest_counts_ref",
+    "KERNEL",
+]
 
 KERNEL = CudaKernel(
     "histogram",
-    "fm_histogram",
+    "fm_ingest",
     (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_longlong, ctypes.c_int, ctypes.c_int),
 )
 
+_scratch: dict = {}
 
-def _launch(z_idx, x_idx, *, v_z: int, v_x: int, with_rowsums: bool):
+
+def delta_scratch(v_z: int, v_x: int, device: torch.device) -> torch.Tensor:
+    """The kernel's (V_Z, V_X) scratch for ``device`` and its current
+    stream: all zero between calls."""
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream, v_z, v_x)
+    scratch = _scratch.get(key)
+    if scratch is None:
+        scratch = torch.zeros((v_z, v_x), dtype=torch.float32, device=device)
+        _scratch[key] = scratch
+    return scratch
+
+
+def _launch(z_idx, x_idx, counts, n, *, v_z: int, v_x: int, with_rowsums: bool) -> tuple:
     check_cuda_tensor(z_idx, "z_idx", torch.int32, 1)
     check_cuda_tensor(x_idx, "x_idx", torch.int32, 1)
     if z_idx.shape != x_idx.shape:
@@ -34,25 +67,55 @@ def _launch(z_idx, x_idx, *, v_z: int, v_x: int, with_rowsums: bool):
     if v_z < 1 or v_x < 1:
         raise ValueError(f"need v_z, v_x >= 1, got {v_z}, {v_x}")
     dev = z_idx.device
-    counts = torch.zeros((v_z, v_x), dtype=torch.float32, device=dev)
-    rows = torch.zeros((v_z,), dtype=torch.float32, device=dev) if with_rowsums else None
-    n = z_idx.numel()
-    if n:
-        KERNEL.launch(
-            z_idx.data_ptr(), x_idx.data_ptr(), counts.data_ptr(),
-            rows.data_ptr() if rows is not None else None, n, v_z, v_x,
+    counts_out = torch.empty((v_z, v_x), dtype=torch.float32, device=dev)
+    n_out = torch.empty((v_z,), dtype=torch.float32, device=dev) if with_rowsums else None
+    KERNEL.launch(
+        z_idx.data_ptr(), x_idx.data_ptr(),
+        counts.data_ptr() if counts is not None else None,
+        n.data_ptr() if n is not None else None,
+        counts_out.data_ptr(), n_out.data_ptr() if n_out is not None else None,
+        delta_scratch(v_z, v_x, dev).data_ptr(), z_idx.numel(), v_z, v_x,
+    )
+    return counts_out, n_out
+
+
+def ingest_counts(
+    counts: torch.Tensor, n: torch.Tensor, z_idx: torch.Tensor, x_idx: torch.Tensor,
+    *, v_z: int, v_x: int,
+) -> tuple:
+    """(counts + hist(z, x), n + rowsum(hist)) in new tensors, one launch.
+
+    counts: (V_Z, V_X) float32, n: (V_Z,) float32, z_idx / x_idx: (S,)
+    int32, all contiguous on the current CUDA device; ids outside
+    [0, V_Z) or [0, V_X) are dropped. Launches on the current stream.
+    """
+    check_cuda_tensor(counts, "counts", torch.float32, 2)
+    check_cuda_tensor(n, "n", torch.float32, 1)
+    if tuple(counts.shape) != (v_z, v_x) or tuple(n.shape) != (v_z,):
+        raise ValueError(
+            f"counts {tuple(counts.shape)} / n {tuple(n.shape)} do not match V_Z={v_z}, V_X={v_x}"
         )
-    return counts, rows
+    return _launch(z_idx, x_idx, counts, n, v_z=v_z, v_x=v_x, with_rowsums=True)
+
+
+def ingest_counts_ref(
+    counts: torch.Tensor, n: torch.Tensor, z_idx: torch.Tensor, x_idx: torch.Tensor,
+    *, v_z: int, v_x: int,
+) -> tuple:
+    """Plain version of `ingest_counts`: the reference's ingest, the
+    histogram with its row sums followed by the two adds."""
+    delta_counts, delta_n = ref.histogram_with_rowsums_ref(z_idx, x_idx, v_z=v_z, v_x=v_x)
+    return counts + delta_counts, n + delta_n
 
 
 def histogram(z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int) -> torch.Tensor:
     """(V_Z, V_X) float32 histogram; ids < 0 or >= their bound dropped."""
-    return _launch(z_idx, x_idx, v_z=v_z, v_x=v_x, with_rowsums=False)[0]
+    return _launch(z_idx, x_idx, None, None, v_z=v_z, v_x=v_x, with_rowsums=False)[0]
 
 
 def histogram_with_rowsums(
     z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int
 ) -> tuple:
-    """((V_Z, V_X), (V_Z,)) histogram + its row sums, one pass. rows[i]
+    """((V_Z, V_X), (V_Z,)) histogram + its row sums, one launch. rows[i]
     == counts[i].sum() exactly (integer-valued f32 below 2^24)."""
-    return _launch(z_idx, x_idx, v_z=v_z, v_x=v_x, with_rowsums=True)
+    return _launch(z_idx, x_idx, None, None, v_z=v_z, v_x=v_x, with_rowsums=True)

@@ -12,8 +12,9 @@ ported): every call runs what the reference's `autotune.DEFAULT_TAU` /
 
   op                      CUDA                         CPU
   ----------------------  ---------------------------  ---------------------------
-  histogram               kernel B                     ref.histogram_ref
-  histogram_with_rowsums  kernel B, fused row sums     ref.histogram_with_rowsums_ref
+  ingest_counts           kernel B                     histogram.ingest_counts_ref
+  histogram               kernel B, no input counts    ref.histogram_ref
+  histogram_with_rowsums  kernel B, no input counts    ref.histogram_with_rowsums_ref
   distance_multi          kernel C                     metrics.distance_multi_ref
   l1_distance_multi       kernel C, metric l1          ref.l1_distance_multi_ref
   l1_distance             kernel C, Q = 1              ref.l1_distance_ref
@@ -29,6 +30,7 @@ from repro_torch.kernels import histogram as _histogram
 from repro_torch.kernels import metrics, ref
 
 __all__ = [
+    "ingest_counts",
     "histogram",
     "histogram_with_rowsums",
     "distance_multi",
@@ -52,6 +54,17 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {t.device}; use 'cuda' or 'cpu'")
+
+
+def ingest_counts(
+    counts: torch.Tensor, n: torch.Tensor, z_idx: torch.Tensor, x_idx: torch.Tensor,
+    *, v_z: int, v_x: int,
+) -> tuple:
+    """(counts + hist(z, x), n + rowsum(hist)) in new tensors; the inputs
+    are left as they were and out-of-range ids are dropped."""
+    if _on_cuda(counts):
+        return _histogram.ingest_counts(counts, n, z_idx, x_idx, v_z=v_z, v_x=v_x)
+    return _histogram.ingest_counts_ref(counts, n, z_idx, x_idx, v_z=v_z, v_x=v_x)
 
 
 def histogram(z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int) -> torch.Tensor:

@@ -47,6 +47,77 @@ def test_histogram(cuda):
     assert ops.KERNELS["histogram"].launches == before + 2
 
 
+def _window_ids(rng, kind, n, v_z=7548, v_x=24):
+    """Ids as the main path sends them ("zipf": zipf 0.3 z, ~10 % of the
+    512-tuple blocks -1), uniform, or with ids out of range."""
+    if kind == "zipf":
+        freq = np.arange(1, v_z + 1, dtype=np.float64) ** -0.3
+        z = rng.choice(v_z, size=n, p=freq / freq.sum()).astype(np.int32)
+        x = rng.integers(0, v_x, size=n).astype(np.int32)
+        off = np.repeat(rng.random(-(-n // 512)) < 0.1, 512)[:n]
+        z[off], x[off] = -1, -1
+        return z, x
+    lo, hi = (0, 0) if kind == "uniform" else (-2, 2)
+    return (rng.integers(lo, v_z + hi, size=n).astype(np.int32),
+            rng.integers(lo, v_x + hi, size=n).astype(np.int32))
+
+
+@pytest.mark.parametrize(
+    "kind,n", [("zipf", 262_144), ("uniform", 262_144), ("out-of-range", 262_144),
+               ("zipf", 0), ("zipf", 2_097_152), ("out-of-range", 1_001)]
+)
+def test_ingest_counts(cuda, kind, n):
+    """The fused ingest against its plain version, twice back to back; the
+    inputs stay as they were and the scratch is all zero after each call."""
+    rng = np.random.default_rng(n + len(kind))
+    v_z, v_x = 7548, 24
+    counts = _t(rng.integers(0, 500, size=(v_z, v_x)).astype(np.float32), cuda)
+    rows = counts.sum(dim=1)
+    before = ops.KERNELS["histogram"].launches
+    for _ in range(2):
+        z, x = (_t(a, cuda) for a in _window_ids(rng, kind, n))
+        kept = (counts.clone(), rows.clone(), z.clone(), x.clone())
+        got = histogram.ingest_counts(counts, rows, z, x, v_z=v_z, v_x=v_x)
+        want = histogram.ingest_counts_ref(counts, rows, z, x, v_z=v_z, v_x=v_x)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert all(torch.equal(a, b) for a, b in zip((counts, rows, z, x), kept))
+        assert not bool(histogram.delta_scratch(v_z, v_x, cuda).any())
+        counts, rows = got
+    assert ops.KERNELS["histogram"].launches == before + 2
+
+
+@pytest.mark.parametrize("metric", list(metrics.METRIC_NAMES))
+@pytest.mark.parametrize("q", [1, 8])
+@pytest.mark.parametrize("v_z", [1, 5, 7548])
+@pytest.mark.parametrize("v_x", [1, 7, 24, 1024])
+def test_distance_narrow(cuda, metric, q, v_z, v_x):
+    """The row-tile branch of kernel C (V_X <= 1024) against plain."""
+    rng = np.random.default_rng(q * v_z + v_x)
+    counts = rng.integers(0, 40, size=(v_z, v_x)).astype(np.float32)
+    counts[rng.random(v_z) < 0.2] = 0.0
+    q_hat = np.stack([rng.dirichlet(np.ones(v_x)) for _ in range(q)]).astype(np.float32)
+    c, t = _t(counts, cuda), _t(q_hat, cuda)
+    got = metrics.distance_multi(c, t, metric=metric)
+    torch.testing.assert_close(got, metrics.distance_multi_ref(c, t, metric=metric),
+                               atol=TAU_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("v_x,branch", [(1024, "distance_tile"), (1025, "distance_wide")])
+def test_distance_branch(cuda, v_x, branch):
+    """V_X = 1024 is the widest row-tile launch; 1025 takes the block-per-row branch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    c = torch.ones((64, v_x), device=cuda)
+    t = torch.full((1, v_x), 1.0 / v_x, device=cuda)
+    metrics.distance_multi(c, t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        metrics.distance_multi(c, t)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "distance_" in e.name]
+    assert names and all(branch in name for name in names), names
+
+
 @pytest.mark.parametrize("metric", list(metrics.METRIC_NAMES))
 @pytest.mark.parametrize(
     "q,v_z,v_x", [(1, 7548, 24), (8, 7548, 24), (3, 256, 8192), (2, 100, 1025), (1, 5, 1)]

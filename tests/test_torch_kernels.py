@@ -210,6 +210,7 @@ class TestDispatch:
         launches = {name: k.launches for name, k in ops.KERNELS.items()}
         z = torch.tensor([0, 1], dtype=torch.int32)
         ops.histogram_with_rowsums(z, z, v_z=2, v_x=2)
+        ops.ingest_counts(torch.zeros((2, 2)), torch.zeros(2), z, z, v_z=2, v_x=2)
         ops.distance_multi(torch.ones((2, 2)), torch.full((1, 2), 0.5))
         ops.anyactive(torch.ones((2, 1), dtype=torch.int32), torch.ones(1, dtype=torch.int32))
         assert {name: k.launches for name, k in ops.KERNELS.items()} == launches
