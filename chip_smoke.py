@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FastMatch on one NVIDIA GPU and check it.
 
-Run from the root of a checkout (one card; about 6 minutes at the
+Run from the root of a checkout (one card; about 4 to 6 minutes at the
 default size, most of it generating the dataset on the host):
 
     python3 chip_smoke.py [--tuples N] [--seed S]
@@ -11,20 +11,27 @@ Phases, each of which raises (non-zero exit) when a check fails:
 1. Setup: build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each, in parallel) and print the card's name and power limit.
 2. Each kernel against its plain PyTorch version on the card, at the
-   main path's shapes: AnyActive on a 512-block window of 236 words;
-   the fused ingest of one 262,144-id window into 7548 x 24 counts, its
-   ids drawn as the main path sends them (z zipf 0.3, the tuples of
-   ~10 % of the blocks -1), and of uniform, out-of-range and empty
-   batches: bitwise equal to its plain version, its inputs unchanged and
-   its scratch back at zero, and the fresh histograms it also serves;
-   the batched distance at 7548 x 24 for Q in {1, 8} and every metric,
-   and at 256 x 8192 (the reference's two-sweep form). Integer outputs
-   must be equal, tau within 2e-5. Each check prints its device time
-   (CUDA events around launches queued behind a sleep kernel, so the
-   card runs them back to back), the kernel alone into preallocated
-   outputs, the plain version's and, where one PyTorch call computes the
-   same function, that call's; beside B and C, the whole
-   `multiquery.ingest` and `multiquery.stats_step` at Q = 1. One ingest
+   main path's shapes: AnyActive on a gathered 512-block window of 236
+   words; kernel A as the round runs it, the final marks of a 512-id
+   window read in place from a 781,250 x 236 bitmap table (737 MB, made
+   on the card from a seed): on a permuted window with padding rows,
+   rows read already and a bit-31 row, in the table, gathered-window and
+   scan forms, and at W = 237 (the word-by-word path), then timed warm
+   and with the table cold against the parent's six-launch marking
+   (gather, A, &, read-mask gather, ~, &); the fused ingest of one
+   262,144-id window into 7548 x 24 counts, its ids drawn as the main
+   path sends them (z zipf 0.3, the tuples of ~10 % of the blocks -1),
+   and of uniform, out-of-range and empty batches: bitwise equal to its
+   plain version, its inputs unchanged and its scratch back at zero,
+   and the fresh histograms it also serves; the batched distance at
+   7548 x 24 for Q in {1, 8} and every metric, and at 256 x 8192 (the
+   reference's two-sweep form). Integer outputs must be equal, tau
+   within 2e-5. Each check prints its device time (CUDA events around
+   launches queued behind a sleep kernel, so the card runs them back to
+   back), the kernel alone into preallocated outputs, the plain
+   version's and, where one PyTorch call computes the same function,
+   that call's; beside B and C, the whole `multiquery.ingest` and
+   `multiquery.stats_step` at Q = 1. One ingest
    under the profiler must run kernel B and nothing else.
 3. The engine on the test fixture (3M tuples): FastMatch at seed 3 on the
    card and on the CPU must return the same ids, counters and counts,
@@ -33,11 +40,14 @@ Phases, each of which raises (non-zero exit) when a check fails:
    V_X = 24, zipf 0.3, k = 10, eps = 0.12, delta = 0.01, lookahead 512)
    with 400M tuples resident on the card. FastMatch (seed 0) runs with
    every kernel's launch count set to 0 just before and read just
-   after; each must have launched, kernel B once per round. Then Scan: its tau must equal the
+   after; each must have launched, kernels A and B once per round (and
+   at 400M, seed 0: 27 rounds, 12,395 blocks). Then Scan, counts reset
+   again: A and B once per round, and its tau must equal the
    generator's true distances within 2e-5, FastMatch must not be exact,
    must read under half the blocks and must meet Guarantee 1 against
    Scan's exact distances. A second FastMatch run under torch.profiler
-   gives the device time by kernel and the PyTorch launches per round.
+   gives the device time by kernel and the PyTorch launches per round,
+   and must gather no rows of the bitmap table.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
@@ -48,6 +58,7 @@ device or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import statistics
@@ -201,10 +212,10 @@ def phase_kernels(torch, timer) -> dict:
     ms, host = timer(lambda: anyactive.anyactive(b, m))
     plain, _ = timer(lambda: ref.anyactive_ref(b, m))
     bnd, by = bound_ms(L * W * 4 + W * 4 + L, 2 * L * W)
-    main["anyactive"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
-                             bound_by=by, library_ms=None, host_us=host * 1e3)
     emit({"check": "anyactive", "shape": [L, W], "marked": int(got.sum()), "equal": True,
-          **_check_fields(main["anyactive"])})
+          "kernel_ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+          "host_us": host * 1e3})
+    main["anyactive"] = _phase_marking(torch, timer)
 
     # -- B: the fused ingest of one lookahead window (512 blocks x 512 tuples)
     from repro_torch.core import multiquery as mq
@@ -313,6 +324,126 @@ def phase_kernels(torch, timer) -> dict:
     return main
 
 
+def _marking_table(torch, rows: int, words: int, seed: int) -> tuple:
+    """A bitmap table made on the card from ``seed`` (half its rows miss
+    the active mask), the active mask, and a read mask with ~5 % read."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = torch.randint(-2**31, 2**31, (rows, words), generator=gen, dtype=torch.int32,
+                          device="cuda")
+    mask = torch.randint(-2**31, 2**31, (words,), generator=gen, dtype=torch.int32,
+                         device="cuda")
+    table[torch.rand(rows, generator=gen, device="cuda") < 0.5] &= ~mask
+    read_mask = torch.rand(rows, generator=gen, device="cuda") < 0.05
+    return gen, table, mask, read_mask
+
+
+def _permuted_window(torch, gen, table, mask, read_mask, length: int = 512) -> tuple:
+    """A window of ``length`` permuted ids with ~10 % padding rows (id 0,
+    not valid), ~5 % of its rows read already, and row 0 a block that
+    holds only the last word's bit-31 candidate."""
+    ids = torch.randperm(table.shape[0], generator=gen, device="cuda")[:length]
+    valid = torch.rand(length, generator=gen, device="cuda") >= 0.1
+    ids[~valid] = 0
+    valid[0] = True
+    read_mask[ids[0]] = False
+    table[ids[0]] = 0
+    table[ids[0], -1] = -2**31
+    mask[-1] |= -2**31
+    return ids, valid
+
+
+def _phase_marking(torch, timer) -> dict:
+    """Kernel A as the round runs it: the window's final marks from the
+    whole resident bitmap table and the window's ids, in one launch.
+    Checked against its plain version on a permuted window (padding,
+    rows read already, a bit-31 row), in the gathered-window and scan
+    forms, and at W = 237 (the word-by-word path); then timed against
+    the parent's six-launch marking (gather, A, &, read-mask gather, ~,
+    &), warm and with the table cold. Returns the main-path row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import anyactive, ops, ref
+
+    nb, W, L = 781_250, 236, 512  # the 400M-tuple TAXI table and window
+    gen, table, mask, read_mask = _marking_table(torch, nb, W, 11)
+    ids, valid = _permuted_window(torch, gen, table, mask, read_mask)
+    kept = [a.clone() for a in (ids, valid, read_mask, mask)]
+    want = ref.mark_blocks_ref(ids, valid, read_mask, table, mask, by_id=True)
+    got = ops.mark_blocks(ids, valid, read_mask, table, mask, by_id=True)
+    gathered = ops.mark_blocks(ids, valid, read_mask, table[ids], mask)
+    scan = ops.mark_blocks(ids, valid, read_mask)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want) and bool(got[0]), "mark_blocks disagrees with its plain version")
+    check(torch.equal(gathered, want), "mark_blocks on a gathered window disagrees")
+    check(torch.equal(scan, ref.mark_blocks_ref(ids, valid, read_mask)),
+          "mark_blocks' scan form disagrees with its plain version")
+    check(all(torch.equal(a, b) for a, b in zip((ids, valid, read_mask, mask), kept)),
+          "mark_blocks changed its inputs")
+    emit({"check": "mark_blocks", "table": [nb, W], "window": L, "padding": int((~valid).sum()),
+          "read_already": int((valid & read_mask[ids]).sum()), "marked": int(got.sum()),
+          "equal": True, "gathered_equal": True, "scan_equal": True, "inputs_unchanged": True})
+    # W = 237: rows off 16-byte boundaries take the word-by-word path
+    g2, t2, m2, r2 = _marking_table(torch, 230_000, 237, 12)
+    i2, v2 = _permuted_window(torch, g2, t2, m2, r2)
+    w2 = ref.mark_blocks_ref(i2, v2, r2, t2, m2, by_id=True)
+    check(torch.equal(ops.mark_blocks(i2, v2, r2, t2, m2, by_id=True), w2) and bool(w2[0]),
+          "mark_blocks at W = 237 disagrees with its plain version")
+    emit({"check": "mark_blocks", "table": [230_000, 237], "window": L, "equal": True})
+    del g2, t2, m2, r2, i2, v2, w2
+
+    def parent(i, v):  # the parent's round: gather, kernel A, then four elementwise ops
+        return anyactive.anyactive(table[i], mask) & v & ~read_mask[i]
+
+    def fused(i, v):
+        return ops.mark_blocks(i, v, read_mask, table, mask, by_id=True)
+
+    def plain(i, v):
+        return ref.mark_blocks_ref(i, v, read_mask, table, mask, by_id=True)
+
+    # device kernels of one call of each form
+    counts = {}
+    for name, fn in (("six_launch", parent), ("fused", fused)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(ids, valid)
+            torch.cuda.synchronize()
+        counts[name] = sorted(e.name for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(torch.equal(parent(ids, valid), want), "the six-launch marking disagrees")
+    check(len(counts["fused"]) == 1 and "mark_kernel" in counts["fused"][0],
+          f"the fused marking ran {counts['fused']}")
+
+    # windows as the main path sends them: 512 consecutive unread block ids
+    # (the visit order is cyclic over the block ids), all valid; a fresh
+    # stretch of the 737 MB table for each call keeps its rows cold
+    read_mask.zero_()
+    starts = torch.randperm(nb // L, generator=gen, device="cuda")[:200].tolist()
+    span = torch.arange(L, device="cuda")
+    cold = [(s * L + span, torch.ones(L, dtype=torch.bool, device="cuda")) for s in starts]
+    warm = [cold[0]]
+
+    def cycling(fn, windows):
+        it = itertools.cycle(windows)
+        return lambda: fn(*next(it))
+
+    # ids 8 B, valid 1 B and a read-mask byte a row; each needed row read
+    # once; the mask; one byte out
+    rows_needed = L
+    bnd, by = bound_ms(10 * L + 4 * W * rows_needed + 4 * W + L, 2 * W * rows_needed)
+    rows = {}
+    for temp, windows in (("warm", warm), ("cold", cold)):
+        plain_ms, _ = timer(cycling(plain, windows))
+        for name, fn in (("six_launch", parent), ("fused", fused)):
+            ms, host = timer(cycling(fn, windows))
+            rows[(name, temp)] = dict(ms=ms, host_us=host * 1e3)
+            emit({"check": "marking", "form": name, "table": temp, "shape": [nb, W, L],
+                  "device_kernels": len(counts[name]), "kernel_ms": ms, "host_us": host * 1e3,
+                  "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by})
+        rows[("plain", temp)] = plain_ms
+    return dict(max_abs_err=0.0, ms=rows[("fused", "cold")]["ms"],
+                plain_ms=rows[("plain", "cold")], bound_ms=bnd, bound_by=by, library_ms=None,
+                host_us=rows[("fused", "cold")]["host_us"])
+
+
 def _window_ids(rng, v_z: int, v_x: int, *, blocks: int = 512, block: int = 512) -> tuple:
     """One lookahead window's (z, x) as `fused_round` hands them to ingest:
     z zipf 0.3 over the candidates (as data/synth.py draws them), x
@@ -383,6 +514,7 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> dict:
     import numpy as np
 
     from repro_torch.core import engine, histsim
+    from repro_torch.core.bitmap import words_for
     from repro_torch.data.layout import block_layout
     from repro_torch.data.synth import SynthSpec, make_dataset
     from repro_torch.io import InMemorySource
@@ -429,14 +561,26 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> dict:
         f"{fm.host_syncs} host syncs, launches {launches}")
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
-    check(launches["histogram"] == fm.rounds,
-          f"{launches['histogram']} ingest launches for {fm.rounds} rounds")
+    for name in ("histogram", "anyactive"):
+        check(launches[name] == fm.rounds,
+              f"{launches[name]} {name} launches for {fm.rounds} fastmatch rounds")
+    if (num_tuples, seed) == (400_000_000, 0):
+        check((fm.rounds, fm.blocks_read) == (27, 12_395),
+              f"fastmatch took {fm.rounds} rounds and read {fm.blocks_read} blocks, "
+              "not 27 and 12,395")
 
+    for kern in ops.KERNELS.values():
+        kern.launches = 0
     t = time.perf_counter()
     scan = engine.run_engine(source, target, params, engine.EngineConfig(variant="scan"))
     torch.cuda.synchronize()
     scan_wall = time.perf_counter() - t
-    log(f"scan: {scan.rounds} rounds, {scan.blocks_read} blocks, {scan_wall:.3f}s")
+    scan_launches = {name: kern.launches for name, kern in ops.KERNELS.items()}
+    log(f"scan: {scan.rounds} rounds, {scan.blocks_read} blocks, {scan_wall:.3f}s, "
+        f"launches {scan_launches}")
+    for name in ("histogram", "anyactive"):
+        check(scan_launches[name] == scan.rounds,
+              f"{scan_launches[name]} {name} launches for {scan.rounds} scan rounds")
 
     truth = scan.state.tau.cpu().numpy()
     check(bool(np.isfinite(truth).all()) and truth.shape == (spec.v_z,), "scan tau malformed")
@@ -455,11 +599,18 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> dict:
     # -- where the device time goes: the same query under the profiler
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         again = engine.run_engine(source, target, params, cfg)
         torch.cuda.synchronize()
     check(np.array_equal(again.ids, fm.ids) and again.rounds == fm.rounds,
           "a repeated fastmatch run differs")
+    # the rounds read bitmap rows in place: no gather takes the bitmap table
+    table_shape = [nb, words_for(spec.v_z)]
+    gathers = [e for e in prof.events()
+               if e.name in ("aten::index", "aten::index_select") and e.input_shapes]
+    check(not [e for e in gathers if list(e.input_shapes[0]) == table_shape],
+          "a profiled round gathered rows of the bitmap table")
     device_ms, by_kernel, by_host_op = _profile_tables(torch, prof)
     busy = device_ms / (fm_wall * 1e3) if device_ms > 0 else None
     # what one round costs in launches: runtime launch calls on the host,
@@ -479,10 +630,11 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> dict:
                        peak_device_gb=peak_gb, missing_true_top_k=missing),
         scan=dict(rounds=scan.rounds, blocks_read=scan.blocks_read, wall_s=scan_wall,
                   tau_max_abs_err_vs_generator=scan_err),
-        launches=launches,
+        launches=launches, scan_launches=scan_launches,
         profile=dict(device_ms=device_ms, device_busy_share=busy,
                      host_launches_per_round=host_launches / again.rounds,
                      device_kernels_per_round=device_kernels / again.rounds,
+                     index_ops_per_round=len(gathers) / again.rounds,
                      top=[dict(name=n, ms=ms, calls=c) for n, ms, c in by_kernel[:15]],
                      host_top=[dict(name=n, ms=ms, calls=c) for n, ms, c in by_host_op[:15]]),
     )
@@ -500,7 +652,8 @@ KERNEL_ROWS = {
     "distance_multi": ("src/repro_torch/kernels/csrc/distance.cu",
                        "src/repro/kernels/metrics.py:373"),
 }
-ALSO_REPLACES = {"distance_multi": "src/repro/kernels/metrics.py:385"}
+ALSO_REPLACES = {"anyactive": "src/repro/core/multiquery.py:644-645",
+                 "distance_multi": "src/repro/kernels/metrics.py:385"}
 
 
 def main(argv=None) -> int:

@@ -7,9 +7,9 @@ tau, deviations, bounds and active set. The union of the slots' packed
 active words drives AnyActive marking.
 
 One `fused_round` per lookahead window does, on the device and without
-a host sync: mark (kernel A) + masked gather + ingest (kernel B) + tau
-(kernel C) + the deviation assignment + the read bookkeeping of the
-`SampleCursor`. The reference skips ingest and stats with ``lax.cond``
+a host sync: mark (kernel A, one launch for the final marks) + masked
+gather + ingest (kernel B) + tau (kernel C) + the deviation assignment
++ the read bookkeeping of the `SampleCursor`. The reference skips ingest and stats with ``lax.cond``
 when nothing was marked; here both always run and `torch.where` keeps
 the old state unless something was read, so ``round_idx`` advances only
 on rounds that read, with no ``.item()``. The host reads state back
@@ -275,8 +275,7 @@ def fused_round(
     state is kept only if something was marked, matching the reference's
     ``lax.cond`` (stats run only after windows that read something).
     """
-    marks = mark_window(wd.bitmap, state.union_words, policy=policy)
-    marks = marks & wd.valid & ~cursor.read_mask[wd.indices]
+    marks = mark_window(wd, state.union_words, cursor.read_mask, policy=policy)
     zw, xw = _masked_ids(wd, marks)
     new = stats_step(ingest(state, zw, xw, spec=spec), spec=spec)
     took = torch.any(marks)
@@ -289,7 +288,7 @@ def ingest_round(
 ) -> tuple:
     """Exact-completion round: ingest every unread block of the window,
     no marking, no stats (the caller runs one `stats_step` at the end)."""
-    marks = wd.valid & ~cursor.read_mask[wd.indices]
+    marks = ops.mark_blocks(wd.indices, wd.valid, cursor.read_mask)
     zw, xw = _masked_ids(wd, marks)
     state = ingest(state, zw, xw, spec=spec)
     return state, _advance_cursor(cursor, wd, marks)

@@ -1,7 +1,8 @@
 """Block-selection policies (paper Sec 4.2 & 5.2).
 
 Port of `repro.core.policies`. Given the packed active words and a
-lookahead window of blocks, a policy decides which blocks to read:
+lookahead window of blocks, a policy decides which blocks to read; the
+window's padding rows and the blocks already read are never marked:
 
   * scan      — read every block (ScanMatch / SlowMatch / Scan)
   * anyactive — read a block iff it holds a tuple of an active candidate,
@@ -18,11 +19,15 @@ __all__ = ["mark_window"]
 
 
 def mark_window(
-    bitmap_window: torch.Tensor, active_words: torch.Tensor, *, policy: str
+    wd, active_words: torch.Tensor, read_mask: torch.Tensor, *, policy: str
 ) -> torch.Tensor:
-    """(L,) bool read-marks for a lookahead window of L blocks."""
+    """(L,) bool final read-marks for a lookahead window of L blocks
+    (a `WindowData`): the valid blocks not yet in ``read_mask`` that the
+    policy reads. One kernel-A launch on the card."""
     if policy == "scan":
-        return torch.ones((bitmap_window.shape[0],), dtype=torch.bool, device=bitmap_window.device)
+        return ops.mark_blocks(wd.indices, wd.valid, read_mask)
     if policy == "anyactive":
-        return ops.anyactive(bitmap_window, active_words)
+        return ops.mark_blocks(
+            wd.indices, wd.valid, read_mask, wd.bitmap, active_words, by_id=wd.bitmap_by_id
+        )
     raise ValueError(f"unknown policy {policy!r}")

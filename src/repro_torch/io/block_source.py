@@ -2,8 +2,9 @@
 
 Port of `repro.io.block_source` (`WindowData`, `InMemorySource`,
 `as_block_source`). A source serves fixed-shape windows of blocked
-(z, x) tuples plus their packed presence bitmap rows. Every window is
-padded to one length (``pad_to``) and padded rows carry
+(z, x) tuples plus their packed presence bitmap rows (or, for a
+device-resident source, the bitmap table the rows are read from).
+Every window is padded to one length (``pad_to``) and padded rows carry
 ``valid=False``, so the round masks them out of marking, ingest and the
 read bookkeeping. Padding repeats block id 0 with no effect.
 
@@ -28,13 +29,24 @@ __all__ = ["InMemorySource", "WindowData", "as_block_source"]
 
 
 class WindowData(NamedTuple):
-    """One padded lookahead window of block data, on the round's device."""
+    """One padded lookahead window of block data, on the round's device.
+
+    ``bitmap`` is either the window's (L, W) presence rows, gathered, or
+    (``bitmap_by_id``) the source's whole (num_blocks, W) table, whose
+    rows the marking kernel reads in place through ``indices``.
+    """
 
     indices: torch.Tensor  # (L,) int64 global block ids (padding repeats id 0)
     z: torch.Tensor  # (L, B) int32 candidate ids, -1 padded within blocks
     x: torch.Tensor  # (L, B) int32 attribute values, -1 padded
-    bitmap: torch.Tensor  # (L, W) int32 packed presence rows (uint32 bits)
+    bitmap: torch.Tensor  # (L, W) or (num_blocks, W) int32 packed presence rows (uint32 bits)
     valid: torch.Tensor  # (L,) bool — False on window padding rows
+    bitmap_by_id: bool = False  # bitmap is the whole table, indexed by `indices`
+
+    def bitmap_rows(self) -> torch.Tensor:
+        """(L, W) the window's presence rows (a gather from the table
+        when ``bitmap_by_id``)."""
+        return self.bitmap[self.indices] if self.bitmap_by_id else self.bitmap
 
 
 def _pad_windows(windows: list, pad_to: Optional[int]) -> tuple:
@@ -55,9 +67,11 @@ class InMemorySource:
     """The whole blocked dataset behind the source interface.
 
     ``device_resident=True`` (default) keeps the blocks and the bitmap on
-    ``device``: a window is a gather on the device. With
-    ``device_resident=False`` they stay in host memory and each window
-    is gathered on the host and copied over.
+    ``device``: a window gathers its blocks on the device and hands the
+    marking the whole bitmap table with the window's ids, so no bitmap
+    row is copied. With ``device_resident=False`` they stay in host
+    memory and each window, bitmap rows included, is gathered on the
+    host and copied over.
     """
 
     def __init__(self, dataset: BlockedDataset, *, device_resident: bool = True, device=None):
@@ -80,7 +94,8 @@ class InMemorySource:
 
     def _gather(self, idx: torch.Tensor, valid: torch.Tensor) -> WindowData:
         if self.device_resident:
-            return WindowData(idx, self._z[idx], self._x[idx], self._bitmap[idx], valid)
+            return WindowData(idx, self._z[idx], self._x[idx], self._bitmap, valid,
+                              bitmap_by_id=True)
         host = idx.cpu().numpy()
         z, x, bitmap = (
             torch.from_numpy(a[host]).to(self.device) for a in (self._z, self._x, self._bitmap)

@@ -18,10 +18,13 @@ ported): every call runs what the reference's `autotune.DEFAULT_TAU` /
   distance_multi          kernel C                     metrics.distance_multi_ref
   l1_distance_multi       kernel C, metric l1          ref.l1_distance_multi_ref
   l1_distance             kernel C, Q = 1              ref.l1_distance_ref
-  anyactive               kernel A                     ref.anyactive_ref
+  mark_blocks             kernel A                     ref.mark_blocks_ref
+  anyactive               kernel A, no ids or masks    ref.anyactive_ref
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -36,6 +39,7 @@ __all__ = [
     "distance_multi",
     "l1_distance",
     "l1_distance_multi",
+    "mark_blocks",
     "anyactive",
     "KERNELS",
 ]
@@ -102,6 +106,27 @@ def l1_distance(counts: torch.Tensor, q_hat: torch.Tensor) -> torch.Tensor:
     if _on_cuda(counts):
         return metrics.distance(counts, q_hat, metric="l1")
     return ref.l1_distance_ref(counts, q_hat)
+
+
+def mark_blocks(
+    indices: torch.Tensor,
+    valid: torch.Tensor,
+    read_mask: torch.Tensor,
+    bitmap: Optional[torch.Tensor] = None,
+    active_words: Optional[torch.Tensor] = None,
+    *,
+    by_id: bool = False,
+) -> torch.Tensor:
+    """(L,) bool final read-marks of a window, ``valid &
+    ~read_mask[indices] & AnyActive(row_i)``: row_i is
+    ``bitmap[indices[i]]`` when ``by_id`` (the whole table) and
+    ``bitmap[i]`` otherwise (a gathered window); no bitmap and no active
+    words leaves ``valid & ~read_mask[indices]`` (scan)."""
+    if _on_cuda(indices):
+        return _anyactive.mark_blocks(
+            indices, valid, read_mask, bitmap, active_words, by_id=by_id
+        )
+    return ref.mark_blocks_ref(indices, valid, read_mask, bitmap, active_words, by_id=by_id)
 
 
 def anyactive(bitmap: torch.Tensor, active_words: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the histogram and AnyActive kernels.
+"""Plain PyTorch versions of the histogram and marking kernels.
 
 Port of `repro.kernels.ref`: the semantics of record. On CPU tensors
 `repro_torch.kernels.ops` runs these; on the card `chip_smoke.py`
@@ -8,6 +8,8 @@ delegate to them, as in the reference.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -19,6 +21,7 @@ __all__ = [
     "l1_distance_ref",
     "l1_distance_multi_ref",
     "anyactive_ref",
+    "mark_blocks_ref",
 ]
 
 
@@ -76,3 +79,28 @@ def anyactive_ref(bitmap: torch.Tensor, active_words: torch.Tensor) -> torch.Ten
     """
     hits = torch.bitwise_and(bitmap, active_words[None, :])
     return torch.any(hits != 0, dim=1)
+
+
+def mark_blocks_ref(
+    indices: torch.Tensor,
+    valid: torch.Tensor,
+    read_mask: torch.Tensor,
+    bitmap: Optional[torch.Tensor] = None,
+    active_words: Optional[torch.Tensor] = None,
+    *,
+    by_id: bool = False,
+) -> torch.Tensor:
+    """(L,) bool final read-marks of a window:
+    ``valid & ~read_mask[indices] & anyactive(row_i, active_words)``.
+
+    ``row_i`` is ``bitmap[indices[i]]`` when ``by_id`` (``bitmap`` is
+    the whole table) and ``bitmap[i]`` otherwise (a gathered window).
+    With no bitmap and no active words: ``valid & ~read_mask[indices]``.
+    """
+    if (bitmap is None) != (active_words is None):
+        raise ValueError("give both bitmap and active_words, or neither")
+    marks = valid & ~read_mask[indices]
+    if bitmap is None:
+        return marks
+    rows = bitmap[indices] if by_id else bitmap
+    return marks & anyactive_ref(rows, active_words)

@@ -147,6 +147,66 @@ def test_anyactive_bit_31(cuda):
     assert bool(got[7])
 
 
+def _marking_inputs(cuda, rows, words, seed):
+    """A bitmap table larger than the 50 MB L2, a window of ``rows`` ids
+    into it (~10 % padding, id 0), a read mask (~25 % read) and an active
+    mask; window row 0 holds only the bit-31 candidate of the last word."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    num_blocks = max((64 << 20) // (4 * words), 2 * rows)
+    table = torch.randint(-2**31, 2**31, (num_blocks, words), generator=gen,
+                          dtype=torch.int32, device=cuda)
+    mask = torch.randint(-2**31, 2**31, (words,), generator=gen, dtype=torch.int32, device=cuda)
+    miss = torch.rand(num_blocks, generator=gen, device=cuda) < 0.5
+    table[miss] &= ~mask
+    ids = torch.randperm(num_blocks, generator=gen, device=cuda)[:rows]
+    valid = torch.rand(rows, generator=gen, device=cuda) >= 0.1
+    ids[~valid] = 0
+    read_mask = torch.rand(num_blocks, generator=gen, device=cuda) < 0.25
+    valid[0] = True
+    read_mask[ids[0]] = False
+    table[ids[0]] = 0
+    table[ids[0], words - 1] = -2**31
+    mask[words - 1] |= -2**31
+    return ids, valid, read_mask, table, mask
+
+
+@pytest.mark.parametrize("rows", [1, 512, 4096])
+@pytest.mark.parametrize("words", [1, 3, 236, 237])
+def test_mark_blocks(cuda, words, rows):
+    """The fused marking against its plain version: rows read in place
+    from the table and from a gathered window, and the scan form, twice
+    back to back; the inputs are unchanged after every call."""
+    ids, valid, read_mask, table, mask = _marking_inputs(cuda, rows, words, words * 10 + rows)
+    window = table[ids]
+    kept = [a.clone() for a in (ids, valid, read_mask, table, mask, window)]
+    before = ops.KERNELS["anyactive"].launches
+    for _ in range(2):
+        want = ref.mark_blocks_ref(ids, valid, read_mask, table, mask, by_id=True)
+        got = anyactive.mark_blocks(ids, valid, read_mask, table, mask, by_id=True)
+        assert torch.equal(got, want) and bool(got[0])
+        got = anyactive.mark_blocks(ids, valid, read_mask, window, mask)
+        assert torch.equal(got, want)
+        got = anyactive.mark_blocks(ids, valid, read_mask)
+        assert torch.equal(got, ref.mark_blocks_ref(ids, valid, read_mask))
+        assert all(torch.equal(a, b) for a, b in
+                   zip((ids, valid, read_mask, table, mask, window), kept))
+    assert ops.KERNELS["anyactive"].launches == before + 6
+    if rows > 1:
+        assert bool(want.any()) and not bool(want.all())
+
+
+def test_mark_blocks_unaligned_rows(cuda):
+    """W % 4 == 0 but rows that start off a 16-byte boundary take the
+    word-by-word path."""
+    ids, valid, read_mask, table, mask = _marking_inputs(cuda, 512, 236, 99)
+    flat = torch.empty(512 * 236 + 1, dtype=torch.int32, device=cuda)
+    window = flat[1:].view(512, 236)
+    window.copy_(table[ids])
+    assert window.data_ptr() % 16 != 0
+    want = ref.mark_blocks_ref(ids, valid, read_mask, table, mask, by_id=True)
+    assert torch.equal(anyactive.mark_blocks(ids, valid, read_mask, window, mask), want)
+
+
 def test_engine_on_card_equals_cpu(cuda):
     spec = SynthSpec(v_z=80, v_x=16, num_tuples=600_000, k=8, n_close=8,
                      close_distance=0.02, far_distance=0.3, zipf_a=0.9, seed=7)
