@@ -35,7 +35,11 @@ Phases, each of which raises (non-zero exit) when a check fails:
    under the profiler must run kernel B and nothing else.
 3. The engine on the test fixture (3M tuples): FastMatch at seed 3 on the
    card and on the CPU must return the same ids, counters and counts,
-   and tau within 2e-5.
+   and tau within 2e-5. Then `MatchServer` on the same fixture, for
+   metric l1 and hellinger: three top-k queries (one with a tuples
+   stop) and two closeness queries admitted after the first
+   retirement; the card and the CPU must give the same ids, counters
+   and stop fields.
 4. The engine at the paper's data scale: the TAXI-q1 shape (V_Z = 7548,
    V_X = 24, zipf 0.3, k = 10, eps = 0.12, delta = 0.01, lookahead 512)
    with 400M tuples resident on the card. FastMatch (seed 0) runs with
@@ -48,6 +52,21 @@ Phases, each of which raises (non-zero exit) when a check fails:
    Scan's exact distances. A second FastMatch run under torch.profiler
    gives the device time by kernel and the PyTorch launches per round,
    and must gather no rows of the bitmap table.
+5. Serving at full width on phase 4's resident table: `MatchServer(
+   max_queries=8, lookahead=512, metric="l1")` answers 8 top-k queries
+   (k = 10, eps = 0.12, delta = 0.01; the dataset's target and 7
+   perturbations of it at l1 0.05-0.3; the target's own query stops at
+   half the tuples its solo `run_engine` reads) and 4 closeness queries
+   (eps = 0.10, gap = 0.20, delta = 0.01) submitted after the first
+   retirement, one of them followed through `iter_results`. Counts at
+   0 just before, read just after: kernels A and B once per round,
+   kernel C once per statistics step, always at Q = 8. Every answer is
+   checked against the exact tau (kernel C's plain version over Scan's
+   final counts): top-k answers (eps, k)-correct, closeness labels
+   right outside the gap, the stop and the stream as specified. It
+   prints walls, rounds, host syncs, shared against solo tuples, a warm
+   re-submission's tuples, a profiled rerun's kernels and launches per
+   round, and kernel C and `stats_step` at Q = 8.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
@@ -141,6 +160,24 @@ class DeviceTimer:
             end.synchronize()
             per_call.append(start.elapsed_time(end) / reps)
         return statistics.median(per_call), statistics.median(host)
+
+
+def _device_kernels(torch, fn, *, tries: int = 3) -> list:
+    """Names of the device kernels one call of ``fn`` runs, under the
+    profiler. A capture that comes back empty (CUPTI drops one now and
+    then; a call that ran nothing on the card shows the same) is taken
+    again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted(e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if names:
+            break
+    return names
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple:
@@ -267,13 +304,8 @@ def phase_kernels(torch, timer) -> dict:
                           t(rng.dirichlet(np.ones(v_x)).astype(np.float32)), 10, 0.12, 0.01)
     state = mq.stats_step(mq.ingest(state, z, x, spec=spec), spec=spec)
     ingest_ms, ingest_host = timer(lambda: mq.ingest(state, z, x, spec=spec))
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        mq.ingest(state, z, x, spec=spec)
-        torch.cuda.synchronize()
-    ingest_kernels = sorted({e.name for e in prof.events()
-                             if e.device_type == torch.autograd.DeviceType.CUDA})
+    ingest_kernels = sorted(set(
+        _device_kernels(torch, lambda: mq.ingest(state, z, x, spec=spec))))
     check(ingest_kernels and all("ingest_" in k for k in ingest_kernels),
           f"multiquery.ingest ran kernels besides kernel B: {ingest_kernels}")
     # ids read once, counts and n read once and written once
@@ -315,9 +347,9 @@ def phase_kernels(torch, timer) -> dict:
                     extra["kernel_only_ms"], _ = timer(lambda: metrics.KERNEL.launch(
                         counts.data_ptr(), q_hat.data_ptr(), tau.data_ptr(), vz, vx, q, 0))
                     # ~100 launches a call: 5 calls stay inside the launch queue, so the
-                    # card runs them back to back
-                    extra["stats_step_ms"], host = timer(lambda: mq.stats_step(state, spec=spec),
-                                                         reps=5)
+                    # card runs them back to back; no closeness slot, as on the main path
+                    extra["stats_step_ms"], host = timer(
+                        lambda: mq.stats_step(state, spec=spec, closeness=False), reps=5)
                     extra["stats_step_host_us"] = host * 1e3
                 emit({"check": "distance_multi", "metric": metric, "q": q, "shape": [vz, vx],
                       **_check_fields(row), **extra})
@@ -360,8 +392,6 @@ def _phase_marking(torch, timer) -> dict:
     forms, and at W = 237 (the word-by-word path); then timed against
     the parent's six-launch marking (gather, A, &, read-mask gather, ~,
     &), warm and with the table cold. Returns the main-path row."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels import anyactive, ops, ref
 
     nb, W, L = 781_250, 236, 512  # the 400M-tuple TAXI table and window
@@ -401,13 +431,8 @@ def _phase_marking(torch, timer) -> dict:
         return ref.mark_blocks_ref(i, v, read_mask, table, mask, by_id=True)
 
     # device kernels of one call of each form
-    counts = {}
-    for name, fn in (("six_launch", parent), ("fused", fused)):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(ids, valid)
-            torch.cuda.synchronize()
-        counts[name] = sorted(e.name for e in prof.events()
-                              if e.device_type == torch.autograd.DeviceType.CUDA)
+    counts = {name: _device_kernels(torch, lambda fn=fn: fn(ids, valid))
+              for name, fn in (("six_launch", parent), ("fused", fused))}
     check(torch.equal(parent(ids, valid), want), "the six-launch marking disagrees")
     check(len(counts["fused"]) == 1 and "mark_kernel" in counts["fused"][0],
           f"the fused marking ran {counts['fused']}")
@@ -470,7 +495,7 @@ def _fixture_dataset(num_tuples: int, seed: int):
     return ds, block_layout(ds.z, ds.x, v_z=80, v_x=16, block_size=512, seed=seed)
 
 
-def phase_engine_small(torch) -> None:
+def phase_engine_small(torch) -> tuple:
     import numpy as np
 
     from repro_torch.core import engine, histsim
@@ -488,6 +513,55 @@ def phase_engine_small(torch) -> None:
     check(err <= TAU_ATOL, f"tau differs by {err}")
     emit({"check": "engine_small", "ids": a.ids.tolist(), "blocks_read": a.blocks_read,
           "rounds": a.rounds, "exact": a.exact, "tau_max_abs_err": err, "equal": True})
+    return ds, blocked
+
+
+SERVE_FIELDS = ("rounds", "passes", "blocks_read", "blocks_considered", "tuples_read", "exact",
+                "stopped", "stop_reason", "qtype")
+
+
+def _serve_fixture(blocked, target, *, device, metric: str) -> dict:
+    """Mixed serving on the fixture: three top-k queries (one stopped at
+    20,000 tuples), then two closeness queries after the first retirement."""
+    import numpy as np
+
+    from repro_torch.core.multiquery import StopPolicy
+    from repro_torch.data.synth import perturb_distribution
+    from repro_torch.serve import MatchServer
+
+    rng = np.random.default_rng(17)
+    targets = [target] + [perturb_distribution(target, d, rng) for d in (0.05, 0.1)]
+    eps_k, (eps_c, gap) = {"l1": (0.08, (0.1, 0.2)), "hellinger": (0.05, (0.01, 0.04))}[metric]
+    srv = MatchServer(blocked, device=device, max_queries=4, lookahead=64, seed=3, metric=metric)
+    srv.submit(targets[0], k=8, eps=eps_k, delta=0.05)
+    srv.submit(targets[1], k=8, eps=eps_k, delta=0.05, stop=StopPolicy(tuples=20_000))
+    srv.submit(targets[2], k=4, eps=eps_k, delta=0.05)
+    while not srv.results:
+        srv.step()
+    for t in targets[:2]:
+        srv.submit_closeness(t, eps=eps_c, gap=gap, delta=0.05)
+    return srv.run_until_idle()
+
+
+def phase_serving_small(torch, ds, blocked) -> None:
+    import numpy as np
+
+    for metric in ("l1", "hellinger"):
+        card = _serve_fixture(blocked, ds.target, device="cuda", metric=metric)
+        cpu = _serve_fixture(blocked, ds.target, device="cpu", metric=metric)
+        check(sorted(card) == sorted(cpu) == list(range(5)),
+              f"served {sorted(card)} on the card, {sorted(cpu)} on the CPU")
+        for rid, b in cpu.items():
+            a = card[rid]
+            check(np.array_equal(a.ids, b.ids), f"{metric} request {rid}: ids {a.ids} vs {b.ids}")
+            for f in SERVE_FIELDS:
+                check(getattr(a, f) == getattr(b, f),
+                      f"{metric} request {rid}: {f} {getattr(a, f)} vs {getattr(b, f)}")
+        check(cpu[1].stopped and cpu[1].stop_reason == "tuples", "the fixture's stop did not fire")
+        emit({"check": "serving_small", "metric": metric, "equal": True,
+              "results": {rid: dict(qtype=r.qtype, ids=len(r.ids), rounds=r.rounds,
+                                    tuples=r.tuples_read, exact=r.exact, stopped=r.stopped)
+                          for rid, r in sorted(cpu.items())}})
 
 
 def _profile_tables(torch, prof) -> tuple:
@@ -510,7 +584,7 @@ def _profile_tables(torch, prof) -> tuple:
     return sum(r[1] for r in device), device, host
 
 
-def phase_engine_scale(torch, num_tuples: int, seed: int) -> dict:
+def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
     import numpy as np
 
     from repro_torch.core import engine, histsim
@@ -640,6 +714,192 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> dict:
     )
     emit({"check": "engine_scale", **{k2: v for k2, v in out.items() if k2 != "profile"}})
     emit({"check": "engine_scale_profile", **out["profile"]})
+    # what phase 5 serves from: the resident table, and the exact counts
+    ctx = dict(source=source, target=target, counts=scan.state.counts, params=params, cfg=cfg,
+               solo_target=fm)
+    return out, ctx
+
+
+class _StatsProbe:
+    """Counts `multiquery.stats_step` calls and records the Q of every
+    `ops.distance_multi` call while installed (phase 5's launch checks);
+    the kernels' own launch counts are untouched."""
+
+    def __init__(self):
+        from repro_torch.core import multiquery as mq
+        from repro_torch.kernels import ops
+
+        self.mq, self.ops = mq, ops
+        self.stats_steps, self.qs = 0, []
+        self._stats_step, self._distance = mq.stats_step, ops.distance_multi
+
+    def __enter__(self):
+        def stats_step(*a, **kw):
+            self.stats_steps += 1
+            return self._stats_step(*a, **kw)
+
+        def distance_multi(counts, q_hat, **kw):
+            self.qs.append(int(q_hat.shape[0]))
+            return self._distance(counts, q_hat, **kw)
+
+        self.mq.stats_step, self.ops.distance_multi = stats_step, distance_multi
+        return self
+
+    def __exit__(self, *exc):
+        self.mq.stats_step, self.ops.distance_multi = self._stats_step, self._distance
+
+
+def _serve_taxi(torch, source, topk_targets, close_targets, stop_tuples: int) -> dict:
+    """Phase 5's workload on one fresh server: 8 top-k queries (the first
+    with a tuples stop), served step by step until the first retirement,
+    then 4 closeness queries, the first followed through `iter_results`,
+    then the rest drained. Returns the server, request ids and stream."""
+    from repro_torch.core.multiquery import StopPolicy
+    from repro_torch.serve import MatchServer
+
+    k, eps, delta, eps_c, gap = 10, 0.12, 0.01, 0.10, 0.20
+    t = time.perf_counter()
+    server = MatchServer(source, max_queries=8, lookahead=512, metric="l1")
+    topk = [server.submit(tg, k=k, eps=eps, delta=delta,
+                          stop=StopPolicy(tuples=stop_tuples) if i == 0 else None)
+            for i, tg in enumerate(topk_targets)]
+    while not server.results:
+        server.step()
+    close = [server.submit_closeness(tg, eps=eps_c, gap=gap, delta=delta) for tg in close_targets]
+    stream = list(server.iter_results(close[0]))
+    server.run_until_idle()
+    torch.cuda.synchronize()
+    return dict(server=server, topk=topk, close=close, stream=stream,
+                wall_s=time.perf_counter() - t)
+
+
+def phase_serving(torch, timer, ctx: dict) -> dict:
+    """Serving at full width on phase 4's resident table (see the module
+    docstring, phase 5)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine
+    from repro_torch.core import multiquery as mq
+    from repro_torch.data.synth import perturb_distribution
+    from repro_torch.kernels import metrics, ops
+
+    source, target, params, cfg = ctx["source"], ctx["target"], ctx["params"], ctx["cfg"]
+    k, eps, eps_c, gap = 10, 0.12, 0.10, 0.20
+    rng = np.random.default_rng(4321)
+    topk_targets = [target] + [perturb_distribution(target, d, rng)
+                               for d in np.linspace(0.05, 0.3, 7)]
+    close_targets = [target] + [perturb_distribution(target, d, rng) for d in (0.05, 0.1, 0.2)]
+
+    # one solo run_engine per top-k target: the I/O the server amortizes
+    solo = [ctx["solo_target"]] + [engine.run_engine(source, tg, params, cfg)
+                                   for tg in topk_targets[1:]]
+    stop_tuples = solo[0].tuples_read // 2
+    log(f"solo tuples: {[r.tuples_read for r in solo]}; stop at {stop_tuples}")
+
+    # -- the serving path: counts at 0 just before, read just after
+    for kern in ops.KERNELS.values():
+        kern.launches = 0
+    with _StatsProbe() as probe:
+        run = _serve_taxi(torch, source, topk_targets, close_targets, stop_tuples)
+    launches = {name: kern.launches for name, kern in ops.KERNELS.items()}
+    server, sched = run["server"], run["server"].scheduler
+    results = dict(server.results)
+    log(f"serving: {sched.rounds} rounds, {sched.host_syncs} host syncs, "
+        f"{run['wall_s']:.3f}s, launches {launches}, stats steps {probe.stats_steps}")
+    for name in ("anyactive", "histogram"):
+        check(launches[name] == sched.rounds,
+              f"{launches[name]} {name} launches for {sched.rounds} serving rounds")
+    check(launches["distance_multi"] == probe.stats_steps == len(probe.qs),
+          f"{launches['distance_multi']} kernel C launches for {probe.stats_steps} stats steps")
+    check(set(probe.qs) == {8}, f"kernel C ran at Q = {sorted(set(probe.qs))}, not 8")
+
+    # -- every answer against the exact tau of its target
+    q_hats = np.stack([tg / tg.sum() for tg in topk_targets + close_targets]).astype(np.float32)
+    truth = metrics.distance_multi_ref(
+        ctx["counts"], torch.from_numpy(q_hats).to(ctx["counts"].device)
+    ).cpu().numpy().astype(np.float64)
+    check(bool(np.isfinite(truth).all()) and truth.shape == (12, source.v_z), "truth malformed")
+    answers = []
+    for i, rid in enumerate(run["topk"]):
+        res, d = results[rid], truth[i]
+        check(res.qtype == "topk" and len(res.ids) == k, f"top-k request {rid} malformed")
+        true_top = set(np.argsort(d, kind="stable")[:k].tolist())
+        worst = max(float(d[j]) for j in res.ids)
+        correct = all(worst - float(d[j]) < eps for j in true_top - set(res.ids.tolist()))
+        if i == 0:
+            check(res.stopped and res.stop_reason == "tuples" and not res.exact,
+                  f"the stopped query reports stopped={res.stopped} {res.stop_reason!r}")
+            last = server.poll_result(rid)
+            check(last.status == "done" and last.stopped and np.array_equal(last.ids, res.ids),
+                  "the stopped answer is not its last poll")
+        else:
+            check(not res.stopped and correct, f"top-k request {rid} is not (eps, k)-correct")
+        answers.append(dict(rid=rid, qtype="topk", correct=correct, rounds=res.rounds,
+                            tuples=res.tuples_read, exact=res.exact, stopped=res.stopped,
+                            delta_upper=res.delta_upper, wall_ms=res.wall_time_s * 1e3))
+    for i, rid in enumerate(run["close"]):
+        res, d = results[rid], truth[8 + i]
+        got = set(res.ids.tolist())
+        check(res.qtype == "closeness" and not res.stopped, f"closeness request {rid} malformed")
+        check(set(np.flatnonzero(d <= eps_c).tolist()) <= got,
+              f"closeness request {rid} missed a candidate within eps")
+        check(got.isdisjoint(np.flatnonzero(d >= eps_c + gap).tolist()),
+              f"closeness request {rid} labeled a far candidate close")
+        answers.append(dict(rid=rid, qtype="closeness", close=len(got), rounds=res.rounds,
+                            tuples=res.tuples_read, exact=res.exact,
+                            delta_upper=res.delta_upper, wall_ms=res.wall_time_s * 1e3))
+    stream = run["stream"]
+    final = stream[-1]
+    check(final.status == "done" and all(a.status != "done" for a in stream[:-1]),
+          "the iter_results stream does not end at its one done answer")
+    blocking = results[run["close"][0]]
+    check(final.result is blocking and np.array_equal(final.ids, blocking.ids)
+          and final.delta_upper == blocking.delta_upper,
+          "the iter_results stream does not end with the blocking answer")
+    shared = sched.tuples_read
+    solo_total = sum(r.tuples_read for r in solo)
+
+    # a warm re-submission of the first target, after everything retired
+    rid = server.submit(topk_targets[0], k=k, eps=eps, delta=0.01)
+    warm = server.run_until_idle()[rid]
+    check(warm.delta_upper < 0.01 or warm.exact, "the warm re-submission did not resolve")
+
+    # -- kernel C and the statistics step at Q = 8, on the path's last state
+    state, spec = sched.state, sched.spec
+    c_ms, c_host = timer(lambda: metrics.distance_multi(state.counts, state.q_hat))
+    c_plain, _ = timer(lambda: metrics.distance_multi_ref(state.counts, state.q_hat))
+    stats_ms, stats_host = timer(lambda: mq.stats_step(state, spec=spec), reps=5)
+    topk_stats_ms, _ = timer(lambda: mq.stats_step(state, spec=spec, closeness=False), reps=5)
+
+    # -- where the time goes: the same workload on a fresh server, profiled
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = _serve_taxi(torch, source, topk_targets, close_targets, stop_tuples)
+    again_sched = again["server"].scheduler
+    check(again_sched.rounds == sched.rounds and again_sched.tuples_read == shared,
+          "a repeated serving run differs")
+    device_ms, by_kernel, by_host_op = _profile_tables(torch, prof)
+    host_launches = sum(c for name, _, c in by_host_op if name.startswith("cudaLaunch"))
+    device_kernels = sum(c for name, _, c in by_kernel if not name.startswith(("Memcpy", "Memset")))
+
+    out = dict(
+        rounds=sched.rounds, passes=sched.passes, host_syncs=sched.host_syncs,
+        wall_s=run["wall_s"], wall_ms_per_query=run["wall_s"] * 1e3 / 12,
+        shared_tuples=shared, solo_tuples=[r.tuples_read for r in solo],
+        solo_tuples_total=solo_total, solo_walls_s=[r.wall_time_s for r in solo],
+        stop_tuples=stop_tuples, warm_resubmit_tuples=warm.tuples_read,
+        warm_resubmit_rounds=warm.rounds, answers=answers, stream_len=len(stream),
+        launches=launches, stats_steps=probe.stats_steps,
+        kernel_c_q8=dict(ms=c_ms, host_us=c_host * 1e3, plain_ms=c_plain),
+        stats_step_q8=dict(ms=stats_ms, host_us=stats_host * 1e3, topk_only_ms=topk_stats_ms),
+        profile=dict(wall_s=again["wall_s"], device_ms=device_ms,
+                     device_busy_share=device_ms / (again["wall_s"] * 1e3),
+                     device_kernels_per_round=device_kernels / again_sched.rounds,
+                     host_launches_per_round=host_launches / again_sched.rounds,
+                     top=[dict(name=n, ms=ms, calls=c) for n, ms, c in by_kernel[:15]]),
+    )
+    emit({"check": "serving", **{k2: v for k2, v in out.items() if k2 != "profile"}})
+    emit({"check": "serving_profile", **out["profile"]})
     return out
 
 
@@ -678,10 +938,15 @@ def main(argv=None) -> int:
     timer = DeviceTimer(torch)
     log("phase 2: kernels against their plain versions")
     main_rows = phase_kernels(torch, timer)
-    log("phase 3: engine on the test fixture, card against CPU")
-    phase_engine_small(torch)
+    log("phase 3: engine and server on the test fixture, card against CPU")
+    ds, blocked = phase_engine_small(torch)
+    phase_serving_small(torch, ds, blocked)
+    del ds, blocked
     log(f"phase 4: engine at {args.tuples} tuples")
-    scale = phase_engine_scale(torch, args.tuples, args.seed)
+    scale, ctx = phase_engine_scale(torch, args.tuples, args.seed)
+    log("phase 5: serving 12 queries on the resident table")
+    serving = phase_serving(torch, timer, ctx)
+    del ctx
 
     leaked = sorted(m for m in sys.modules if m.startswith("jax") or m == "repro"
                     or m.startswith("repro."))
@@ -690,7 +955,8 @@ def main(argv=None) -> int:
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
-                   launches=scale["launches"][name], **main_rows[name])
+                   launches=scale["launches"][name], serving_launches=serving["launches"][name],
+                   **main_rows[name])
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
         kernels.append(row)
@@ -703,7 +969,7 @@ def main(argv=None) -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        dict(card=smi, device=device, kernels=kernels, scale=scale,
+        dict(card=smi, device=device, kernels=kernels, scale=scale, serving=serving,
              wall_s=time.perf_counter() - T0), indent=1))
     log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
     emit({"kernels": kernels})

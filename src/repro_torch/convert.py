@@ -17,16 +17,19 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.multiquery import MultiQueryState, SampleCursor
+from repro_torch.core.multiquery import (
+    QTYPE_CLOSENESS,
+    QTYPE_TOPK,
+    MultiQueryState,
+    SampleCursor,
+)
 from repro_torch.data.layout import BlockedDataset
 
 __all__ = ["dataset_from_numpy", "multi_state_from_numpy", "cursor_from_numpy"]
 
-# Reference state leaves the port does not carry yet (closeness queries
-# and pruning), with the value they hold when unused.
-_UNSUPPORTED_DEFAULTS = {"gap": 0.0, "qtype": 0, "pruned": False}
-
-_INT64_LEAVES = ("k", "round_idx", "blocks_read", "blocks_considered", "tuples_read", "rounds")
+_INT64_LEAVES = (
+    "k", "qtype", "round_idx", "blocks_read", "blocks_considered", "tuples_read", "rounds",
+)
 
 
 def dataset_from_numpy(z_blocks, x_blocks, bitmap, v_z: int, v_x: int) -> BlockedDataset:
@@ -59,12 +62,13 @@ def _leaf(name: str, value, device: torch.device) -> torch.Tensor:
 
 def multi_state_from_numpy(leaves: Mapping, *, device=None) -> MultiQueryState:
     """The port's `MultiQueryState` from the reference's leaves by name
-    (e.g. ``jax.device_get(state)._asdict()``). Raises if the state uses
-    a feature the port lacks (a closeness slot or pruned candidates)."""
+    (e.g. ``jax.device_get(state)._asdict()``), closeness slots and
+    pruned candidates included. Raises on a query type the port does
+    not know."""
     device = resolve_device(device)
-    for name, unused in _UNSUPPORTED_DEFAULTS.items():
-        if name in leaves and np.any(np.asarray(leaves[name]) != unused):
-            raise ValueError(f"state leaf {name!r} is in use; the port serves top-k only")
+    qtype = np.asarray(leaves["qtype"])
+    if not np.isin(qtype, (QTYPE_TOPK, QTYPE_CLOSENESS)).all():
+        raise ValueError(f"state leaf 'qtype' holds unknown query types {qtype.tolist()}")
     return MultiQueryState(
         **{name: _leaf(name, leaves[name], device) for name in MultiQueryState._fields}
     )

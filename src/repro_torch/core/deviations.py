@@ -16,8 +16,9 @@ the slot axis is written out: `assign_deviations_dynamic` takes tau of
 shape (Q, V_Z) with per-slot k, eps and delta (a 1-D tau is one slot).
 Selection is a stable ascending sort, so exact ties go to the lower
 index, as the reference's ``lax.top_k`` does (``torch.topk`` promises
-no tie order). The closeness rule and far-candidate pruning are still
-to be ported.
+no tie order). `assign_closeness` (the tolerant closeness rule) and
+`prune_far` (early rejection of clearly-far candidates) take the slot
+axis the same way, with per-slot eps, gap and delta.
 """
 
 from __future__ import annotations
@@ -30,12 +31,19 @@ from repro_torch.core import bounds
 
 __all__ = [
     "DeviationState",
+    "assign_closeness",
     "assign_deviations",
     "assign_deviations_dynamic",
+    "prune_far",
     "slowmatch_deviations",
     "split_point",
     "top_k_mask",
 ]
+
+
+def _per_slot(v, q: int, device) -> torch.Tensor:
+    """A (Q,) f32 tensor of per-slot values from a tensor or a scalar."""
+    return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1).expand(q)
 
 
 def _metric_log_delta(eps_i, tau, n, v_x, metric, bounds_mode):
@@ -123,8 +131,7 @@ def assign_deviations_dynamic(
     q, v_z = tau.shape
     dev = tau.device
     k = torch.as_tensor(k, dtype=torch.int64, device=dev).reshape(-1).expand(q)
-    eps = torch.as_tensor(eps, dtype=torch.float32, device=dev).reshape(-1).expand(q)
-    delta = torch.as_tensor(delta, dtype=torch.float32, device=dev).reshape(-1).expand(q)
+    eps, delta = _per_slot(eps, q, dev), _per_slot(delta, q, dev)
     n = torch.as_tensor(n, dtype=torch.float32, device=dev)
 
     cap = v_z if k_cap is None else int(k_cap)
@@ -176,3 +183,87 @@ def slowmatch_deviations(tau, n, *, k: int, eps: float, delta: float, v_x: int) 
     return assign_deviations_dynamic(
         tau, n, k=k, eps=eps, delta=delta, v_x=v_x, criterion="slowmatch", k_cap=k
     )
+
+
+def assign_closeness(
+    tau: torch.Tensor,
+    n: torch.Tensor,
+    *,
+    eps,
+    gap,
+    delta,
+    v_x: int,
+    metric: str = "l1",
+    bounds_mode: str = "native",
+) -> DeviationState:
+    """Tolerant closeness test for Q slots at once, in the same
+    `DeviationState` shape as the top-k rule.
+
+    Each candidate is labeled close (true distance <= eps) or far (>=
+    eps + gap), thresholded at t = eps + gap/2; inside the gap either
+    label is allowed. The decision margin m_i = max(tau_i - eps, (eps +
+    gap) - tau_i) >= gap/2 is the deviation that would break the label,
+    so delta_i = metric_delta(m_i, n_i) and delta_upper = sum_i delta_i.
+    ``in_top_k`` holds the close label, ``split`` the threshold t and
+    ``eps_i`` the margin; k plays no role. tau: (Q, V_Z) or (V_Z,);
+    eps, gap, delta: (Q,) tensors or scalars.
+    """
+    tau = torch.as_tensor(tau, dtype=torch.float32)
+    single = tau.dim() == 1
+    if single:
+        tau = tau[None, :]
+    q, v_z = tau.shape
+    dev = tau.device
+    eps, gap, delta = (_per_slot(v, q, dev) for v in (eps, gap, delta))
+    n = torch.as_tensor(n, dtype=torch.float32, device=dev)
+
+    threshold = eps + 0.5 * gap
+    e, g = eps[:, None], gap[:, None]
+    margin = torch.clamp_min(torch.maximum(tau - e, (e + g) - tau), 0.0)
+    log_delta_i = _metric_log_delta(margin, tau, n, v_x, metric, bounds_mode)
+    log_threshold = torch.log(delta / float(v_z))
+    out = DeviationState(
+        tau=tau,
+        in_top_k=tau <= threshold[:, None],
+        split=threshold,
+        eps_i=margin,
+        log_delta_i=log_delta_i,
+        delta_upper=torch.sum(torch.exp(log_delta_i), dim=1),
+        active=log_delta_i > log_threshold[:, None],
+    )
+    if single:
+        return DeviationState(*(leaf[0] for leaf in out))
+    return out
+
+
+def prune_far(
+    tau: torch.Tensor,
+    n: torch.Tensor,
+    *,
+    far_edge,
+    delta,
+    v_x: int,
+    metric: str = "l1",
+) -> torch.Tensor:
+    """Early-reject mask: candidates whose lower confidence bound already
+    clears ``far_edge``, ``tau_i - conf_i > far_edge`` with conf_i the
+    metric-native deviation at the per-candidate budget delta/V_Z.
+
+    Callers pass far_edge = eps + gap for closeness slots and split +
+    eps/2 for top-k slots. The mask only shrinks the I/O marking; the
+    failure bounds keep summing over every candidate. tau: (Q, V_Z) or
+    (V_Z,); far_edge and delta: (Q,) tensors or scalars.
+    """
+    tau = torch.as_tensor(tau, dtype=torch.float32)
+    single = tau.dim() == 1
+    if single:
+        tau = tau[None, :]
+    q, v_z = tau.shape
+    dev = tau.device
+    far_edge, delta = _per_slot(far_edge, q, dev), _per_slot(delta, q, dev)
+    conf = bounds.metric_native_epsilon(
+        torch.as_tensor(n, dtype=torch.float32, device=dev), (delta / float(v_z))[:, None],
+        v_x, tau=tau, metric=metric,
+    )
+    out = (tau - conf) > far_edge[:, None]
+    return out[0] if single else out

@@ -88,6 +88,13 @@ class MatchResult:
     exact: bool  # True iff the answer rests on a COMPLETE read of the data
     passes: int
     host_syncs: int = 0  # device->host polls the scheduler made for this run
+    # "topk" (ids = the k matches) or "closeness" (ids = every candidate
+    # labeled close, tau order)
+    qtype: str = "topk"
+    # SLA early stop (multiquery.StopPolicy): the result is the anytime
+    # answer of the stopping poll (exact=False, achieved delta_upper)
+    stopped: bool = False
+    stop_reason: str = ""  # "confidence" | "tuples" | "wall_ms"
 
     @property
     def delta_upper(self) -> float:
@@ -106,6 +113,9 @@ def _to_match_result(out: QueryOutcome, t0: float, sched: SharedCountsScheduler)
         exact=out.exact,
         passes=out.passes,
         host_syncs=sched.host_syncs,
+        qtype=out.qtype,
+        stopped=out.stopped,
+        stop_reason=out.stop_reason,
     )
 
 

@@ -1,10 +1,11 @@
-"""Shared-counts multi-query HistSim — the FastMatch scheduling core.
+"""Shared-counts multi-query HistSim — the FastMatch serving core.
 
-Port of `repro.core.multiquery`, top-k queries only. The counts matrix
-``r_i`` is target-independent, so query slots share one counts matrix
-and one I/O stream; each slot keeps its own target, (k, eps, delta),
-tau, deviations, bounds and active set. The union of the slots' packed
-active words drives AnyActive marking.
+Port of `repro.core.multiquery`. The counts matrix ``r_i`` is
+target-independent, so query slots share one counts matrix and one I/O
+stream; each slot keeps its own target, query type (top-k or tolerant
+closeness) with its (k, eps, delta, gap), tau, deviations, bounds and
+active set. The union of the slots' packed active words drives
+AnyActive marking.
 
 One `fused_round` per lookahead window does, on the device and without
 a host sync: mark (kernel A, one launch for the final marks) + masked
@@ -16,18 +17,33 @@ on rounds that read, with no ``.item()``. The host reads state back
 only in `SharedCountsScheduler._sync`, every ``poll_every`` windows,
 and ``host_syncs`` counts those reads.
 
-Packed words are int32 tensors carrying the uint32 bits; counters are
-int64. Still to be ported: closeness queries, pruning, anytime answers
-and stop policies, telemetry, fault quarantine, cache snapshots and the
-mesh paths.
+`apply_stats` evaluates each slot's retirement rule by its ``qtype``
+and selects per slot with `torch.where` (value-exact). The reference's
+compiler drops the closeness branch when no slot uses it; here the
+caller says so (``closeness=False``), and the scheduler keeps that flag
+on the host from admissions and retirements, so an all-top-k workload
+launches no closeness work. Pruning runs only under ``spec.prune``.
+
+At every poll the host mirrors tau, n, the matching sets and the
+pruned masks beside the cursor and the bounds, so `peek` assembles
+anytime answers without device work, and a `StopPolicy` retires a
+query with exactly that answer. `export_cache`/`import_cache` carry the
+target-independent state (counts, n, read mask, counters, visit order)
+between schedulers in memory.
+
+Packed words are int32 tensors carrying the uint32 bits; counters and
+``qtype`` are int64. Still to be ported: telemetry (ROADMAP A7), fault
+quarantine and on-disk snapshots (A6) and the mesh paths (A9).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
+import math
 import time
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,16 +53,23 @@ from repro_torch.core import histsim
 from repro_torch.core.bitmap import pack_active_mask, words_for
 from repro_torch.core.histsim import HistSimState
 from repro_torch.core.policies import mark_window
+from repro_torch.data.layout import BlockedDataset
 from repro_torch.io import InMemorySource, WindowData, as_block_source
 from repro_torch.kernels import metrics, ops
 
 __all__ = [
+    "AnytimeAnswer",
+    "CacheSnapshot",
     "MultiQuerySpec",
     "MultiQueryState",
+    "QTYPE_TOPK",
+    "QTYPE_CLOSENESS",
     "QueryOutcome",
     "SampleCursor",
     "SharedCountsScheduler",
+    "StopPolicy",
     "apply_stats",
+    "cache_config_hash",
     "fused_round",
     "ingest_round",
     "init_cursor",
@@ -57,6 +80,54 @@ __all__ = [
     "stats_step",
     "slot_state",
 ]
+
+
+# Per-slot query types (MultiQueryState.qtype values).
+QTYPE_TOPK = 0
+QTYPE_CLOSENESS = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class StopPolicy:
+    """SLA-driven early stop for one query (or every query of a scheduler
+    through ``MultiQuerySpec.default_stop``). A stopped query retires
+    with its anytime answer at that poll — ``exact=False``,
+    ``terminated=False``, the achieved ``delta_upper`` — the answer
+    `SharedCountsScheduler.peek` gives at that poll. The statistical
+    rule (delta_upper < delta) is checked first. Fields left None never
+    fire.
+
+      wall_ms    — stop once the query has been live this many ms
+                   (checked at polls)
+      confidence — stop once 1 - delta_upper reaches this level
+      tuples     — stop once this many tuples were read while live
+    """
+
+    wall_ms: Optional[float] = None
+    confidence: Optional[float] = None
+    tuples: Optional[int] = None
+
+    def __post_init__(self):
+        if self.wall_ms is None and self.confidence is None and self.tuples is None:
+            raise ValueError("StopPolicy needs at least one of wall_ms/confidence/tuples")
+        if self.wall_ms is not None and not self.wall_ms >= 0.0:
+            raise ValueError(f"need wall_ms >= 0, got {self.wall_ms}")
+        if self.confidence is not None and not (0.0 < self.confidence <= 1.0):
+            raise ValueError(f"need 0 < confidence <= 1, got {self.confidence}")
+        if self.tuples is not None and not self.tuples >= 0:
+            raise ValueError(f"need tuples >= 0, got {self.tuples}")
+
+    def fired(self, *, wall_s: float, confidence: float, tuples: int) -> str:
+        """The reason this policy fires on the given gauges, or "". When
+        several fire at one poll, the strongest answer's reason wins:
+        confidence, then tuples, then wall_ms."""
+        if self.confidence is not None and confidence >= self.confidence:
+            return "confidence"
+        if self.tuples is not None and tuples >= self.tuples:
+            return "tuples"
+        if self.wall_ms is not None and wall_s * 1000.0 >= self.wall_ms:
+            return "wall_ms"
+        return ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +143,12 @@ class MultiQuerySpec:
     k_cap: Optional[int] = None
     metric: str = "l1"  # registry distance of the shared tau pass
     bounds_mode: str = "native"  # "native" | "conservative" failure bounds
+    # Early-reject pruning: certified-far candidates leave the I/O
+    # marking (the failure bounds keep summing over every candidate).
+    prune: bool = False
+    # Scheduler-wide StopPolicy for queries admitted without their own;
+    # a host-loop decision, so it takes no part in equality.
+    default_stop: Optional[StopPolicy] = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if self.max_queries < 1:
@@ -84,6 +161,8 @@ class MultiQuerySpec:
             raise ValueError(
                 f"bounds_mode must be 'native' or 'conservative', got {self.bounds_mode!r}"
             )
+        if self.default_stop is not None and not isinstance(self.default_stop, StopPolicy):
+            raise TypeError(f"default_stop must be a StopPolicy, got {self.default_stop!r}")
         metrics.coerce_metric(self.metric)
 
 
@@ -96,6 +175,8 @@ class MultiQueryState(NamedTuple):
     k: torch.Tensor  # (Q,) int64 per-query k
     eps: torch.Tensor  # (Q,) f32 per-query eps
     delta: torch.Tensor  # (Q,) f32 per-query delta
+    gap: torch.Tensor  # (Q,) f32 closeness promise gap (0 for top-k slots)
+    qtype: torch.Tensor  # (Q,) int64 QTYPE_TOPK | QTYPE_CLOSENESS
     tau: torch.Tensor  # (Q, V_Z) f32 per-query distance estimates
     eps_i: torch.Tensor  # (Q, V_Z) f32 assigned deviations
     log_delta_i: torch.Tensor  # (Q, V_Z) f32
@@ -103,7 +184,8 @@ class MultiQueryState(NamedTuple):
     active: torch.Tensor  # (Q, V_Z) bool — per-query AnyActive candidates
     active_words: torch.Tensor  # (Q, W) int32 packed per-query active masks
     union_words: torch.Tensor  # (W,) int32 — OR over slots; drives block marking
-    in_top_k: torch.Tensor  # (Q, V_Z) bool — per-query matching set M
+    in_top_k: torch.Tensor  # (Q, V_Z) bool — matching set M (close labels for closeness)
+    pruned: torch.Tensor  # (Q, V_Z) bool — sticky early-reject mask (spec.prune)
     occupied: torch.Tensor  # (Q,) bool — slot holds a live query
     round_idx: torch.Tensor  # () int64 — statistics iterations so far
 
@@ -117,6 +199,53 @@ class SampleCursor(NamedTuple):
     blocks_considered: torch.Tensor  # () int64
     tuples_read: torch.Tensor  # () int64
     rounds: torch.Tensor  # () int64 — windows dispatched
+
+
+class CacheSnapshot(NamedTuple):
+    """The target-independent serving state a fresh scheduler needs to
+    answer new queries from the accumulated sample: the shared counts
+    and row sums, the read mask and its counters, and the pass count
+    and visit-order offset. Live query slots are not part of it."""
+
+    counts: torch.Tensor  # (V_Z, V_X) f32
+    n: torch.Tensor  # (V_Z,) f32
+    read_mask: torch.Tensor  # (num_blocks,) bool
+    blocks_read: torch.Tensor  # () int64
+    blocks_considered: torch.Tensor  # () int64
+    tuples_read: torch.Tensor  # () int64
+    rounds: torch.Tensor  # () int64
+    passes: torch.Tensor  # () int64 — host-side pass counter
+    start: torch.Tensor  # () int64 — cyclic visit-order offset
+
+
+def _config_hash(obj) -> str:
+    """sha256 of ``repr(obj)``, 16 hex digits (the reference's
+    checkpoint ``config_hash``)."""
+    return hashlib.sha256(repr(obj).encode()).hexdigest()[:16]
+
+
+def cache_config_hash(source, spec: MultiQuerySpec) -> str:
+    """Fingerprint binding a `CacheSnapshot` to (dataset layout, spec):
+    the layout's dimensions, the per-block tuple counts, the content of
+    up to 64 probe blocks spread evenly over the layout, and the spec.
+    It hashes the reference's bytes (int32 z and x, the bitmap's uint32
+    bits), so both packages give the same hash for the same data."""
+    # a dataset is read in place on the host; a source where it lies
+    src = as_block_source(source, device="cpu" if isinstance(source, BlockedDataset) else None)
+    nb = src.num_blocks
+    probe = np.unique(np.linspace(0, nb - 1, min(nb, 64)).astype(np.int64))
+    wd = src.fetch(probe, pad_to=len(probe))
+    fp = hashlib.sha256()
+    fp.update(np.ascontiguousarray(np.asarray(src.tuples_per_block, np.int64)).tobytes())
+    for leaf in (wd.z, wd.x, wd.bitmap_rows()):
+        fp.update(np.ascontiguousarray(leaf.cpu().numpy()).tobytes())
+    payload = (
+        "fastmatch-cache-v1",
+        (spec.v_z, spec.v_x, spec.max_queries, spec.criterion, spec.k_cap),
+        (nb, src.block_size),
+        fp.hexdigest(),
+    )
+    return _config_hash(payload)
 
 
 def init_cursor(num_blocks: int, *, device) -> SampleCursor:
@@ -137,6 +266,8 @@ def init_multi_state(spec: MultiQuerySpec, *, device) -> MultiQueryState:
         k=torch.ones((q,), dtype=torch.int64, device=device),
         eps=torch.ones((q,), **f32),
         delta=torch.ones((q,), **f32),
+        gap=torch.zeros((q,), **f32),
+        qtype=torch.zeros((q,), dtype=torch.int64, device=device),
         tau=torch.ones((q, v_z), **f32),
         eps_i=torch.zeros((q, v_z), **f32),
         log_delta_i=torch.zeros((q, v_z), **f32),
@@ -145,6 +276,7 @@ def init_multi_state(spec: MultiQuerySpec, *, device) -> MultiQueryState:
         active_words=torch.zeros((q, w), dtype=torch.int32, device=device),
         union_words=torch.zeros((w,), dtype=torch.int32, device=device),
         in_top_k=torch.zeros((q, v_z), **flag),
+        pruned=torch.zeros((q, v_z), **flag),
         occupied=torch.zeros((q,), **flag),
         round_idx=torch.zeros((), dtype=torch.int64, device=device),
     )
@@ -158,16 +290,30 @@ def _set(t: torch.Tensor, slot: int, value) -> torch.Tensor:
 
 
 def admit_slot(
-    state: MultiQueryState, slot: int, q_hat, k: int, eps: float, delta: float
+    state: MultiQueryState,
+    slot: int,
+    q_hat,
+    k: int,
+    eps: float,
+    delta: float,
+    *,
+    qtype: int = QTYPE_TOPK,
+    gap: float = 0.0,
 ) -> MultiQueryState:
-    """Install a top-k query into ``slot``. Run `stats_step` before the
-    next marking so its active set reflects the accumulated counts."""
+    """Install a query into ``slot``: top-k by default, or with
+    ``qtype=QTYPE_CLOSENESS`` and a positive ``gap`` a closeness test
+    (eps the close radius, eps + gap the far one; k unused). Run
+    `stats_step` before the next marking so its active set reflects the
+    accumulated counts."""
     q_hat = torch.as_tensor(q_hat, dtype=torch.float32).to(state.q_hat.device)
     return state._replace(
         q_hat=_set(state.q_hat, slot, q_hat),
         k=_set(state.k, slot, int(k)),
         eps=_set(state.eps, slot, float(eps)),
         delta=_set(state.delta, slot, float(delta)),
+        gap=_set(state.gap, slot, float(gap)),
+        qtype=_set(state.qtype, slot, int(qtype)),
+        pruned=_set(state.pruned, slot, False),
         occupied=_set(state.occupied, slot, True),
     )
 
@@ -187,6 +333,9 @@ def clear_slot(state: MultiQueryState, slot: int) -> MultiQueryState:
         active_words=active_words,
         tau=_set(state.tau, slot, 1.0),
         delta_upper=_set(state.delta_upper, slot, 0.0),
+        gap=_set(state.gap, slot, 0.0),
+        qtype=_set(state.qtype, slot, QTYPE_TOPK),
+        pruned=_set(state.pruned, slot, False),
         union_words=_or_reduce(active_words),
     )
 
@@ -198,16 +347,49 @@ def ingest(state: MultiQueryState, z_idx, x_idx, *, spec: MultiQuerySpec) -> Mul
     return state._replace(counts=counts, n=n)
 
 
-def apply_stats(state: MultiQueryState, tau, n, *, spec: MultiQuerySpec) -> MultiQueryState:
+def _select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.where`` of a (Q,) condition against (Q, ...) leaves."""
+    return torch.where(cond.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+
+
+def apply_stats(
+    state: MultiQueryState, tau, n, *, spec: MultiQuerySpec, closeness: bool = True
+) -> MultiQueryState:
     """Per-slot deviation assignment from (Q, V_Z) distances and the
-    shared (V_Z,) sample counts, then the active union."""
+    shared (V_Z,) sample counts, then the active union.
+
+    Both retirement rules are evaluated and selected per slot by its
+    ``qtype``. ``closeness=False`` skips the closeness rule, which is
+    value-exact only when no slot holds a closeness query (the
+    scheduler's host flag). With ``spec.prune`` the sticky ``pruned``
+    mask grows by `dev.prune_far` (far edge eps + gap for closeness,
+    split + eps/2 for top-k) and leaves the active set.
+    """
     d = dev.assign_deviations_dynamic(
         tau, n, k=state.k, eps=state.eps, delta=state.delta, v_x=spec.v_x,
         criterion=spec.criterion, k_cap=spec.k_cap, metric=spec.metric,
         bounds_mode=spec.bounds_mode,
     )
+    top_split = d.split
+    if closeness or spec.prune:
+        is_close = state.qtype == QTYPE_CLOSENESS
+    if closeness:
+        c = dev.assign_closeness(
+            tau, n, eps=state.eps, gap=state.gap, delta=state.delta, v_x=spec.v_x,
+            metric=spec.metric, bounds_mode=spec.bounds_mode,
+        )
+        d = dev.DeviationState(*(_select(is_close, a, b) for a, b in zip(c, d)))
     occupied = state.occupied[:, None]
-    active = d.active & occupied
+    pruned = state.pruned
+    if spec.prune:
+        far_edge = torch.where(is_close, state.eps + state.gap, top_split + 0.5 * state.eps)
+        far = dev.prune_far(
+            tau, n, far_edge=far_edge, delta=state.delta, v_x=spec.v_x, metric=spec.metric
+        )
+        pruned = pruned | (far & occupied)
+        active = d.active & occupied & ~pruned
+    else:
+        active = d.active & occupied
     words = pack_active_mask(active)
     return state._replace(
         tau=tau,
@@ -218,17 +400,20 @@ def apply_stats(state: MultiQueryState, tau, n, *, spec: MultiQuerySpec) -> Mult
         active_words=words,
         union_words=_or_reduce(words),
         in_top_k=d.in_top_k & occupied,
+        pruned=pruned,
         round_idx=state.round_idx + 1,
     )
 
 
-def stats_step(state: MultiQueryState, *, spec: MultiQuerySpec) -> MultiQueryState:
+def stats_step(
+    state: MultiQueryState, *, spec: MultiQuerySpec, closeness: bool = True
+) -> MultiQueryState:
     """One statistics iteration for every slot: tau for all slots from
     ONE kernel-C launch over the shared counts (unoccupied slots pinned
     at 1.0), then `apply_stats`."""
     tau = ops.distance_multi(state.counts, state.q_hat, metric=spec.metric)
     tau = torch.where(state.occupied[:, None], tau, 1.0)
-    return apply_stats(state, tau, state.n, spec=spec)
+    return apply_stats(state, tau, state.n, spec=spec, closeness=closeness)
 
 
 def _advance_cursor(cursor: SampleCursor, wd: WindowData, marks: torch.Tensor) -> SampleCursor:
@@ -265,6 +450,7 @@ def fused_round(
     *,
     spec: MultiQuerySpec,
     policy: str,
+    closeness: bool = True,
 ) -> tuple:
     """One sampling round: mark + gather-mask + ingest + stats + read
     bookkeeping, all on the device, no host sync.
@@ -274,12 +460,16 @@ def fused_round(
     so no block is counted twice. Ingest and stats always run; the new
     state is kept only if something was marked, matching the reference's
     ``lax.cond`` (stats run only after windows that read something).
+    Leaves the round passes through unchanged (targets, per-slot
+    parameters) need no select.
     """
     marks = mark_window(wd, state.union_words, cursor.read_mask, policy=policy)
     zw, xw = _masked_ids(wd, marks)
-    new = stats_step(ingest(state, zw, xw, spec=spec), spec=spec)
+    new = stats_step(ingest(state, zw, xw, spec=spec), spec=spec, closeness=closeness)
     took = torch.any(marks)
-    state = MultiQueryState(*(torch.where(took, a, b) for a, b in zip(new, state)))
+    state = MultiQueryState(
+        *(b if a is b else torch.where(took, a, b) for a, b in zip(new, state))
+    )
     return state, _advance_cursor(cursor, wd, marks)
 
 
@@ -325,12 +515,15 @@ class _Ticket:
     k: int
     eps: float
     delta: float
+    qtype: str  # "topk" | "closeness"
+    gap: float  # closeness promise gap; 0.0 for top-k
     admit_time: float
     admit_rounds: int
     admit_passes: int
     admit_blocks_read: int
     admit_blocks_considered: int
     admit_tuples_read: int
+    stop: Optional[StopPolicy] = None  # SLA policy; None = run to the bound
 
 
 @dataclasses.dataclass
@@ -338,7 +531,8 @@ class QueryOutcome:
     """Per-query result produced at retirement."""
 
     qid: int
-    ids: np.ndarray  # (k,) matching ids, closest first
+    ids: np.ndarray  # (k,) matching ids, closest first; for a closeness
+    # query every candidate labeled close (variable length, tau order)
     state: HistSimState  # single-query view snapshot at retirement
     delta_upper: float
     exact: bool  # the answer rests on a complete read of the data
@@ -349,21 +543,101 @@ class QueryOutcome:
     blocks_considered: int
     tuples_read: int  # tuples ingested while this query was live
     wall_time_s: float
+    qtype: str = "topk"  # "topk" | "closeness"
+    # SLA early stop: the answer is then the anytime statement of that
+    # poll (exact=False, terminated=False, the achieved delta_upper)
+    stopped: bool = False
+    stop_reason: str = ""  # "confidence" | "tuples" | "wall_ms"
+    anytime: Optional["AnytimeAnswer"] = None  # `peek` at the retirement poll
+
+
+@dataclasses.dataclass
+class AnytimeAnswer:
+    """A poll-boundary answer with its Theorem-1-style statement: the
+    current best set ``ids`` (closest first), each candidate's empirical
+    distance within ``eps_n`` of its true one w.p. > 1 - delta/|V_Z|, the
+    set wrong w.p. at most ``delta_upper``, and each listed candidate's
+    decision ``margin`` in metric space."""
+
+    qid: int
+    qtype: str  # "topk" | "closeness"
+    status: str  # "queued" | "live" | "done"
+    ids: np.ndarray  # current best set, closest first
+    tau: np.ndarray  # (len(ids),) empirical distances of the best set
+    margin: np.ndarray  # (len(ids),) per-candidate decision margin
+    split: float  # current split point / closeness threshold
+    n_min: float  # weakest per-candidate sample count
+    tau_min: float
+    eps_n: float  # metric-space eps(n_min) at per-candidate budget delta/V_Z
+    delta_upper: float  # union failure bound of the current labeling
+    confidence: float  # max(0, 1 - delta_upper)
+    round: int
+    tuples: int
+    tuples_live: int  # tuples read while this query was live
+    eps: float
+    delta: float
+    metric: str
+    exact: bool = False
+    stopped: bool = False
+    stop_reason: str = ""
+    result: Optional[object] = None  # final MatchResult once status == "done"
+
+    def curve_point(self) -> dict:
+        """This answer as a confidence-curve point (the reference's
+        telemetry columns)."""
+        return dict(
+            round=self.round,
+            tuples=self.tuples,
+            tuples_live=self.tuples_live,
+            n_min=self.n_min,
+            tau_min=self.tau_min,
+            eps_n=self.eps_n,
+            delta_upper=self.delta_upper,
+            confidence=self.confidence,
+        )
+
+
+def _theorem1_eps_np(n: float, delta_i: float, v_x: int) -> float:
+    """Host-side scalar Theorem 1 eps(n), the mirror of
+    `bounds.theorem1_epsilon`, so a poll never launches device work."""
+    n = max(float(n), 1.0)
+    return math.sqrt((2.0 / n) * (v_x * math.log(2.0) - math.log(delta_i)))
+
+
+def _metric_eps_np(n: float, delta_i: float, v_x: int, metric: str) -> float:
+    """`_theorem1_eps_np` through the metric's budget inverse (the host
+    mirror of `bounds.metric_epsilon`)."""
+    eps1 = _theorem1_eps_np(n, delta_i, v_x)
+    if metric == "l1":
+        return eps1
+    if metric == "chi2":
+        return 3.0 * eps1
+    if metric == "hellinger":
+        return 2.0 * math.sqrt(eps1)
+    raise ValueError(f"unknown metric {metric!r}")
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes as a flat uint8 view."""
+    return t.reshape(-1).view(torch.uint8)
 
 
 class SharedCountsScheduler:
     """The FastMatch execution loop over a shared counts matrix.
 
     Owns the cyclic visit order, the device-resident `SampleCursor`, the
-    pass structure and the `MultiQueryState`. Queries enter via `admit`,
-    leave via `retire` (collected in `outcomes`), and `pump` drives one
-    `fused_round` per window until every live query resolves, polling
-    the device every ``poll_every`` windows. A pass visits every unread
-    block in cyclic order; blocks AnyActive skipped stay eligible for
-    later passes. If a pass reads nothing while queries remain live,
-    the scheduler completes exactly (reads the remainder) and retires
-    them with ``exact=True``; a ``max_rounds`` budget instead stops with
-    the queries left best-effort.
+    pass structure and the `MultiQueryState`. Queries enter via `admit`
+    (top-k or closeness, any time, into a free slot), leave via `retire`
+    (collected in `outcomes`), and `pump` drives one `fused_round` per
+    window until every live query resolves, polling the device every
+    ``poll_every`` windows; a poll retires queries whose bound fired,
+    then those whose `StopPolicy` fired, and calls ``on_round``. A pass
+    visits every unread block in cyclic order; blocks AnyActive skipped
+    stay eligible for later passes. If a pass reads nothing while
+    queries remain live, the scheduler completes exactly (reads the
+    remainder) and retires them with ``exact=True``; a ``max_rounds``
+    budget instead stops with the queries left best-effort
+    (``budget_exhausted``).
     """
 
     def __init__(
@@ -395,6 +669,7 @@ class SharedCountsScheduler:
 
         rng = np.random.default_rng(seed)
         start = start_block if start_block is not None else int(rng.integers(nb))
+        self._start = start  # the visit order's offset, carried by export_cache
         self.order = np.roll(np.arange(nb), -start)  # cyclic visit order
 
         self.state = init_multi_state(spec, device=self.device)
@@ -402,6 +677,8 @@ class SharedCountsScheduler:
         self.tickets: Dict[int, _Ticket] = {}  # slot -> ticket
         self.outcomes: Dict[int, QueryOutcome] = {}  # qid -> outcome
         self._next_qid = 0
+        # live closeness slots: while 0 the rounds skip the closeness rule
+        self._closeness_live = 0
 
         # host mirrors of the device cursor + per-slot bounds, refreshed
         # by `_sync()` (per-query numbers are deltas vs admit)
@@ -412,21 +689,95 @@ class SharedCountsScheduler:
         self.blocks_considered = 0
         self.tuples_read = 0
         self._delta_upper = np.zeros(spec.max_queries, np.float32)
+        # anytime mirrors: `peek` assembles answers from these
+        self._tel_tau = np.ones((spec.max_queries, spec.v_z), np.float32)
+        self._tel_n = np.zeros(spec.v_z, np.float32)
+        self._in_top_k_host = np.zeros((spec.max_queries, spec.v_z), bool)
+        self._pruned_host = np.zeros((spec.max_queries, spec.v_z), bool)
+        self.budget_exhausted = False
         self.host_syncs = 0  # number of device->host polls performed
 
     # -- host/device synchronisation --------------------------------------
 
     def _sync(self) -> None:
-        """One device->host poll: cursor + per-slot bounds. Everything
-        the host loop decides on is refreshed here and only here."""
-        c = self.cursor
-        counters = torch.stack(
-            (c.rounds, c.blocks_read, c.blocks_considered, c.tuples_read)
-        ).tolist()
-        self.rounds, self.blocks_read, self.blocks_considered, self.tuples_read = counters
-        self.read_mask = c.read_mask.cpu().numpy()
-        self._delta_upper = self.state.delta_upper.cpu().numpy()
+        """One device->host poll: cursor, per-slot bounds, and the anytime
+        mirrors (tau, n, matching sets, pruned masks), in two copies: one
+        f32 buffer and one byte buffer. Everything the host loop decides
+        on is refreshed here and only here."""
+        c, st = self.cursor, self.state
+        q, v_z = self.spec.max_queries, self.spec.v_z
+        floats = torch.cat((st.delta_upper, st.tau.reshape(-1), st.n)).cpu().numpy()
+        counters = (c.rounds, c.blocks_read, c.blocks_considered, c.tuples_read)
+        raw = torch.cat(
+            [_bytes(t) for t in counters] + [_bytes(c.read_mask), _bytes(st.in_top_k),
+                                              _bytes(st.pruned)]
+        ).cpu().numpy()
+        self._delta_upper = floats[:q]
+        self._tel_tau = floats[q : q + q * v_z].reshape(q, v_z)
+        self._tel_n = floats[q + q * v_z :]
+        head = 8 * len(counters)
+        self.rounds, self.blocks_read, self.blocks_considered, self.tuples_read = (
+            int(v) for v in raw[:head].view(np.int64)
+        )
+        nb = self.read_mask.size
+        self.read_mask = raw[head : head + nb].view(bool)
+        flags = raw[head + nb :].view(bool).reshape(2, q, v_z)
+        self._in_top_k_host, self._pruned_host = flags[0], flags[1]
         self.host_syncs += 1
+
+    # -- warm cache ----------------------------------------------------------
+
+    def export_cache(self) -> CacheSnapshot:
+        """The target-independent serving state (see `CacheSnapshot`).
+        Counts and cursor come out of the same round, so a snapshot is
+        consistent at any time; live slots are not exported."""
+        c = self.cursor
+        as_counter = dict(dtype=torch.int64, device=self.device)
+        return CacheSnapshot(
+            counts=self.state.counts,
+            n=self.state.n,
+            read_mask=c.read_mask,
+            blocks_read=c.blocks_read,
+            blocks_considered=c.blocks_considered,
+            tuples_read=c.tuples_read,
+            rounds=c.rounds,
+            passes=torch.tensor(self.passes, **as_counter),
+            start=torch.tensor(self._start, **as_counter),
+        )
+
+    def import_cache(self, snap: CacheSnapshot) -> None:
+        """Adopt a warm cache: shared counts, sampling cursor, pass count
+        and visit order. Refused under live queries, whose admission-time
+        counters it would invalidate."""
+        if self.tickets:
+            raise RuntimeError("import_cache requires a scheduler with no live queries")
+        nb = self.source.num_blocks
+        shape = (self.spec.v_z, self.spec.v_x)
+        if tuple(snap.counts.shape) != shape:
+            raise ValueError(
+                f"snapshot counts shape {tuple(snap.counts.shape)} != {shape} — "
+                "wrong dataset/spec for this cache"
+            )
+        if tuple(snap.read_mask.shape) != (nb,):
+            raise ValueError(
+                f"snapshot read_mask covers {snap.read_mask.shape[0]} blocks, "
+                f"dataset has {nb} — wrong layout for this cache"
+            )
+
+        def put(t, dtype):
+            return torch.as_tensor(t).to(device=self.device, dtype=dtype)
+
+        self.state = self.state._replace(
+            counts=put(snap.counts, torch.float32), n=put(snap.n, torch.float32)
+        )
+        self.cursor = SampleCursor(
+            read_mask=put(snap.read_mask, torch.bool),
+            **{f: put(getattr(snap, f), torch.int64) for f in SampleCursor._fields[1:]},
+        )
+        self._start = int(snap.start)
+        self.order = np.roll(np.arange(nb), -self._start)
+        self.passes = int(snap.passes)
+        self._sync()  # every host mirror from the restored cursor
 
     # -- admission / retirement -------------------------------------------
 
@@ -434,24 +785,61 @@ class SharedCountsScheduler:
     def free_slots(self) -> list:
         return [s for s in range(self.spec.max_queries) if s not in self.tickets]
 
-    def admit(self, target: np.ndarray, *, k: int, eps: float, delta: float) -> int:
-        """Place a top-k query into a free slot; returns its qid. The
-        immediate `stats_step` lets it see the accumulated shared counts
-        before the next window is marked."""
+    @property
+    def num_live(self) -> int:
+        return len(self.tickets)
+
+    def _stats_step(self) -> None:
+        self.state = stats_step(self.state, spec=self.spec, closeness=self._closeness_live > 0)
+
+    def admit(
+        self,
+        target: np.ndarray,
+        *,
+        k: int,
+        eps: float,
+        delta: float,
+        qtype: str = "topk",
+        gap: float = 0.0,
+        stop: Optional[StopPolicy] = None,
+    ) -> int:
+        """Place a query into a free slot; returns its qid. The immediate
+        `stats_step` lets it see the accumulated shared counts before the
+        next window is marked.
+
+        ``qtype="closeness"`` admits a tolerant closeness test: every
+        candidate within ``eps`` of the target is labeled close, every
+        one beyond ``eps + gap`` far, w.p. >= 1 - delta (k unused).
+        ``stop`` attaches a `StopPolicy` (None inherits
+        ``spec.default_stop``)."""
         free = self.free_slots
         if not free:
             raise RuntimeError("no free query slot; retire a query first")
-        if not (0 < k <= self.spec.v_z):
-            raise ValueError(f"need 0 < k <= V_Z, got k={k}")
-        if self.spec.k_cap is not None and k > self.spec.k_cap:
-            raise ValueError(f"k={k} exceeds spec.k_cap={self.spec.k_cap}")
+        if qtype not in ("topk", "closeness"):
+            raise ValueError(f"qtype must be 'topk' or 'closeness', got {qtype!r}")
+        if qtype == "closeness":
+            if not gap > 0.0:
+                raise ValueError(f"closeness needs gap > 0, got gap={gap}")
+            if not eps >= 0.0:
+                raise ValueError(f"closeness needs eps >= 0, got eps={eps}")
+        else:
+            if gap != 0.0:
+                raise ValueError("gap is only meaningful for qtype='closeness'")
+            if not (0 < k <= self.spec.v_z):
+                raise ValueError(f"need 0 < k <= V_Z, got k={k}")
+            if self.spec.k_cap is not None and k > self.spec.k_cap:
+                raise ValueError(f"k={k} exceeds spec.k_cap={self.spec.k_cap}")
         slot = free[0]
         target = np.asarray(target, np.float64).ravel()
         if target.shape != (self.spec.v_x,):
             raise ValueError(f"target must have shape ({self.spec.v_x},)")
         q_hat = (target / max(target.sum(), 1e-30)).astype(np.float32)
-        self.state = admit_slot(self.state, slot, torch.from_numpy(q_hat), k, eps, delta)
-        self.state = stats_step(self.state, spec=self.spec)
+        code = QTYPE_CLOSENESS if qtype == "closeness" else QTYPE_TOPK
+        self.state = admit_slot(
+            self.state, slot, torch.from_numpy(q_hat), k, eps, delta, qtype=code, gap=gap
+        )
+        self._closeness_live += code == QTYPE_CLOSENESS
+        self._stats_step()
         self._sync()  # fresh counters for the ticket + fresh delta_upper
         qid = self._next_qid
         self._next_qid += 1
@@ -461,23 +849,91 @@ class SharedCountsScheduler:
             k=int(k),
             eps=float(eps),
             delta=float(delta),
+            qtype=qtype,
+            gap=float(gap),
             admit_time=time.perf_counter(),
             admit_rounds=self.rounds,
             admit_passes=self.passes,
             admit_blocks_read=self.blocks_read,
             admit_blocks_considered=self.blocks_considered,
             admit_tuples_read=self.tuples_read,
+            stop=stop if stop is not None else self.spec.default_stop,
         )
         return qid
 
-    def retire(self, slot: int, *, exact: bool, terminated: bool) -> QueryOutcome:
+    def peek(self, slot: int) -> AnytimeAnswer:
+        """The current anytime answer of a live slot, from the last poll's
+        host mirrors only (no device work). Selection and margins repeat
+        the device's f32 arithmetic in the same association, with its
+        tie rule (stable ascending sort), so at a poll the set equals
+        what retirement reports; `retire` calls this too."""
+        t = self.tickets[slot]
+        tau = self._tel_tau[slot]
+        du = float(self._delta_upper[slot])
+        eps32 = np.float32(t.eps)
+        if t.qtype == "closeness":
+            close = np.flatnonzero(self._in_top_k_host[slot])
+            ids = close[np.argsort(tau[close], kind="stable")]
+            gap32 = np.float32(t.gap)
+            split32 = eps32 + np.float32(0.5) * gap32
+            sel = tau[ids]
+            margin = np.maximum(np.maximum(sel - eps32, (eps32 + gap32) - sel), np.float32(0.0))
+        else:
+            order = np.argsort(tau, kind="stable")
+            ids = order[: t.k].copy()
+            if t.k >= self.spec.v_z:
+                split32 = np.float32(tau.max())
+            else:
+                split32 = np.float32(0.5) * (tau[order[t.k - 1]] + tau[order[t.k]])
+            sel = tau[ids]
+            margin = np.maximum(
+                np.minimum(eps32, (split32 + np.float32(0.5) * eps32) - sel), np.float32(0.0)
+            )
+        n_min = float(self._tel_n.min())
+        return AnytimeAnswer(
+            qid=t.qid,
+            qtype=t.qtype,
+            status="live",
+            ids=ids,
+            tau=sel.copy(),
+            margin=margin,
+            split=float(split32),
+            n_min=n_min,
+            tau_min=float(tau.min()),
+            eps_n=_metric_eps_np(n_min, t.delta / self.spec.v_z, self.spec.v_x, self.spec.metric),
+            delta_upper=du,
+            confidence=max(0.0, 1.0 - du),
+            round=self.rounds,
+            tuples=self.tuples_read,
+            tuples_live=self.tuples_read - t.admit_tuples_read,
+            eps=t.eps,
+            delta=t.delta,
+            metric=self.spec.metric,
+        )
+
+    def retire(
+        self,
+        slot: int,
+        *,
+        exact: bool,
+        terminated: bool,
+        stopped: bool = False,
+        stop_reason: str = "",
+    ) -> QueryOutcome:
         """Snapshot a slot's answer, free the slot, record the outcome.
-        ``exact`` is forced True when every block has been read. Call at
-        a poll boundary (mirrors fresh)."""
+        ``exact`` is forced True when every block has been read;
+        ``stopped``/``stop_reason`` record an SLA stop. Call at a poll
+        boundary (mirrors fresh)."""
+        anytime = self.peek(slot)
         t = self.tickets.pop(slot)
         exact = exact or bool(self.read_mask.all())
         view = slot_state(self.state, slot)
-        ids = histsim.top_k_ids(view, t.k).cpu().numpy()
+        if t.qtype == "closeness":
+            # the close labels, nearest first; their number is data-dependent
+            close = np.flatnonzero(view.in_top_k.cpu().numpy())
+            ids = close[np.argsort(view.tau.cpu().numpy()[close], kind="stable")]
+        else:
+            ids = histsim.top_k_ids(view, t.k).cpu().numpy()
         # a query admitted and retired inside one running pass still saw
         # sampling activity — count that partial pass
         passes = self.passes - t.admit_passes
@@ -496,17 +952,40 @@ class SharedCountsScheduler:
             blocks_considered=self.blocks_considered - t.admit_blocks_considered,
             tuples_read=self.tuples_read - t.admit_tuples_read,
             wall_time_s=time.perf_counter() - t.admit_time,
+            qtype=t.qtype,
+            stopped=stopped,
+            stop_reason=stop_reason,
+            anytime=anytime,
         )
+        anytime.status = "done"
+        anytime.exact = outcome.exact
+        anytime.stopped = stopped
+        anytime.stop_reason = stop_reason
         self.state = clear_slot(self.state, slot)
+        self._closeness_live -= t.qtype == "closeness"
         self.outcomes[t.qid] = outcome
         return outcome
 
     def _poll_terminated(self) -> None:
-        """Retire every live query whose bound fired at the last poll."""
+        """Retire every live query whose bound fired at the last poll,
+        then every one whose `StopPolicy` fires (the statistical rule
+        wins a tie)."""
         du = self._delta_upper
+        now = time.perf_counter()
         for slot in list(self.tickets):
-            if du[slot] < self.tickets[slot].delta:
+            t = self.tickets[slot]
+            if du[slot] < t.delta:
                 self.retire(slot, exact=False, terminated=True)
+                continue
+            if t.stop is None:
+                continue
+            reason = t.stop.fired(
+                wall_s=now - t.admit_time,
+                confidence=max(0.0, 1.0 - float(du[slot])),
+                tuples=self.tuples_read - t.admit_tuples_read,
+            )
+            if reason:
+                self.retire(slot, exact=False, terminated=False, stopped=True, stop_reason=reason)
 
     # -- the loop ----------------------------------------------------------
 
@@ -517,6 +996,12 @@ class SharedCountsScheduler:
         ]
         return self.source.stream(windows, pad_to=self.window), len(windows)
 
+    def _dispatch_round(self, wd: WindowData) -> None:
+        self.state, self.cursor = fused_round(
+            self.state, self.cursor, wd, spec=self.spec, policy=self.policy,
+            closeness=self._closeness_live > 0,
+        )
+
     def run_window(self, win: np.ndarray) -> int:
         """Mark one window against the union active set, ingest the marked
         blocks, and poll. Returns the number of blocks read."""
@@ -524,10 +1009,7 @@ class SharedCountsScheduler:
         if win.size == 0:
             return 0
         before = self.blocks_read
-        wd = self.source.fetch(win, pad_to=max(self.window, win.size))
-        self.state, self.cursor = fused_round(
-            self.state, self.cursor, wd, spec=self.spec, policy=self.policy
-        )
+        self._dispatch_round(self.source.fetch(win, pad_to=max(self.window, win.size)))
         self._sync()
         return self.blocks_read - before
 
@@ -548,15 +1030,26 @@ class SharedCountsScheduler:
                 )
         finally:
             stream.close()
-        self.state = stats_step(self.state, spec=self.spec)
+        self._stats_step()
         self._sync()
 
-    def pump(self, *, max_rounds: int = 1_000_000, max_passes: int = 4) -> None:
+    def pump(
+        self,
+        *,
+        max_rounds: int = 1_000_000,
+        max_passes: int = 4,
+        on_round: Optional[Callable[["SharedCountsScheduler"], None]] = None,
+    ) -> None:
         """Drive windows until every live query resolves, polling every
-        ``poll_every`` windows; retirement and the budget check happen at
-        polls. The budgets count this call only."""
+        ``poll_every`` windows; retirement, ``on_round`` (the serving
+        front end admits queued queries there) and the budget check
+        happen at polls. The budgets count this call only; a budget cut
+        leaves the live queries best-effort and sets
+        ``budget_exhausted``."""
+        self.budget_exhausted = False
         self._sync()
         rounds0, passes0 = self.rounds, self.passes
+        # a late query may already terminate on the accumulated counts
         self._poll_terminated()
         while self.tickets and self.passes - passes0 < max_passes:
             pass_order = self.order[~self.read_mask[self.order]]
@@ -568,13 +1061,14 @@ class SharedCountsScheduler:
             stream, n_rounds = self._open_pass_stream(pass_order)
             try:
                 for dispatched, wd in enumerate(stream, start=1):
-                    self.state, self.cursor = fused_round(
-                        self.state, self.cursor, wd, spec=self.spec, policy=self.policy
-                    )
+                    self._dispatch_round(wd)
                     if dispatched % self.poll_every == 0 or dispatched == n_rounds:
                         self._sync()
                         self._poll_terminated()
+                        if on_round is not None:
+                            on_round(self)
                         if self.rounds - rounds0 >= max_rounds:
+                            self.budget_exhausted = True
                             return  # budget cut: live queries stay best-effort
                         if not self.tickets:
                             break
@@ -593,3 +1087,5 @@ class SharedCountsScheduler:
             for slot in list(self.tickets):
                 fired = bool(du[slot] < self.tickets[slot].delta)
                 self.retire(slot, exact=True, terminated=fired)
+            if on_round is not None:
+                on_round(self)

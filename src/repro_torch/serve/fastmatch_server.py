@@ -1,0 +1,458 @@
+"""FastMatch query server: N concurrent matching queries, one I/O stream.
+
+Port of `repro.serve.fastmatch_server`. `MatchServer` is a request
+queue feeding a fixed pool of ``max_queries`` slots over one
+`SharedCountsScheduler`. It serves top-k matching (`submit`) and
+tolerant closeness testing (`submit_closeness`) through the same queue
+and counts matrix, in the metric chosen at construction:
+
+  admission  — queued requests enter free slots at every poll, mid-
+               stream; a new query starts from the shared counts
+               accumulated so far (sampling is target-independent)
+  serving    — one AnyActive marking (kernel A) per window against the
+               union of the slots' active sets, one shared ingest
+               (kernel B), one tau launch for all slots (kernel C)
+  retirement — a query leaves its slot when its own bound fires (or its
+               `StopPolicy` does) and becomes a `MatchResult`
+  cache      — the shared counts and read mask live as long as the
+               server: once they cover a later query's needs it answers
+               with no new I/O
+
+Anytime serving: `poll_result(rid)` returns the current `AnytimeAnswer`
+of a request from the last poll's host mirrors, without device work;
+`iter_results(rid)` drives `step()` and yields each answer as it
+tightens, ending with the final one. A stopped query retires with the
+answer of its stopping poll.
+
+Per-query counters (blocks/tuples/rounds) count what was read while
+that query was live. Runs on CUDA unless ``device="cpu"``.
+
+Not ported yet, and refused with `NotImplementedError` naming the
+ROADMAP item: the mesh and data-parallel pump servers (A9), the
+prefetching source, on-disk cache snapshots and restarts (A6),
+telemetry and its exports (A7), and tuned kernel plans (A8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Deque, Dict, Optional
+
+import numpy as np
+
+from repro_torch.core.engine import MatchResult
+from repro_torch.core.multiquery import (
+    AnytimeAnswer,
+    MultiQuerySpec,
+    QueryOutcome,
+    SharedCountsScheduler,
+    StopPolicy,
+)
+from repro_torch.io import as_block_source
+
+__all__ = [
+    "AnytimeAnswer",
+    "MatchQuery",
+    "MatchServer",
+    "StopPolicy",
+    "answer_from_result",
+]
+
+# Reference options this port does not have yet: name -> (the value that
+# leaves the feature off, the ROADMAP item that ports it).
+_UNPORTED = {
+    "mesh": (None, "A9"),
+    "model_axis": ("model", "A9"),
+    "pump": (False, "A9"),
+    "data_axes": (("data",), "A9"),
+    "prefetch": (False, "A6"),
+    "checkpoint_dir": (None, "A6"),
+    "autosave_every": (8, "A6"),
+    "autosave_rounds": (None, "A6"),
+    "checkpoint_keep_last": (3, "A6"),
+    "telemetry": (None, "A7"),
+    "kernel_plans": (None, "A8"),
+}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def answer_from_result(res: MatchResult, *, metric: str) -> AnytimeAnswer:
+    """A blocking `MatchResult` as a ``status="done"`` anytime answer.
+    The per-poll fields it cannot recover (split, eps_n, the query's eps
+    and delta) come back NaN; the set, tau, margin and delta_upper are
+    exact."""
+    ids = np.asarray(res.ids)
+    tau_full = res.state.tau.cpu().numpy()
+    du = float(res.delta_upper)
+    return AnytimeAnswer(
+        qid=-1, qtype=res.qtype, status="done", ids=ids,
+        tau=tau_full[ids], margin=res.state.eps_i.cpu().numpy()[ids],
+        split=float("nan"), n_min=float(res.state.n.min()),
+        tau_min=float(tau_full.min()), eps_n=float("nan"),
+        delta_upper=du, confidence=max(0.0, 1.0 - du),
+        round=res.rounds, tuples=res.tuples_read,
+        tuples_live=res.tuples_read, eps=float("nan"),
+        delta=float("nan"), metric=metric,
+        exact=res.exact, stopped=res.stopped,
+        stop_reason=res.stop_reason, result=res,
+    )
+
+
+@dataclasses.dataclass
+class MatchQuery:
+    """One queued request: a top-k match or a tolerant closeness test
+    (qtype="closeness", k unused, gap > 0)."""
+
+    rid: int
+    target: np.ndarray  # (V_X,) unnormalized or normalized target histogram
+    k: int
+    eps: float
+    delta: float
+    submit_time: float
+    qtype: str = "topk"  # "topk" | "closeness"
+    gap: float = 0.0  # closeness promise gap
+    stop: Optional[StopPolicy] = None  # SLA policy; None = server default
+
+
+class MatchServer:
+    """Serve top-k and closeness queries over one shared sample stream."""
+
+    def __init__(
+        self,
+        dataset,
+        *,
+        device=None,
+        max_queries: int = 8,
+        criterion: str = "histsim",
+        policy: str = "anyactive",
+        lookahead: int = 512,
+        seed: int = 0,
+        start_block: Optional[int] = None,
+        max_passes: int = 64,
+        poll_every: int = 1,
+        k_cap: Optional[int] = None,
+        metric: str = "l1",
+        bounds_mode: str = "native",
+        prune: bool = False,
+        default_stop: Optional[StopPolicy] = None,
+        **unported,
+    ):
+        # k_cap: static bound on any query's k (the deviation assignment
+        # then reads k_cap + 1 order statistics). metric: the distance
+        # every query is stated in. bounds_mode: "native" (tau-aware
+        # per-metric budgets) or "conservative". prune: early-reject of
+        # certified-far candidates from the I/O marking. default_stop:
+        # StopPolicy for queries submitted without one.
+        for name, value in unported.items():
+            if name not in _UNPORTED:
+                raise TypeError(f"MatchServer() got an unexpected keyword argument {name!r}")
+            off, item = _UNPORTED[name]
+            if (tuple(value) if name == "data_axes" else value) != off:
+                raise _not_ported(f"MatchServer({name}=...)", item)
+        source = as_block_source(dataset, device=device)
+        self.spec = MultiQuerySpec(
+            v_z=source.v_z,
+            v_x=source.v_x,
+            max_queries=max_queries,
+            criterion=criterion,
+            k_cap=k_cap,
+            metric=metric,
+            bounds_mode=bounds_mode,
+            prune=prune,
+            default_stop=default_stop,
+        )
+        self.scheduler = SharedCountsScheduler(
+            source,
+            self.spec,
+            policy=policy,
+            window=lookahead,
+            seed=seed,
+            start_block=start_block,
+            poll_every=poll_every,
+        )
+        self.max_passes = max_passes
+        self.pending: Deque[MatchQuery] = deque()
+        self.results: Dict[int, MatchResult] = {}
+        self._rid_of_qid: Dict[int, int] = {}
+        self._qid_of_rid: Dict[int, int] = {}  # live queries only
+        # retirement-time anytime answers, so a done poll replays the final one
+        self._anytime: Dict[int, AnytimeAnswer] = {}
+        self._submit_time: Dict[int, float] = {}
+        self._next_rid = 0
+        # step()'s pass cursor (None = start a fresh pass next step)
+        self._pass_order: Optional[np.ndarray] = None
+        self._pass_pos = 0
+        self._pass_read = 0
+        self._pass_start_rounds = 0
+
+    # -- request queue -----------------------------------------------------
+
+    def submit(
+        self,
+        target: np.ndarray,
+        *,
+        k: int,
+        eps: float = 0.06,
+        delta: float = 0.01,
+        stop: Optional[StopPolicy] = None,
+    ) -> int:
+        """Queue a top-k query; returns a request id resolved in
+        `results`. Validated here, so a malformed request never waits in
+        the queue."""
+        target = np.asarray(target, np.float64).ravel()
+        if target.shape != (self.spec.v_x,):
+            raise ValueError(f"target must have shape ({self.spec.v_x},), got {target.shape}")
+        if not (0 < k <= self.spec.v_z):
+            raise ValueError(f"need 0 < k <= V_Z={self.spec.v_z}, got k={k}")
+        if self.spec.k_cap is not None and k > self.spec.k_cap:
+            raise ValueError(f"k={k} exceeds the server's k_cap={self.spec.k_cap}")
+        return self._enqueue(target, k=k, eps=eps, delta=delta, stop=stop)
+
+    def submit_closeness(
+        self,
+        target: np.ndarray,
+        *,
+        eps: float,
+        gap: float,
+        delta: float = 0.01,
+        stop: Optional[StopPolicy] = None,
+    ) -> int:
+        """Queue a tolerant closeness test; returns a request id. The
+        result's ``ids`` are every candidate labeled close, nearest
+        first: w.p. >= 1 - delta none beyond ``eps + gap`` is among them
+        and none within ``eps`` is missing."""
+        target = np.asarray(target, np.float64).ravel()
+        if target.shape != (self.spec.v_x,):
+            raise ValueError(f"target must have shape ({self.spec.v_x},), got {target.shape}")
+        if not gap > 0.0:
+            raise ValueError(f"closeness needs gap > 0, got gap={gap}")
+        if not eps >= 0.0:
+            raise ValueError(f"closeness needs eps >= 0, got eps={eps}")
+        return self._enqueue(
+            target, k=1, eps=eps, delta=delta, qtype="closeness", gap=gap, stop=stop
+        )
+
+    def _enqueue(
+        self, target, *, k, eps, delta, qtype: str = "topk", gap: float = 0.0,
+        stop: Optional[StopPolicy] = None,
+    ) -> int:
+        rid = self._next_rid
+        self._next_rid += 1
+        self.pending.append(
+            MatchQuery(
+                rid=rid, target=target, k=k, eps=eps, delta=delta,
+                submit_time=time.perf_counter(), qtype=qtype, gap=gap, stop=stop,
+            )
+        )
+        return rid
+
+    def _admit_free(self, _sched: Optional[SharedCountsScheduler] = None) -> None:
+        """Fill free slots from the queue (the scheduler's on_round hook)."""
+        while self.pending and self.scheduler.free_slots:
+            q = self.pending.popleft()
+            qid = self.scheduler.admit(
+                q.target, k=q.k, eps=q.eps, delta=q.delta, qtype=q.qtype, gap=q.gap,
+                stop=q.stop,
+            )
+            self._rid_of_qid[qid] = q.rid
+            self._qid_of_rid[q.rid] = qid
+            self._submit_time[q.rid] = q.submit_time
+        self._collect()
+
+    def _collect(self) -> None:
+        """Turn freshly retired scheduler outcomes into MatchResults."""
+        for qid, out in list(self.scheduler.outcomes.items()):
+            rid = self._rid_of_qid.pop(qid, None)
+            if rid is None:
+                continue  # already collected
+            self._qid_of_rid.pop(rid, None)
+            del self.scheduler.outcomes[qid]
+            res = self.results[rid] = self._to_result(rid, out)
+            if out.anytime is not None:
+                out.anytime.result = res
+                self._anytime[rid] = out.anytime
+
+    def _to_result(self, rid: int, out: QueryOutcome) -> MatchResult:
+        return MatchResult(
+            ids=out.ids,
+            state=out.state,
+            rounds=out.rounds,
+            blocks_read=out.blocks_read,
+            blocks_considered=out.blocks_considered,
+            tuples_read=out.tuples_read,
+            wall_time_s=time.perf_counter() - self._submit_time.pop(rid),
+            exact=out.exact,
+            passes=out.passes,
+            qtype=out.qtype,
+            stopped=out.stopped,
+            stop_reason=out.stop_reason,
+        )
+
+    # -- warm-start persistence (not ported) ---------------------------------
+
+    def save_cache(self):
+        raise _not_ported("MatchServer.save_cache", "A6")
+
+    def restore_cache(self, step: Optional[int] = None):
+        raise _not_ported("MatchServer.restore_cache", "A6")
+
+    @classmethod
+    def restore(cls, dataset, *, checkpoint_dir: str, step: Optional[int] = None, **kwargs):
+        raise _not_ported("MatchServer.restore", "A6")
+
+    # -- serving loop ------------------------------------------------------
+
+    def step(self) -> None:
+        """Admit + one window + retire: the unit of incremental serving.
+
+        Keeps `pump`'s cyclic pass structure: a pass visits every unread
+        block window by window; when a whole pass reads nothing for the
+        live queries (or no unread block is left), they are completed
+        exactly. (The reference also skips quarantined blocks here; the
+        port has no quarantine yet, ROADMAP A6.)
+        """
+        self._admit_free()
+        sched = self.scheduler
+        if not sched.tickets:
+            return
+        if self._pass_order is None or self._pass_pos >= len(self._pass_order):
+            unread = sched.order[~sched.read_mask[sched.order]]
+            # a zero-read pass proves sampling exhausted only for the
+            # queries live during it: a query admitted in its final
+            # windows gets a fresh pass first
+            fresh = any(t.admit_rounds >= self._pass_start_rounds for t in sched.tickets.values())
+            stalled = self._pass_order is not None and self._pass_read == 0 and not fresh
+            if unread.size == 0 or stalled:
+                sched.complete_remaining()
+                du = sched._delta_upper  # fresh: complete_remaining polls
+                for slot in list(sched.tickets):
+                    fired = bool(du[slot] < sched.tickets[slot].delta)
+                    sched.retire(slot, exact=True, terminated=fired)
+                self._pass_order = None
+                self._collect()
+                return
+            self._pass_order = unread
+            self._pass_pos = 0
+            self._pass_read = 0
+            self._pass_start_rounds = sched.rounds
+            sched.passes += 1
+        win = self._pass_order[self._pass_pos : self._pass_pos + sched.window]
+        self._pass_pos += len(win)
+        # blocks read since this pass was planned (a run_until_idle in
+        # between) are skipped
+        win = win[~sched.read_mask[win]]
+        if win.size:
+            self._pass_read += sched.run_window(win)
+            sched._poll_terminated()
+        self._collect()
+
+    def run_until_idle(self, *, max_rounds: int = 1_000_000) -> Dict[int, MatchResult]:
+        """Drain the queue: serve until every submitted query has a result."""
+        self._pass_order = None  # invalidate step()'s cursor
+        while self.pending or self.scheduler.tickets:
+            self._admit_free()
+            if not self.scheduler.tickets:
+                break
+            self.scheduler.pump(
+                max_rounds=max_rounds, max_passes=self.max_passes, on_round=self._admit_free
+            )
+            if self.scheduler.budget_exhausted:
+                # a query admitted in the budget's last round may already
+                # hold its bound on the warm counts
+                self.scheduler._poll_terminated()
+                for slot in list(self.scheduler.tickets):
+                    self.scheduler.retire(slot, exact=False, terminated=False)
+            self._collect()
+        return dict(self.results)
+
+    # -- anytime API -------------------------------------------------------
+
+    def poll_result(self, rid: int) -> AnytimeAnswer:
+        """The current answer for ``rid``, from host mirrors only.
+
+        status="live": the best set so far with its statement
+        (`SharedCountsScheduler.peek` of the last poll). "queued": a
+        vacuous statement (delta_upper=1, empty set). "done": the final
+        statement of the retirement poll, ``.result`` the `MatchResult`.
+        Unknown request ids raise KeyError.
+        """
+        self._collect()
+        if rid in self._anytime:
+            return self._anytime[rid]
+        if rid in self.results:
+            return answer_from_result(self.results[rid], metric=self.spec.metric)
+        qid = self._qid_of_rid.get(rid)
+        if qid is not None:
+            sched = self.scheduler
+            for slot, t in sched.tickets.items():
+                if t.qid == qid:
+                    return sched.peek(slot)
+        for q in self.pending:
+            if q.rid == rid:
+                return AnytimeAnswer(
+                    qid=-1, qtype=q.qtype, status="queued",
+                    ids=np.zeros(0, np.int64), tau=np.zeros(0, np.float32),
+                    margin=np.zeros(0, np.float32), split=float("nan"),
+                    n_min=0.0, tau_min=float("nan"), eps_n=float("inf"),
+                    delta_upper=1.0, confidence=0.0,
+                    round=self.scheduler.rounds,
+                    tuples=self.scheduler.tuples_read, tuples_live=0,
+                    eps=q.eps, delta=q.delta, metric=self.spec.metric,
+                )
+        raise KeyError(f"unknown request id {rid}")
+
+    def iter_results(self, rid: int, *, max_steps: int = 100_000):
+        """Stream refining answers for ``rid``: drives `step()` between
+        polls (other queries advance too) and yields an answer whenever
+        the statement changes, ending with the ``status="done"`` one.
+        ``max_steps`` bounds the drive; the query keeps its slot."""
+        last = None
+        for _ in range(max_steps):
+            ans = self.poll_result(rid)
+            key = (ans.status, ans.round, ans.delta_upper, ans.ids.tobytes())
+            if key != last:
+                last = key
+                yield ans
+            if ans.status == "done":
+                return
+            self.step()
+        ans = self.poll_result(rid)
+        if ans.status == "done":
+            yield ans
+
+    # -- observability -----------------------------------------------------
+
+    @property
+    def metrics(self) -> Dict[str, object]:
+        sched = self.scheduler
+        done = len(self.results)
+        return {
+            "queries_done": done,
+            "queries_queued": len(self.pending),
+            "queries_live": sched.num_live,
+            "queries_pending": len(self.pending) + sched.num_live,
+            "total_blocks_read": sched.blocks_read,
+            "total_tuples_read": sched.tuples_read,
+            "total_rounds": sched.rounds,
+            "fraction_read": float(sched.read_mask.mean()) if sched.read_mask.size else 0.0,
+            "tuples_per_query": float(sched.tuples_read / done) if done else 0.0,
+            # The fault layer (quarantine, supervisor, load shedding) fills
+            # these in the reference; a server without it is healthy by
+            # construction, so these are their true values here.
+            "last_error": "",
+            "queries_shed": 0,
+            "blocks_quarantined": 0,
+            "degraded": False,
+            "eps_inflation": 0.0,
+        }
+
+    def export_trace(self, path) -> int:
+        raise _not_ported("MatchServer.export_trace", "A7")
+
+    def prometheus_metrics(self) -> str:
+        raise _not_ported("MatchServer.prometheus_metrics", "A7")

@@ -17,6 +17,7 @@ from repro_torch.core import engine, histsim
 from repro_torch.data.layout import block_layout
 from repro_torch.data.synth import SynthSpec, make_dataset
 from repro_torch.kernels import anyactive, histogram, metrics, ops, ref
+from repro_torch.serve import MatchServer
 
 TAU_ATOL = 2e-5
 
@@ -133,6 +134,24 @@ def test_distance_multi(cuda, metric, q, v_z, v_x):
     torch.testing.assert_close(got, want, atol=TAU_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("metric", list(metrics.METRIC_NAMES))
+@pytest.mark.parametrize("q", [8, 16])
+def test_distance_multi_at_max_queries(cuda, metric, q):
+    """Kernel C as the serving path launches it: Q = max_queries targets
+    at the TAXI shape, through the op the scheduler calls."""
+    rng = np.random.default_rng(q)
+    counts = rng.integers(0, 400, size=(7548, 24)).astype(np.float32)
+    counts[rng.random(7548) < 0.1] = 0.0
+    q_hat = np.stack([rng.dirichlet(np.ones(24)) for _ in range(q)]).astype(np.float32)
+    c, t = _t(counts, cuda), _t(q_hat, cuda)
+    before = ops.KERNELS["distance_multi"].launches
+    got = ops.distance_multi(c, t, metric=metric)
+    assert ops.KERNELS["distance_multi"].launches == before + 1
+    assert got.shape == (q, 7548)
+    torch.testing.assert_close(got, metrics.distance_multi_ref(c, t, metric=metric),
+                               atol=TAU_ATOL, rtol=0)
+
+
 def test_anyactive_bit_31(cuda):
     rng = np.random.default_rng(3)
     bm = rng.integers(0, 2**32, size=(512, 236), dtype=np.uint32)
@@ -221,3 +240,47 @@ def test_engine_on_card_equals_cpu(cuda):
         assert getattr(a, f) == getattr(b, f), f
     assert torch.equal(a.state.counts.cpu(), b.state.counts)
     torch.testing.assert_close(a.state.tau.cpu(), b.state.tau, atol=TAU_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("metric", list(metrics.METRIC_NAMES))
+def test_server_on_card_equals_cpu(cuda, metric):
+    """Mixed top-k and closeness serving with late admission and a stop
+    policy: the same ids, counters and stop fields on the card and on
+    the CPU."""
+    from repro_torch.core.multiquery import StopPolicy
+    from repro_torch.data.synth import perturb_distribution
+
+    spec = SynthSpec(v_z=48, v_x=16, num_tuples=300_000, k=5, n_close=6,
+                     close_distance=0.03, far_distance=0.4, zipf_a=1.0, seed=3)
+    ds = make_dataset(spec)
+    blocked = block_layout(ds.z, ds.x, v_z=48, v_x=16, block_size=512, seed=3)
+    rng = np.random.default_rng(5)
+    targets = [ds.target] + [perturb_distribution(ds.target, d, rng) for d in (0.05, 0.1)]
+    eps_c, gap = {"l1": (0.1, 0.25), "chi2": (0.02, 0.08), "hellinger": (0.01, 0.04)}[metric]
+    runs = []
+    for device in ("cuda", "cpu"):
+        before = {name: kern.launches for name, kern in ops.KERNELS.items()}
+        srv = MatchServer(blocked, device=device, max_queries=3, lookahead=16, seed=3,
+                          metric=metric, prune=metric == "chi2")
+        srv.submit(targets[0], k=5, eps=0.3, delta=0.05)
+        srv.submit(targets[1], k=3, eps=0.3, delta=0.05, stop=StopPolicy(tuples=20_000))
+        srv.submit_closeness(targets[2], eps=eps_c, gap=gap, delta=0.05)
+        while not srv.results:
+            srv.step()
+        srv.submit_closeness(targets[0], eps=eps_c, gap=gap, delta=0.05)  # admitted late
+        results = srv.run_until_idle()
+        launched = {name: kern.launches - before[name] for name, kern in ops.KERNELS.items()}
+        runs.append((results, srv.scheduler, launched))
+    (card, card_sched, launched), (cpu, cpu_sched, cpu_launched) = runs
+    assert sorted(card) == sorted(cpu) == [0, 1, 2, 3]
+    for rid in cpu:
+        a, b = card[rid], cpu[rid]
+        np.testing.assert_array_equal(a.ids, b.ids)
+        for f in ("rounds", "passes", "blocks_read", "tuples_read", "exact", "stopped",
+                  "stop_reason", "qtype"):
+            assert getattr(a, f) == getattr(b, f), (rid, f)
+        torch.testing.assert_close(a.state.tau.cpu(), b.state.tau, atol=TAU_ATOL, rtol=0)
+    assert torch.equal(card_sched.state.counts.cpu(), cpu_sched.state.counts)
+    assert launched["anyactive"] == launched["histogram"] == card_sched.rounds
+    assert launched["distance_multi"] > card_sched.rounds
+    assert all(v == 0 for v in cpu_launched.values())

@@ -248,13 +248,16 @@ class TestStateCarryOver:
         assert sched.rounds == 2 and sched.blocks_read == 32
 
     def test_rejects_closeness_state(self):
+        """Closeness slots are carried now; a query type neither package
+        knows is still refused."""
         spec = jmq.MultiQuerySpec(v_z=40, v_x=4, max_queries=2)
         leaves = _leaves(jmq.init_multi_state(spec))
-        leaves["qtype"] = np.array([0, 1], np.int32)
+        leaves["qtype"] = np.array([0, 2], np.int32)
         with pytest.raises(ValueError, match="qtype"):
             convert.multi_state_from_numpy(leaves, device="cpu")
-        leaves["qtype"] = np.zeros(2, np.int32)
+        leaves["qtype"] = np.array([0, 1], np.int32)
         state = convert.multi_state_from_numpy(leaves, device="cpu")
+        assert state.qtype.dtype == torch.int64 and state.qtype.tolist() == [0, 1]
         assert state.active_words.dtype == torch.int32 and state.k.dtype == torch.int64
         ref_words = jnp.full((2,), 0xFFFFFFFF, jnp.uint32)
         leaves["union_words"] = np.asarray(ref_words)
