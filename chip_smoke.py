@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FastMatch on one NVIDIA GPU and check it.
 
-Run from the root of a checkout (one card; about 4 to 6 minutes at the
+Run from the root of a checkout (one card; about 5 to 7 minutes at the
 default size, most of it generating the dataset on the host):
 
     python3 chip_smoke.py [--tuples N] [--seed S]
@@ -24,34 +24,50 @@ Phases, each of which raises (non-zero exit) when a check fails:
    and of uniform, out-of-range and empty batches: bitwise equal to its
    plain version, its inputs unchanged and its scratch back at zero,
    and the fresh histograms it also serves; the batched distance at
-   7548 x 24 for Q in {1, 8} and every metric, and at 256 x 8192 (the
-   reference's two-sweep form). Integer outputs must be equal, tau
-   within 2e-5. Each check prints its device time (CUDA events around
+   7548 x 24 (narrow branch) for Q in {1, 8} and every metric, and at
+   256 x 8192 (wide branch, the reference's two-sweep form), each in its
+   f32 and its uint16 form (bitwise the f32 form), and the uint16 gate
+   on counts holding 70,000 (both branches: bitwise the f32 form).
+   Integer outputs must be equal, tau within 2e-5. Each check prints its device time (CUDA events around
    launches queued behind a sleep kernel, so the card runs them back to
    back), the kernel alone into preallocated outputs, the plain
    version's and, where one PyTorch call computes the same function,
    that call's; beside B and C, the whole `multiquery.ingest` and
-   `multiquery.stats_step` at Q = 1. One ingest
-   under the profiler must run kernel B and nothing else.
+   `multiquery.stats_step` at Q = 1, the whole gated uint16 tau step,
+   kernel C under the plan the scheduler resolves for the taxi key at
+   Q = 1 and 8 (the main path's launch; ``plan`` and ``plan_ms`` in the
+   ``kernels`` line) and the reference's one-broadcast `xla` form (plain
+   PyTorch). One ingest under the profiler must run kernel B and
+   nothing else.
 3. The engine on the test fixture (3M tuples): FastMatch at seed 3 on the
    card and on the CPU must return the same ids, counters and counts,
    and tau within 2e-5. Then `MatchServer` on the same fixture, for
    metric l1 and hellinger: three top-k queries (one with a tuples
    stop) and two closeness queries admitted after the first
    retirement; the card and the CPU must give the same ids, counters
-   and stop fields.
+   and stop fields. Then l1 on the card again under
+   ``kernel_plans=PlanPair(TauPlan(sweeps=2, lowprec=True),
+   IngestPlan(fused=False))``: kernel C's wide uint16 branch and the
+   unfused ingest must give the default plans' ids and counters.
 4. The engine at the paper's data scale: the TAXI-q1 shape (V_Z = 7548,
    V_X = 24, zipf 0.3, k = 10, eps = 0.12, delta = 0.01, lookahead 512)
-   with 400M tuples resident on the card. FastMatch (seed 0) runs with
-   every kernel's launch count set to 0 just before and read just
-   after; each must have launched, kernels A and B once per round (and
-   at 400M, seed 0: 27 rounds, 12,395 blocks). Then Scan, counts reset
+   with 400M tuples resident on the card, under the kernel plans the
+   scheduler resolves from benchmarks/results/tuned_torch/cuda.json
+   (printed). FastMatch (seed 0) runs with every kernel's launch count
+   set to 0 just before and read just after; kernels A and B must have
+   launched once per round (and at 400M, seed 0: 27 rounds, 12,395
+   blocks), kernel C in the form the plan names (Q times a stats step
+   under an unrolled plan) and in no other form. Then Scan, counts reset
    again: A and B once per round, and its tau must equal the
    generator's true distances within 2e-5, FastMatch must not be exact,
    must read under half the blocks and must meet Guarantee 1 against
-   Scan's exact distances. A second FastMatch run under torch.profiler
-   gives the device time by kernel and the PyTorch launches per round,
-   and must gather no rows of the bitmap table.
+   Scan's exact distances. Both run again under a pinned lowprec plan
+   (a plan file under build/): the same ids, rounds and blocks, kernel C
+   only in its uint16 form, Scan's tau again within 2e-5 of the true
+   distances; Scan's final max count says whether the gate tripped.
+   A second FastMatch run under torch.profiler gives the device time by
+   kernel and the PyTorch launches per round, and must gather no rows of
+   the bitmap table.
 5. Serving at full width on phase 4's resident table: `MatchServer(
    max_queries=8, lookahead=512, metric="l1")` answers 8 top-k queries
    (k = 10, eps = 0.12, delta = 0.01; the dataset's target and 7
@@ -60,16 +76,25 @@ Phases, each of which raises (non-zero exit) when a check fails:
    (eps = 0.10, gap = 0.20, delta = 0.01) submitted after the first
    retirement, one of them followed through `iter_results`. Counts at
    0 just before, read just after: kernels A and B once per round,
-   kernel C once per statistics step, always at Q = 8. Every answer is
+   kernel C per statistics step as the server's resolved plan says
+   (printed), always called at Q = 8. Every answer is
    checked against the exact tau (kernel C's plain version over Scan's
    final counts): top-k answers (eps, k)-correct, closeness labels
    right outside the gap, the stop and the stream as specified. It
    prints walls, rounds, host syncs, shared against solo tuples, a warm
    re-submission's tuples, a profiled rerun's kernels and launches per
    round, and kernel C and `stats_step` at Q = 8.
+6. The tuner on the card at the taxi keys (Q = 1 and 8 for l1, Q = 8
+   for chi2 and hellinger, and the ingest) into build/tuned_smoke/: every
+   candidate's time, and whether each winner is the committed file's
+   (reported, not checked).
 
-The last lines are the ``kernels`` JSON line, the card's name and power
-limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
+Every kernel must have launched on some path, each path's counts set to
+0 just before it and read just after; a kernel's ``launches`` in the
+``kernels`` line are those of the first path that runs it (``path``),
+with every path's count beside them. The last lines are the
+``kernels`` JSON line, the card's name and power limit from
+nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
 also go to ``chiprun_out/chip_smoke.json``. Exits 2 without a CUDA
 device or outside a checkout of the repository.
 """
@@ -77,6 +102,7 @@ device or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import math
@@ -318,31 +344,54 @@ def phase_kernels(torch, timer) -> dict:
           "ingest_ms": ingest_ms, "ingest_host_us": ingest_host * 1e3,
           "ingest_kernels": ingest_kernels})
 
-    # -- C: batched distance, main-path shape and the two-sweep shape
+    # -- C: batched distance, main-path shape and the two-sweep shape, in
+    # its f32 and its uint16 form
+    from repro_torch.kernels import autotune, ops
+
+    lowprec = autotune.TauPlan(lowprec=True)
     for (vz, vx) in ((7548, 24), (256, 8192)):
         counts_np = rng.integers(0, 40, size=(vz, vx)).astype(np.float32)
         counts_np[rng.random(vz) < 0.2] = 0.0
         counts_np[0] = 0.0  # an empty row
         counts = t(counts_np)
+        c16, fits = counts.to(torch.uint16), torch.amax(counts) <= 65535.0
+        f32_name = "distance_multi" if vx <= metrics.NARROW_MAX_VX else "distance_wide"
         for q in (1, 8):
             q_hat = t(np.stack([rng.dirichlet(np.ones(vx)) for _ in range(q)]).astype(np.float32))
             for metric in metrics.METRIC_NAMES:
                 got = metrics.distance_multi(counts, q_hat, metric=metric)
                 want = metrics.distance_multi_ref(counts, q_hat, metric=metric)
+                got16 = metrics.distance_multi(c16, q_hat, metric=metric, gate=(counts, fits))
+                want16 = metrics.distance_multi_ref(c16, q_hat, metric=metric)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
+                err16 = float((got16 - want16).abs().max())
                 check(err <= TAU_ATOL and bool(torch.isfinite(got).all()),
                       f"distance_multi {metric} Q={q} {vz}x{vx}: max err {err}")
+                check(err16 <= TAU_ATOL and torch.equal(got16, got),
+                      f"distance_multi uint16 {metric} Q={q} {vz}x{vx}: max err {err16}, "
+                      "not bitwise the f32 form")
                 ms, host = timer(lambda: metrics.distance_multi(counts, q_hat, metric=metric))
                 plain, _ = timer(lambda: metrics.distance_multi_ref(counts, q_hat, metric=metric))
+                ms16, host16 = timer(lambda: metrics.distance_multi(
+                    c16, q_hat, metric=metric, gate=(counts, fits)))
+                plain16, _ = timer(lambda: metrics.distance_multi_ref(c16, q_hat, metric=metric))
+                # the whole gate: max, compare, cast and the uint16 launch
+                gated_ms, gated_host = timer(lambda: autotune.run_tau(
+                    counts, q_hat, plan=lowprec, metric=metric))
                 per_elem = {"l1": 4, "chi2": 6, "hellinger": 7}[metric]
-                bnd, by = bound_ms(vz * vx * 4 + q * vx * 4 + q * vz * 4,
-                                   vz * vx * (1 + q * per_elem))
+                n_ops = vz * vx * (1 + q * per_elem)
+                bnd, by = bound_ms(vz * vx * 4 + q * vx * 4 + q * vz * 4, n_ops)
+                bnd16, by16 = bound_ms(vz * vx * 2 + q * vx * 4 + q * vz * 4 + 1, n_ops)
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                            library_ms=None, host_us=host * 1e3)
+                row16 = dict(max_abs_err=err16, ms=ms16, plain_ms=plain16, bound_ms=bnd16,
+                             bound_by=by16, library_ms=None, host_us=host16 * 1e3)
                 extra = {}
+                if (q, metric) == (1, "l1"):
+                    main[f32_name] = row
+                    main[f32_name + "_u16"] = row16
                 if (vz, vx, q, metric) == (7548, 24, 1, "l1"):
-                    main["distance_multi"] = row
                     tau = torch.empty((q, vz), dtype=torch.float32, device=dev)
                     extra["kernel_only_ms"], _ = timer(lambda: metrics.KERNEL.launch(
                         counts.data_ptr(), q_hat.data_ptr(), tau.data_ptr(), vz, vx, q, 0))
@@ -351,8 +400,47 @@ def phase_kernels(torch, timer) -> dict:
                     extra["stats_step_ms"], host = timer(
                         lambda: mq.stats_step(state, spec=spec, closeness=False), reps=5)
                     extra["stats_step_host_us"] = host * 1e3
+                if vx == 24 and metric == "l1":
+                    # the launch the main path makes: the plan the scheduler resolves
+                    # for this key from the committed plan file (phases 4 and 5)
+                    resolved = autotune.resolve_plans(vz, vx, q, metric=metric, device=dev).tau
+                    planned = ops.distance_multi(counts, q_hat, metric=metric, plan=resolved)
+                    torch.cuda.synchronize()
+                    check(float((planned - want).abs().max()) <= TAU_ATOL,
+                          f"the resolved plan {resolved} disagrees at Q={q}")
+                    extra["resolved_plan"] = dataclasses.asdict(resolved)
+                    extra["resolved_ms"], _ = timer(lambda: ops.distance_multi(
+                        counts, q_hat, metric=metric, plan=resolved))
+                    row["plan"], row["plan_ms"] = extra["resolved_plan"], extra["resolved_ms"]
+                    # the reference's one-broadcast form, plain PyTorch: timed, never run
+                    # on the card's path
+                    xla = metrics.distance_multi_xla(counts, q_hat)
+                    extra["xla_max_abs_err"] = float((xla - want).abs().max())
+                    check(extra["xla_max_abs_err"] <= TAU_ATOL, "the xla form disagrees")
+                    extra["xla_ms"], _ = timer(lambda: metrics.distance_multi_xla(counts, q_hat))
                 emit({"check": "distance_multi", "metric": metric, "q": q, "shape": [vz, vx],
-                      **_check_fields(row), **extra})
+                      **_check_fields(row), "u16": _check_fields(row16),
+                      "u16_bitwise_f32": True, "gated_ms": gated_ms,
+                      "gated_host_us": gated_host * 1e3, **extra})
+        # the gate's overflow case: one entry past the uint16 range, which the
+        # cast wraps; every block must read the f32 counts instead
+        over = counts.clone()
+        over[3, 5] = 70_000.0
+        over16, over_fits = over.to(torch.uint16), torch.amax(over) <= 65535.0
+        q_hat = t(np.stack([rng.dirichlet(np.ones(vx)) for _ in range(8)]).astype(np.float32))
+        for metric in metrics.METRIC_NAMES:
+            for sweeps in (0, 2):
+                want = metrics.distance_multi(over, q_hat, metric=metric, sweeps=sweeps)
+                got = metrics.distance_multi(over16, q_hat, metric=metric, sweeps=sweeps,
+                                             gate=(over, over_fits))
+                planned = autotune.run_tau(over, q_hat, metric=metric,
+                                           plan=autotune.TauPlan(sweeps=sweeps, lowprec=True))
+                torch.cuda.synchronize()
+                check(not bool(over_fits) and torch.equal(got, want) and torch.equal(planned, want),
+                      f"the uint16 gate did not fall back exactly ({metric}, {vz}x{vx}, "
+                      f"sweeps={sweeps})")
+        emit({"check": "distance_u16_gate", "shape": [vz, vx], "entry": 70_000.0,
+              "fits": False, "bitwise_f32": True})
     return main
 
 
@@ -520,9 +608,10 @@ SERVE_FIELDS = ("rounds", "passes", "blocks_read", "blocks_considered", "tuples_
                 "stopped", "stop_reason", "qtype")
 
 
-def _serve_fixture(blocked, target, *, device, metric: str) -> dict:
+def _serve_fixture(blocked, target, *, device, metric: str, kernel_plans=None) -> tuple:
     """Mixed serving on the fixture: three top-k queries (one stopped at
-    20,000 tuples), then two closeness queries after the first retirement."""
+    20,000 tuples), then two closeness queries after the first retirement.
+    Returns the results and the server."""
     import numpy as np
 
     from repro_torch.core.multiquery import StopPolicy
@@ -532,7 +621,8 @@ def _serve_fixture(blocked, target, *, device, metric: str) -> dict:
     rng = np.random.default_rng(17)
     targets = [target] + [perturb_distribution(target, d, rng) for d in (0.05, 0.1)]
     eps_k, (eps_c, gap) = {"l1": (0.08, (0.1, 0.2)), "hellinger": (0.05, (0.01, 0.04))}[metric]
-    srv = MatchServer(blocked, device=device, max_queries=4, lookahead=64, seed=3, metric=metric)
+    srv = MatchServer(blocked, device=device, max_queries=4, lookahead=64, seed=3, metric=metric,
+                      kernel_plans=kernel_plans)
     srv.submit(targets[0], k=8, eps=eps_k, delta=0.05)
     srv.submit(targets[1], k=8, eps=eps_k, delta=0.05, stop=StopPolicy(tuples=20_000))
     srv.submit(targets[2], k=4, eps=eps_k, delta=0.05)
@@ -540,15 +630,26 @@ def _serve_fixture(blocked, target, *, device, metric: str) -> dict:
         srv.step()
     for t in targets[:2]:
         srv.submit_closeness(t, eps=eps_c, gap=gap, delta=0.05)
-    return srv.run_until_idle()
+    return srv.run_until_idle(), srv
 
 
-def phase_serving_small(torch, ds, blocked) -> None:
+def phase_serving_small(torch, ds, blocked) -> dict:
+    """Card against CPU for l1 and hellinger, then l1 on the card under a
+    pinned plan that forces kernel C's wide branch in its uint16 form and
+    the unfused ingest: the same answers and counters as the default
+    plans. Returns that run's launches."""
     import numpy as np
 
+    from repro_torch.kernels import autotune, ops
+
+    default_card = None
     for metric in ("l1", "hellinger"):
-        card = _serve_fixture(blocked, ds.target, device="cuda", metric=metric)
-        cpu = _serve_fixture(blocked, ds.target, device="cpu", metric=metric)
+        card, srv = _serve_fixture(blocked, ds.target, device="cuda", metric=metric)
+        cpu, _ = _serve_fixture(blocked, ds.target, device="cpu", metric=metric)
+        check(srv.kernel_plans == autotune.PlanPair(),
+              f"the fixture's shape resolved plans {srv.kernel_plans}")
+        if metric == "l1":
+            default_card = card
         check(sorted(card) == sorted(cpu) == list(range(5)),
               f"served {sorted(card)} on the card, {sorted(cpu)} on the CPU")
         for rid, b in cpu.items():
@@ -562,6 +663,32 @@ def phase_serving_small(torch, ds, blocked) -> None:
               "results": {rid: dict(qtype=r.qtype, ids=len(r.ids), rounds=r.rounds,
                                     tuples=r.tuples_read, exact=r.exact, stopped=r.stopped)
                           for rid, r in sorted(cpu.items())}})
+
+    # -- the wide uint16 branch's path: counts at 0 just before, read just after
+    pinned = autotune.PlanPair(autotune.TauPlan(sweeps=2, lowprec=True),
+                               autotune.IngestPlan(fused=False))
+    for kern in ops.KERNELS.values():
+        kern.launches = 0
+    got, srv = _serve_fixture(blocked, ds.target, device="cuda", metric="l1", kernel_plans=pinned)
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in ops.KERNELS.items()}
+    rounds = srv.scheduler.rounds
+    check(srv.kernel_plans == pinned, f"the server runs {srv.kernel_plans}, not {pinned}")
+    check(sorted(got) == sorted(default_card), "the pinned plans served other requests")
+    for rid, b in default_card.items():
+        a = got[rid]
+        check(np.array_equal(a.ids, b.ids), f"pinned plans, request {rid}: ids {a.ids} vs {b.ids}")
+        for f in SERVE_FIELDS:
+            check(getattr(a, f) == getattr(b, f),
+                  f"pinned plans, request {rid}: {f} {getattr(a, f)} vs {getattr(b, f)}")
+    check(launches["distance_wide_u16"] > 0 and launches["histogram"] == rounds
+          and launches["anyactive"] == rounds,
+          f"the pinned plans launched {launches} in {rounds} rounds")
+    check(all(launches[k] == 0 for k in ("distance_multi", "distance_multi_u16", "distance_wide")),
+          f"the pinned plans launched another form of kernel C: {launches}")
+    emit({"check": "serving_small_pinned_plans", "plans": dataclasses.asdict(pinned),
+          "rounds": rounds, "launches": launches, "equal_to_default_plans": True})
+    return launches
 
 
 def _profile_tables(torch, prof) -> tuple:
@@ -592,7 +719,7 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
     from repro_torch.data.layout import block_layout
     from repro_torch.data.synth import SynthSpec, make_dataset
     from repro_torch.io import InMemorySource
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import autotune, ops
 
     k, eps, delta = 10, 0.12, 0.01
     spec = SynthSpec(v_z=7548, v_x=24, num_tuples=num_tuples, k=k, n_close=10,
@@ -619,6 +746,19 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
 
     params = histsim.HistSimParams(v_z=spec.v_z, v_x=spec.v_x, k=k, eps=eps, delta=delta)
     cfg = engine.EngineConfig(variant="fastmatch", seed=seed, lookahead=512)
+    # what the engine's scheduler resolves from the committed plan file
+    plans = autotune.resolve_plans(spec.v_z, spec.v_x, 1, metric="l1", device="cuda")
+    c_launches = autotune.tau_launches(plans.tau, spec.v_x, 1)
+    log(f"resolved plans: {plans}")
+
+    def check_c(launches: dict, expect: dict, run: str) -> None:
+        for name in ("distance_multi", "distance_multi_u16", "distance_wide", "distance_wide_u16"):
+            if name in expect:
+                check(launches[name] > 0 and launches[name] % expect[name] == 0,
+                      f"{run}: {launches[name]} {name} launches, not a positive multiple of "
+                      f"{expect[name]}")
+            else:
+                check(launches[name] == 0, f"{run}: kernel C's {name} form ran under {plans}")
 
     # -- the main path: every launch count at 0 just before, read just after
     for kern in ops.KERNELS.values():
@@ -633,8 +773,9 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"fastmatch: {fm.rounds} rounds, {fm.blocks_read}/{nb} blocks, {fm_wall:.3f}s, "
         f"{fm.host_syncs} host syncs, launches {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    for name in ("histogram", "anyactive"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+    check_c(launches, c_launches, "fastmatch")
     for name in ("histogram", "anyactive"):
         check(launches[name] == fm.rounds,
               f"{launches[name]} {name} launches for {fm.rounds} fastmatch rounds")
@@ -655,6 +796,7 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
     for name in ("histogram", "anyactive"):
         check(scan_launches[name] == scan.rounds,
               f"{scan_launches[name]} {name} launches for {scan.rounds} scan rounds")
+    check_c(scan_launches, c_launches, "scan")
 
     truth = scan.state.tau.cpu().numpy()
     check(bool(np.isfinite(truth).all()) and truth.shape == (spec.v_z,), "scan tau malformed")
@@ -669,6 +811,48 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
     missing = sorted(true_top - set(fm.ids.tolist()))
     for j in missing:
         check(worst - float(truth[j]) < eps, f"Guarantee 1 broken by candidate {j}")
+
+    # -- the same two queries under a pinned lowprec plan (kernel C's uint16
+    # form behind the gate), through a plan file as a deployment would pin it
+    pinned = autotune.PlanPair(autotune.TauPlan(lowprec=True), plans.ingest)
+    reg = autotune.PlanRegistry(backend="cuda")
+    reg.tau[autotune.tau_key(spec.v_z, spec.v_x, 1)] = pinned.tau
+    reg.ingest[autotune.ingest_key(spec.v_z, spec.v_x)] = pinned.ingest
+    autotune.reload(path=reg.save(ROOT / "build" / "smoke_plans" / "cuda.json"), backend="cuda")
+    try:
+        check(autotune.resolve_plans(spec.v_z, spec.v_x, 1, device="cuda") == pinned,
+              "the pinned plan file did not resolve")
+        lowprec = {}
+        for name, variant_cfg, base in (("fastmatch", cfg, fm),
+                                        ("scan", engine.EngineConfig(variant="scan"), scan)):
+            for kern in ops.KERNELS.values():
+                kern.launches = 0
+            t = time.perf_counter()
+            res = engine.run_engine(source, target, params, variant_cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            runs = {n: kern.launches for n, kern in ops.KERNELS.items()}
+            check(np.array_equal(res.ids, base.ids) and res.rounds == base.rounds
+                  and res.blocks_read == base.blocks_read,
+                  f"{name} under a lowprec plan: ids {res.ids}, {res.rounds} rounds, "
+                  f"{res.blocks_read} blocks, not the default plan's")
+            check_c(runs, {"distance_multi_u16": 1}, f"{name} under a lowprec plan")
+            max_count = float(res.state.counts.max())
+            lowprec[name] = dict(rounds=res.rounds, blocks_read=res.blocks_read, wall_s=wall,
+                                 launches=runs, max_count=max_count,
+                                 gate_tripped=max_count > 65535.0,
+                                 tau_bitwise_default=bool(torch.equal(res.state.tau,
+                                                                      base.state.tau)))
+            if name == "scan":
+                lp_err = float(np.abs(res.state.tau.cpu().numpy().astype(np.float64)
+                                      - true_dists).max())
+                check(lp_err <= TAU_ATOL, f"scan under a lowprec plan: tau off by {lp_err}")
+                lowprec[name]["tau_max_abs_err_vs_generator"] = lp_err
+            log(f"{name} under {pinned.tau}: {res.rounds} rounds, {res.blocks_read} blocks, "
+                f"{wall:.3f}s, max count {max_count:.0f} (gate tripped: "
+                f"{lowprec[name]['gate_tripped']}), launches {runs}")
+    finally:
+        autotune.reload(backend="cuda")
 
     # -- where the device time goes: the same query under the profiler
     from torch.profiler import ProfilerActivity, profile
@@ -705,6 +889,7 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
         scan=dict(rounds=scan.rounds, blocks_read=scan.blocks_read, wall_s=scan_wall,
                   tau_max_abs_err_vs_generator=scan_err),
         launches=launches, scan_launches=scan_launches,
+        plans=dataclasses.asdict(plans), lowprec=lowprec,
         profile=dict(device_ms=device_ms, device_busy_share=busy,
                      host_launches_per_round=host_launches / again.rounds,
                      device_kernels_per_round=device_kernels / again.rounds,
@@ -782,7 +967,7 @@ def phase_serving(torch, timer, ctx: dict) -> dict:
     from repro_torch.core import engine
     from repro_torch.core import multiquery as mq
     from repro_torch.data.synth import perturb_distribution
-    from repro_torch.kernels import metrics, ops
+    from repro_torch.kernels import autotune, metrics, ops
 
     source, target, params, cfg = ctx["source"], ctx["target"], ctx["params"], ctx["cfg"]
     k, eps, eps_c, gap = 10, 0.12, 0.10, 0.20
@@ -810,8 +995,16 @@ def phase_serving(torch, timer, ctx: dict) -> dict:
     for name in ("anyactive", "histogram"):
         check(launches[name] == sched.rounds,
               f"{launches[name]} {name} launches for {sched.rounds} serving rounds")
-    check(launches["distance_multi"] == probe.stats_steps == len(probe.qs),
-          f"{launches['distance_multi']} kernel C launches for {probe.stats_steps} stats steps")
+    # kernel C as the plans the server resolved say: each stats step one
+    # launch at Q = 8, or 8 at Q = 1 under an unrolled plan
+    plans = server.kernel_plans
+    log(f"serving plans: {plans}")
+    c_launches = autotune.tau_launches(plans.tau, source.v_x, 8)
+    check(probe.stats_steps == len(probe.qs), "a stats step ran kernel C twice")
+    for name in ("distance_multi", "distance_multi_u16", "distance_wide", "distance_wide_u16"):
+        want = c_launches.get(name, 0) * probe.stats_steps
+        check(launches[name] == want,
+              f"{launches[name]} {name} launches for {probe.stats_steps} stats steps under {plans}")
     check(set(probe.qs) == {8}, f"kernel C ran at Q = {sorted(set(probe.qs))}, not 8")
 
     # -- every answer against the exact tau of its target
@@ -869,6 +1062,9 @@ def phase_serving(torch, timer, ctx: dict) -> dict:
     state, spec = sched.state, sched.spec
     c_ms, c_host = timer(lambda: metrics.distance_multi(state.counts, state.q_hat))
     c_plain, _ = timer(lambda: metrics.distance_multi_ref(state.counts, state.q_hat))
+    # the tau step as the resolved plan runs it (the gate included under lowprec)
+    c_plan_ms, c_plan_host = timer(lambda: ops.distance_multi(state.counts, state.q_hat,
+                                                              plan=plans.tau))
     stats_ms, stats_host = timer(lambda: mq.stats_step(state, spec=spec), reps=5)
     topk_stats_ms, _ = timer(lambda: mq.stats_step(state, spec=spec, closeness=False), reps=5)
 
@@ -890,7 +1086,9 @@ def phase_serving(torch, timer, ctx: dict) -> dict:
         stop_tuples=stop_tuples, warm_resubmit_tuples=warm.tuples_read,
         warm_resubmit_rounds=warm.rounds, answers=answers, stream_len=len(stream),
         launches=launches, stats_steps=probe.stats_steps,
-        kernel_c_q8=dict(ms=c_ms, host_us=c_host * 1e3, plain_ms=c_plain),
+        plans=dataclasses.asdict(plans),
+        kernel_c_q8=dict(ms=c_ms, host_us=c_host * 1e3, plain_ms=c_plain, planned_ms=c_plan_ms,
+                         planned_host_us=c_plan_host * 1e3),
         stats_step_q8=dict(ms=stats_ms, host_us=stats_host * 1e3, topk_only_ms=topk_stats_ms),
         profile=dict(wall_s=again["wall_s"], device_ms=device_ms,
                      device_busy_share=device_ms / (again["wall_s"] * 1e3),
@@ -903,7 +1101,57 @@ def phase_serving(torch, timer, ctx: dict) -> dict:
     return out
 
 
-# kernel name -> (its source, the pallas_call it replaces)
+# the taxi keys phase 6 tunes: (Q, metric)
+TUNE_KEYS = ((1, "l1"), (8, "l1"), (8, "chi2"), (8, "hellinger"))
+
+
+def phase_tuner(torch) -> dict:
+    """The tuner on the card at the taxi keys, into a scratch plan file
+    under build/ (the committed one is never written): every candidate's
+    time, and whether each winner is the committed file's, reported, not
+    checked (winners inside the margin are noise). Returns the tuner's
+    launches and the report."""
+    from repro_torch.kernels import autotune, ops
+
+    v_z, v_x = 7548, 24
+    committed = autotune.PlanRegistry.load(backend="cuda")
+    reg = autotune.PlanRegistry(backend="cuda")
+    for kern in ops.KERNELS.values():
+        kern.launches = 0
+    report = dict(tau={}, ingest={})
+    for q, metric in TUNE_KEYS:
+        key = autotune.tau_key(v_z, v_x, q, metric=metric)
+        plan, timed = autotune.tune_tau(v_z, v_x, q, metric=metric, device="cuda")
+        reg.tau[key] = plan
+        report["tau"][key] = dict(
+            winner=dataclasses.asdict(plan),
+            matches_committed=committed.tau.get(key) == plan,
+            candidates=[dict(plan=dataclasses.asdict(c), ms=ms * 1e3) for c, ms in timed.items()])
+        log(f"tuned {key}: {plan} (committed: {committed.tau.get(key)})")
+        for c, ms in sorted(timed.items(), key=lambda kv: kv[1]):
+            log(f"  {ms * 1e3:9.4f} ms  {c}")
+    key = autotune.ingest_key(v_z, v_x)
+    plan, timed = autotune.tune_ingest(v_z, v_x, device="cuda")
+    reg.ingest[key] = plan
+    report["ingest"][key] = dict(
+        winner=dataclasses.asdict(plan), matches_committed=committed.ingest.get(key) == plan,
+        candidates=[dict(plan=dataclasses.asdict(c), ms=ms * 1e3) for c, ms in timed.items()])
+    log(f"tuned {key}: {plan} (committed: {committed.ingest.get(key)})")
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in ops.KERNELS.items()}
+    path = reg.save(ROOT / "build" / "tuned_smoke" / "cuda.json")
+    check(autotune.PlanRegistry.load(path=path, backend="cuda").decisions() == reg.decisions(),
+          "the tuned plan file does not load back byte-stable")
+    check(all(launches[name] > 0 for name in ops.KERNELS if name != "anyactive"),
+          f"the tuner did not launch every form of kernels B and C: {launches}")
+    emit({"check": "tuner", "launches": launches,
+          "matches_committed": {k: v["matches_committed"]
+                                for part in report.values() for k, v in part.items()}})
+    return dict(launches=launches, report=report)
+
+
+# kernel name -> (its source, the pallas_call it replaces), and the path
+# whose run gives its launches: the first of PATHS that launches it
 KERNEL_ROWS = {
     "anyactive": ("src/repro_torch/kernels/csrc/anyactive.cu",
                   "src/repro/kernels/anyactive.py:55"),
@@ -911,9 +1159,15 @@ KERNEL_ROWS = {
                   "src/repro/kernels/histogram.py:108"),
     "distance_multi": ("src/repro_torch/kernels/csrc/distance.cu",
                        "src/repro/kernels/metrics.py:373"),
+    "distance_multi_u16": ("src/repro_torch/kernels/csrc/distance.cu",
+                           "src/repro/kernels/metrics.py:373"),
+    "distance_wide": ("src/repro_torch/kernels/csrc/distance.cu",
+                      "src/repro/kernels/metrics.py:385"),
+    "distance_wide_u16": ("src/repro_torch/kernels/csrc/distance.cu",
+                          "src/repro/kernels/metrics.py:385"),
 }
-ALSO_REPLACES = {"anyactive": "src/repro/core/multiquery.py:644-645",
-                 "distance_multi": "src/repro/kernels/metrics.py:385"}
+ALSO_REPLACES = {"anyactive": "src/repro/core/multiquery.py:644-645"}
+PATHS = ("fastmatch", "serving", "fastmatch_lowprec", "fixture_wide_u16", "tuner")
 
 
 def main(argv=None) -> int:
@@ -940,23 +1194,34 @@ def main(argv=None) -> int:
     main_rows = phase_kernels(torch, timer)
     log("phase 3: engine and server on the test fixture, card against CPU")
     ds, blocked = phase_engine_small(torch)
-    phase_serving_small(torch, ds, blocked)
+    fixture_wide_u16 = phase_serving_small(torch, ds, blocked)
     del ds, blocked
     log(f"phase 4: engine at {args.tuples} tuples")
     scale, ctx = phase_engine_scale(torch, args.tuples, args.seed)
     log("phase 5: serving 12 queries on the resident table")
     serving = phase_serving(torch, timer, ctx)
     del ctx
+    log("phase 6: the tuner at the taxi keys")
+    tuner = phase_tuner(torch)
 
     leaked = sorted(m for m in sys.modules if m.startswith("jax") or m == "repro"
                     or m.startswith("repro."))
     check(not leaked, f"the port loaded {leaked}")
 
+    # each path's launches, its counts set to 0 just before it and read just after
+    paths = dict(fastmatch=scale["launches"], scan=scale["scan_launches"],
+                 serving=serving["launches"],
+                 fastmatch_lowprec=scale["lowprec"]["fastmatch"]["launches"],
+                 scan_lowprec=scale["lowprec"]["scan"]["launches"],
+                 fixture_wide_u16=fixture_wide_u16, tuner=tuner["launches"])
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
+        path = next((p for p in PATHS if paths[p][name] > 0), None)
+        check(path is not None, f"kernel {name} was launched on no path")
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
-                   launches=scale["launches"][name], serving_launches=serving["launches"][name],
-                   **main_rows[name])
+                   launches=paths[path][name], path=path,
+                   launches_by_path={p: counts[name] for p, counts in paths.items()},
+                   serving_launches=serving["launches"][name], **main_rows[name])
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
         kernels.append(row)
@@ -970,7 +1235,7 @@ def main(argv=None) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, device=device, kernels=kernels, scale=scale, serving=serving,
-             wall_s=time.perf_counter() - T0), indent=1))
+             tuner=tuner["report"], wall_s=time.perf_counter() - T0), indent=1))
     log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -4,7 +4,8 @@ The system has no weights; what it carries is its data and its state.
 These functions take plain numpy arrays (what ``jax.device_get`` of the
 reference's structures gives, or the reference's `BlockedDataset`
 fields) and build the port's counterparts, so both packages can start
-from the same dataset or the same mid-run state. Packed uint32 words
+from the same dataset or the same mid-run state, or run the same kernel
+plans. Packed uint32 words
 are reinterpreted as int32 with the same bits; counters widen to int64.
 Nothing here imports the reference.
 """
@@ -24,8 +25,11 @@ from repro_torch.core.multiquery import (
     SampleCursor,
 )
 from repro_torch.data.layout import BlockedDataset
+from repro_torch.kernels.autotune import IngestPlan, PlanPair, TauPlan
 
-__all__ = ["dataset_from_numpy", "multi_state_from_numpy", "cursor_from_numpy"]
+__all__ = [
+    "dataset_from_numpy", "multi_state_from_numpy", "cursor_from_numpy", "plan_pair_from_fields",
+]
 
 _INT64_LEAVES = (
     "k", "qtype", "round_idx", "blocks_read", "blocks_considered", "tuples_read", "rounds",
@@ -80,3 +84,15 @@ def cursor_from_numpy(leaves: Mapping, *, device=None) -> SampleCursor:
     return SampleCursor(
         **{name: _leaf(name, leaves[name], device) for name in SampleCursor._fields}
     )
+
+
+def plan_pair_from_fields(fields: Mapping) -> PlanPair:
+    """The port's `autotune.PlanPair` from the reference's as plain
+    fields (``dataclasses.asdict(pair)``: ``{"tau": {...}, "ingest":
+    {...}}``). The field names and meanings are the reference's; an
+    unknown field or a value a plan rejects raises."""
+    tau = TauPlan(**fields["tau"])
+    ingest = IngestPlan(**fields["ingest"])
+    tau.validate()
+    ingest.validate()
+    return PlanPair(tau=tau, ingest=ingest)

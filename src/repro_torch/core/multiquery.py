@@ -31,6 +31,10 @@ query with exactly that answer. `export_cache`/`import_cache` carry the
 target-independent state (counts, n, read mask, counters, visit order)
 between schedulers in memory.
 
+The scheduler resolves its kernel plans (`autotune.PlanPair`: kernel
+C's and kernel B's launch choices) once, at construction, from the
+plan file of its device's backend, and threads them through every round.
+
 Packed words are int32 tensors carrying the uint32 bits; counters and
 ``qtype`` are int64. Still to be ported: telemetry (ROADMAP A7), fault
 quarantine and on-disk snapshots (A6) and the mesh paths (A9).
@@ -55,7 +59,7 @@ from repro_torch.core.histsim import HistSimState
 from repro_torch.core.policies import mark_window
 from repro_torch.data.layout import BlockedDataset
 from repro_torch.io import InMemorySource, WindowData, as_block_source
-from repro_torch.kernels import metrics, ops
+from repro_torch.kernels import autotune, metrics, ops
 
 __all__ = [
     "AnytimeAnswer",
@@ -340,10 +344,17 @@ def clear_slot(state: MultiQueryState, slot: int) -> MultiQueryState:
     )
 
 
-def ingest(state: MultiQueryState, z_idx, x_idx, *, spec: MultiQuerySpec) -> MultiQueryState:
+def ingest(
+    state: MultiQueryState, z_idx, x_idx, *, spec: MultiQuerySpec, plan=None
+) -> MultiQueryState:
     """Add a padded sample batch into the SHARED counts — one kernel-B
-    launch serves every slot and advances ``n_i`` by the row sums."""
-    counts, n = ops.ingest_counts(state.counts, state.n, z_idx, x_idx, v_z=spec.v_z, v_x=spec.v_x)
+    launch serves every slot and advances ``n_i`` by the row sums (or
+    the two-step form, when the ingest ``plan`` measured it faster; None
+    consults the plan registry)."""
+    counts, n = ops.ingest_counts(
+        state.counts, state.n, z_idx, x_idx, v_z=spec.v_z, v_x=spec.v_x,
+        plan=plan if plan is not None else "auto",
+    )
     return state._replace(counts=counts, n=n)
 
 
@@ -406,12 +417,16 @@ def apply_stats(
 
 
 def stats_step(
-    state: MultiQueryState, *, spec: MultiQuerySpec, closeness: bool = True
+    state: MultiQueryState, *, spec: MultiQuerySpec, closeness: bool = True, plan=None
 ) -> MultiQueryState:
     """One statistics iteration for every slot: tau for all slots from
     ONE kernel-C launch over the shared counts (unoccupied slots pinned
-    at 1.0), then `apply_stats`."""
-    tau = ops.distance_multi(state.counts, state.q_hat, metric=spec.metric)
+    at 1.0), then `apply_stats`. ``plan`` pins the tau plan
+    (`autotune.TauPlan`); None consults the plan registry."""
+    tau = ops.distance_multi(
+        state.counts, state.q_hat, metric=spec.metric,
+        plan=plan if plan is not None else "auto",
+    )
     tau = torch.where(state.occupied[:, None], tau, 1.0)
     return apply_stats(state, tau, state.n, spec=spec, closeness=closeness)
 
@@ -451,9 +466,11 @@ def fused_round(
     spec: MultiQuerySpec,
     policy: str,
     closeness: bool = True,
+    plans: Optional[autotune.PlanPair] = None,
 ) -> tuple:
     """One sampling round: mark + gather-mask + ingest + stats + read
-    bookkeeping, all on the device, no host sync.
+    bookkeeping, all on the device, no host sync, in the kernel
+    ``plans`` given (None consults the plan registry).
 
     Marking uses the union active words (stale by up to ``poll_every``
     windows) and is masked by the window's validity and the read_mask,
@@ -465,7 +482,10 @@ def fused_round(
     """
     marks = mark_window(wd, state.union_words, cursor.read_mask, policy=policy)
     zw, xw = _masked_ids(wd, marks)
-    new = stats_step(ingest(state, zw, xw, spec=spec), spec=spec, closeness=closeness)
+    new = stats_step(
+        ingest(state, zw, xw, spec=spec, plan=plans.ingest if plans else None),
+        spec=spec, closeness=closeness, plan=plans.tau if plans else None,
+    )
     took = torch.any(marks)
     state = MultiQueryState(
         *(b if a is b else torch.where(took, a, b) for a, b in zip(new, state))
@@ -474,13 +494,18 @@ def fused_round(
 
 
 def ingest_round(
-    state: MultiQueryState, cursor: SampleCursor, wd: WindowData, *, spec: MultiQuerySpec
+    state: MultiQueryState,
+    cursor: SampleCursor,
+    wd: WindowData,
+    *,
+    spec: MultiQuerySpec,
+    plans: Optional[autotune.PlanPair] = None,
 ) -> tuple:
     """Exact-completion round: ingest every unread block of the window,
     no marking, no stats (the caller runs one `stats_step` at the end)."""
     marks = ops.mark_blocks(wd.indices, wd.valid, cursor.read_mask)
     zw, xw = _masked_ids(wd, marks)
-    state = ingest(state, zw, xw, spec=spec)
+    state = ingest(state, zw, xw, spec=spec, plan=plans.ingest if plans else None)
     return state, _advance_cursor(cursor, wd, marks)
 
 
@@ -651,6 +676,7 @@ class SharedCountsScheduler:
         start_block: Optional[int] = None,
         poll_every: int = 1,
         device=None,
+        plans: Optional[autotune.PlanPair] = None,
     ):
         source: InMemorySource = as_block_source(dataset, device=device)
         if spec.v_z != source.v_z or spec.v_x != source.v_x:
@@ -664,6 +690,16 @@ class SharedCountsScheduler:
         self.spec = spec
         self.policy = policy
         self.poll_every = poll_every
+        # kernel plans, resolved once here (under FASTMATCH_TORCH_AUTOTUNE=1
+        # this may tune and save missing keys), so one scheduler's whole
+        # lifetime runs one consistent plan
+        self.plans = plans if plans is not None else autotune.resolve_plans(
+            spec.v_z, spec.v_x, spec.max_queries, metric=spec.metric, device=self.device
+        )
+        if not isinstance(self.plans, autotune.PlanPair):
+            raise TypeError(f"plans must be an autotune.PlanPair, got {self.plans!r}")
+        self.plans.tau.validate()
+        self.plans.ingest.validate()
         nb = source.num_blocks
         self.window = max(1, min(window, nb))
 
@@ -790,7 +826,9 @@ class SharedCountsScheduler:
         return len(self.tickets)
 
     def _stats_step(self) -> None:
-        self.state = stats_step(self.state, spec=self.spec, closeness=self._closeness_live > 0)
+        self.state = stats_step(
+            self.state, spec=self.spec, closeness=self._closeness_live > 0, plan=self.plans.tau
+        )
 
     def admit(
         self,
@@ -999,7 +1037,7 @@ class SharedCountsScheduler:
     def _dispatch_round(self, wd: WindowData) -> None:
         self.state, self.cursor = fused_round(
             self.state, self.cursor, wd, spec=self.spec, policy=self.policy,
-            closeness=self._closeness_live > 0,
+            closeness=self._closeness_live > 0, plans=self.plans,
         )
 
     def run_window(self, win: np.ndarray) -> int:
@@ -1026,7 +1064,7 @@ class SharedCountsScheduler:
         try:
             for wd in stream:
                 self.state, self.cursor = ingest_round(
-                    self.state, self.cursor, wd, spec=self.spec
+                    self.state, self.cursor, wd, spec=self.spec, plans=self.plans
                 )
         finally:
             stream.close()

@@ -19,10 +19,15 @@ All scores are 0 at r = q = 0, so padded lanes need no mask.
 
 `distance_multi_ref` is the plain PyTorch version (row sum, then the
 ``max(row, 1)`` divide, then the score, then the lane sum, in the
-reference's order). `distance_multi` launches CUDA kernel C
-(``csrc/distance.cu``), one kernel for both of the reference's Pallas
-forms; `distance` is its Q = 1 case with the reference's single-block
-V_X bound.
+reference's order); `distance_multi_xla` is the reference's one-broadcast
+(Q, V_Z, V_X) form of the same arithmetic. `distance_multi` launches
+CUDA kernel C (``csrc/distance.cu``): its narrow branch (row tiles,
+V_X <= 1024) or its wide branch (a block per row), on float32 counts or,
+in its uint16 form, on uint16 counts behind an overflow gate that stays
+on the card. `distance` is its Q = 1 case with the reference's
+single-block V_X bound. Its launch choice is a knob of
+`autotune.TauPlan`: ``sweeps`` and ``x_tile`` pick the branch; each
+branch picks its own grid.
 """
 
 from __future__ import annotations
@@ -42,22 +47,36 @@ __all__ = [
     "coerce_metric",
     "distance_ref",
     "distance_multi_ref",
+    "distance_multi_xla",
     "distance",
     "distance_multi",
     "streaming_tau_bytes",
     "MAX_SINGLE_BLOCK_VX",
+    "NARROW_MAX_VX",
     "KERNEL",
+    "KERNEL_WIDE",
+    "KERNEL_U16",
+    "KERNEL_WIDE_U16",
+    "wide_branch",
 ]
 
 # Single-block V_X bound of the reference's Q = 1 kernel form, kept for
 # `distance` so the two packages reject the same inputs.
 MAX_SINGLE_BLOCK_VX = 4096
 
-KERNEL = CudaKernel(
-    "distance",
-    "fm_distance_multi",
-    (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int),
+# The widest row kernel C's narrow branch takes (kWideRow in the source).
+NARROW_MAX_VX = 1024
+
+# counts, q_hat, tau, V_Z, V_X, Q, metric; the uint16 forms take the
+# uint16 counts, the f32 counts and the gate's flag in place of counts
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNEL = CudaKernel("distance", "fm_distance_narrow", (_P, _P, _P, _I, _I, _I, _I))
+KERNEL_WIDE = CudaKernel("distance", "fm_distance_wide", (_P, _P, _P, _I, _I, _I, _I))
+KERNEL_U16 = CudaKernel(
+    "distance", "fm_distance_narrow_u16", (_P, _P, _P, _P, _P, _I, _I, _I, _I)
+)
+KERNEL_WIDE_U16 = CudaKernel(
+    "distance", "fm_distance_wide_u16", (_P, _P, _P, _P, _P, _I, _I, _I, _I)
 )
 
 
@@ -183,40 +202,103 @@ def distance_multi_ref(counts: torch.Tensor, q_hat: torch.Tensor, *, metric="l1"
     )
 
 
+def distance_multi_xla(counts: torch.Tensor, q_hat: torch.Tensor, *, metric="l1") -> torch.Tensor:
+    """(Q, V_Z) batched tau as one (Q, V_Z, V_X) broadcast, the
+    reference's "let XLA schedule it" form. The lane sums run in the
+    stacked form's order, so the result equals `distance_multi_ref`."""
+    m = coerce_metric(metric)
+    r_hat = _normalize(counts)
+    q = q_hat.to(torch.float32)
+    return torch.sum(m.score(r_hat[None, :, :], q[:, None, :]), dim=2)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel C
 # ---------------------------------------------------------------------------
 
 
-def distance_multi(counts: torch.Tensor, q_hat: torch.Tensor, *, metric="l1") -> torch.Tensor:
+def wide_branch(v_x: int, *, x_tile: int = 4096, sweeps: int = 0) -> bool:
+    """Whether kernel C takes its wide branch: forced by ``sweeps=2``,
+    refused at ``sweeps=1`` past the narrow branch's rows, and with
+    ``sweeps=0`` taken past min(``x_tile``, `NARROW_MAX_VX`)."""
+    if sweeps == 2:
+        return True
+    if sweeps == 1:
+        if v_x > NARROW_MAX_VX:
+            raise ValueError(
+                f"sweeps=1 forces the single-sweep narrow branch, which holds V_X <= "
+                f"{NARROW_MAX_VX}, got V_X={v_x}"
+            )
+        return False
+    if sweeps != 0:
+        raise ValueError(f"sweeps must be 0 (auto), 1 or 2, got {sweeps}")
+    return v_x > min(x_tile, NARROW_MAX_VX)
+
+
+def distance_multi(
+    counts: torch.Tensor,
+    q_hat: torch.Tensor,
+    *,
+    metric="l1",
+    x_tile: int = 4096,
+    sweeps: int = 0,
+    gate: Optional[tuple] = None,
+) -> torch.Tensor:
     """(Q, V_Z) float32 distances through kernel C, for any V_X.
 
     counts: (V_Z, V_X) float32, q_hat: (Q, V_X) float32, both contiguous
-    on the current CUDA device. Launches on the current stream.
+    on the current CUDA device. With uint16 counts, ``gate`` is
+    ``(counts_f32, fits)``: the same counts in float32 and a one-element
+    bool tensor, ``max(counts_f32) <= 65535``, on the card; kernel C's
+    uint16 form reads the uint16 counts where ``fits`` holds and the f32
+    ones where it does not, so the gate needs no host read. The branch
+    follows `wide_branch`. Launches on the current stream.
     """
     m = coerce_metric(metric)
-    check_cuda_tensor(counts, "counts", torch.float32, 2)
+    lowprec = counts.dtype == torch.uint16
+    check_cuda_tensor(counts, "counts", torch.uint16 if lowprec else torch.float32, 2)
     check_cuda_tensor(q_hat, "q_hat", torch.float32, 2)
     v_z, v_x = counts.shape
     num_q, v_xq = q_hat.shape
     if v_xq != v_x:
         raise ValueError(f"q_hat V_X={v_xq} does not match counts V_X={v_x}")
+    if lowprec:
+        if gate is None:
+            raise ValueError("uint16 counts need gate=(counts_f32, fits)")
+        full, fits = gate
+        check_cuda_tensor(full, "gate counts", torch.float32, 2)
+        if full.shape != counts.shape:
+            raise ValueError(f"gate counts {tuple(full.shape)} differ from {tuple(counts.shape)}")
+        if fits.device != counts.device or fits.dtype != torch.bool or fits.numel() != 1:
+            raise ValueError("fits must be a one-element bool tensor on the counts' device")
+    elif gate is not None:
+        raise ValueError("gate is for uint16 counts")
+    wide = wide_branch(v_x, x_tile=x_tile, sweeps=sweeps)
     tau = torch.empty((num_q, v_z), dtype=torch.float32, device=counts.device)
     if v_z == 0 or num_q == 0:
         return tau
     if v_x == 0:
         return tau.zero_()
-    KERNEL.launch(
-        counts.data_ptr(), q_hat.data_ptr(), tau.data_ptr(), v_z, v_x, num_q, m.kernel_id
-    )
+    tail = (q_hat.data_ptr(), tau.data_ptr(), v_z, v_x, num_q, m.kernel_id)
+    if lowprec:
+        head = (counts.data_ptr(), full.data_ptr(), fits.data_ptr())
+        if wide:
+            KERNEL_WIDE_U16.launch(*head, *tail)
+        else:
+            KERNEL_U16.launch(*head, *tail)
+    elif wide:
+        KERNEL_WIDE.launch(counts.data_ptr(), *tail)
+    else:
+        KERNEL.launch(counts.data_ptr(), *tail)
     return tau
 
 
-def distance(counts: torch.Tensor, q_hat: torch.Tensor, *, metric="l1") -> torch.Tensor:
-    """(V_Z,) single-query tau: the Q = 1 launch of kernel C. V_X must
-    not pass `MAX_SINGLE_BLOCK_VX`, as in the reference."""
+def distance(counts: torch.Tensor, q_hat: torch.Tensor, *, metric="l1", **launch) -> torch.Tensor:
+    """(V_Z,) single-query tau: the Q = 1 launch of kernel C, with
+    `distance_multi`'s launch choices and gate. V_X must not pass
+    `MAX_SINGLE_BLOCK_VX`, as in the reference."""
     if counts.shape[1] > MAX_SINGLE_BLOCK_VX:
         raise ValueError(
             f"V_X={counts.shape[1]} exceeds single-block bound {MAX_SINGLE_BLOCK_VX}"
         )
-    return distance_multi(counts, q_hat[None, :].contiguous(), metric=metric)[0]
+    return distance_multi(counts, q_hat[None, :].contiguous(), metric=metric, **launch)[0]

@@ -6,17 +6,23 @@ tensor runs the plain PyTorch version (`ref` / `metrics`), which is how
 the tests hold the port against the JAX reference on a machine without
 a GPU.
 
-There is no plan registry (the reference's autotuner is still to be
-ported): every call runs what the reference's `autotune.DEFAULT_TAU` /
-`DEFAULT_INGEST` select, the batched one-pass tau and the fused ingest.
+The ingest and tau entry points take a ``plan`` with the reference's
+meaning (`repro_torch.kernels.autotune`): "auto" (the default) looks up
+the plan registered for the shape in the tensor's backend's plan file
+(a lookup cached by shape), "default" or None pins `autotune.DEFAULT_TAU`
+/ `DEFAULT_INGEST` (one batched kernel-C launch, the fused ingest: what
+ran before plans existed), and a plan instance passes through.
 
   op                      CUDA                         CPU
   ----------------------  ---------------------------  ---------------------------
-  ingest_counts           kernel B                     histogram.ingest_counts_ref
+  ingest_counts           kernel B (plan: or its       histogram.ingest_counts_ref
+                          histogram form + adds)       (or its two-step form)
   histogram               kernel B, no input counts    ref.histogram_ref
   histogram_with_rowsums  kernel B, no input counts    ref.histogram_with_rowsums_ref
-  distance_multi          kernel C                     metrics.distance_multi_ref
-  l1_distance_multi       kernel C, metric l1          ref.l1_distance_multi_ref
+  distance_multi          kernel C (plan: branch,      metrics.distance_multi_ref
+                          uint16 form, Q launches      (plan: unrolled, xla,
+                          at Q = 1)                    uint16 counts)
+  l1_distance_multi       distance_multi, metric l1    the same
   l1_distance             kernel C, Q = 1              ref.l1_distance_ref
   mark_blocks             kernel A                     ref.mark_blocks_ref
   anyactive               kernel A, no ids or masks    ref.anyactive_ref
@@ -29,6 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import anyactive as _anyactive
+from repro_torch.kernels import autotune
 from repro_torch.kernels import histogram as _histogram
 from repro_torch.kernels import metrics, ref
 
@@ -44,11 +51,15 @@ __all__ = [
     "KERNELS",
 ]
 
-# Every CUDA kernel of the package, with its launch count.
+# Every CUDA kernel of the package, with its launch count: kernel C
+# counts its narrow and wide branches and its f32 and uint16 forms apart.
 KERNELS = {
     "anyactive": _anyactive.KERNEL,
     "histogram": _histogram.KERNEL,
     "distance_multi": metrics.KERNEL,
+    "distance_multi_u16": metrics.KERNEL_U16,
+    "distance_wide": metrics.KERNEL_WIDE,
+    "distance_wide_u16": metrics.KERNEL_WIDE_U16,
 }
 
 
@@ -62,13 +73,15 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 def ingest_counts(
     counts: torch.Tensor, n: torch.Tensor, z_idx: torch.Tensor, x_idx: torch.Tensor,
-    *, v_z: int, v_x: int,
+    *, v_z: int, v_x: int, plan="auto",
 ) -> tuple:
     """(counts + hist(z, x), n + rowsum(hist)) in new tensors; the inputs
-    are left as they were and out-of-range ids are dropped."""
-    if _on_cuda(counts):
-        return _histogram.ingest_counts(counts, n, z_idx, x_idx, v_z=v_z, v_x=v_x)
-    return _histogram.ingest_counts_ref(counts, n, z_idx, x_idx, v_z=v_z, v_x=v_x)
+    are left as they were and out-of-range ids are dropped. ``plan``
+    picks the fused or the two-step form (an `autotune.IngestPlan`)."""
+    ingest_plan = autotune.coerce_ingest_plan(plan, v_z, v_x, autotune.backend_of(counts))
+    return autotune.run_ingest(
+        z_idx, x_idx, v_z=v_z, v_x=v_x, plan=ingest_plan, counts=counts, n=n
+    )
 
 
 def histogram(z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int) -> torch.Tensor:
@@ -79,26 +92,30 @@ def histogram(z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int) -
 
 
 def histogram_with_rowsums(
-    z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int
+    z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int, plan="auto"
 ) -> tuple:
-    """((V_Z, V_X), (V_Z,)) histogram + row-sum delta, one pass."""
-    if _on_cuda(z_idx):
-        return _histogram.histogram_with_rowsums(z_idx, x_idx, v_z=v_z, v_x=v_x)
-    return ref.histogram_with_rowsums_ref(z_idx, x_idx, v_z=v_z, v_x=v_x)
+    """((V_Z, V_X), (V_Z,)) histogram + row-sum delta: one pass, or the
+    histogram and a row reduction under an unfused ``plan``."""
+    ingest_plan = autotune.coerce_ingest_plan(plan, v_z, v_x, autotune.backend_of(z_idx))
+    return autotune.run_ingest(z_idx, x_idx, v_z=v_z, v_x=v_x, plan=ingest_plan)
 
 
 def distance_multi(
-    counts: torch.Tensor, q_hat: torch.Tensor, *, metric: str = "l1"
+    counts: torch.Tensor, q_hat: torch.Tensor, *, metric: str = "l1", plan="auto"
 ) -> torch.Tensor:
-    """(Q, V_Z) f32 batched distances for a (Q, V_X) target matrix."""
-    if _on_cuda(counts):
-        return metrics.distance_multi(counts, q_hat, metric=metric)
-    return metrics.distance_multi_ref(counts, q_hat, metric=metric)
+    """(Q, V_Z) f32 batched distances for a (Q, V_X) target matrix, in
+    the launches ``plan`` (an `autotune.TauPlan`) picks; every plan gives
+    the same tau on integer-valued counts (the wide branch within 3e-6)."""
+    tau_plan = autotune.coerce_tau_plan(
+        plan, counts.shape[0], counts.shape[1], q_hat.shape[0], metric,
+        autotune.backend_of(counts),
+    )
+    return autotune.run_tau(counts, q_hat, plan=tau_plan, metric=metric)
 
 
-def l1_distance_multi(counts: torch.Tensor, q_hat: torch.Tensor) -> torch.Tensor:
+def l1_distance_multi(counts: torch.Tensor, q_hat: torch.Tensor, *, plan="auto") -> torch.Tensor:
     """`distance_multi` pinned to metric="l1"."""
-    return distance_multi(counts, q_hat, metric="l1")
+    return distance_multi(counts, q_hat, metric="l1", plan=plan)
 
 
 def l1_distance(counts: torch.Tensor, q_hat: torch.Tensor) -> torch.Tensor:

@@ -27,10 +27,15 @@ answer of its stopping poll.
 Per-query counters (blocks/tuples/rounds) count what was read while
 that query was live. Runs on CUDA unless ``device="cpu"``.
 
+``kernel_plans`` pins the kernel plans (`autotune.PlanPair`) of every
+round the server dispatches; by default the scheduler resolves them
+from the plan file of the device's backend, and `kernel_plans` reports
+what it resolved.
+
 Not ported yet, and refused with `NotImplementedError` naming the
 ROADMAP item: the mesh and data-parallel pump servers (A9), the
-prefetching source, on-disk cache snapshots and restarts (A6),
-telemetry and its exports (A7), and tuned kernel plans (A8).
+prefetching source, on-disk cache snapshots and restarts (A6), and
+telemetry and its exports (A7).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from repro_torch.core.multiquery import (
     StopPolicy,
 )
 from repro_torch.io import as_block_source
+from repro_torch.kernels.autotune import PlanPair
 
 __all__ = [
     "AnytimeAnswer",
@@ -73,7 +79,6 @@ _UNPORTED = {
     "autosave_rounds": (None, "A6"),
     "checkpoint_keep_last": (3, "A6"),
     "telemetry": (None, "A7"),
-    "kernel_plans": (None, "A8"),
 }
 
 
@@ -140,6 +145,7 @@ class MatchServer:
         bounds_mode: str = "native",
         prune: bool = False,
         default_stop: Optional[StopPolicy] = None,
+        kernel_plans: Optional[PlanPair] = None,
         **unported,
     ):
         # k_cap: static bound on any query's k (the deviation assignment
@@ -147,7 +153,8 @@ class MatchServer:
         # every query is stated in. bounds_mode: "native" (tau-aware
         # per-metric budgets) or "conservative". prune: early-reject of
         # certified-far candidates from the I/O marking. default_stop:
-        # StopPolicy for queries submitted without one.
+        # StopPolicy for queries submitted without one. kernel_plans: the
+        # PlanPair of every round; None resolves it from the plan file.
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"MatchServer() got an unexpected keyword argument {name!r}")
@@ -174,6 +181,7 @@ class MatchServer:
             seed=seed,
             start_block=start_block,
             poll_every=poll_every,
+            plans=kernel_plans,
         )
         self.max_passes = max_passes
         self.pending: Deque[MatchQuery] = deque()
@@ -189,6 +197,11 @@ class MatchServer:
         self._pass_pos = 0
         self._pass_read = 0
         self._pass_start_rounds = 0
+
+    @property
+    def kernel_plans(self) -> PlanPair:
+        """The `autotune.PlanPair` this server's rounds run."""
+        return self.scheduler.plans
 
     # -- request queue -----------------------------------------------------
 

@@ -1,8 +1,10 @@
 """The port's CUDA kernels and engine on the card.
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-tensors (counts, rows and marks equal; tau within 2e-5), and the engine
-on the card against the engine on the CPU. These tests need a GPU and
+tensors (counts, rows and marks equal; tau within 2e-5), kernel C's
+uint16 form against its f32 form bit for bit (the overflow gate too),
+every kernel plan the tuner tries against the default plan, and the
+engine on the card against the engine on the CPU. These tests need a GPU and
 skip elsewhere; they import no JAX, so they run where only PyTorch is
 installed:
 
@@ -16,7 +18,7 @@ import torch
 from repro_torch.core import engine, histsim
 from repro_torch.data.layout import block_layout
 from repro_torch.data.synth import SynthSpec, make_dataset
-from repro_torch.kernels import anyactive, histogram, metrics, ops, ref
+from repro_torch.kernels import anyactive, autotune, histogram, metrics, ops, ref
 from repro_torch.serve import MatchServer
 
 TAU_ATOL = 2e-5
@@ -103,20 +105,162 @@ def test_distance_narrow(cuda, metric, q, v_z, v_x):
                                atol=TAU_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("v_x,branch", [(1024, "distance_tile"), (1025, "distance_wide")])
-def test_distance_branch(cuda, v_x, branch):
-    """V_X = 1024 is the widest row-tile launch; 1025 takes the block-per-row branch."""
+@pytest.mark.parametrize(
+    "v_x,sweeps,lowprec,branch",
+    [(1024, 0, False, "distance_tile_kernel"), (1025, 0, False, "distance_wide_kernel"),
+     (24, 2, False, "distance_wide_kernel"), (1024, 1, False, "distance_tile_kernel"),
+     (24, 0, True, "distance_tile_u16"), (24, 2, True, "distance_wide_u16"),
+     (1025, 0, True, "distance_wide_u16")],
+)
+def test_distance_branch(cuda, v_x, sweeps, lowprec, branch):
+    """V_X = 1024 is the widest row-tile launch; 1025, or sweeps = 2 at
+    any V_X, takes the block-per-row branch; the uint16 form of each
+    branch is a kernel of its own, counted apart."""
     from torch.profiler import ProfilerActivity, profile
 
     c = torch.ones((64, v_x), device=cuda)
     t = torch.full((1, v_x), 1.0 / v_x, device=cuda)
-    metrics.distance_multi(c, t)
+    gate = (c, torch.ones((), dtype=torch.bool, device=cuda)) if lowprec else None
+    cc = c.to(torch.uint16) if lowprec else c
+
+    def call():
+        return metrics.distance_multi(cc, t, sweeps=sweeps, gate=gate)
+
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        metrics.distance_multi(c, t)
+        call()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if "distance_" in e.name]
     assert names and all(branch in name for name in names), names
+    (name, count), = autotune.tau_launches(
+        autotune.TauPlan(sweeps=sweeps, lowprec=lowprec), v_x, 1).items()
+    before = ops.KERNELS[name].launches
+    call()
+    assert ops.KERNELS[name].launches == before + count
+
+
+def _u16_case(rng, v_z, v_x, q, hi=40):
+    counts = rng.integers(0, hi, size=(v_z, v_x)).astype(np.float32)
+    counts[rng.random(v_z) < 0.2] = 0.0
+    q_hat = np.stack([rng.dirichlet(np.ones(v_x)) for _ in range(q)]).astype(np.float32)
+    return counts, q_hat
+
+
+@pytest.mark.parametrize("metric", list(metrics.METRIC_NAMES))
+@pytest.mark.parametrize("q", [1, 8])
+@pytest.mark.parametrize("v_x", [2, 24, 1000, 8192])
+@pytest.mark.parametrize("sweeps", [0, 2])
+def test_distance_u16_equals_f32(cuda, metric, q, v_x, sweeps):
+    """Kernel C's uint16 form against its f32 form at the same launch
+    choices, bit for bit (each element is upcast on load); both branches
+    (sweeps = 0 takes the narrow one up to V_X = 1024), counts up to the
+    uint16 ceiling, and a gate computed on the card."""
+    rng = np.random.default_rng(q * v_x + sweeps)
+    v_z = 256 if v_x == 8192 else 7548
+    counts, q_hat = _u16_case(rng, v_z, v_x, q, hi=65_536 if v_x == 24 else 40)
+    c, t = _t(counts, cuda), _t(q_hat, cuda)
+    fits = torch.amax(c) <= 65535.0
+    want = metrics.distance_multi(c, t, metric=metric, sweeps=sweeps)
+    got = metrics.distance_multi(c.to(torch.uint16), t, metric=metric, sweeps=sweeps,
+                                 gate=(c, fits))
+    assert torch.equal(got, want), float((got - want).abs().max())
+    torch.testing.assert_close(got, metrics.distance_multi_ref(c.to(torch.uint16), t,
+                                                               metric=metric),
+                               atol=TAU_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("metric", list(metrics.METRIC_NAMES))
+@pytest.mark.parametrize("v_z,v_x,sweeps", [(7548, 24, 0), (7548, 24, 2), (256, 8192, 0)])
+def test_distance_u16_gate_overflow(cuda, metric, v_z, v_x, sweeps):
+    """One entry of 70,000 trips the gate: the uint16 form reads the f32
+    counts (the cast wrapped that entry) and equals the f32 form bit for
+    bit, through the kernel and through a lowprec plan."""
+    rng = np.random.default_rng(v_x + sweeps)
+    counts, q_hat = _u16_case(rng, v_z, v_x, 8)
+    counts[3, 5] = 70_000.0
+    c, t = _t(counts, cuda), _t(q_hat, cuda)
+    fits = torch.amax(c) <= 65535.0
+    want = metrics.distance_multi(c, t, metric=metric, sweeps=sweeps)
+    got = metrics.distance_multi(c.to(torch.uint16), t, metric=metric, sweeps=sweeps,
+                                 gate=(c, fits))
+    assert not bool(fits) and torch.equal(got, want)
+    plan = autotune.TauPlan(sweeps=sweeps, lowprec=True)
+    assert torch.equal(ops.distance_multi(c, t, metric=metric, plan=plan), want)
+    c[3, 5] = 65_535.0  # in range again: the uint16 counts are read
+    want = metrics.distance_multi(c, t, metric=metric, sweeps=sweeps)
+    assert torch.equal(ops.distance_multi(c, t, metric=metric, plan=plan), want)
+
+
+@pytest.mark.parametrize("metric", list(metrics.METRIC_NAMES))
+@pytest.mark.parametrize("v_z,v_x,q", [(7548, 24, 1), (7548, 24, 8), (161, 24, 8), (191, 2, 1),
+                                       (256, 8192, 3)])
+def test_every_cuda_tau_candidate(cuda, metric, v_z, v_x, q):
+    """Every plan the tuner tries on the card against `DEFAULT_TAU`:
+    within the reference's 3e-6 for its branch candidates, the same
+    top-k ids, and bit for bit where only the counts' type or the
+    unrolling differ; each makes the launches
+    `autotune.tau_launches` says."""
+    rng = np.random.default_rng(v_z + q)
+    counts, q_hat = _u16_case(rng, v_z, v_x, q, hi=50)
+    c, t = _t(counts, cuda), _t(q_hat, cuda)
+    want = ops.distance_multi(c, t, metric=metric, plan="default")
+    wide_default = metrics.wide_branch(v_x)
+    k = min(10, v_z)
+    top = torch.argsort(want, dim=1, stable=True)[:, :k].sort(dim=1).values
+    for plan in autotune.tau_candidates("cuda", v_z, v_x, q):
+        before = {name: kern.launches for name, kern in ops.KERNELS.items()}
+        got = ops.distance_multi(c, t, metric=metric, plan=plan)
+        launched = {name: kern.launches - before[name] for name, kern in ops.KERNELS.items()}
+        assert launched == {name: autotune.tau_launches(plan, v_x, q).get(name, 0)
+                            for name in ops.KERNELS}, plan
+        if metrics.wide_branch(v_x, sweeps=plan.sweeps) == wide_default:
+            assert torch.equal(got, want), plan
+        torch.testing.assert_close(got, want, atol=3e-6, rtol=0, msg=repr(plan))
+        got_top = torch.argsort(got, dim=1, stable=True)[:, :k].sort(dim=1).values
+        assert torch.equal(got_top, top), plan
+
+
+@pytest.mark.parametrize("v_z,v_x", [(7548, 24), (161, 24), (191, 2)])
+def test_both_ingest_plans_bitwise_equal(cuda, v_z, v_x):
+    """The fused ingest (one kernel-B launch) and the two-step form
+    (kernel B's histogram, a row reduction and the adds) give the same
+    counts and row sums, bit for bit."""
+    rng = np.random.default_rng(v_z)
+    z = _t(rng.integers(-1, v_z + 1, size=262_144).astype(np.int32), cuda)
+    x = _t(rng.integers(-1, v_x + 1, size=262_144).astype(np.int32), cuda)
+    counts = _t(rng.integers(0, 500, size=(v_z, v_x)).astype(np.float32), cuda)
+    rows = counts.sum(dim=1)
+    outs = []
+    for plan in autotune.ingest_candidates("cuda", v_z, v_x):
+        before = ops.KERNELS["histogram"].launches
+        outs.append(ops.ingest_counts(counts, rows, z, x, v_z=v_z, v_x=v_x, plan=plan))
+        assert ops.KERNELS["histogram"].launches == before + 1
+    (c0, n0), (c1, n1) = outs
+    assert torch.equal(c0, c1) and torch.equal(n0, n1)
+    want = histogram.ingest_counts_ref(counts, rows, z, x, v_z=v_z, v_x=v_x)
+    assert torch.equal(c0, want[0]) and torch.equal(n0, want[1])
+
+
+def test_tuner_on_card(cuda, tmp_path, monkeypatch):
+    """tune_tau / tune_ingest measure every candidate on the card, and
+    resolve_plans tunes a missing key and saves it as backend "cuda".
+    A winner other than `DEFAULT_TAU` beat it by the margin."""
+    plan, timed = autotune.tune_tau(161, 24, 8, device="cuda", reps=3)
+    assert set(timed) == set(autotune.tau_candidates("cuda", 161, 24, 8)) and plan in timed
+    default = timed[autotune.DEFAULT_TAU]
+    assert plan == autotune.DEFAULT_TAU or default > timed[plan] * (1 + autotune.DEFAULT_MARGIN)
+    monkeypatch.setenv("FASTMATCH_TORCH_PLANS_DIR", str(tmp_path))
+    monkeypatch.setenv("FASTMATCH_TORCH_AUTOTUNE", "1")
+    autotune.reload(backend="cuda")
+    try:
+        pair = autotune.resolve_plans(64, 16, 2, device="cuda")
+        reg = autotune.PlanRegistry.load(path=tmp_path / "cuda.json", backend="cuda")
+        assert reg.tau_plan(64, 16, 2) == pair.tau and reg.ingest_plan(64, 16) == pair.ingest
+    finally:
+        monkeypatch.delenv("FASTMATCH_TORCH_PLANS_DIR")
+        monkeypatch.delenv("FASTMATCH_TORCH_AUTOTUNE")
+        autotune.reload(backend="cuda")
 
 
 @pytest.mark.parametrize("metric", list(metrics.METRIC_NAMES))
@@ -144,9 +288,13 @@ def test_distance_multi_at_max_queries(cuda, metric, q):
     counts[rng.random(7548) < 0.1] = 0.0
     q_hat = np.stack([rng.dirichlet(np.ones(24)) for _ in range(q)]).astype(np.float32)
     c, t = _t(counts, cuda), _t(q_hat, cuda)
-    before = ops.KERNELS["distance_multi"].launches
+    # the plan registered for this shape, if any, picks the launches
+    plan = autotune.coerce_tau_plan("auto", 7548, 24, q, metric, "cuda")
+    before = {name: kern.launches for name, kern in ops.KERNELS.items()}
     got = ops.distance_multi(c, t, metric=metric)
-    assert ops.KERNELS["distance_multi"].launches == before + 1
+    launched = {name: kern.launches - before[name] for name, kern in ops.KERNELS.items()}
+    assert launched == {name: autotune.tau_launches(plan, 24, q).get(name, 0)
+                        for name in ops.KERNELS}
     assert got.shape == (q, 7548)
     torch.testing.assert_close(got, metrics.distance_multi_ref(c, t, metric=metric),
                                atol=TAU_ATOL, rtol=0)

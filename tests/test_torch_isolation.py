@@ -31,6 +31,7 @@ def test_every_module_is_covered():
         "repro_torch.convert", "repro_torch.core.engine", "repro_torch.core.multiquery",
         "repro_torch.kernels._build", "repro_torch.kernels.ops", "repro_torch.io.block_source",
         "repro_torch.data.synth", "repro_torch.serve", "repro_torch.serve.fastmatch_server",
+        "repro_torch.kernels.autotune",
     ):
         assert expected in names
 

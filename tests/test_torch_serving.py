@@ -723,8 +723,7 @@ class TestNotPorted:
         [("mesh", object(), "A9"), ("pump", True, "A9"), ("model_axis", "m", "A9"),
          ("data_axes", ("x",), "A9"), ("prefetch", True, "A6"), ("checkpoint_dir", "ckpt", "A6"),
          ("autosave_every", 2, "A6"), ("autosave_rounds", 5, "A6"),
-         ("checkpoint_keep_last", 1, "A6"), ("telemetry", True, "A7"),
-         ("kernel_plans", object(), "A8")],
+         ("checkpoint_keep_last", 1, "A6"), ("telemetry", True, "A7")],
         ids=lambda v: v if isinstance(v, str) else "",
     )
     def test_option_raises_naming_its_item(self, served, option, value, item):
