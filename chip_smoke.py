@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FastMatch on one NVIDIA GPU and check it.
 
-Run from the root of a checkout (one card; about 5 to 7 minutes at the
-default size, most of it generating the dataset on the host):
+Run from the root of a checkout (one card; about 8 to 10 minutes at the
+default size, most of it generating the two datasets on the host):
 
     python3 chip_smoke.py [--tuples N] [--seed S]
 
@@ -23,11 +23,13 @@ Phases, each of which raises (non-zero exit) when a check fails:
    path sends them (z zipf 0.3, the tuples of ~10 % of the blocks -1),
    and of uniform, out-of-range and empty batches: bitwise equal to its
    plain version, its inputs unchanged and its scratch back at zero,
-   and the fresh histograms it also serves; the batched distance at
-   7548 x 24 (narrow branch) for Q in {1, 8} and every metric, and at
-   256 x 8192 (wide branch, the reference's two-sweep form), each in its
-   f32 and its uint16 form (bitwise the f32 form), and the uint16 gate
-   on counts holding 70,000 (both branches: bitwise the f32 form).
+   and the fresh histograms it also serves; the batched distance for Q
+   in {1, 8} and every metric at 7548 x 24 (narrow branch) and, in the
+   wide branch, at 256 x 8192, 161 x 1440 (phase 7's shape), 7548 x 1440,
+   191 x 2 under a forced sweeps = 2 and 3 x 524,288 (past the shared
+   memory of a cluster: the two-sweep fallback), each in its f32 and its
+   uint16 form (bitwise the f32 form), and the uint16 gate on counts
+   holding 70,000 (both branches: bitwise the f32 form).
    Integer outputs must be equal, tau within 2e-5. Each check prints its device time (CUDA events around
    launches queued behind a sleep kernel, so the card runs them back to
    back), the kernel alone into preallocated outputs, the plain
@@ -88,6 +90,16 @@ Phases, each of which raises (non-zero exit) when a check fails:
    for chi2 and hellinger, and the ingest) into build/tuned_smoke/: every
    candidate's time, and whether each winner is the committed file's
    (reported, not checked).
+7. Wide rows: FastMatch at the minute-of-day shape, after phases 4 and 5
+   freed their table. FLIGHTS' scheduled departure at minute resolution
+   (V_Z = 161 origin airports, V_X = 1440, zipf 0.3, seed 47) with
+   ``--tuples`` (400M) resident on the card, phase 4's query (k = 10,
+   eps = 0.12, delta = 0.01, lookahead 512) and phase 4's checks:
+   FastMatch with A and B once per round (and at 400M, seed 0: 53
+   rounds, 27,134 blocks) and kernel C only in its wide f32 form; Scan's
+   tau the true distances; Guarantee 1; the pinned
+   lowprec plan with the same ids, rounds and blocks, tau bitwise the
+   default's and kernel C only as its wide uint16 form; a profiled rerun.
 
 Every kernel must have launched on some path, each path's counts set to
 0 just before it and read just after; a kernel's ``launches`` in the
@@ -241,6 +253,11 @@ def phase_setup(torch):
     return smi
 
 
+# kernel C's phase-2 shapes: (V_Z, V_X, the plan's sweeps)
+C_SHAPES = ((7548, 24, 0), (256, 8192, 0), (161, 1440, 0), (7548, 1440, 0), (191, 2, 2),
+            (3, 524_288, 0))
+
+
 def phase_kernels(torch, timer) -> dict:
     """Every kernel against its plain version at the main path's shapes.
     Returns the main-path measurement of each kernel by name."""
@@ -344,24 +361,29 @@ def phase_kernels(torch, timer) -> dict:
           "ingest_ms": ingest_ms, "ingest_host_us": ingest_host * 1e3,
           "ingest_kernels": ingest_kernels})
 
-    # -- C: batched distance, main-path shape and the two-sweep shape, in
-    # its f32 and its uint16 form
+    # -- C: batched distance in its f32 and its uint16 form: the narrow
+    # branch at the taxi shape; the wide branch at the minute-of-day path's
+    # shape (phase 7), at 7548 x 1440 where the bytes bound dominates, at
+    # 256 x 8192, at police_q1's shape under a forced sweeps = 2 (191 x 2) and past
+    # its shared-memory threshold (3 x 524,288, the two-sweep fallback)
     from repro_torch.kernels import autotune, ops
 
-    lowprec = autotune.TauPlan(lowprec=True)
-    for (vz, vx) in ((7548, 24), (256, 8192)):
+    for (vz, vx, sweeps) in C_SHAPES:
         counts_np = rng.integers(0, 40, size=(vz, vx)).astype(np.float32)
         counts_np[rng.random(vz) < 0.2] = 0.0
         counts_np[0] = 0.0  # an empty row
         counts = t(counts_np)
         c16, fits = counts.to(torch.uint16), torch.amax(counts) <= 65535.0
-        f32_name = "distance_multi" if vx <= metrics.NARROW_MAX_VX else "distance_wide"
+        lowprec = autotune.TauPlan(sweeps=sweeps, lowprec=True)
+        wide = metrics.wide_branch(vx, sweeps=sweeps)
+        f32_name = "distance_wide" if wide else "distance_multi"
         for q in (1, 8):
             q_hat = t(np.stack([rng.dirichlet(np.ones(vx)) for _ in range(q)]).astype(np.float32))
             for metric in metrics.METRIC_NAMES:
-                got = metrics.distance_multi(counts, q_hat, metric=metric)
+                got = metrics.distance_multi(counts, q_hat, metric=metric, sweeps=sweeps)
                 want = metrics.distance_multi_ref(counts, q_hat, metric=metric)
-                got16 = metrics.distance_multi(c16, q_hat, metric=metric, gate=(counts, fits))
+                got16 = metrics.distance_multi(c16, q_hat, metric=metric, sweeps=sweeps,
+                                               gate=(counts, fits))
                 want16 = metrics.distance_multi_ref(c16, q_hat, metric=metric)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
@@ -371,10 +393,11 @@ def phase_kernels(torch, timer) -> dict:
                 check(err16 <= TAU_ATOL and torch.equal(got16, got),
                       f"distance_multi uint16 {metric} Q={q} {vz}x{vx}: max err {err16}, "
                       "not bitwise the f32 form")
-                ms, host = timer(lambda: metrics.distance_multi(counts, q_hat, metric=metric))
+                ms, host = timer(lambda: metrics.distance_multi(counts, q_hat, metric=metric,
+                                                                sweeps=sweeps))
                 plain, _ = timer(lambda: metrics.distance_multi_ref(counts, q_hat, metric=metric))
                 ms16, host16 = timer(lambda: metrics.distance_multi(
-                    c16, q_hat, metric=metric, gate=(counts, fits)))
+                    c16, q_hat, metric=metric, sweeps=sweeps, gate=(counts, fits)))
                 plain16, _ = timer(lambda: metrics.distance_multi_ref(c16, q_hat, metric=metric))
                 # the whole gate: max, compare, cast and the uint16 launch
                 gated_ms, gated_host = timer(lambda: autotune.run_tau(
@@ -388,7 +411,7 @@ def phase_kernels(torch, timer) -> dict:
                 row16 = dict(max_abs_err=err16, ms=ms16, plain_ms=plain16, bound_ms=bnd16,
                              bound_by=by16, library_ms=None, host_us=host16 * 1e3)
                 extra = {}
-                if (q, metric) == (1, "l1"):
+                if (q, metric) == (1, "l1") and (vz, vx) in ((7548, 24), (161, 1440)):
                     main[f32_name] = row
                     main[f32_name + "_u16"] = row16
                 if (vz, vx, q, metric) == (7548, 24, 1, "l1"):
@@ -419,13 +442,14 @@ def phase_kernels(torch, timer) -> dict:
                     check(extra["xla_max_abs_err"] <= TAU_ATOL, "the xla form disagrees")
                     extra["xla_ms"], _ = timer(lambda: metrics.distance_multi_xla(counts, q_hat))
                 emit({"check": "distance_multi", "metric": metric, "q": q, "shape": [vz, vx],
+                      "sweeps": sweeps, "branch": "wide" if wide else "narrow",
                       **_check_fields(row), "u16": _check_fields(row16),
                       "u16_bitwise_f32": True, "gated_ms": gated_ms,
                       "gated_host_us": gated_host * 1e3, **extra})
         # the gate's overflow case: one entry past the uint16 range, which the
         # cast wraps; every block must read the f32 counts instead
         over = counts.clone()
-        over[3, 5] = 70_000.0
+        over[min(3, vz - 1), min(5, vx - 1)] = 70_000.0
         over16, over_fits = over.to(torch.uint16), torch.amax(over) <= 65535.0
         q_hat = t(np.stack([rng.dirichlet(np.ones(vx)) for _ in range(8)]).astype(np.float32))
         for metric in metrics.METRIC_NAMES:
@@ -439,6 +463,7 @@ def phase_kernels(torch, timer) -> dict:
                 check(not bool(over_fits) and torch.equal(got, want) and torch.equal(planned, want),
                       f"the uint16 gate did not fall back exactly ({metric}, {vz}x{vx}, "
                       f"sweeps={sweeps})")
+        del counts, c16, over, over16
         emit({"check": "distance_u16_gate", "shape": [vz, vx], "entry": 70_000.0,
               "fits": False, "bitwise_f32": True})
     return main
@@ -711,20 +736,41 @@ def _profile_tables(torch, prof) -> tuple:
     return sum(r[1] for r in device), device, host
 
 
-def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
+def taxi_spec(num_tuples: int):
+    """Phase 4's table: the reference's taxi_q1 shape scaled up."""
+    from repro_torch.data.synth import SynthSpec
+
+    return SynthSpec(v_z=7548, v_x=24, num_tuples=num_tuples, k=10, n_close=10,
+                     close_distance=0.05, far_distance=0.45, zipf_a=0.3, close_rank="head",
+                     seed=44)
+
+
+def minute_spec(num_tuples: int):
+    """Phase 7's table: FLIGHTS' scheduled departure at minute resolution
+    (V_X = 1440) over its 161 origin airports."""
+    from repro_torch.data.synth import SynthSpec
+
+    return SynthSpec(v_z=161, v_x=1440, num_tuples=num_tuples, k=10, n_close=10,
+                     close_distance=0.05, far_distance=0.45, zipf_a=0.3, close_rank="head",
+                     seed=47)
+
+
+def phase_engine_scale(torch, spec, seed: int, *, check_name: str, expect=None) -> tuple:
+    """FastMatch and Scan on ``spec``'s table resident on the card (see the
+    module docstring, phases 4 and 7); ``expect`` is FastMatch's (rounds,
+    blocks) where they are known. Returns the report and what phase 5
+    serves from."""
     import numpy as np
 
     from repro_torch.core import engine, histsim
     from repro_torch.core.bitmap import words_for
     from repro_torch.data.layout import block_layout
-    from repro_torch.data.synth import SynthSpec, make_dataset
+    from repro_torch.data.synth import make_dataset
     from repro_torch.io import InMemorySource
-    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import autotune, metrics, ops
 
     k, eps, delta = 10, 0.12, 0.01
-    spec = SynthSpec(v_z=7548, v_x=24, num_tuples=num_tuples, k=k, n_close=10,
-                     close_distance=0.05, far_distance=0.45, zipf_a=0.3, close_rank="head",
-                     seed=44)
+    num_tuples = spec.num_tuples
     t = time.perf_counter()
     ds = make_dataset(spec)
     gen_s = time.perf_counter() - t
@@ -749,6 +795,9 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
     # what the engine's scheduler resolves from the committed plan file
     plans = autotune.resolve_plans(spec.v_z, spec.v_x, 1, metric="l1", device="cuda")
     c_launches = autotune.tau_launches(plans.tau, spec.v_x, 1)
+    if spec.v_x > metrics.NARROW_MAX_VX:
+        check(c_launches == {"distance_wide": 1},
+              f"{plans.tau} does not take kernel C's wide f32 form once a stats step")
     log(f"resolved plans: {plans}")
 
     def check_c(launches: dict, expect: dict, run: str) -> None:
@@ -779,10 +828,9 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
     for name in ("histogram", "anyactive"):
         check(launches[name] == fm.rounds,
               f"{launches[name]} {name} launches for {fm.rounds} fastmatch rounds")
-    if (num_tuples, seed) == (400_000_000, 0):
-        check((fm.rounds, fm.blocks_read) == (27, 12_395),
-              f"fastmatch took {fm.rounds} rounds and read {fm.blocks_read} blocks, "
-              "not 27 and 12,395")
+    if expect is not None:
+        check((fm.rounds, fm.blocks_read) == expect,
+              f"fastmatch took {fm.rounds} rounds and read {fm.blocks_read} blocks, not {expect}")
 
     for kern in ops.KERNELS.values():
         kern.launches = 0
@@ -823,8 +871,8 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
         check(autotune.resolve_plans(spec.v_z, spec.v_x, 1, device="cuda") == pinned,
               "the pinned plan file did not resolve")
         lowprec = {}
-        for name, variant_cfg, base in (("fastmatch", cfg, fm),
-                                        ("scan", engine.EngineConfig(variant="scan"), scan)):
+        for run, variant_cfg, base in (("fastmatch", cfg, fm),
+                                       ("scan", engine.EngineConfig(variant="scan"), scan)):
             for kern in ops.KERNELS.values():
                 kern.launches = 0
             t = time.perf_counter()
@@ -834,23 +882,24 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
             runs = {n: kern.launches for n, kern in ops.KERNELS.items()}
             check(np.array_equal(res.ids, base.ids) and res.rounds == base.rounds
                   and res.blocks_read == base.blocks_read,
-                  f"{name} under a lowprec plan: ids {res.ids}, {res.rounds} rounds, "
+                  f"{run} under a lowprec plan: ids {res.ids}, {res.rounds} rounds, "
                   f"{res.blocks_read} blocks, not the default plan's")
-            check_c(runs, {"distance_multi_u16": 1}, f"{name} under a lowprec plan")
+            check(torch.equal(res.state.tau, base.state.tau),
+                  f"{run} under a lowprec plan: tau is not bitwise the default plan's")
+            check_c(runs, autotune.tau_launches(pinned.tau, spec.v_x, 1),
+                    f"{run} under a lowprec plan")
             max_count = float(res.state.counts.max())
-            lowprec[name] = dict(rounds=res.rounds, blocks_read=res.blocks_read, wall_s=wall,
-                                 launches=runs, max_count=max_count,
-                                 gate_tripped=max_count > 65535.0,
-                                 tau_bitwise_default=bool(torch.equal(res.state.tau,
-                                                                      base.state.tau)))
-            if name == "scan":
+            lowprec[run] = dict(rounds=res.rounds, blocks_read=res.blocks_read, wall_s=wall,
+                                launches=runs, max_count=max_count,
+                                gate_tripped=max_count > 65535.0, tau_bitwise_default=True)
+            if run == "scan":
                 lp_err = float(np.abs(res.state.tau.cpu().numpy().astype(np.float64)
                                       - true_dists).max())
                 check(lp_err <= TAU_ATOL, f"scan under a lowprec plan: tau off by {lp_err}")
-                lowprec[name]["tau_max_abs_err_vs_generator"] = lp_err
-            log(f"{name} under {pinned.tau}: {res.rounds} rounds, {res.blocks_read} blocks, "
+                lowprec[run]["tau_max_abs_err_vs_generator"] = lp_err
+            log(f"{run} under {pinned.tau}: {res.rounds} rounds, {res.blocks_read} blocks, "
                 f"{wall:.3f}s, max count {max_count:.0f} (gate tripped: "
-                f"{lowprec[name]['gate_tripped']}), launches {runs}")
+                f"{lowprec[run]['gate_tripped']}), launches {runs}")
     finally:
         autotune.reload(backend="cuda")
 
@@ -878,7 +927,8 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
     log(f"profiled fastmatch: device time {device_ms:.3f} ms of {fm_wall * 1e3:.1f} ms wall")
 
     out = dict(
-        tuples=num_tuples, blocks=nb, resident_gb=resident_gb, generate_s=gen_s,
+        shape=[spec.v_z, spec.v_x], tuples=num_tuples, blocks=nb, resident_gb=resident_gb,
+        generate_s=gen_s,
         layout_s=layout_s, upload_s=upload_s,
         fastmatch=dict(ids=fm.ids.tolist(), rounds=fm.rounds, passes=fm.passes,
                        blocks_read=fm.blocks_read, blocks_share=fm.blocks_read / nb,
@@ -897,8 +947,8 @@ def phase_engine_scale(torch, num_tuples: int, seed: int) -> tuple:
                      top=[dict(name=n, ms=ms, calls=c) for n, ms, c in by_kernel[:15]],
                      host_top=[dict(name=n, ms=ms, calls=c) for n, ms, c in by_host_op[:15]]),
     )
-    emit({"check": "engine_scale", **{k2: v for k2, v in out.items() if k2 != "profile"}})
-    emit({"check": "engine_scale_profile", **out["profile"]})
+    emit({"check": check_name, **{k2: v for k2, v in out.items() if k2 != "profile"}})
+    emit({"check": f"{check_name}_profile", **out["profile"]})
     # what phase 5 serves from: the resident table, and the exact counts
     ctx = dict(source=source, target=target, counts=scan.state.counts, params=params, cfg=cfg,
                solo_target=fm)
@@ -1167,13 +1217,14 @@ KERNEL_ROWS = {
                           "src/repro/kernels/metrics.py:385"),
 }
 ALSO_REPLACES = {"anyactive": "src/repro/core/multiquery.py:644-645"}
-PATHS = ("fastmatch", "serving", "fastmatch_lowprec", "fixture_wide_u16", "tuner")
+PATHS = ("fastmatch", "serving", "minute_fastmatch", "minute_fastmatch_lowprec",
+         "fastmatch_lowprec", "fixture_wide_u16", "tuner")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tuples", type=int, default=400_000_000,
-                    help="tuples in the paper-scale dataset (default 400M)")
+                    help="tuples in the paper-scale datasets of phases 4 and 7 (default 400M)")
     ap.add_argument("--seed", type=int, default=0, help="FastMatch's start-block seed")
     args = ap.parse_args(argv)
 
@@ -1196,13 +1247,21 @@ def main(argv=None) -> int:
     ds, blocked = phase_engine_small(torch)
     fixture_wide_u16 = phase_serving_small(torch, ds, blocked)
     del ds, blocked
+    full_size = (args.tuples, args.seed) == (400_000_000, 0)
     log(f"phase 4: engine at {args.tuples} tuples")
-    scale, ctx = phase_engine_scale(torch, args.tuples, args.seed)
+    scale, ctx = phase_engine_scale(torch, taxi_spec(args.tuples), args.seed,
+                                    check_name="engine_scale",
+                                    expect=(27, 12_395) if full_size else None)
     log("phase 5: serving 12 queries on the resident table")
     serving = phase_serving(torch, timer, ctx)
     del ctx
+    torch.cuda.empty_cache()
     log("phase 6: the tuner at the taxi keys")
     tuner = phase_tuner(torch)
+    log(f"phase 7: wide rows, FastMatch at the minute-of-day shape, {args.tuples} tuples")
+    wide, _ = phase_engine_scale(torch, minute_spec(args.tuples), args.seed,
+                                 check_name="wide_rows",
+                                 expect=(53, 27_134) if full_size else None)
 
     leaked = sorted(m for m in sys.modules if m.startswith("jax") or m == "repro"
                     or m.startswith("repro."))
@@ -1213,7 +1272,10 @@ def main(argv=None) -> int:
                  serving=serving["launches"],
                  fastmatch_lowprec=scale["lowprec"]["fastmatch"]["launches"],
                  scan_lowprec=scale["lowprec"]["scan"]["launches"],
-                 fixture_wide_u16=fixture_wide_u16, tuner=tuner["launches"])
+                 fixture_wide_u16=fixture_wide_u16, tuner=tuner["launches"],
+                 minute_fastmatch=wide["launches"], minute_scan=wide["scan_launches"],
+                 minute_fastmatch_lowprec=wide["lowprec"]["fastmatch"]["launches"],
+                 minute_scan_lowprec=wide["lowprec"]["scan"]["launches"])
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         path = next((p for p in PATHS if paths[p][name] > 0), None)
@@ -1235,7 +1297,7 @@ def main(argv=None) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, device=device, kernels=kernels, scale=scale, serving=serving,
-             tuner=tuner["report"], wall_s=time.perf_counter() - T0), indent=1))
+             tuner=tuner["report"], wide_rows=wide, wall_s=time.perf_counter() - T0), indent=1))
     log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
     emit({"kernels": kernels})
     print(smi, flush=True)

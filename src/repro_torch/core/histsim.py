@@ -31,6 +31,7 @@ __all__ = [
     "init_state",
     "ingest",
     "stats_step",
+    "run_round",
     "top_k_ids",
 ]
 
@@ -114,6 +115,16 @@ def stats_step(state: HistSimState, *, params: HistSimParams) -> HistSimState:
         in_top_k=d.in_top_k,
         round_idx=state.round_idx + 1,
     )
+
+
+def run_round(state: HistSimState, z_idx, x_idx, *, params: HistSimParams) -> HistSimState:
+    """ingest + stats in sequence: one full HistSim round."""
+    return stats_step(ingest(state, z_idx, x_idx, params=params), params=params)
+
+
+def should_terminate(state: HistSimState, params: HistSimParams) -> bool:
+    """delta_upper < delta (line 6 of Alg. 1), decided on the host."""
+    return bool(state.delta_upper < params.delta)
 
 
 def top_k_ids(state: HistSimState, k: int) -> torch.Tensor:

@@ -82,6 +82,7 @@ __all__ = [
     "clear_slot",
     "ingest",
     "stats_step",
+    "run_round",
     "slot_state",
 ]
 
@@ -429,6 +430,23 @@ def stats_step(
     )
     tau = torch.where(state.occupied[:, None], tau, 1.0)
     return apply_stats(state, tau, state.n, spec=spec, closeness=closeness)
+
+
+def run_round(
+    state: MultiQueryState,
+    z_idx,
+    x_idx,
+    *,
+    spec: MultiQuerySpec,
+    plans: Optional[autotune.PlanPair] = None,
+) -> MultiQueryState:
+    """Shared ingest + per-slot stats: one full multi-query round, in the
+    kernel ``plans`` given (None consults the plan registry)."""
+    return stats_step(
+        ingest(state, z_idx, x_idx, spec=spec, plan=plans.ingest if plans else None),
+        spec=spec,
+        plan=plans.tau if plans else None,
+    )
 
 
 def _advance_cursor(cursor: SampleCursor, wd: WindowData, marks: torch.Tensor) -> SampleCursor:

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by nvcc for ``sm_90a`` into its own
 shared library with a plain C interface, under ``build/kernels/`` at the
 repository root. The library's file name carries the SHA-256 of its
-source, so an edited source is rebuilt and an unchanged one is loaded
-from an earlier build. The first kernel call builds every source, one
+source and of the headers under ``csrc/`` (``*.cuh``), so an edited
+source or header is rebuilt and an unchanged one is loaded from an
+earlier build. The first kernel call builds every source, one
 nvcc process each, all started together. A build that fails raises; no
 caller falls back to a plain version.
 
@@ -56,8 +57,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives, keyed by its hash."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    """Where the build of ``csrc/<name>.cu`` lives, keyed by its and the headers' hash."""
+    h = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(path.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -107,14 +107,15 @@ def test_distance_narrow(cuda, metric, q, v_z, v_x):
 
 @pytest.mark.parametrize(
     "v_x,sweeps,lowprec,branch",
-    [(1024, 0, False, "distance_tile_kernel"), (1025, 0, False, "distance_wide_kernel"),
-     (24, 2, False, "distance_wide_kernel"), (1024, 1, False, "distance_tile_kernel"),
-     (24, 0, True, "distance_tile_u16"), (24, 2, True, "distance_wide_u16"),
-     (1025, 0, True, "distance_wide_u16")],
+    [(1024, 0, False, "distance_tile_kernel"),
+     (1025, 0, False, "distance_wide_cluster_kernel"),
+     (24, 2, False, "distance_wide_cluster_kernel"), (1024, 1, False, "distance_tile_kernel"),
+     (24, 0, True, "distance_tile_u16"), (24, 2, True, "distance_wide_cluster_u16"),
+     (1025, 0, True, "distance_wide_cluster_u16")],
 )
 def test_distance_branch(cuda, v_x, sweeps, lowprec, branch):
     """V_X = 1024 is the widest row-tile launch; 1025, or sweeps = 2 at
-    any V_X, takes the block-per-row branch; the uint16 form of each
+    any V_X, takes the cluster-tiled wide branch; the uint16 form of each
     branch is a kernel of its own, counted apart."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -138,6 +139,74 @@ def test_distance_branch(cuda, v_x, sweeps, lowprec, branch):
     before = ops.KERNELS[name].launches
     call()
     assert ops.KERNELS[name].launches == before + count
+
+
+# the wide branch's grid: V_X past the narrow branch's 1024, the
+# two-sweep fallback's width (300,000: no cluster of 8 holds one row's
+# slice beside the targets' at any Q here), and short rows under a
+# forced sweeps = 2
+WIDE_VX = (1, 2, 24, 1025, 1440, 4097, 8192, 65536, 300_000)
+WIDE_VZ = (1, 3, 131, 161, 256)
+WIDE_Q = (1, 3, 8, 9, 16)
+
+
+def _card_case(cuda, v_z, v_x, q, seed):
+    """Integer counts below 40 with ~20 % empty rows (row 0 always) and q
+    Dirichlet(1) targets, made on the card from ``seed``."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    counts = torch.randint(0, 40, (v_z, v_x), generator=gen, device=cuda).float()
+    counts[torch.rand(v_z, generator=gen, device=cuda) < 0.2] = 0.0
+    counts[0] = 0.0
+    e = -torch.log(torch.rand((q, v_x), generator=gen, device=cuda).clamp_min(1e-12))
+    return counts, (e / e.sum(dim=1, keepdim=True)).contiguous()
+
+
+@pytest.mark.parametrize("v_z", WIDE_VZ)
+@pytest.mark.parametrize("v_x", WIDE_VX)
+def test_distance_wide(cuda, v_z, v_x):
+    """Kernel C's wide branch against its plain version within 2e-5 at
+    every Q and metric; its uint16 form bitwise the f32 form, in range
+    and with the gate tripped (one entry of 70,000); two launches give
+    the same bits."""
+    counts, q_all = _card_case(cuda, v_z, v_x, max(WIDE_Q), v_z * 7 + v_x)
+    over = counts.clone()
+    over[-1, v_x // 2] = 70_000.0
+    gates = ((counts, torch.amax(counts) <= 65535.0), (over, torch.amax(over) <= 65535.0))
+    assert bool(gates[0][1]) and not bool(gates[1][1])
+    for q in WIDE_Q:
+        t = q_all[:q].contiguous()
+        for metric in metrics.METRIC_NAMES:
+            for c, fits in gates:
+                got = metrics.distance_multi(c, t, metric=metric, sweeps=2)
+                again = metrics.distance_multi(c, t, metric=metric, sweeps=2)
+                got16 = metrics.distance_multi(c.to(torch.uint16), t, metric=metric, sweeps=2,
+                                               gate=(c, fits))
+                want = metrics.distance_multi_ref(c, t, metric=metric)
+                msg = f"Q={q} {metric} fits={bool(fits)}"
+                assert torch.equal(got, again), msg
+                assert torch.equal(got16, got), msg
+                torch.testing.assert_close(got, want, atol=TAU_ATOL, rtol=0, msg=msg)
+
+
+@pytest.mark.parametrize("v_z,v_x", [(3, 1025), (161, 1440), (131, 4097), (5, 300_000)])
+@pytest.mark.parametrize("q", [1, 9])
+def test_distance_wide_unaligned_view(cuda, v_z, v_x, q):
+    """Counts whose first element is not 16-byte aligned (a contiguous
+    view one element into its storage, in f32 and in uint16): every row
+    slice starts off a 16-byte boundary, and the kernel still agrees."""
+    counts, t = _card_case(cuda, v_z, v_x, q, v_x + q)
+    flat = torch.zeros(v_z * v_x + 1, device=cuda)
+    flat[1:] = counts.reshape(-1)
+    view = flat[1:].view(v_z, v_x)
+    flat16 = flat.to(torch.uint16)
+    view16 = flat16[1:].view(v_z, v_x)
+    assert view.data_ptr() % 16 and view16.data_ptr() % 16
+    fits = torch.ones((), dtype=torch.bool, device=cuda)
+    for metric in metrics.METRIC_NAMES:
+        want = metrics.distance_multi(counts, t, metric=metric, sweeps=2)
+        got = metrics.distance_multi(view, t, metric=metric, sweeps=2)
+        got16 = metrics.distance_multi(view16, t, metric=metric, sweeps=2, gate=(view, fits))
+        assert torch.equal(got, want) and torch.equal(got16, want), metric
 
 
 def _u16_case(rng, v_z, v_x, q, hi=40):

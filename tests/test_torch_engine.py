@@ -127,6 +127,26 @@ class TestEngineAgainstReference:
             )
 
 
+@pytest.mark.parametrize("v_x", [1440, 4100])
+def test_fastmatch_at_wide_vx(v_x):
+    """FastMatch at a V_X past the port's narrow branch (1024), where tau
+    takes kernel C's wide branch on the card; 4100 is past the
+    reference's single-sweep 4096 too, so its two-sweep layout runs. The
+    port runs on the CPU through the plain version."""
+    spec = SynthSpec(v_z=31, v_x=v_x, num_tuples=300_000, k=5, n_close=5, close_distance=0.05,
+                     far_distance=0.45, zipf_a=0.3, seed=v_x)
+    ds = make_dataset(spec)
+    blocked = block_layout(ds.z, ds.x, v_z=31, v_x=v_x, block_size=256, seed=v_x)
+    ported = convert.dataset_from_numpy(blocked.z_blocks, blocked.x_blocks, blocked.bitmap,
+                                        31, v_x)
+    kw = dict(v_z=31, v_x=v_x, k=5, eps=0.5, delta=0.05)
+    cfg = dict(variant="fastmatch", seed=1, lookahead=64)
+    want = run_engine(blocked, ds.target, HistSimParams(**kw), EngineConfig(**cfg))
+    got = tengine.run_engine(ported, ds.target, thistsim.HistSimParams(**kw),
+                             tengine.EngineConfig(**cfg), device="cpu")
+    _assert_same_result(got, want)
+
+
 @pytest.mark.parametrize("criterion", ["histsim", "slowmatch"])
 def test_histsim_round_matches_reference(dataset, criterion):
     """The single-query HistSim state: init, one ingest, one stats step."""

@@ -59,6 +59,41 @@ def test_kernel_sources_exist():
     ]
 
 
+def test_build_key_covers_headers(tmp_path, monkeypatch):
+    """An edited header under csrc/ rebuilds the kernels that include it."""
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in _build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    assert (csrc / "row_divisor.cuh").exists()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path("distance")
+    with open(csrc / "row_divisor.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path("distance") != before
+
+
+def test_profile_marks_in_wide_tile():
+    """tools/torch_wide_profile.py stamps at PROFILE-MARK 0 to 6, in order,
+    all inside kernel C's wide tile."""
+    import importlib.util
+
+    tool = SRC.parent / "tools" / "torch_wide_profile.py"
+    spec = importlib.util.spec_from_file_location("torch_wide_profile", tool)
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    text = (SRC / "repro_torch" / "kernels" / "csrc" / "distance.cu").read_text()
+    lines = text.split("\n")
+    marks = [(i, int(m.group(1))) for i, line in enumerate(lines) if (m := prof.MARK.match(line))]
+    assert [k for _, k in marks] == list(range(len(prof.PHASES) + 1))
+    start = next(i for i, line in enumerate(lines) if "void wide_tile_tau(" in line)
+    end = next(i for i in range(start + 1, len(lines)) if lines[i] == "}")
+    assert all(start < i < end for i, _ in marks)
+    assert prof.stamped_source(text).count("%%globaltimer") == len(marks)
+
+
 def test_default_device_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present, so the default device is valid")
