@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FastMatch on one NVIDIA GPU and check it.
 
-Run from the root of a checkout (one card; about 8 to 10 minutes at the
+Run from the root of a checkout (one card; about 9 to 12 minutes at the
 default size, most of it generating the two datasets on the host):
 
     python3 chip_smoke.py [--tuples N] [--seed S]
@@ -86,6 +86,33 @@ Phases, each of which raises (non-zero exit) when a check fails:
    prints walls, rounds, host syncs, shared against solo tuples, a warm
    re-submission's tuples, a profiled rerun's kernels and launches per
    round, and kernel C and `stats_step` at Q = 8.
+8. The I/O, fault and recovery layer, right after phase 5 on its resident
+   table, each sub-phase with the launch counts at 0 just before and read
+   just after (kernels A and B at least once a round, kernel C at least
+   once a statistics step) and its wall printed. 8a: phase 5's workload
+   through `maybe_chaos` (FASTMATCH_CHAOS=1, seed 0): every request's ids,
+   rounds, tuples and ``exact`` phase 5's, tau bitwise, retries > 0, not
+   degraded, ``eps_effective == eps``. 8b: the same workload through
+   ``ResilientSource(FaultySource(source, FaultPlan(p_corrupt=0.02,
+   p_truncate=0.02), seed=5))``: blocks are quarantined, every outcome
+   reports ``degraded`` and ``eps_effective = eps + 2q`` for the q known at
+   its own retirement, the counts and n are bitwise the `torch.bincount`
+   histogram of exactly the blocks the read mask marks (no quarantined
+   tuple reached ingest), top-k answers meet Guarantee 1 at
+   ``eps_effective`` and closeness labels are right outside the gap widened
+   by 2q. 8c: a `ServeSupervisor` over the resident table serves the 8
+   top-k targets with snapshots every 2 retirements; a `FaultySource`
+   crashes it halfway through the rounds of an uncrashed run: one restart,
+   every answer meets Guarantee 1, the restored cache is bitwise the
+   snapshot's files, device memory after the recovery is within 8 MB of
+   before the crash, and `MatchServer.restore` on the same files answers
+   the last-retired target with 0 new tuples; each save's bytes and wall
+   and the recovery's wall are printed. 8d: phase 4's FastMatch query from
+   a host-resident source over the kept host arrays without and with
+   prefetch, then from the resident table with prefetch: bitwise the same
+   ids, tau, rounds and blocks (27 and 12,395 at 400M, seed 0), no prefetch
+   worker alive after; walls (each the second run, after a warm-up) and
+   device busy shares printed. The host arrays are dropped after phase 8.
 6. The tuner on the card at the taxi keys (Q = 1 and 8 for l1, Q = 8
    for chi2 and hellinger, and the ingest) into build/tuned_smoke/: every
    candidate's time, and whether each winner is the committed file's
@@ -787,7 +814,6 @@ def phase_engine_scale(torch, spec, seed: int, *, check_name: str, expect=None) 
     source = InMemorySource(blocked, device="cuda")
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t
-    del blocked
     log(f"moved {resident_gb:.2f} GB to the card in {upload_s:.1f}s")
 
     params = histsim.HistSimParams(v_z=spec.v_z, v_x=spec.v_x, k=k, eps=eps, delta=delta)
@@ -949,9 +975,10 @@ def phase_engine_scale(torch, spec, seed: int, *, check_name: str, expect=None) 
     )
     emit({"check": check_name, **{k2: v for k2, v in out.items() if k2 != "profile"}})
     emit({"check": f"{check_name}_profile", **out["profile"]})
-    # what phase 5 serves from: the resident table, and the exact counts
+    # what phases 5 and 8 serve from: the resident table, the exact counts,
+    # and the host arrays (phase 8's host-resident source)
     ctx = dict(source=source, target=target, counts=scan.state.counts, params=params, cfg=cfg,
-               solo_target=fm)
+               solo_target=fm, blocked=blocked, fastmatch=fm)
     return out, ctx
 
 
@@ -1037,6 +1064,9 @@ def phase_serving(torch, timer, ctx: dict) -> dict:
         kern.launches = 0
     with _StatsProbe() as probe:
         run = _serve_taxi(torch, source, topk_targets, close_targets, stop_tuples)
+    # phase 8 serves the same workload through faulty sources
+    ctx["workload"] = (topk_targets, close_targets, stop_tuples)
+    ctx["served"] = {rid: run["server"].results[rid] for rid in run["topk"] + run["close"]}
     launches = {name: kern.launches for name, kern in ops.KERNELS.items()}
     server, sched = run["server"], run["server"].scheduler
     results = dict(server.results)
@@ -1151,6 +1181,402 @@ def phase_serving(torch, timer, ctx: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the I/O, fault and recovery layer on phase 4's resident table
+# ---------------------------------------------------------------------------
+
+C_FORMS = ("distance_multi", "distance_multi_u16", "distance_wide", "distance_wide_u16")
+
+
+def _reset_launches() -> None:
+    from repro_torch.kernels import ops
+
+    for kern in ops.KERNELS.values():
+        kern.launches = 0
+
+
+def _launch_counts() -> dict:
+    from repro_torch.kernels import ops
+
+    return {name: kern.launches for name, kern in ops.KERNELS.items()}
+
+
+def _check_per_round(launches: dict, rounds: int, stats_steps: int, what: str) -> None:
+    """Kernels A and B launched at least once a round, kernel C at least
+    once a statistics step (every sampling round runs one; an exact
+    completion's ingest rounds run none, and it runs one at its end)."""
+    c = sum(launches[name] for name in C_FORMS)
+    for name, n, per in (("anyactive", launches["anyactive"], rounds),
+                         ("histogram", launches["histogram"], rounds),
+                         ("kernel C", c, stats_steps)):
+        check(per > 0 and n >= per, f"{what}: {n} {name} launches for {rounds} rounds, "
+                                    f"{stats_steps} statistics steps")
+
+
+def _meets_guarantee1(ids, truth, eps: float, k: int) -> bool:
+    """Every true top-k candidate left out is within ``eps`` of the worst
+    one returned (Guarantee 1)."""
+    import numpy as np
+
+    true_top = set(np.argsort(truth, kind="stable")[:k].tolist())
+    worst = max(float(truth[j]) for j in ids)
+    return all(worst - float(truth[j]) < eps for j in true_top - set(ids.tolist()))
+
+
+def _workload_truth(torch, ctx) -> tuple:
+    """Phase 5's targets, their queries' eps by request id, and every
+    target's exact tau (kernel C's plain version over Scan's counts)."""
+    import numpy as np
+
+    from repro_torch.kernels import metrics
+
+    topk, close, _ = ctx["workload"]
+    q_hats = np.stack([tg / tg.sum() for tg in topk + close]).astype(np.float32)
+    truth = metrics.distance_multi_ref(
+        ctx["counts"], torch.from_numpy(q_hats).to(ctx["counts"].device)
+    ).cpu().numpy().astype(np.float64)
+    eps = {rid: (0.12 if rid < len(topk) else 0.10) for rid in range(len(topk) + len(close))}
+    return truth, eps
+
+
+def _phase8_chaos(torch, ctx) -> dict:
+    """8a: phase 5's workload through `maybe_chaos`: bitwise phase 5."""
+    import numpy as np
+
+    from repro_torch.io import maybe_chaos
+
+    topk, close, stop_tuples = ctx["workload"]
+    base = ctx["served"]
+    _, eps = _workload_truth(torch, ctx)
+    chaos = maybe_chaos(ctx["source"], env={"FASTMATCH_CHAOS": "1", "FASTMATCH_CHAOS_SEED": "0"})
+    _reset_launches()
+    with _StatsProbe() as probe:
+        run = _serve_taxi(torch, chaos, topk, close, stop_tuples)
+    launches = _launch_counts()
+    server, sched = run["server"], run["server"].scheduler
+    _check_per_round(launches, sched.rounds, probe.stats_steps, "8a")
+    check(run["topk"] + run["close"] == list(base), "8a served other requests than phase 5")
+    for rid, want in base.items():
+        got = server.results[rid]
+        check(np.array_equal(got.ids, want.ids), f"8a request {rid}: ids differ from phase 5")
+        for f in ("rounds", "tuples_read", "exact", "stopped"):
+            check(getattr(got, f) == getattr(want, f),
+                  f"8a request {rid}: {f} {getattr(got, f)} vs phase 5's {getattr(want, f)}")
+        check(torch.equal(got.state.tau, want.state.tau),
+              f"8a request {rid}: tau is not bitwise phase 5's")
+        check(not got.degraded and got.eps_effective == eps[rid],
+              f"8a request {rid}: degraded={got.degraded}, eps_effective {got.eps_effective}")
+    check(chaos.retries_total > 0, "8a: the chaos source retried nothing")
+    out = dict(wall_s=run["wall_s"], rounds=sched.rounds, retries=chaos.retries_total,
+               injected=chaos.inner.injector.injected, attempts=chaos.inner.injector.attempts,
+               launches=launches, bitwise_phase5=True)
+    log(f"8a chaos: {out}")
+    return out
+
+
+class _RetireProbe:
+    """Records, at every retirement while installed, the quarantine the
+    scheduler then knew and what the outcome reports (8b's check)."""
+
+    def __init__(self):
+        from repro_torch.core.multiquery import SharedCountsScheduler
+
+        self.cls, self._retire, self.rows = SharedCountsScheduler, SharedCountsScheduler.retire, []
+
+    def __enter__(self):
+        probe = self
+
+        def retire(sched, slot, **kw):
+            eps = sched.tickets[slot].eps
+            bq, tq = sched.blocks_quarantined, sched.tuples_quarantined
+            out = probe._retire(sched, slot, **kw)
+            want = eps + (2.0 * (tq / sched.total_tuples) if bq else 0.0)
+            probe.rows.append(dict(eps=eps, blocks_quarantined=bq, tuples_quarantined=tq,
+                                   degraded=out.degraded, eps_effective=out.eps_effective,
+                                   expected=want))
+            return out
+
+        self.cls.retire = retire
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.retire = self._retire
+
+
+def _phase8_quarantine(torch, ctx) -> dict:
+    """8b: corruption quarantines and degrades honestly; nothing
+    quarantined reaches ingest."""
+    import numpy as np
+
+    from repro_torch.io import FaultPlan, FaultySource, ResilientSource
+
+    topk, close, stop_tuples = ctx["workload"]
+    truth, eps = _workload_truth(torch, ctx)
+    source = ctx["source"]
+    res_src = ResilientSource(FaultySource(source, FaultPlan(p_corrupt=0.02, p_truncate=0.02),
+                                           seed=5))
+    _reset_launches()
+    with _RetireProbe() as probe, _StatsProbe() as stats:
+        run = _serve_taxi(torch, res_src, topk, close, stop_tuples)
+    launches = _launch_counts()
+    server, sched = run["server"], run["server"].scheduler
+    _check_per_round(launches, sched.rounds, stats.stats_steps, "8b")
+    q = sched.tuples_quarantined / sched.total_tuples
+    check(sched.blocks_quarantined > 0 and res_src.validation_failures > 0,
+          f"8b quarantined {sched.blocks_quarantined} blocks")
+    check(probe.rows and all(r["degraded"] == (r["blocks_quarantined"] > 0)
+                             and r["eps_effective"] == r["expected"] for r in probe.rows),
+          f"8b: an outcome's eps_effective is not eps + 2q at its retirement: {probe.rows}")
+    check(any(r["degraded"] for r in probe.rows), "8b: no outcome saw the quarantine")
+    # no quarantined tuple reached ingest: the counts are exactly the
+    # histogram of the blocks the read mask marks (torch.bincount: the
+    # check's oracle)
+    v_z, v_x = source.v_z, source.v_x
+    read = torch.nonzero(sched.cursor.read_mask).squeeze(1)
+    z, x = source._z[read].reshape(-1), source._x[read].reshape(-1)
+    keep = z >= 0
+    hist = torch.bincount(z[keep].long() * v_x + x[keep].long(), minlength=v_z * v_x)
+    hist = hist.to(torch.float32).reshape(v_z, v_x)
+    check(torch.equal(hist, sched.state.counts),
+          "8b: the counts are not the read blocks' histogram")
+    check(torch.equal(hist.sum(dim=1), sched.state.n), "8b: n is not the read blocks' row sums")
+    check(not (sched.read_mask & sched.quarantined).any(), "8b: a quarantined block was read")
+    answers = []
+    for i, rid in enumerate(run["topk"] + run["close"]):
+        res = server.results[rid]
+        d, e = truth[i], res.eps_effective
+        if rid in run["topk"]:
+            ok = _meets_guarantee1(res.ids, d, e, 10)
+            check(ok or res.stopped, f"8b top-k request {rid} misses Guarantee 1 at {e}")
+        else:
+            infl = e - eps[rid]
+            got = set(res.ids.tolist())
+            ok = (set(np.flatnonzero(d <= eps[rid] - infl).tolist()) <= got
+                  and got.isdisjoint(np.flatnonzero(d >= eps[rid] + 0.20 + infl).tolist()))
+            check(ok, f"8b closeness request {rid} is wrong outside its widened gap")
+        answers.append(dict(rid=rid, degraded=res.degraded, eps_effective=e, correct=ok,
+                            stopped=res.stopped, rounds=res.rounds, tuples=res.tuples_read))
+    out = dict(wall_s=run["wall_s"], rounds=sched.rounds, blocks_read=sched.blocks_read,
+               blocks_quarantined=sched.blocks_quarantined,
+               tuples_quarantined=sched.tuples_quarantined, q=q,
+               eps_inflation=sched.eps_inflation, injected=res_src.inner.injector.injected,
+               validation_failures=res_src.validation_failures,
+               degraded_outcomes=sum(r["degraded"] for r in probe.rows),
+               outcomes=len(probe.rows), counts_are_read_histogram=True, answers=answers,
+               launches=launches)
+    log(f"8b quarantine: {({k: v for k, v in out.items() if k != 'answers'})}")
+    return out
+
+
+class _SaveProbe:
+    """Times every `CheckpointManager.save` while installed, with the
+    bytes its step dir holds."""
+
+    def __init__(self):
+        from repro_torch.checkpoint import CheckpointManager
+
+        self.cls, self._save, self.saves = CheckpointManager, CheckpointManager.save, []
+
+    def __enter__(self):
+        probe = self
+
+        def save(manager, state, step):
+            t = time.perf_counter()
+            path = probe._save(manager, state, step)
+            wall = time.perf_counter() - t
+            probe.saves.append(dict(step=step, ms=wall * 1e3,
+                                    bytes=sum(f.stat().st_size for f in path.iterdir())))
+            return path
+
+        self.cls.save = save
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.save = self._save
+
+
+def _phase8_recovery(torch, ctx, tmp: Path) -> dict:
+    """8c: a supervisor crashed halfway restores its snapshot and answers
+    every request; no device memory leaks from the wounded server."""
+    import numpy as np
+
+    from repro_torch.io import FaultPlan, FaultySource
+    from repro_torch.serve import MatchServer, ServeSupervisor
+
+    source = ctx["source"]
+    topk, _, _ = ctx["workload"]
+    truth, _ = _workload_truth(torch, ctx)
+    k, eps, delta = 10, 0.12, 0.01
+    kw = dict(max_queries=8, lookahead=512, metric="l1", autosave_every=2)
+
+    def supervise(crash_at, directory):
+        sup = ServeSupervisor(FaultySource(source, FaultPlan(crash_at=crash_at)),
+                              checkpoint_dir=str(directory), **kw)
+        return sup, [sup.submit(tg, k=k, eps=eps, delta=delta) for tg in topk]
+
+    # the run that never crashes places the crash halfway through its rounds
+    clean, clean_rids = supervise(None, tmp / "clean")
+    clean_res = clean.run_until_idle()
+    clean_rounds = clean.server.scheduler.rounds
+    second = sorted(clean_res[r].rounds for r in clean_rids)[1]
+    crash_at = 1 + max(clean_rounds // 2, second + 1)  # attempt 0: the config-hash probe
+    del clean
+
+    sup, rids = supervise(crash_at, tmp / "crash")
+    mem = {}
+    restored = {}
+    build, recover = sup._build_server, sup._recover
+
+    def build_server():
+        server = build()
+        manager, sched = server._manager, server.scheduler
+        step = manager.latest_step()
+        check(step is not None, "8c: no snapshot was on disk at the crash")
+        files = [np.load(manager.dir / f"step_{step}" / f"arr_{i}.npy") for i in range(9)]
+        snap = sched.export_cache()
+        for f, want in zip(snap._fields, files):
+            got = getattr(snap, f).cpu().numpy()
+            check(np.array_equal(got, want.astype(got.dtype)) and want.shape == got.shape,
+                  f"8c: the restored {f} is not the snapshot's file")
+        restored.update(step=step, rounds=sched.rounds, tuples=sched.tuples_read)
+        return server
+
+    def recover_server(exc):
+        recover(exc)
+        torch.cuda.synchronize()
+        mem["after_recovery"] = torch.cuda.memory_allocated()
+
+    sup._build_server, sup._recover = build_server, recover_server
+    # the device memory with the wounded server still live: read at the
+    # fetch that crashes
+    faulty = sup._dataset
+    fetch = faulty.fetch
+
+    def fetch_and_measure(win, pad_to=None):
+        if faulty.injector.attempts == crash_at:
+            torch.cuda.synchronize()
+            mem["live"] = torch.cuda.memory_allocated()
+        return fetch(win, pad_to)
+
+    faulty.fetch = fetch_and_measure
+    _reset_launches()
+    t = time.perf_counter()
+    with _SaveProbe() as saves, _StatsProbe() as stats:
+        results = sup.run_until_idle()
+        sup.server.save_cache()  # at shutdown, so the restore below sees every read
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = _launch_counts()
+    sched = sup.server.scheduler
+    _check_per_round(launches, sched.rounds, stats.stats_steps, "8c")
+    check(sup.restarts == 1 and "UnrecoverableIOError" in sup.last_error,
+          f"8c: {sup.restarts} restarts, last error {sup.last_error!r}")
+    check(sup.unresolved == 0 and sorted(results) == sorted(rids), "8c: a request went unanswered")
+    for i, rid in enumerate(rids):
+        check(_meets_guarantee1(results[rid].ids, truth[i], eps, k),
+              f"8c request {rid} misses Guarantee 1")
+    leak = mem["after_recovery"] - mem["live"]
+    check(abs(leak) <= 8 << 20, f"8c: device memory moved {leak} bytes across the recovery")
+    same_ids = all(np.array_equal(results[r].ids, clean_res[c].ids)
+                   for r, c in zip(rids, clean_rids))
+
+    # warm construction on the same files, no crash plan: the query that
+    # retired last did so on the counts saved at shutdown, so its
+    # re-submission is covered by the cache and reads nothing new
+    last = list(results)[-1]
+    t = time.perf_counter()
+    warm = MatchServer.restore(source, checkpoint_dir=str(tmp / "crash"), max_queries=8,
+                               lookahead=512, metric="l1")
+    restore_ms = (time.perf_counter() - t) * 1e3
+    warm_rid = warm.submit(topk[rids.index(last)], k=k, eps=eps, delta=delta)
+    warm_res = warm.run_until_idle()[warm_rid]
+    check(warm_res.tuples_read == 0, f"8c: the covered re-submission read {warm_res.tuples_read}")
+    out = dict(wall_s=wall, crash_at=crash_at, clean_rounds=clean_rounds, rounds=sched.rounds,
+               restarts=sup.restarts, recovery_ms=sup.recovery_s_total * 1e3,
+               restored=restored, saves=saves.saves, restore_ms=restore_ms,
+               memory_live_bytes=mem["live"], memory_after_recovery_bytes=mem["after_recovery"],
+               memory_moved_bytes=leak, ids_equal_uncrashed=same_ids,
+               warm_resubmit_tuples=warm_res.tuples_read, launches=launches)
+    log(f"8c recovery: {out}")
+    return out
+
+
+def _prefetch_threads() -> list:
+    import threading
+
+    return [t for t in threading.enumerate() if t.name == "block-prefetch" and t.is_alive()]
+
+
+def _phase8_prefetch(torch, ctx, expect) -> dict:
+    """8d: phase 4's FastMatch query from host memory without and with
+    prefetch, then from the resident table with prefetch: bitwise the
+    same three times."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine
+    from repro_torch.io import InMemorySource
+
+    host = InMemorySource(ctx["blocked"], device_resident=False, device=ctx["source"].device)
+    base = ctx["fastmatch"]
+    runs = {}
+    for name, source, prefetch in (("host", host, False), ("host_prefetch", host, True),
+                                   ("resident_prefetch", ctx["source"], True)):
+        cfg = dataclasses.replace(ctx["cfg"], prefetch=prefetch)
+        # a first run pays the one-time costs (pinned host buffers, the
+        # side stream), so the timed run is the second
+        warm = engine.run_engine(source, ctx["target"], ctx["params"], cfg)
+        check(np.array_equal(warm.ids, base.ids), f"8d {name}: the warm-up run differs")
+        _reset_launches()
+        with _StatsProbe() as stats:
+            t = time.perf_counter()
+            res = engine.run_engine(source, ctx["target"], ctx["params"], cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = _launch_counts()
+        _check_per_round(launches, res.rounds, stats.stats_steps, f"8d {name}")
+        check(np.array_equal(res.ids, base.ids) and torch.equal(res.state.tau, base.state.tau)
+              and (res.rounds, res.blocks_read) == (base.rounds, base.blocks_read),
+              f"8d {name}: {res.rounds} rounds, {res.blocks_read} blocks, not phase 4's answer")
+        if expect is not None:
+            check((res.rounds, res.blocks_read) == expect, f"8d {name}: not {expect}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            again = engine.run_engine(source, ctx["target"], ctx["params"], cfg)
+            torch.cuda.synchronize()
+        check(np.array_equal(again.ids, res.ids), f"8d {name}: a repeated run differs")
+        device_ms, by_kernel, _ = _profile_tables(torch, prof)
+        runs[name] = dict(wall_ms=wall * 1e3, rounds=res.rounds, blocks_read=res.blocks_read,
+                          device_ms=device_ms, device_busy_share=device_ms / (wall * 1e3),
+                          copies=[dict(name=n, ms=ms, calls=c) for n, ms, c in by_kernel
+                                  if n.startswith("Memcpy")],
+                          launches=launches)
+        log(f"8d {name}: {wall * 1e3:.1f} ms, {res.rounds} rounds, device {device_ms:.2f} ms")
+    check(not _prefetch_threads(), "8d: a prefetch worker is still alive")
+    return dict(runs=runs, bitwise_equal=True, threads_alive=0)
+
+
+def phase_faults(torch, ctx, *, expect) -> dict:
+    """Phase 8 (see the module docstring)."""
+    import tempfile
+
+    report = {}
+    for name, fn in (("chaos", lambda: _phase8_chaos(torch, ctx)),
+                     ("quarantine", lambda: _phase8_quarantine(torch, ctx))):
+        t = time.perf_counter()
+        report[name] = fn()
+        report[name]["phase_s"] = time.perf_counter() - t
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t = time.perf_counter()
+        report["recovery"] = _phase8_recovery(torch, ctx, Path(tmp))
+        report["recovery"]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    report["prefetch"] = _phase8_prefetch(torch, ctx, expect)
+    report["prefetch"]["phase_s"] = time.perf_counter() - t
+    emit({"check": "faults", **report})
+    return report
+
+
 # the taxi keys phase 6 tunes: (Q, metric)
 TUNE_KEYS = ((1, "l1"), (8, "l1"), (8, "chi2"), (8, "hellinger"))
 
@@ -1254,7 +1680,11 @@ def main(argv=None) -> int:
                                     expect=(27, 12_395) if full_size else None)
     log("phase 5: serving 12 queries on the resident table")
     serving = phase_serving(torch, timer, ctx)
-    del ctx
+    log("phase 8: the I/O, fault and recovery layer on the resident table")
+    t = time.perf_counter()
+    faults = phase_faults(torch, ctx, expect=(27, 12_395) if full_size else None)
+    log(f"phase 8 took {time.perf_counter() - t:.1f}s")
+    del ctx  # the resident table and the host arrays
     torch.cuda.empty_cache()
     log("phase 6: the tuner at the taxi keys")
     tuner = phase_tuner(torch)
@@ -1275,7 +1705,12 @@ def main(argv=None) -> int:
                  fixture_wide_u16=fixture_wide_u16, tuner=tuner["launches"],
                  minute_fastmatch=wide["launches"], minute_scan=wide["scan_launches"],
                  minute_fastmatch_lowprec=wide["lowprec"]["fastmatch"]["launches"],
-                 minute_scan_lowprec=wide["lowprec"]["scan"]["launches"])
+                 minute_scan_lowprec=wide["lowprec"]["scan"]["launches"],
+                 fault_chaos=faults["chaos"]["launches"],
+                 fault_quarantine=faults["quarantine"]["launches"],
+                 fault_recovery=faults["recovery"]["launches"],
+                 **{f"prefetch_{name}": run["launches"]
+                    for name, run in faults["prefetch"]["runs"].items()})
     kernels = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         path = next((p for p in PATHS if paths[p][name] > 0), None)
@@ -1297,7 +1732,8 @@ def main(argv=None) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, device=device, kernels=kernels, scale=scale, serving=serving,
-             tuner=tuner["report"], wide_rows=wide, wall_s=time.perf_counter() - T0), indent=1))
+             faults=faults, tuner=tuner["report"], wide_rows=wide,
+             wall_s=time.perf_counter() - T0), indent=1))
     log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -4,7 +4,9 @@ The port of the JAX package `repro`, module for module: `kernels` holds
 the three CUDA kernels (AnyActive marking, histogram ingest, batched
 distance) with a plain PyTorch version beside each, `core` the HistSim
 statistics and the shared-counts scheduling loop, `data` and `io` the
-synthetic datasets, the block layout and the block sources, and
+synthetic datasets, the block layout and the block sources with their
+fault layer (retries, validation, quarantine, prefetch), `checkpoint`
+the on-disk snapshots, `serve` the query server and its supervisor, and
 `convert` carries data and state over from the reference.
 
 Entry points run on the CUDA device unless the caller passes

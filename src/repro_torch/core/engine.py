@@ -20,7 +20,9 @@ Variants (paper Sec 5.2) are configuration points of the one loop:
 Sampling is without replacement from a random start in the pre-shuffled
 layout. If a whole pass reads nothing and HistSim has not terminated,
 the engine completes exactly; the Scan baseline is that completion on a
-fresh scheduler. The engine runs on CUDA unless ``device="cpu"``.
+fresh scheduler. ``prefetch=True`` wraps the source in a
+`PrefetchSource`, which fetches the next window on a worker thread while
+the current round runs. The engine runs on CUDA unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import numpy as np
 
 from repro_torch.core.histsim import HistSimParams, HistSimState
 from repro_torch.core.multiquery import MultiQuerySpec, QueryOutcome, SharedCountsScheduler
-from repro_torch.io import as_block_source
+from repro_torch.io import PrefetchSource, as_block_source
 
 __all__ = ["EngineConfig", "MatchResult", "run_engine", "VARIANTS"]
 
@@ -54,7 +56,7 @@ class EngineConfig:
     start_block: Optional[int] = None  # None -> random
     # poll termination/counters every this many windows (1 = per window)
     poll_every: int = 1
-    # background double-buffered block fetch: not ported yet (ROADMAP A6)
+    # background double-buffered block fetch (`PrefetchSource`)
     prefetch: bool = False
 
     def __post_init__(self):
@@ -88,6 +90,11 @@ class MatchResult:
     exact: bool  # True iff the answer rests on a COMPLETE read of the data
     passes: int
     host_syncs: int = 0  # device->host polls the scheduler made for this run
+    # I/O degradation (see QueryOutcome): with blocks quarantined,
+    # ``exact`` means complete over the surviving blocks and
+    # ``eps_effective`` is the widened bound against the full data
+    degraded: bool = False
+    eps_effective: float = float("nan")
     # "topk" (ids = the k matches) or "closeness" (ids = every candidate
     # labeled close, tau order)
     qtype: str = "topk"
@@ -113,6 +120,8 @@ def _to_match_result(out: QueryOutcome, t0: float, sched: SharedCountsScheduler)
         exact=out.exact,
         passes=out.passes,
         host_syncs=sched.host_syncs,
+        degraded=out.degraded,
+        eps_effective=out.eps_effective,
         qtype=out.qtype,
         stopped=out.stopped,
         stop_reason=out.stop_reason,
@@ -130,17 +139,15 @@ def run_engine(
     """Run one matching query to termination. Returns the top-k + stats.
 
     ``dataset`` is a `BlockedDataset` (moved to ``device``, CUDA unless
-    ``"cpu"`` is asked for) or an `InMemorySource`. ``exact`` is True iff
+    ``"cpu"`` is asked for) or any `BlockSource`. ``exact`` is True iff
     the answer rests on a complete read; a ``max_rounds`` budget cut
     returns the sampled answer with ``exact=False``.
     """
-    if config.prefetch:
-        raise NotImplementedError(
-            "prefetch=True needs the background block source, not ported yet (ROADMAP A6)"
-        )
     source = as_block_source(dataset, device=device)
     if params.v_z != source.v_z or params.v_x != source.v_x:
         raise ValueError("params/dataset dimension mismatch")
+    if config.prefetch and not isinstance(source, PrefetchSource):
+        source = PrefetchSource(source)
     if config.criterion != params.criterion:
         params = dataclasses.replace(params, criterion=config.criterion)
 

@@ -35,9 +35,18 @@ The scheduler resolves its kernel plans (`autotune.PlanPair`: kernel
 C's and kernel B's launch choices) once, at construction, from the
 plan file of its device's backend, and threads them through every round.
 
+Quarantine (the I/O fault layer's verdicts): at every poll the
+scheduler drains the block ids a `ResilientSource` in its source chain
+quarantined, drops them from every later pass order, and retires each
+query over the surviving blocks, with ``degraded`` and the widened
+``eps_effective = eps + 2q`` (q the share of tuples lost) on its
+outcome. A window handed over in host memory (a host-resident or fault
+injecting source) is moved to the scheduler's device once, where the
+scheduler receives it.
+
 Packed words are int32 tensors carrying the uint32 bits; counters and
-``qtype`` are int64. Still to be ported: telemetry (ROADMAP A7), fault
-quarantine and on-disk snapshots (A6) and the mesh paths (A9).
+``qtype`` are int64. Still to be ported: telemetry (ROADMAP A7) and the
+mesh paths with their per-worker quarantine drain (A9).
 """
 
 from __future__ import annotations
@@ -52,13 +61,16 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.checkpoint.manager import config_hash as _config_hash
 from repro_torch.core import deviations as dev
 from repro_torch.core import histsim
 from repro_torch.core.bitmap import pack_active_mask, words_for
 from repro_torch.core.histsim import HistSimState
 from repro_torch.core.policies import mark_window
 from repro_torch.data.layout import BlockedDataset
-from repro_torch.io import InMemorySource, WindowData, as_block_source
+from repro_torch.io.block_source import WindowData, as_block_source
+from repro_torch.io.faults import WindowQuarantined, find_resilient
 from repro_torch.kernels import autotune, metrics, ops
 
 __all__ = [
@@ -223,18 +235,14 @@ class CacheSnapshot(NamedTuple):
     start: torch.Tensor  # () int64 — cyclic visit-order offset
 
 
-def _config_hash(obj) -> str:
-    """sha256 of ``repr(obj)``, 16 hex digits (the reference's
-    checkpoint ``config_hash``)."""
-    return hashlib.sha256(repr(obj).encode()).hexdigest()[:16]
-
-
 def cache_config_hash(source, spec: MultiQuerySpec) -> str:
     """Fingerprint binding a `CacheSnapshot` to (dataset layout, spec):
     the layout's dimensions, the per-block tuple counts, the content of
     up to 64 probe blocks spread evenly over the layout, and the spec.
     It hashes the reference's bytes (int32 z and x, the bitmap's uint32
-    bits), so both packages give the same hash for the same data."""
+    bits), so both packages give the same hash for the same data. The
+    probe is one fetch through ``source``'s wrappers, as the reference's
+    (a fault injector counts it as an attempt)."""
     # a dataset is read in place on the host; a source where it lies
     src = as_block_source(source, device="cpu" if isinstance(source, BlockedDataset) else None)
     nb = src.num_blocks
@@ -586,6 +594,14 @@ class QueryOutcome:
     blocks_considered: int
     tuples_read: int  # tuples ingested while this query was live
     wall_time_s: float
+    # I/O quarantine: with blocks quarantined while this query was served
+    # the guarantee holds over the surviving blocks (``exact`` means a
+    # complete read of them), and ``eps_effective`` is the radius against
+    # the full data, eps + 2q for a share q of tuples lost; fault-free it
+    # is the query's eps
+    degraded: bool = False
+    eps_effective: float = float("nan")
+    blocks_quarantined: int = 0
     qtype: str = "topk"  # "topk" | "closeness"
     # SLA early stop: the answer is then the anytime statement of that
     # poll (exact=False, terminated=False, the achieved delta_upper)
@@ -696,7 +712,7 @@ class SharedCountsScheduler:
         device=None,
         plans: Optional[autotune.PlanPair] = None,
     ):
-        source: InMemorySource = as_block_source(dataset, device=device)
+        source = as_block_source(dataset, device=device)
         if spec.v_z != source.v_z or spec.v_x != source.v_x:
             raise ValueError("spec/dataset dimension mismatch")
         if policy not in ("anyactive", "scan"):
@@ -704,7 +720,7 @@ class SharedCountsScheduler:
         if poll_every < 1:
             raise ValueError(f"need poll_every >= 1, got {poll_every}")
         self.source = source
-        self.device = source.device
+        self.device = getattr(source, "device", None) or resolve_device(device)
         self.spec = spec
         self.policy = policy
         self.poll_every = poll_every
@@ -748,8 +764,61 @@ class SharedCountsScheduler:
         self._tel_n = np.zeros(spec.v_z, np.float32)
         self._in_top_k_host = np.zeros((spec.max_queries, spec.v_z), bool)
         self._pruned_host = np.zeros((spec.max_queries, spec.v_z), bool)
+        # quarantine (host side: a quarantined block leaves every later
+        # pass order and never reaches a round); all False fault-free,
+        # where every eligibility mask below is the unquarantined one
+        self.quarantined = np.zeros(nb, dtype=bool)
+        self.blocks_quarantined = 0
+        self.tuples_quarantined = 0
+        self.total_tuples = int(np.sum(np.asarray(source.tuples_per_block, np.int64)))
         self.budget_exhausted = False
         self.host_syncs = 0  # number of device->host polls performed
+
+    # -- quarantine (degraded guarantees) ----------------------------------
+
+    def quarantine_blocks(self, ids, *, reason: str = "io") -> int:
+        """Drop blocks from the probe set (an I/O quarantine verdict of
+        `repro_torch.io.faults.ResilientSource`); returns how many newly
+        left it. Blocks already read stay: their tuples were validated
+        when fetched and sit in the counts. Every (eps, delta) after this
+        is over the surviving blocks; `eps_inflation` is the widening
+        against the full data that retirement adds to ``eps_effective``.
+        ``reason`` names the verdict's origin (the reference's telemetry
+        records it)."""
+        ids = np.asarray(ids, np.int64).ravel()
+        if ids.size:
+            ids = ids[~self.quarantined[ids] & ~self.read_mask[ids]]
+        if ids.size == 0:
+            return 0
+        self.quarantined[ids] = True
+        self.blocks_quarantined += int(ids.size)
+        self.tuples_quarantined += int(
+            np.sum(np.asarray(self.source.tuples_per_block, np.int64)[ids])
+        )
+        return int(ids.size)
+
+    def _drain_quarantine(self) -> None:
+        """Pull the quarantined block ids out of the `ResilientSource` in
+        the source chain (at every poll; fault-free, an attribute probe)."""
+        resilient = find_resilient(self.source)
+        if resilient is not None:
+            ids = resilient.take_quarantined()
+            if ids.size:
+                self.quarantine_blocks(ids, reason="source")
+
+    @property
+    def quarantine_fraction(self) -> float:
+        """The share of the dataset's tuples lost to quarantine (the q of
+        eps + 2q)."""
+        return self.tuples_quarantined / max(self.total_tuples, 1)
+
+    @property
+    def eps_inflation(self) -> float:
+        """The additive l1 widening against the full data: the layout
+        assigns tuples to blocks independently of their content, so
+        dropping a share q of the tuples moves any candidate's normalised
+        histogram by at most 2q in l1."""
+        return 2.0 * self.quarantine_fraction
 
     # -- host/device synchronisation --------------------------------------
 
@@ -778,6 +847,7 @@ class SharedCountsScheduler:
         flags = raw[head + nb :].view(bool).reshape(2, q, v_z)
         self._in_top_k_host, self._pruned_host = flags[0], flags[1]
         self.host_syncs += 1
+        self._drain_quarantine()
 
     # -- warm cache ----------------------------------------------------------
 
@@ -982,7 +1052,11 @@ class SharedCountsScheduler:
         boundary (mirrors fresh)."""
         anytime = self.peek(slot)
         t = self.tickets.pop(slot)
-        exact = exact or bool(self.read_mask.all())
+        degraded = self.blocks_quarantined > 0
+        if degraded:
+            exact = exact or bool(self.read_mask[~self.quarantined].all())
+        else:
+            exact = exact or bool(self.read_mask.all())
         view = slot_state(self.state, slot)
         if t.qtype == "closeness":
             # the close labels, nearest first; their number is data-dependent
@@ -1008,6 +1082,9 @@ class SharedCountsScheduler:
             blocks_considered=self.blocks_considered - t.admit_blocks_considered,
             tuples_read=self.tuples_read - t.admit_tuples_read,
             wall_time_s=time.perf_counter() - t.admit_time,
+            degraded=degraded,
+            eps_effective=t.eps + (self.eps_inflation if degraded else 0.0),
+            blocks_quarantined=self.blocks_quarantined,
             qtype=t.qtype,
             stopped=stopped,
             stop_reason=stop_reason,
@@ -1052,11 +1129,30 @@ class SharedCountsScheduler:
         ]
         return self.source.stream(windows, pad_to=self.window), len(windows)
 
+    def _on_device(self, wd: WindowData) -> WindowData:
+        """The window on the scheduler's device: a window handed over in
+        host memory is moved here, once, before any round reads it."""
+        if wd.indices.device.type != "cpu" or self.device.type == "cpu":
+            return wd
+        return WindowData(
+            *(getattr(wd, f).to(self.device) for f in WindowData._fields[:5]),
+            bitmap_by_id=wd.bitmap_by_id,
+        )
+
     def _dispatch_round(self, wd: WindowData) -> None:
         self.state, self.cursor = fused_round(
-            self.state, self.cursor, wd, spec=self.spec, policy=self.policy,
+            self.state, self.cursor, self._on_device(wd), spec=self.spec, policy=self.policy,
             closeness=self._closeness_live > 0, plans=self.plans,
         )
+
+    def _fetch_window_or_quarantine(self, win: np.ndarray) -> Optional[WindowData]:
+        """Fetch an ad-hoc window; a `WindowQuarantined` verdict drops its
+        blocks from the probe set instead (None: the window is gone)."""
+        try:
+            return self.source.fetch(win, pad_to=max(self.window, win.size))
+        except WindowQuarantined as exc:
+            self.quarantine_blocks(exc.block_ids, reason="fetch")
+            return None
 
     def run_window(self, win: np.ndarray) -> int:
         """Mark one window against the union active set, ingest the marked
@@ -1065,7 +1161,9 @@ class SharedCountsScheduler:
         if win.size == 0:
             return 0
         before = self.blocks_read
-        self._dispatch_round(self.source.fetch(win, pad_to=max(self.window, win.size)))
+        wd = self._fetch_window_or_quarantine(win)
+        if wd is not None:
+            self._dispatch_round(wd)
         self._sync()
         return self.blocks_read - before
 
@@ -1074,7 +1172,7 @@ class SharedCountsScheduler:
         counts (one pass, one round per window), then one `stats_step`.
         The Scan baseline is this path on a fresh scheduler."""
         self._sync()
-        remaining = np.flatnonzero(~self.read_mask)
+        remaining = np.flatnonzero(~self.read_mask & ~self.quarantined)
         if remaining.size == 0:
             return
         self.passes += 1
@@ -1082,7 +1180,8 @@ class SharedCountsScheduler:
         try:
             for wd in stream:
                 self.state, self.cursor = ingest_round(
-                    self.state, self.cursor, wd, spec=self.spec, plans=self.plans
+                    self.state, self.cursor, self._on_device(wd), spec=self.spec,
+                    plans=self.plans,
                 )
         finally:
             stream.close()
@@ -1108,13 +1207,14 @@ class SharedCountsScheduler:
         # a late query may already terminate on the accumulated counts
         self._poll_terminated()
         while self.tickets and self.passes - passes0 < max_passes:
-            pass_order = self.order[~self.read_mask[self.order]]
+            pass_order = self.order[~self.read_mask[self.order] & ~self.quarantined[self.order]]
             if pass_order.size == 0:
                 break
             self.passes += 1
             pass_start_rounds = self.rounds
             pass_start_blocks = self.blocks_read
             stream, n_rounds = self._open_pass_stream(pass_order)
+            dispatched = 0
             try:
                 for dispatched, wd in enumerate(stream, start=1):
                     self._dispatch_round(wd)
@@ -1130,6 +1230,15 @@ class SharedCountsScheduler:
                             break
             finally:
                 stream.close()
+            if dispatched == 0 or (dispatched % self.poll_every != 0 and dispatched != n_rounds):
+                # the stream ended short of its last scheduled poll, which
+                # only a resilient source skipping quarantined trailing
+                # windows does: poll now, or the zero-progress check below
+                # would judge stale mirrors
+                self._sync()
+                self._poll_terminated()
+                if on_round is not None:
+                    on_round(self)
             if self.blocks_read - pass_start_blocks == 0 and self.tickets:
                 # a query admitted in the pass's final windows deserves
                 # one fresh pass of its own before sampling gives up

@@ -1,23 +1,26 @@
 """Block sources — where the sampling loop's window data comes from.
 
-Port of `repro.io.block_source` (`WindowData`, `InMemorySource`,
-`as_block_source`). A source serves fixed-shape windows of blocked
-(z, x) tuples plus their packed presence bitmap rows (or, for a
-device-resident source, the bitmap table the rows are read from).
-Every window is padded to one length (``pad_to``) and padded rows carry
-``valid=False``, so the round masks them out of marking, ingest and the
-read bookkeeping. Padding repeats block id 0 with no effect.
+Port of `repro.io.block_source` (`BlockSource`, `WindowData`,
+`InMemorySource`, `as_block_source`). A source serves fixed-shape
+windows of blocked (z, x) tuples plus their packed presence bitmap rows
+(or, for a device-resident source, the bitmap table the rows are read
+from). Every window is padded to one length (``pad_to``) and padded
+rows carry ``valid=False``, so the round masks them out of marking,
+ingest and the read bookkeeping. Padding repeats block id 0 with no
+effect.
 
-`stream` serves a whole pass: it moves the pass's padded window indices
-to the device in one copy, so the loop issues no host-to-device copy
-per window (a copy from pageable host memory would wait for the
-device). The data-parallel `ShardedSource` and the prefetching source
-are still to be ported.
+A device-resident source's `stream` serves a whole pass: it moves the
+pass's padded window indices to the device in one copy, so the loop
+issues no host-to-device copy per window (a copy from pageable host
+memory would wait for the device). A host-resident source hands its
+windows over in host memory; the scheduler moves each to its device
+once, or a `PrefetchSource` stages it there ahead of the round. The
+data-parallel `ShardedSource` is still to be ported (ROADMAP A9).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, NamedTuple, Optional
+from typing import Iterable, Iterator, NamedTuple, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -25,7 +28,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.data.layout import BlockedDataset
 
-__all__ = ["InMemorySource", "WindowData", "as_block_source"]
+__all__ = ["BlockSource", "InMemorySource", "WindowData", "as_block_source"]
 
 
 class WindowData(NamedTuple):
@@ -49,6 +52,24 @@ class WindowData(NamedTuple):
         return self.bitmap[self.indices] if self.bitmap_by_id else self.bitmap
 
 
+@runtime_checkable
+class BlockSource(Protocol):
+    """What the sampling loop needs from an I/O backend. A source may
+    also name the ``device`` its rounds run on."""
+
+    num_blocks: int
+    block_size: int
+    v_z: int
+    v_x: int
+    tuples_per_block: np.ndarray  # (num_blocks,) host-side, for accounting
+
+    def fetch(self, win: np.ndarray, pad_to: Optional[int] = None) -> WindowData: ...
+
+    def stream(
+        self, windows: Iterable[np.ndarray], pad_to: Optional[int] = None
+    ) -> Iterator[WindowData]: ...
+
+
 def _pad_windows(windows: list, pad_to: Optional[int]) -> tuple:
     """(num_windows, L) int64 block ids and bool validity, host-side."""
     sizes = [np.asarray(w).size for w in windows]
@@ -70,8 +91,10 @@ class InMemorySource:
     ``device``: a window gathers its blocks on the device and hands the
     marking the whole bitmap table with the window's ids, so no bitmap
     row is copied. With ``device_resident=False`` they stay in host
-    memory and each window, bitmap rows included, is gathered on the
-    host and copied over.
+    memory (a stand-in for disk or a remote store) and each window,
+    bitmap rows included, is gathered on the host and handed over there:
+    the scheduler moves it to ``device`` once, or a `PrefetchSource`
+    stages it there ahead of the round.
     """
 
     def __init__(self, dataset: BlockedDataset, *, device_resident: bool = True, device=None):
@@ -96,18 +119,18 @@ class InMemorySource:
         if self.device_resident:
             return WindowData(idx, self._z[idx], self._x[idx], self._bitmap, valid,
                               bitmap_by_id=True)
-        host = idx.cpu().numpy()
-        z, x, bitmap = (
-            torch.from_numpy(a[host]).to(self.device) for a in (self._z, self._x, self._bitmap)
-        )
+        host = idx.numpy()
+        z, x, bitmap = (torch.from_numpy(a[host]) for a in (self._z, self._x, self._bitmap))
         return WindowData(idx, z, x, bitmap, valid)
+
+    def _place(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        return t.to(self.device) if self.device_resident else t
 
     def fetch(self, win: np.ndarray, pad_to: Optional[int] = None) -> WindowData:
         """One window, padded to ``pad_to`` blocks."""
         idx, valid = _pad_windows([win], pad_to)
-        return self._gather(
-            torch.from_numpy(idx[0]).to(self.device), torch.from_numpy(valid[0]).to(self.device)
-        )
+        return self._gather(self._place(idx[0]), self._place(valid[0]))
 
     def stream(
         self, windows: Iterable[np.ndarray], pad_to: Optional[int] = None
@@ -117,19 +140,20 @@ class InMemorySource:
         if not windows:
             return
         idx, valid = _pad_windows(windows, pad_to)
-        idx = torch.from_numpy(idx).to(self.device)
-        valid = torch.from_numpy(valid).to(self.device)
+        idx, valid = self._place(idx), self._place(valid)
         for i in range(len(windows)):
             yield self._gather(idx[i], valid[i])
 
 
-def as_block_source(data, *, device=None) -> InMemorySource:
-    """BlockedDataset -> InMemorySource on ``device``; a source passes
-    through (and must already be on ``device`` when one is given)."""
+def as_block_source(data, *, device=None) -> BlockSource:
+    """BlockedDataset -> InMemorySource on ``device``; any `BlockSource`
+    passes through (one that names its device must name ``device`` when
+    one is given)."""
     if isinstance(data, BlockedDataset):
         return InMemorySource(data, device=device)
-    if isinstance(data, InMemorySource):
-        if device is not None and resolve_device(device) != data.device:
-            raise ValueError(f"source lies on {data.device}, asked for {device}")
+    if isinstance(data, BlockSource):
+        have = getattr(data, "device", None)
+        if device is not None and have is not None and resolve_device(device) != have:
+            raise ValueError(f"source lies on {have}, asked for {device}")
         return data
-    raise TypeError(f"expected BlockedDataset or InMemorySource, got {type(data)!r}")
+    raise TypeError(f"expected BlockedDataset or BlockSource, got {type(data)!r}")

@@ -32,30 +32,50 @@ round the server dispatches; by default the scheduler resolves them
 from the plan file of the device's backend, and `kernel_plans` reports
 what it resolved.
 
+Faults and restarts: the built source goes through `io.maybe_chaos`
+(``FASTMATCH_CHAOS=1`` serves through retry-heals-it faults) and, with
+``prefetch=True``, a `PrefetchSource`. A `ResilientSource` among the
+sources quarantines what it cannot serve; the scheduler retires queries
+over the surviving blocks and says so (``degraded``, ``eps_effective =
+eps + 2q``). With ``checkpoint_dir`` the server snapshots its warm cache
+(`multiquery.CacheSnapshot`: counts, n, read mask, counters, passes,
+visit order) through `checkpoint.CheckpointManager` after every
+``autosave_every`` retirements and every ``autosave_rounds`` rounds, in
+the reference's files and dtypes, bound to the layout and spec by
+`cache_config_hash`; `restore` builds a server on the newest verified
+snapshot, written by either package. Live queries are not persisted:
+sampling is target-independent, so a re-submitted query loses nothing.
+`serve.ServeSupervisor` adds deadlines, shedding and crash recovery;
+``last_error`` and ``queries_shed`` in `metrics` are what it reports.
+
 Not ported yet, and refused with `NotImplementedError` naming the
-ROADMAP item: the mesh and data-parallel pump servers (A9), the
-prefetching source, on-disk cache snapshots and restarts (A6), and
-telemetry and its exports (A7).
+ROADMAP item: the mesh and data-parallel pump servers and restoring onto
+another mesh (A9), and telemetry and its exports (A7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 import time
 from collections import deque
 from typing import Deque, Dict, Optional
 
 import numpy as np
+import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.engine import MatchResult
 from repro_torch.core.multiquery import (
     AnytimeAnswer,
+    CacheSnapshot,
     MultiQuerySpec,
     QueryOutcome,
     SharedCountsScheduler,
     StopPolicy,
+    cache_config_hash,
 )
-from repro_torch.io import as_block_source
+from repro_torch.io import PrefetchSource, as_block_source, maybe_chaos
 from repro_torch.kernels.autotune import PlanPair
 
 __all__ = [
@@ -73,13 +93,24 @@ _UNPORTED = {
     "model_axis": ("model", "A9"),
     "pump": (False, "A9"),
     "data_axes": (("data",), "A9"),
-    "prefetch": (False, "A6"),
-    "checkpoint_dir": (None, "A6"),
-    "autosave_every": (8, "A6"),
-    "autosave_rounds": (None, "A6"),
-    "checkpoint_keep_last": (3, "A6"),
     "telemetry": (None, "A7"),
 }
+
+# the reference's dtypes of a snapshot's counters (int32); the port's
+# are int64 and widen again on import
+_INT32_MAX = np.iinfo(np.int32).max
+
+
+def _on_disk(snap: CacheSnapshot) -> CacheSnapshot:
+    """``snap`` with the reference's leaf dtypes, so either package can
+    restore the files."""
+    counters = {}
+    for f in CacheSnapshot._fields[3:]:
+        v = getattr(snap, f)
+        if int(v) > _INT32_MAX:
+            raise ValueError(f"snapshot counter {f}={int(v)} does not fit the int32 on disk")
+        counters[f] = v.to(torch.int32)
+    return snap._replace(**counters)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -146,6 +177,11 @@ class MatchServer:
         prune: bool = False,
         default_stop: Optional[StopPolicy] = None,
         kernel_plans: Optional[PlanPair] = None,
+        prefetch: bool = False,
+        checkpoint_dir: Optional[str] = None,
+        autosave_every: int = 8,
+        autosave_rounds: Optional[int] = None,
+        checkpoint_keep_last: int = 3,
         **unported,
     ):
         # k_cap: static bound on any query's k (the deviation assignment
@@ -155,13 +191,20 @@ class MatchServer:
         # certified-far candidates from the I/O marking. default_stop:
         # StopPolicy for queries submitted without one. kernel_plans: the
         # PlanPair of every round; None resolves it from the plan file.
+        # prefetch: fetch the next window on a worker thread while the
+        # current round runs. checkpoint_dir: keep warm-cache snapshots
+        # there; autosave_every: snapshot after this many retirements (0
+        # never); autosave_rounds: also after this many new rounds;
+        # checkpoint_keep_last: snapshots kept.
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"MatchServer() got an unexpected keyword argument {name!r}")
             off, item = _UNPORTED[name]
             if (tuple(value) if name == "data_axes" else value) != off:
                 raise _not_ported(f"MatchServer({name}=...)", item)
-        source = as_block_source(dataset, device=device)
+        source = maybe_chaos(as_block_source(dataset, device=device))
+        if prefetch:
+            source = PrefetchSource(source)
         self.spec = MultiQuerySpec(
             v_z=source.v_z,
             v_x=source.v_x,
@@ -181,9 +224,24 @@ class MatchServer:
             seed=seed,
             start_block=start_block,
             poll_every=poll_every,
+            device=device,
             plans=kernel_plans,
         )
         self.max_passes = max_passes
+        self._manager: Optional[CheckpointManager] = None
+        if checkpoint_dir is not None:
+            self._manager = CheckpointManager(
+                checkpoint_dir,
+                keep_last=checkpoint_keep_last,
+                config_hash=cache_config_hash(self.scheduler.source, self.spec),
+            )
+        self.autosave_every = autosave_every
+        self.autosave_rounds = autosave_rounds
+        self._retired_since_save = 0
+        self._rounds_at_save = 0
+        # the health surface of `metrics`; the supervisor writes these
+        self.last_error = ""
+        self.queries_shed = 0
         self.pending: Deque[MatchQuery] = deque()
         self.results: Dict[int, MatchResult] = {}
         self._rid_of_qid: Dict[int, int] = {}
@@ -289,6 +347,8 @@ class MatchServer:
             if out.anytime is not None:
                 out.anytime.result = res
                 self._anytime[rid] = out.anytime
+            self._retired_since_save += 1
+        self._maybe_autosave()
 
     def _to_result(self, rid: int, out: QueryOutcome) -> MatchResult:
         return MatchResult(
@@ -301,40 +361,85 @@ class MatchServer:
             wall_time_s=time.perf_counter() - self._submit_time.pop(rid),
             exact=out.exact,
             passes=out.passes,
+            degraded=out.degraded,
+            eps_effective=out.eps_effective,
             qtype=out.qtype,
             stopped=out.stopped,
             stop_reason=out.stop_reason,
         )
 
-    # -- warm-start persistence (not ported) ---------------------------------
+    # -- warm-start persistence ----------------------------------------------
 
-    def save_cache(self):
-        raise _not_ported("MatchServer.save_cache", "A6")
+    def _maybe_autosave(self) -> None:
+        """The autosave cadence, checked at retirement and poll boundaries
+        (from `_collect`), never inside the window loop."""
+        if self._manager is None:
+            return
+        if self.autosave_every and self._retired_since_save >= self.autosave_every:
+            self.save_cache()
+            return
+        if self.autosave_rounds:
+            # the round counter's host mirror, fresh as of the last poll
+            if self.scheduler.rounds - self._rounds_at_save >= self.autosave_rounds:
+                self.save_cache()
 
-    def restore_cache(self, step: Optional[int] = None):
-        raise _not_ported("MatchServer.restore_cache", "A6")
+    def save_cache(self) -> pathlib.Path:
+        """Persist the warm cache crash-atomically; returns the step dir.
+
+        The step is the round counter, so steps grow across restarts; a
+        save with no new rounds since the newest step takes the next step
+        instead of rewriting the one LATEST points at."""
+        if self._manager is None:
+            raise RuntimeError("MatchServer was constructed without checkpoint_dir")
+        snap = _on_disk(self.scheduler.export_cache())
+        step = int(snap.rounds)
+        newest = self._manager.latest_step()
+        if newest is not None and step <= newest:
+            step = newest + 1
+        path = self._manager.save(snap, step)
+        self._retired_since_save = 0
+        self._rounds_at_save = step
+        return path
+
+    def restore_cache(self, step: Optional[int] = None) -> None:
+        """Adopt the newest verified snapshot (or ``step``) from
+        ``checkpoint_dir``, written by either package. A snapshot of
+        another layout or spec is refused with ValueError through the
+        config hash; none at all raises FileNotFoundError."""
+        if self._manager is None:
+            raise RuntimeError("MatchServer was constructed without checkpoint_dir")
+        snap = self._manager.restore(self.scheduler.export_cache(), step=step)
+        self.scheduler.import_cache(snap)
+        self._retired_since_save = 0
+        self._rounds_at_save = self.scheduler.rounds
+        self._pass_order = None  # step()'s cursor rebuilds from the restored mask
 
     @classmethod
-    def restore(cls, dataset, *, checkpoint_dir: str, step: Optional[int] = None, **kwargs):
-        raise _not_ported("MatchServer.restore", "A6")
+    def restore(
+        cls, dataset, *, checkpoint_dir: str, step: Optional[int] = None, **kwargs
+    ) -> "MatchServer":
+        """Warm construction: a server over ``dataset`` (``kwargs`` as in
+        `__init__`) that adopts the newest snapshot in ``checkpoint_dir``."""
+        server = cls(dataset, checkpoint_dir=checkpoint_dir, **kwargs)
+        server.restore_cache(step=step)
+        return server
 
     # -- serving loop ------------------------------------------------------
 
     def step(self) -> None:
         """Admit + one window + retire: the unit of incremental serving.
 
-        Keeps `pump`'s cyclic pass structure: a pass visits every unread
-        block window by window; when a whole pass reads nothing for the
-        live queries (or no unread block is left), they are completed
-        exactly. (The reference also skips quarantined blocks here; the
-        port has no quarantine yet, ROADMAP A6.)
+        Keeps `pump`'s cyclic pass structure: a pass visits every unread,
+        unquarantined block window by window; when a whole pass reads
+        nothing for the live queries (or no such block is left), they are
+        completed exactly.
         """
         self._admit_free()
         sched = self.scheduler
         if not sched.tickets:
             return
         if self._pass_order is None or self._pass_pos >= len(self._pass_order):
-            unread = sched.order[~sched.read_mask[sched.order]]
+            unread = sched.order[~sched.read_mask[sched.order] & ~sched.quarantined[sched.order]]
             # a zero-read pass proves sampling exhausted only for the
             # queries live during it: a query admitted in its final
             # windows gets a fresh pass first
@@ -356,9 +461,9 @@ class MatchServer:
             sched.passes += 1
         win = self._pass_order[self._pass_pos : self._pass_pos + sched.window]
         self._pass_pos += len(win)
-        # blocks read since this pass was planned (a run_until_idle in
-        # between) are skipped
-        win = win[~sched.read_mask[win]]
+        # blocks read or quarantined since this pass was planned (a
+        # run_until_idle in between) are skipped
+        win = win[~sched.read_mask[win] & ~sched.quarantined[win]]
         if win.size:
             self._pass_read += sched.run_window(win)
             sched._poll_terminated()
@@ -454,14 +559,12 @@ class MatchServer:
             "total_rounds": sched.rounds,
             "fraction_read": float(sched.read_mask.mean()) if sched.read_mask.size else 0.0,
             "tuples_per_query": float(sched.tuples_read / done) if done else 0.0,
-            # The fault layer (quarantine, supervisor, load shedding) fills
-            # these in the reference; a server without it is healthy by
-            # construction, so these are their true values here.
-            "last_error": "",
-            "queries_shed": 0,
-            "blocks_quarantined": 0,
-            "degraded": False,
-            "eps_inflation": 0.0,
+            # the health surface: "" / 0 / False on a healthy server
+            "last_error": self.last_error,
+            "queries_shed": self.queries_shed,
+            "blocks_quarantined": sched.blocks_quarantined,
+            "degraded": sched.blocks_quarantined > 0,
+            "eps_inflation": float(sched.eps_inflation),
         }
 
     def export_trace(self, path) -> int:

@@ -501,3 +501,135 @@ def test_server_on_card_equals_cpu(cuda, metric):
     assert launched["anyactive"] == launched["histogram"] == card_sched.rounds
     assert launched["distance_multi"] > card_sched.rounds
     assert all(v == 0 for v in cpu_launched.values())
+
+
+# ---------------------------------------------------------------------------
+# the I/O, fault and recovery layer on the card
+# ---------------------------------------------------------------------------
+
+
+def _fault_fixture(seed=3):
+    spec = SynthSpec(v_z=48, v_x=16, num_tuples=300_000, k=5, n_close=6,
+                     close_distance=0.03, far_distance=0.4, zipf_a=1.0, seed=seed)
+    ds = make_dataset(spec)
+    return ds, block_layout(ds.z, ds.x, v_z=48, v_x=16, block_size=512, seed=seed)
+
+
+def test_corrupted_by_id_window_caught(cuda):
+    """A resident window carries the whole table: "auto" checks its
+    structure on the card without reading it back, "content" reads its
+    rows through the ids, and a fault copy of it is caught."""
+    from repro_torch.io import FaultPlan, FaultySource, InMemorySource, ResilientSource
+    from repro_torch.io.faults import CorruptWindowError, WindowQuarantined, validate_window
+
+    _, blocked = _fault_fixture()
+    src = InMemorySource(blocked, device=cuda)
+    kw = dict(num_blocks=src.num_blocks, block_size=src.block_size, v_z=src.v_z, v_x=src.v_x)
+    wd = src.fetch(np.arange(8), pad_to=16)
+    assert wd.bitmap_by_id and wd.z.is_cuda and wd.bitmap.shape[0] == src.num_blocks
+    for level in ("structural", "auto", "content"):
+        validate_window(wd, **kw, pad_to=16, level=level)
+    z = wd.z.clone()
+    z[0, 0] = src.v_z + 7
+    validate_window(wd._replace(z=z), **kw, level="auto")  # a device window: structure only
+    with pytest.raises(CorruptWindowError, match="z values"):
+        validate_window(wd._replace(z=z), **kw, level="content")
+    with pytest.raises(CorruptWindowError, match="bitmap table"):
+        validate_window(wd._replace(bitmap=wd.bitmap[:-1]), **kw, level="structural")
+    for plan in (FaultPlan(p_corrupt=1.0), FaultPlan(p_truncate=1.0)):
+        res = ResilientSource(FaultySource(src, plan))
+        with pytest.raises(WindowQuarantined):
+            res.fetch(np.arange(8), pad_to=16)
+        np.testing.assert_array_equal(res.take_quarantined(), np.arange(8))
+
+
+def test_host_window_reaches_round_on_card(cuda):
+    """A host-resident source hands over host windows; the scheduler moves
+    each to the card once and the kernels run on it: the same answers as
+    the resident table."""
+    from repro_torch.io import InMemorySource
+
+    ds, blocked = _fault_fixture()
+    runs = []
+    for resident in (False, True):
+        src = InMemorySource(blocked, device_resident=resident, device=cuda)
+        if not resident:
+            assert src.fetch(np.arange(4)).z.device.type == "cpu"
+        before = {name: kern.launches for name, kern in ops.KERNELS.items()}
+        srv = MatchServer(src, max_queries=2, lookahead=16, seed=3)
+        rid = srv.submit(ds.target, k=5, eps=0.3, delta=0.05)
+        res = srv.run_until_idle()[rid]
+        launched = {name: kern.launches - before[name] for name, kern in ops.KERNELS.items()}
+        assert launched["anyactive"] == launched["histogram"] == srv.scheduler.rounds > 0
+        assert launched["distance_multi"] > 0
+        assert srv.scheduler.state.counts.is_cuda
+        runs.append(res)
+    a, b = runs
+    np.testing.assert_array_equal(a.ids, b.ids)
+    assert (a.rounds, a.tuples_read) == (b.rounds, b.tuples_read)
+    assert torch.equal(a.state.counts, b.state.counts) and torch.equal(a.state.tau, b.state.tau)
+
+
+def _prefetch_threads():
+    import threading
+
+    return [t for t in threading.enumerate() if t.name == "block-prefetch" and t.is_alive()]
+
+
+def test_prefetch_over_host_resident_source_bitwise(cuda):
+    """FastMatch from host memory with and without prefetch, and from the
+    resident table with prefetch: bitwise the same answer."""
+    from repro_torch.io import InMemorySource
+
+    ds, blocked = _fault_fixture()
+    params = histsim.HistSimParams(v_z=48, v_x=16, k=5, eps=0.08, delta=0.05)
+    runs = []
+    for resident, prefetch in ((False, False), (False, True), (True, True)):
+        src = InMemorySource(blocked, device_resident=resident, device=cuda)
+        cfg = engine.EngineConfig(variant="fastmatch", seed=3, lookahead=16, prefetch=prefetch)
+        runs.append(engine.run_engine(src, ds.target, params, cfg))
+    for r in runs[1:]:
+        np.testing.assert_array_equal(r.ids, runs[0].ids)
+        assert (r.rounds, r.blocks_read) == (runs[0].rounds, runs[0].blocks_read)
+        assert torch.equal(r.state.counts, runs[0].state.counts)
+        assert torch.equal(r.state.tau, runs[0].state.tau)
+    assert not _prefetch_threads()
+
+
+def test_prefetch_side_stream_waits_on_its_event(cuda, monkeypatch):
+    """The staging copies run on a side stream held back by a sleep
+    kernel; the round's stream must wait on their event, so what it reads
+    is the window, not the memory before the copy."""
+    from repro_torch.io import InMemorySource, PrefetchSource
+    from repro_torch.io import prefetch as prefetch_mod
+
+    _, blocked = _fault_fixture()
+    host = InMemorySource(blocked, device_resident=False, device=cuda)
+    stage = prefetch_mod._stage
+
+    def slow_stage(wd, device, side):
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(100_000_000)
+        return stage(wd, device, side)
+
+    monkeypatch.setattr(prefetch_mod, "_stage", slow_stage)
+    wins = [np.arange(i * 16, (i + 1) * 16) for i in range(4)]
+    got = PrefetchSource(host).stream(wins, pad_to=16)
+    for a, b in zip(got, host.stream(wins, pad_to=16)):
+        assert a.z.is_cuda and torch.cuda.current_stream() == torch.cuda.default_stream()
+        for f in ("indices", "z", "x", "bitmap", "valid"):
+            assert torch.equal(getattr(a, f), getattr(b, f).to(cuda)), f
+    assert not _prefetch_threads()
+
+
+def test_snapshot_written_on_card_restores_on_cpu(cuda, tmp_path):
+    ds, blocked = _fault_fixture()
+    srv = MatchServer(blocked, checkpoint_dir=str(tmp_path), max_queries=2, lookahead=16, seed=3)
+    srv.submit(ds.target, k=5, eps=0.3, delta=0.05)
+    srv.run_until_idle()
+    srv.save_cache()
+    back = MatchServer.restore(blocked, checkpoint_dir=str(tmp_path), device="cpu",
+                               max_queries=2, lookahead=16)
+    assert torch.equal(back.scheduler.state.counts, srv.scheduler.state.counts.cpu())
+    np.testing.assert_array_equal(back.scheduler.read_mask, srv.scheduler.read_mask)
+    assert back.scheduler.tuples_read == srv.scheduler.tuples_read

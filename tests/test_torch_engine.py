@@ -119,12 +119,18 @@ class TestEngineAgainstReference:
         _assert_same_result(a, b)
 
     def test_prefetch_not_ported(self, dataset):
-        _, ds, _, ported = dataset
-        with pytest.raises(NotImplementedError, match="A6"):
-            tengine.run_engine(
-                ported, ds.target, thistsim.HistSimParams(v_z=80, v_x=16, **PARAMS),
-                tengine.EngineConfig(prefetch=True), device="cpu",
-            )
+        """Ported since: prefetch=True gives the reference's answer with
+        prefetch, and the port's without it."""
+        _, ds, blocked, ported = dataset
+        params = thistsim.HistSimParams(v_z=80, v_x=16, **PARAMS)
+        got = tengine.run_engine(ported, ds.target, params,
+                                 tengine.EngineConfig(prefetch=True), device="cpu")
+        _assert_same_result(got, tengine.run_engine(ported, ds.target, params,
+                                                    tengine.EngineConfig(), device="cpu"))
+        want = run_engine(blocked, ds.target, HistSimParams(v_z=80, v_x=16, **PARAMS),
+                          EngineConfig(prefetch=True))
+        _assert_same_result(got, want)
+        assert (got.degraded, got.eps_effective) == (want.degraded, want.eps_effective)
 
 
 @pytest.mark.parametrize("v_x", [1440, 4100])

@@ -31,7 +31,8 @@ def test_every_module_is_covered():
         "repro_torch.convert", "repro_torch.core.engine", "repro_torch.core.multiquery",
         "repro_torch.kernels._build", "repro_torch.kernels.ops", "repro_torch.io.block_source",
         "repro_torch.data.synth", "repro_torch.serve", "repro_torch.serve.fastmatch_server",
-        "repro_torch.kernels.autotune",
+        "repro_torch.kernels.autotune", "repro_torch.io.faults", "repro_torch.io.prefetch",
+        "repro_torch.checkpoint.manager", "repro_torch.serve.supervisor",
     ):
         assert expected in names
 

@@ -721,9 +721,7 @@ class TestNotPorted:
     @pytest.mark.parametrize(
         "option,value,item",
         [("mesh", object(), "A9"), ("pump", True, "A9"), ("model_axis", "m", "A9"),
-         ("data_axes", ("x",), "A9"), ("prefetch", True, "A6"), ("checkpoint_dir", "ckpt", "A6"),
-         ("autosave_every", 2, "A6"), ("autosave_rounds", 5, "A6"),
-         ("checkpoint_keep_last", 1, "A6"), ("telemetry", True, "A7")],
+         ("data_axes", ("x",), "A9"), ("telemetry", True, "A7")],
         ids=lambda v: v if isinstance(v, str) else "",
     )
     def test_option_raises_naming_its_item(self, served, option, value, item):
@@ -741,10 +739,8 @@ class TestNotPorted:
 
     @pytest.mark.parametrize(
         "call,item",
-        [(lambda s: s.save_cache(), "A6"), (lambda s: s.restore_cache(), "A6"),
-         (lambda s: type(s).restore(None, checkpoint_dir="c"), "A6"),
-         (lambda s: s.export_trace("t.jsonl"), "A7"), (lambda s: s.prometheus_metrics(), "A7")],
-        ids=["save_cache", "restore_cache", "restore", "export_trace", "prometheus_metrics"],
+        [(lambda s: s.export_trace("t.jsonl"), "A7"), (lambda s: s.prometheus_metrics(), "A7")],
+        ids=["export_trace", "prometheus_metrics"],
     )
     def test_method_raises_naming_its_item(self, served, call, item):
         _, sides, _ = served
