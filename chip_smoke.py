@@ -112,7 +112,30 @@ Phases, each of which raises (non-zero exit) when a check fails:
    prefetch, then from the resident table with prefetch: bitwise the same
    ids, tau, rounds and blocks (27 and 12,395 at 400M, seed 0), no prefetch
    worker alive after; walls (each the second run, after a warm-up) and
-   device busy shares printed. The host arrays are dropped after phase 8.
+   device busy shares printed. 8b and 8c run with telemetry on: in 8b the
+   registry's ``fastmatch_blocks_quarantined_total`` and the
+   ``window_quarantine`` events must be the sources' quarantine (2,048
+   blocks in 4 windows at 400M, seed 0); in 8c ``serve_crashes_total`` and
+   ``serve_recoveries_total`` must be 1 and ``checkpoint_saves_total`` the
+   saves the phase counts.
+9. Telemetry, right after phase 8 on its resident table: phase 5's
+   workload six times in one process, telemetry off and on in turns
+   (``MatchServer(telemetry=True)``), counts at 0 just before each run and
+   read just after. Every run must be bitwise phase 5 (each request's
+   ids, rounds, tuples, ``exact`` and tau; ``host_syncs``, ``loop_syncs``
+   and the exported cache) with phase 5's launches; a profiled on run must
+   make phase 5's PyTorch launches a round. On each on run the registry's
+   counters must equal the scheduler's mirrors and every curve point's
+   ``eps_n`` Theorem 1 at its ``n_min``; the on runs' skeletons must be
+   equal; ``export_trace`` and ``prometheus_metrics`` must round-trip; the
+   registry's read must launch kernel B once a non-empty histogram and bin
+   bitwise as ``np.bincount``. It prints the walls, the accounted
+   telemetry host time (every telemetry entry point timed on the last on
+   run, as the reference's benchmarks/telemetry_overhead.py accounts it)
+   as a share of the off walls' median, the ``round_batch`` split of
+   each on run's wall into gather, dispatch and sync, and kernel B at the
+   registry's shape against its plain version and `torch.bincount`.
+   The host arrays are dropped after phase 9.
 6. The tuner on the card at the taxi keys (Q = 1 and 8 for l1, Q = 8
    for chi2 and hellinger, and the ingest) into build/tuned_smoke/: every
    candidate's time, and whether each winner is the committed file's
@@ -131,7 +154,8 @@ Phases, each of which raises (non-zero exit) when a check fails:
 Every kernel must have launched on some path, each path's counts set to
 0 just before it and read just after; a kernel's ``launches`` in the
 ``kernels`` line are those of the first path that runs it (``path``),
-with every path's count beside them. The last lines are the
+with every path's count beside them; kernel B's row adds the registry
+read's launches and its registry-shape timing. The last lines are the
 ``kernels`` JSON line, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
 also go to ``chiprun_out/chip_smoke.json``. Exits 2 without a CUDA
@@ -1011,7 +1035,8 @@ class _StatsProbe:
         self.mq.stats_step, self.ops.distance_multi = self._stats_step, self._distance
 
 
-def _serve_taxi(torch, source, topk_targets, close_targets, stop_tuples: int) -> dict:
+def _serve_taxi(torch, source, topk_targets, close_targets, stop_tuples: int,
+                telemetry=None) -> dict:
     """Phase 5's workload on one fresh server: 8 top-k queries (the first
     with a tuples stop), served step by step until the first retirement,
     then 4 closeness queries, the first followed through `iter_results`,
@@ -1021,7 +1046,7 @@ def _serve_taxi(torch, source, topk_targets, close_targets, stop_tuples: int) ->
 
     k, eps, delta, eps_c, gap = 10, 0.12, 0.01, 0.10, 0.20
     t = time.perf_counter()
-    server = MatchServer(source, max_queries=8, lookahead=512, metric="l1")
+    server = MatchServer(source, max_queries=8, lookahead=512, metric="l1", telemetry=telemetry)
     topk = [server.submit(tg, k=k, eps=eps, delta=delta,
                           stop=StopPolicy(tuples=stop_tuples) if i == 0 else None)
             for i, tg in enumerate(topk_targets)]
@@ -1064,11 +1089,15 @@ def phase_serving(torch, timer, ctx: dict) -> dict:
         kern.launches = 0
     with _StatsProbe() as probe:
         run = _serve_taxi(torch, source, topk_targets, close_targets, stop_tuples)
-    # phase 8 serves the same workload through faulty sources
+    # phases 8 and 9 serve the same workload through faulty sources and
+    # with telemetry on
     ctx["workload"] = (topk_targets, close_targets, stop_tuples)
     ctx["served"] = {rid: run["server"].results[rid] for rid in run["topk"] + run["close"]}
     launches = {name: kern.launches for name, kern in ops.KERNELS.items()}
     server, sched = run["server"], run["server"].scheduler
+    ctx["phase5"] = dict(host_syncs=sched.host_syncs, loop_syncs=sched.loop_syncs,
+                         rounds=sched.rounds, launches=launches, wall_s=run["wall_s"],
+                         cache=[leaf.clone() for leaf in sched.export_cache()])
     results = dict(server.results)
     log(f"serving: {sched.rounds} rounds, {sched.host_syncs} host syncs, "
         f"{run['wall_s']:.3f}s, launches {launches}, stats steps {probe.stats_steps}")
@@ -1176,6 +1205,7 @@ def phase_serving(torch, timer, ctx: dict) -> dict:
                      host_launches_per_round=host_launches / again_sched.rounds,
                      top=[dict(name=n, ms=ms, calls=c) for n, ms, c in by_kernel[:15]]),
     )
+    ctx["phase5"]["host_launches_per_round"] = out["profile"]["host_launches_per_round"]
     emit({"check": "serving", **{k2: v for k2, v in out.items() if k2 != "profile"}})
     emit({"check": "serving_profile", **out["profile"]})
     return out
@@ -1303,24 +1333,44 @@ class _RetireProbe:
         self.cls.retire = self._retire
 
 
-def _phase8_quarantine(torch, ctx) -> dict:
+def _phase8_quarantine(torch, ctx, expect_quarantine) -> dict:
     """8b: corruption quarantines and degrades honestly; nothing
-    quarantined reaches ingest."""
+    quarantined reaches ingest; telemetry counts it."""
     import numpy as np
 
     from repro_torch.io import FaultPlan, FaultySource, ResilientSource
+    from repro_torch.obs import Telemetry
 
     topk, close, stop_tuples = ctx["workload"]
     truth, eps = _workload_truth(torch, ctx)
     source = ctx["source"]
+    tel = Telemetry(device=source.device)
     res_src = ResilientSource(FaultySource(source, FaultPlan(p_corrupt=0.02, p_truncate=0.02),
-                                           seed=5))
+                                           seed=5), telemetry=tel)
     _reset_launches()
     with _RetireProbe() as probe, _StatsProbe() as stats:
-        run = _serve_taxi(torch, res_src, topk, close, stop_tuples)
+        run = _serve_taxi(torch, res_src, topk, close, stop_tuples, telemetry=tel)
     launches = _launch_counts()
     server, sched = run["server"], run["server"].scheduler
     _check_per_round(launches, sched.rounds, stats.stats_steps, "8b")
+    # telemetry: the scheduler's and the source's quarantine counts
+    reg = tel.registry
+    events = tel.tracer.events("window_quarantine")
+    quarantine_telemetry = dict(
+        blocks_quarantined_total=reg.get("fastmatch_blocks_quarantined_total").value,
+        io_blocks_quarantined_total=reg.get("io_blocks_quarantined_total").value,
+        window_quarantine_events=len(events),
+        blocks_quarantine_events=len(tel.tracer.events("blocks_quarantine")),
+        io_validation_failures_total=reg.get("io_validation_failures_total").value)
+    check(quarantine_telemetry["blocks_quarantined_total"] == sched.blocks_quarantined
+          and quarantine_telemetry["io_blocks_quarantined_total"] == res_src.blocks_quarantined
+          and len(events) == res_src.windows_quarantined
+          and sum(e["blocks"] for e in events) == res_src.blocks_quarantined,
+          f"8b: telemetry counted {quarantine_telemetry}, the sources "
+          f"{sched.blocks_quarantined} / {res_src.windows_quarantined} windows")
+    if expect_quarantine is not None:
+        check((quarantine_telemetry["blocks_quarantined_total"], len(events))
+              == expect_quarantine, f"8b: telemetry {quarantine_telemetry}, not {expect_quarantine}")
     q = sched.tuples_quarantined / sched.total_tuples
     check(sched.blocks_quarantined > 0 and res_src.validation_failures > 0,
           f"8b quarantined {sched.blocks_quarantined} blocks")
@@ -1363,7 +1413,7 @@ def _phase8_quarantine(torch, ctx) -> dict:
                validation_failures=res_src.validation_failures,
                degraded_outcomes=sum(r["degraded"] for r in probe.rows),
                outcomes=len(probe.rows), counts_are_read_histogram=True, answers=answers,
-               launches=launches)
+               launches=launches, telemetry=quarantine_telemetry)
     log(f"8b quarantine: {({k: v for k, v in out.items() if k != 'answers'})}")
     return out
 
@@ -1409,9 +1459,9 @@ def _phase8_recovery(torch, ctx, tmp: Path) -> dict:
     k, eps, delta = 10, 0.12, 0.01
     kw = dict(max_queries=8, lookahead=512, metric="l1", autosave_every=2)
 
-    def supervise(crash_at, directory):
+    def supervise(crash_at, directory, telemetry=None):
         sup = ServeSupervisor(FaultySource(source, FaultPlan(crash_at=crash_at)),
-                              checkpoint_dir=str(directory), **kw)
+                              checkpoint_dir=str(directory), telemetry=telemetry, **kw)
         return sup, [sup.submit(tg, k=k, eps=eps, delta=delta) for tg in topk]
 
     # the run that never crashes places the crash halfway through its rounds
@@ -1422,7 +1472,7 @@ def _phase8_recovery(torch, ctx, tmp: Path) -> dict:
     crash_at = 1 + max(clean_rounds // 2, second + 1)  # attempt 0: the config-hash probe
     del clean
 
-    sup, rids = supervise(crash_at, tmp / "crash")
+    sup, rids = supervise(crash_at, tmp / "crash", telemetry=True)
     mem = {}
     restored = {}
     build, recover = sup._build_server, sup._recover
@@ -1479,6 +1529,19 @@ def _phase8_recovery(torch, ctx, tmp: Path) -> dict:
     check(abs(leak) <= 8 << 20, f"8c: device memory moved {leak} bytes across the recovery")
     same_ids = all(np.array_equal(results[r].ids, clean_res[c].ids)
                    for r, c in zip(rids, clean_rids))
+    reg = sup.telemetry.registry
+    recovery_telemetry = {name: reg.get(name).value for name in (
+        "serve_crashes_total", "serve_recoveries_total", "checkpoint_saves_total",
+        "checkpoint_save_bytes_total", "fastmatch_queries_retired_total")}
+    recovery_telemetry.update(
+        serve_crash_events=len(sup.telemetry.tracer.events("serve_crash")),
+        serve_recovered_events=len(sup.telemetry.tracer.events("serve_recovered")),
+        checkpoint_save_events=len(sup.telemetry.tracer.events("checkpoint_save")))
+    check(recovery_telemetry["serve_crashes_total"] == recovery_telemetry["serve_recoveries_total"]
+          == recovery_telemetry["serve_crash_events"] == 1
+          and recovery_telemetry["checkpoint_saves_total"] == len(saves.saves)
+          == recovery_telemetry["checkpoint_save_events"],
+          f"8c: telemetry {recovery_telemetry}, {len(saves.saves)} saves counted")
 
     # warm construction on the same files, no crash plan: the query that
     # retired last did so on the counts saved at shutdown, so its
@@ -1496,7 +1559,8 @@ def _phase8_recovery(torch, ctx, tmp: Path) -> dict:
                restored=restored, saves=saves.saves, restore_ms=restore_ms,
                memory_live_bytes=mem["live"], memory_after_recovery_bytes=mem["after_recovery"],
                memory_moved_bytes=leak, ids_equal_uncrashed=same_ids,
-               warm_resubmit_tuples=warm_res.tuples_read, launches=launches)
+               warm_resubmit_tuples=warm_res.tuples_read, launches=launches,
+               telemetry=recovery_telemetry)
     log(f"8c recovery: {out}")
     return out
 
@@ -1555,13 +1619,13 @@ def _phase8_prefetch(torch, ctx, expect) -> dict:
     return dict(runs=runs, bitwise_equal=True, threads_alive=0)
 
 
-def phase_faults(torch, ctx, *, expect) -> dict:
+def phase_faults(torch, ctx, *, expect, expect_quarantine) -> dict:
     """Phase 8 (see the module docstring)."""
     import tempfile
 
     report = {}
     for name, fn in (("chaos", lambda: _phase8_chaos(torch, ctx)),
-                     ("quarantine", lambda: _phase8_quarantine(torch, ctx))):
+                     ("quarantine", lambda: _phase8_quarantine(torch, ctx, expect_quarantine))):
         t = time.perf_counter()
         report[name] = fn()
         report[name]["phase_s"] = time.perf_counter() - t
@@ -1575,6 +1639,294 @@ def phase_faults(torch, ctx, *, expect) -> dict:
     report["prefetch"]["phase_s"] = time.perf_counter() - t
     emit({"check": "faults", **report})
     return report
+
+
+# ---------------------------------------------------------------------------
+# phase 9: telemetry on phase 4's resident table
+# ---------------------------------------------------------------------------
+
+
+class _CostAccount:
+    """The host time spent inside every telemetry entry point while
+    installed, reentrancy-guarded so that nested entry points count once
+    (the reference's accounting, benchmarks/telemetry_overhead.py). Every
+    wrapped entry point runs on the serving loop's thread."""
+
+    def __init__(self):
+        from repro_torch.core import multiquery as mq
+        from repro_torch.obs import registry, telemetry, tracer
+
+        self.sites = ((mq.SharedCountsScheduler, "_record_poll"),
+                      (mq.SharedCountsScheduler, "flush_telemetry"),
+                      (mq.SharedCountsScheduler, "_emit_round_batch"),
+                      (tracer.Tracer, "emit"), (registry.Counter, "inc"),
+                      (registry.Gauge, "set"), (registry.Histogram, "observe"),
+                      (registry.Histogram, "observe_many"),
+                      (telemetry.Telemetry, "record_curve_point"))
+        self.total_s, self.by_site, self._depth, self._saved = 0.0, {}, 0, []
+
+    def _wrap(self, fn, site: str):
+        def timed(*args, **kwargs):
+            if self._depth:
+                return fn(*args, **kwargs)
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                self.total_s += dt
+                self.by_site[site] = self.by_site.get(site, 0.0) + dt
+                self._depth -= 1
+
+        return timed
+
+    def __enter__(self):
+        for cls, name in self.sites:
+            fn = getattr(cls, name)
+            self._saved.append((cls, name, fn))
+            setattr(cls, name, self._wrap(fn, f"{cls.__name__}.{name}"))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        self._saved.clear()
+
+
+def _timer_residual_s() -> float:
+    """What the wrappers cannot see, a window: the bare `perf_counter`
+    pairs of the gather, dispatch and sync timing and the accumulator
+    adds, charged as 8 timer calls and 3 list appends (rounded up, as the
+    reference charges them), measured here."""
+    sink: list = []
+    reps = 20_000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for _ in range(8):
+            time.perf_counter()
+        sink.append(0.0)
+        sink.append(0.0)
+        sink.append(0.0)
+        if len(sink) >= 30_000:
+            sink.clear()
+    return (time.perf_counter() - t0) / reps
+
+
+def _prometheus_values(text: str) -> dict:
+    """{sample name with labels: value} of a Prometheus text body."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def _check_against_phase5(torch, run, ctx, launches, what: str) -> None:
+    """A serving run of phase 5's workload is bitwise phase 5: every
+    request's answer, the polls, the exported cache and the launches."""
+    import numpy as np
+
+    p5, base = ctx["phase5"], ctx["served"]
+    server, sched = run["server"], run["server"].scheduler
+    check(run["topk"] + run["close"] == list(base), f"{what} served other requests than phase 5")
+    for rid, want in base.items():
+        got = server.results[rid]
+        check(np.array_equal(got.ids, want.ids), f"{what} request {rid}: ids differ from phase 5")
+        for f in ("rounds", "tuples_read", "exact", "stopped"):
+            check(getattr(got, f) == getattr(want, f),
+                  f"{what} request {rid}: {f} {getattr(got, f)} vs phase 5's {getattr(want, f)}")
+        check(torch.equal(got.state.tau, want.state.tau),
+              f"{what} request {rid}: tau is not bitwise phase 5's")
+    for f in ("host_syncs", "loop_syncs", "rounds"):
+        check(getattr(sched, f) == p5[f], f"{what}: {f} {getattr(sched, f)} vs phase 5's {p5[f]}")
+    for f, got, want in zip(sched.export_cache()._fields, sched.export_cache(), p5["cache"]):
+        check(torch.equal(got, want), f"{what}: the exported {f} is not bitwise phase 5's")
+    check(launches == p5["launches"], f"{what}: launches {launches} vs phase 5's {p5['launches']}")
+
+
+def phase_telemetry(torch, timer, ctx) -> dict:
+    """Phase 9 (see the module docstring)."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import multiquery as mq
+    from repro_torch.kernels import histogram, ref
+
+    topk, close, stop_tuples = ctx["workload"]
+    source = ctx["source"]
+    t_phase = time.perf_counter()
+    runs = []
+    # off and on in turns, three each; the last on run is the accounted one
+    for i, on in enumerate((False, True) * 3):
+        accounted = i == 5
+        _reset_launches()
+        with _CostAccount() if accounted else contextlib.nullcontext() as acct:
+            run = _serve_taxi(torch, source, topk, close, stop_tuples,
+                              telemetry=True if on else None)
+        launches = _launch_counts()
+        what = f"9 ({'on' if on else 'off'} run {i // 2 + 1})"
+        _check_against_phase5(torch, run, ctx, launches, what)
+        check((run["server"].telemetry is not None) == on, f"{what}: telemetry is not {on}")
+        runs.append(dict(on=on, wall_s=run["wall_s"], accounted=accounted, server=run["server"],
+                         account=acct, launches=launches))
+    off_walls = [r["wall_s"] for r in runs if not r["on"]]
+    on_runs = [r for r in runs if r["on"]]
+    on_walls = [r["wall_s"] for r in on_runs if not r["accounted"]]
+
+    # the registry against the scheduler, the curves against Theorem 1, the
+    # skeletons of the on runs against each other
+    skeletons, splits = [], []
+    for r in on_runs:
+        server = r["server"]
+        tel, sched = server.telemetry, server.scheduler
+        reg = tel.registry
+        mirrors = {"fastmatch_rounds_total": sched.rounds,
+                   "fastmatch_tuples_read_total": sched.tuples_read,
+                   "fastmatch_blocks_read_total": sched.blocks_read,
+                   "fastmatch_host_syncs_total": sched.host_syncs,
+                   "fastmatch_passes_total": sched.passes,
+                   "fastmatch_queries_submitted_total": 12,
+                   "fastmatch_queries_admitted_total": 12,
+                   "fastmatch_queries_retired_total": 12}
+        sched.flush_telemetry()
+        for name, want in mirrors.items():
+            check(reg.get(name).value == want, f"9: {name} {reg.get(name).value} vs {want}")
+        deltas = {e["qid"]: e["delta"] for e in tel.tracer.events("query_admit")}
+        check(sorted(deltas) == tel.query_ids() and len(deltas) == 12,
+              f"9: curves for {tel.query_ids()}, admissions {sorted(deltas)}")
+        for qid in tel.query_ids():
+            traj = tel.trajectory(qid)
+            check(bool(traj) and all(
+                p["eps_n"] == mq._metric_eps_np(p["n_min"], deltas[qid] / source.v_z, source.v_x,
+                                                "l1") for p in traj),
+                f"9: query {qid}'s eps_n is not Theorem 1 at its n_min")
+        skeletons.append(tel.tracer.skeleton())
+        batches = tel.tracer.events("round_batch")
+        splits.append(dict(
+            windows=sum(e["windows"] for e in batches), batches=len(batches),
+            gather_ms=sum(e["gather_s"] for e in batches) * 1e3,
+            dispatch_ms=sum(e["dispatch_s"] for e in batches) * 1e3,
+            sync_ms=sum(e["sync_s"] for e in batches) * 1e3, wall_ms=r["wall_s"] * 1e3))
+    check(all(sk == skeletons[0] for sk in skeletons[1:]), "9: the on runs' skeletons differ")
+
+    # the accounted telemetry host time, as a share of the off walls
+    acct = on_runs[-1]["account"]
+    per_window_s = _timer_residual_s()
+    timers_s = splits[-1]["windows"] * per_window_s
+    accounted_s = acct.total_s + timers_s
+    off_ms = statistics.median(off_walls) * 1e3
+
+    # a profiled on run: the PyTorch launches a round of phase 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = _serve_taxi(torch, source, topk, close, stop_tuples, telemetry=True)
+    rounds = again["server"].scheduler.rounds
+    device_ms, by_kernel, by_host_op = _profile_tables(torch, prof)
+    host_launches = sum(c for name, _, c in by_host_op if name.startswith("cudaLaunch"))
+    device_kernels = sum(c for name, _, c in by_kernel if not name.startswith(("Memcpy", "Memset")))
+    check(host_launches / rounds == ctx["phase5"]["host_launches_per_round"],
+          f"9: {host_launches / rounds} PyTorch launches a round with telemetry on, phase 5 "
+          f"{ctx['phase5']['host_launches_per_round']}")
+
+    # the exports round-trip (a registry read: kernel B bins, counted
+    # apart from the serving runs above)
+    server = on_runs[0]["server"]
+    tel = server.telemetry
+    metrics = {name: tel.registry.get(name) for name in tel.registry.names()}
+    hists = {name: m for name, m in metrics.items() if m.kind == "histogram"}
+    pending = {name: np.asarray(m._pending, np.float64) for name, m in hists.items()}
+    _reset_launches()
+    t = time.perf_counter()
+    prom = server.prometheus_metrics()
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t) * 1e3
+    registry_launches = _launch_counts()["histogram"]
+    nonempty = [name for name, v in pending.items() if v.size]
+    check(registry_launches == len(nonempty),
+          f"9: the registry read launched kernel B {registry_launches} times for {nonempty}")
+    snap = tel.registry.snapshot()
+    for name, vals in pending.items():
+        edges = hists[name].edges
+        ids = np.searchsorted(edges, vals, side="left")
+        want = np.bincount(ids, minlength=len(edges) + 1)
+        check(snap[name]["buckets"] == want.tolist(),
+              f"9: {name} binned {snap[name]['buckets']}, the plain count {want.tolist()}")
+    parsed = _prometheus_values(prom)
+    for name, m in snap.items():
+        if m["kind"] == "histogram":
+            cum = np.cumsum(m["buckets"])[:-1]
+            check([parsed[f'{name}_bucket{{le="{le}"}}'] for le in
+                   [_le(e) for e in m["edges"]]] == cum.tolist()
+                  and parsed[f"{name}_count"] == m["count"], f"9: {name} does not round-trip")
+        else:
+            check(parsed[name] == m["value"], f"9: {name} does not round-trip")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = Path(tmp) / "trace.jsonl"
+        n_events = server.export_trace(path)
+        back = [json.loads(line) for line in path.read_text().splitlines()]
+    check(n_events == len(back) and back == json.loads(json.dumps(tel.tracer.events())),
+          "9: the exported trace does not round-trip")
+
+    # kernel B at the registry's shape: the round-batch histogram's samples
+    name = "fastmatch_round_batch_seconds"
+    edges = hists[name].edges
+    vals = pending[name]
+    x = torch.from_numpy(np.searchsorted(edges, vals, side="left").astype(np.int32)).cuda()
+    z = torch.zeros_like(x)
+    v_x = len(edges) + 1
+    got = histogram.histogram(z, x, v_z=1, v_x=v_x)
+    plain = ref.histogram_ref(z, x, v_z=1, v_x=v_x)
+    check(torch.equal(got, plain), "9: kernel B at the registry's shape differs from its plain version")
+    b_ms, b_host = timer(lambda: histogram.histogram(z, x, v_z=1, v_x=v_x))
+    b_plain, _ = timer(lambda: ref.histogram_ref(z, x, v_z=1, v_x=v_x))
+    b_lib, _ = timer(lambda: torch.bincount(x, minlength=v_x))
+    b_bound, b_by = bound_ms(2 * 4 * x.numel() + 4 * v_x, x.numel())
+    flush_h = type(hists[name])(name, edges, device=source.device)
+    flush_h.observe_many(vals)
+    t = time.perf_counter()
+    flush_h.bucket_counts()
+    flush_us = (time.perf_counter() - t) * 1e6
+
+    out = dict(
+        off_walls_ms=[w * 1e3 for w in off_walls], on_walls_ms=[w * 1e3 for w in on_walls],
+        accounted_run_wall_ms=on_runs[-1]["wall_s"] * 1e3,
+        phase5_wall_ms=ctx["phase5"]["wall_s"] * 1e3,
+        accounted_ms=accounted_s * 1e3, accounted_hooks_ms=acct.total_s * 1e3,
+        accounted_timers_ms=timers_s * 1e3, timer_residual_us_per_window=per_window_s * 1e6,
+        accounted_share_of_off_wall=accounted_s * 1e3 / off_ms,
+        accounted_by_site_ms={k: v * 1e3 for k, v in sorted(acct.by_site.items())},
+        round_batch=splits, rounds=rounds, host_syncs=ctx["phase5"]["host_syncs"],
+        loop_syncs=ctx["phase5"]["loop_syncs"],
+        host_launches_per_round=host_launches / rounds,
+        device_kernels_per_round=device_kernels / rounds, profiled_device_ms=device_ms,
+        profiled_wall_ms=again["wall_s"] * 1e3,
+        trace_events=len(skeletons[0]), curve_points=sum(
+            len(tel.trajectory(q)) for q in tel.query_ids()),
+        registry_read=dict(launches=registry_launches, histograms=nonempty, ms=read_ms,
+                           flush_us=flush_us, samples=int(vals.size)),
+        registry_kernel=dict(shape=[1, v_x], samples=int(x.numel()), ms=b_ms, host_us=b_host * 1e3,
+                             plain_ms=b_plain, library_ms=b_lib, bound_ms=b_bound, bound_by=b_by,
+                             max_abs_err=0.0),
+        bitwise_phase5=True, launches=on_runs[0]["launches"],
+    )
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"9 telemetry: off {out['off_walls_ms']} ms, on {out['on_walls_ms']} ms, accounted "
+        f"{out['accounted_ms']:.3f} ms ({out['accounted_share_of_off_wall']:.2%}); "
+        f"round_batch {splits[0]}; registry read {registry_launches} B launches, kernel B at "
+        f"(1, {v_x}) {b_ms * 1e3:.2f} us; {out['phase_s']:.1f}s")
+    emit({"check": "telemetry", **out})
+    return out
+
+
+def _le(edge: float) -> str:
+    """An edge as the registry's Prometheus text writes it."""
+    from repro_torch.obs.registry import _fmt
+
+    return _fmt(edge)
 
 
 # the taxi keys phase 6 tunes: (Q, metric)
@@ -1682,8 +2034,11 @@ def main(argv=None) -> int:
     serving = phase_serving(torch, timer, ctx)
     log("phase 8: the I/O, fault and recovery layer on the resident table")
     t = time.perf_counter()
-    faults = phase_faults(torch, ctx, expect=(27, 12_395) if full_size else None)
+    faults = phase_faults(torch, ctx, expect=(27, 12_395) if full_size else None,
+                          expect_quarantine=(2_048, 4) if full_size else None)
     log(f"phase 8 took {time.perf_counter() - t:.1f}s")
+    log("phase 9: telemetry on the resident table")
+    telemetry = phase_telemetry(torch, timer, ctx)
     del ctx  # the resident table and the host arrays
     torch.cuda.empty_cache()
     log("phase 6: the tuner at the taxi keys")
@@ -1709,6 +2064,7 @@ def main(argv=None) -> int:
                  fault_chaos=faults["chaos"]["launches"],
                  fault_quarantine=faults["quarantine"]["launches"],
                  fault_recovery=faults["recovery"]["launches"],
+                 telemetry_on=telemetry["launches"],
                  **{f"prefetch_{name}": run["launches"]
                     for name, run in faults["prefetch"]["runs"].items()})
     kernels = []
@@ -1721,6 +2077,10 @@ def main(argv=None) -> int:
                    serving_launches=serving["launches"][name], **main_rows[name])
         if name in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[name]
+        if name == "histogram":
+            # the registry's binning: one launch a non-empty histogram read
+            row["registry_launches"] = telemetry["registry_read"]["launches"]
+            row["registry_shape"] = telemetry["registry_kernel"]
         kernels.append(row)
     for row in kernels:
         check(all(isinstance(row[k], (int, float)) and math.isfinite(row[k])
@@ -1732,7 +2092,7 @@ def main(argv=None) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, device=device, kernels=kernels, scale=scale, serving=serving,
-             faults=faults, tuner=tuner["report"], wide_rows=wide,
+             faults=faults, telemetry=telemetry, tuner=tuner["report"], wide_rows=wide,
              wall_s=time.perf_counter() - T0), indent=1))
     log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
     emit({"kernels": kernels})

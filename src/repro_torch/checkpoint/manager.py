@@ -22,9 +22,11 @@ the newest step whose checksums verify (an older one, with a warning,
 when the newest does not), an explicitly named step that fails
 verification raises, a snapshot without a sidecar is accepted, and a
 structure or config-hash mismatch raises. ``gc_swept``,
-``save_failures`` and ``corrupt_steps`` count what happened. Restoring
-onto another mesh (`restore_resharded`) waits for ROADMAP A9, telemetry
-for A7.
+``save_failures`` and ``corrupt_steps`` count what happened; with
+``telemetry=`` (a `repro_torch.obs.Telemetry`) so do the ``checkpoint_*``
+metrics, with the ``checkpoint_save``, ``checkpoint_gc`` and
+``checkpoint_corrupt`` events. Restoring onto another mesh
+(`restore_resharded`) waits for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -105,25 +107,47 @@ def _to_numpy(leaf) -> np.ndarray:
 class CheckpointManager:
     def __init__(self, directory: str, *, keep_last: int = 3, config_hash: str = "",
                  telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "CheckpointManager(telemetry=...) is not ported yet (ROADMAP A7)"
-            )
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep_last = keep_last
         self.config_hash = config_hash
+        self.telemetry = telemetry
         self.gc_swept = 0
         self.save_failures = 0
         self.corrupt_steps = 0  # snapshots rejected by checksum verification
+        if telemetry is not None:
+            reg = telemetry.registry
+            self._c_saves = reg.counter("checkpoint_saves_total", "successful committed snapshots")
+            self._c_save_bytes = reg.counter(
+                "checkpoint_save_bytes_total", "bytes written by committed saves")
+            self._c_failures = reg.counter(
+                "checkpoint_save_failures_total", "saves that raised before commit")
+            self._c_gc_swept = reg.counter(
+                "checkpoint_gc_swept_total",
+                "orphaned tmp leftovers removed (dead-pid crashed saves)")
+            self._c_corrupt = reg.counter(
+                "checkpoint_corrupt_steps_total",
+                "snapshots rejected by checksum verification at restore")
+            self._h_save = reg.histogram("checkpoint_save_seconds",
+                                         help="wall time of a committed save")
 
     # ------------------------------------------------------------------ save
     def save(self, state: Any, step: int) -> pathlib.Path:
+        t0 = time.perf_counter()
         try:
-            return self._save(state, step)
+            final, nbytes = self._save(state, step)
         except BaseException:
             self.save_failures += 1
+            if self.telemetry is not None:
+                self._c_failures.inc(1)
             raise
+        if self.telemetry is not None:
+            dur = time.perf_counter() - t0
+            self._c_saves.inc(1)
+            self._c_save_bytes.inc(nbytes)
+            self._h_save.observe(dur)
+            self.telemetry.tracer.emit("checkpoint_save", step=int(step), bytes=nbytes, save_s=dur)
+        return final
 
     def _save(self, state: Any, step: int):
         names, leaves, _ = _flatten_with_names(state)
@@ -133,6 +157,7 @@ class CheckpointManager:
         tmp.mkdir(parents=True)
         meta = {"step": int(step), "time": time.time(), "config_hash": self.config_hash,
                 "leaves": []}
+        nbytes = 0  # the arrays' bytes, headers left out (the reference's count)
         sums = {}
         for i, (name, leaf) in enumerate(zip(names, leaves)):
             arr = _to_numpy(leaf)
@@ -141,6 +166,7 @@ class CheckpointManager:
             # the file's bytes, header included: restore must catch a
             # truncated or bit-rotted file
             sums[fname] = hashlib.sha256((tmp / fname).read_bytes()).hexdigest()
+            nbytes += int(arr.nbytes)
             meta["leaves"].append({"name": name, "dtype": str(arr.dtype),
                                    "shape": list(arr.shape)})
         meta_bytes = json.dumps(meta).encode()
@@ -166,7 +192,7 @@ class CheckpointManager:
         if aside is not None:
             shutil.rmtree(aside, ignore_errors=True)
         self._gc()
-        return final
+        return final, nbytes
 
     def _gc(self):
         self._sweep_stale_tmp()
@@ -188,7 +214,11 @@ class CheckpointManager:
             else:
                 p.unlink(missing_ok=True)
             swept += 1
-        self.gc_swept += swept
+        if swept:
+            self.gc_swept += swept
+            if self.telemetry is not None:
+                self._c_gc_swept.inc(swept)
+                self.telemetry.tracer.emit("checkpoint_gc", swept=swept)
 
     # --------------------------------------------------------------- restore
     def all_steps(self) -> list:
@@ -235,6 +265,9 @@ class CheckpointManager:
             "(truncated or corrupt); falling back to an older snapshot",
             self.dir, step,
         )
+        if self.telemetry is not None:
+            self._c_corrupt.inc(1)
+            self.telemetry.tracer.emit("checkpoint_corrupt", step=int(step))
 
     def _pick_verified_step(self) -> int:
         """The newest step whose bytes verify, warning per rejected step."""

@@ -44,9 +44,19 @@ outcome. A window handed over in host memory (a host-resident or fault
 injecting source) is moved to the scheduler's device once, where the
 scheduler receives it.
 
+Telemetry (``telemetry=``, a `repro_torch.obs.Telemetry`) records at
+the polls only: ``_sync`` already copies tau, n and the bounds back for
+`peek`, so a poll stages references to those copies and the counter
+deltas, and `flush_telemetry` shapes them into curve points and registry
+counters in batches, at the end of `pump` or when a reader asks. Between
+polls a window costs two ``perf_counter`` pairs (the ``round_batch``
+split of gather, dispatch and sync). A run with telemetry on is bitwise
+the run with it off, with the same polls (``host_syncs``, and
+``loop_syncs``, the polls of the window loop itself) and launches.
+
 Packed words are int32 tensors carrying the uint32 bits; counters and
-``qtype`` are int64. Still to be ported: telemetry (ROADMAP A7) and the
-mesh paths with their per-worker quarantine drain (A9).
+``qtype`` are int64. Still to be ported: the mesh paths with their
+per-worker quarantine drain and timings (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -681,6 +691,38 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).view(torch.uint8)
 
 
+class _BatchAcc:
+    """Host wall-time accumulators of one poll's round batch: filled
+    between polls (two `perf_counter` reads a window, the only telemetry
+    cost off the polls), drained into one ``round_batch`` event a poll."""
+
+    __slots__ = ("windows", "gather_s", "dispatch_s", "sync_s")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.windows = 0
+        self.gather_s = 0.0
+        self.dispatch_s = 0.0
+        self.sync_s = 0.0
+
+
+def _timed_iter(stream, acc: _BatchAcc):
+    """Yield from ``stream``, adding each window's wait to ``acc.gather_s``
+    (behind a `PrefetchSource` this is the stall left over, not the
+    whole fetch)."""
+    it = iter(stream)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            wd = next(it)
+        except StopIteration:
+            return
+        acc.gather_s += time.perf_counter() - t0
+        yield wd
+
+
 class SharedCountsScheduler:
     """The FastMatch execution loop over a shared counts matrix.
 
@@ -696,7 +738,9 @@ class SharedCountsScheduler:
     queries remain live, the scheduler completes exactly (reads the
     remainder) and retires them with ``exact=True``; a ``max_rounds``
     budget instead stops with the queries left best-effort
-    (``budget_exhausted``).
+    (``budget_exhausted``). ``telemetry`` (a `repro_torch.obs.Telemetry`)
+    records the polls, the queries' lifecycles and the round batches
+    (see the module docstring).
     """
 
     def __init__(
@@ -710,6 +754,7 @@ class SharedCountsScheduler:
         start_block: Optional[int] = None,
         poll_every: int = 1,
         device=None,
+        telemetry=None,
         plans: Optional[autotune.PlanPair] = None,
     ):
         source = as_block_source(dataset, device=device)
@@ -773,6 +818,49 @@ class SharedCountsScheduler:
         self.total_tuples = int(np.sum(np.asarray(source.tuples_per_block, np.int64)))
         self.budget_exhausted = False
         self.host_syncs = 0  # number of device->host polls performed
+        # the polls of the window loop itself (pump, run_window): the
+        # cadence poll_every sets, without admission's fixed polls
+        self.loop_syncs = 0
+
+        # telemetry records at polls only (see the module docstring)
+        self.telemetry = telemetry
+        if telemetry is not None:
+            reg = telemetry.registry
+            self._tel_last = {"rounds": 0, "blocks": 0, "tuples": 0, "passes": 0}
+            # a poll stages two appends (`_record_poll`); the shaping into
+            # dicts and registry calls happens in `flush_telemetry`, in
+            # batches, where it does not run cold between device phases
+            self._poll_buf: list = []
+            self._tel_pending = {"syncs": 0, "rounds": 0, "blocks": 0, "tuples": 0, "passes": 0}
+            telemetry.add_flush_hook(self.flush_telemetry)
+            self._c_syncs = reg.counter(
+                "fastmatch_host_syncs_total", "device-host polls performed")
+            self._c_rounds = reg.counter(
+                "fastmatch_rounds_total", "windows dispatched (stats iterations)")
+            self._c_blocks = reg.counter(
+                "fastmatch_blocks_read_total", "blocks ingested into shared counts")
+            self._c_tuples = reg.counter(
+                "fastmatch_tuples_read_total", "tuples drawn (m of Theorem 1)")
+            self._c_passes = reg.counter(
+                "fastmatch_passes_total", "cyclic passes over the block layout")
+            self._c_admitted = reg.counter(
+                "fastmatch_queries_admitted_total", "queries admitted into slots")
+            self._c_retired = reg.counter(
+                "fastmatch_queries_retired_total", "queries retired with an answer")
+            self._c_quarantined = reg.counter(
+                "fastmatch_blocks_quarantined_total",
+                "blocks dropped from the probe set after I/O quarantine")
+            self._h_batch = reg.histogram(
+                "fastmatch_round_batch_seconds",
+                help="host wall per round batch (gather+dispatch+sync)")
+            self._h_q_tuples = reg.histogram(
+                "fastmatch_query_tuples", edges=tuple(float(10 ** e) for e in range(2, 11)),
+                help="tuples read while a query was live (per-query m)")
+            self._h_q_rounds = reg.histogram(
+                "fastmatch_query_rounds", edges=tuple(float(2 ** e) for e in range(0, 14)),
+                help="rounds to retirement (paper Fig. 5)")
+            self._h_q_wall = reg.histogram(
+                "fastmatch_query_wall_seconds", help="admit-to-retire wall time")
 
     # -- quarantine (degraded guarantees) ----------------------------------
 
@@ -783,18 +871,22 @@ class SharedCountsScheduler:
         when fetched and sit in the counts. Every (eps, delta) after this
         is over the surviving blocks; `eps_inflation` is the widening
         against the full data that retirement adds to ``eps_effective``.
-        ``reason`` names the verdict's origin (the reference's telemetry
-        records it)."""
+        ``reason`` names the verdict's origin (telemetry records it)."""
         ids = np.asarray(ids, np.int64).ravel()
         if ids.size:
             ids = ids[~self.quarantined[ids] & ~self.read_mask[ids]]
         if ids.size == 0:
             return 0
         self.quarantined[ids] = True
+        tuples = int(np.sum(np.asarray(self.source.tuples_per_block, np.int64)[ids]))
         self.blocks_quarantined += int(ids.size)
-        self.tuples_quarantined += int(
-            np.sum(np.asarray(self.source.tuples_per_block, np.int64)[ids])
-        )
+        self.tuples_quarantined += tuples
+        if self.telemetry is not None:
+            self._c_quarantined.inc(int(ids.size))
+            self.telemetry.tracer.emit(
+                "blocks_quarantine", blocks=int(ids.size), tuples=tuples, reason=reason,
+                total_blocks=self.blocks_quarantined, population_frac=self.quarantine_fraction,
+            )
         return int(ids.size)
 
     def _drain_quarantine(self) -> None:
@@ -848,6 +940,96 @@ class SharedCountsScheduler:
         self._in_top_k_host, self._pruned_host = flags[0], flags[1]
         self.host_syncs += 1
         self._drain_quarantine()
+        if self.telemetry is not None:
+            self._record_poll()
+
+    def _record_poll(self) -> None:
+        """Stage this poll for telemetry (from `_sync` only): counter deltas
+        into plain ints and one tuple of array references into the poll
+        buffer; `flush_telemetry` shapes them later.
+
+        The buffer holds references, not copies: `_sync` makes fresh host
+        arrays at every poll (``.cpu().numpy()`` of a fresh ``torch.cat``),
+        so each staged entry keeps its own poll's values. If `_sync` ever
+        reuses its host buffers (pinned staging, say), copy the arrays
+        here, or every staged point would read the last poll."""
+        last = self._tel_last
+        p = self._tel_pending
+        p["syncs"] += 1
+        p["rounds"] += self.rounds - last["rounds"]
+        p["blocks"] += self.blocks_read - last["blocks"]
+        p["tuples"] += self.tuples_read - last["tuples"]
+        p["passes"] += self.passes - last["passes"]
+        last.update(rounds=self.rounds, blocks=self.blocks_read, tuples=self.tuples_read,
+                    passes=self.passes)
+        if self.tickets:
+            # the entry carries the live ticket set of its poll (tickets do
+            # not change after admission), so a flush at any later time
+            # shapes it under the queries that were live when it was taken
+            self._poll_buf.append(
+                (self.rounds, self.tuples_read, self._tel_n, self._tel_tau,
+                 self._delta_upper, list(self.tickets.items()))
+            )
+            if len(self._poll_buf) >= 256:
+                self.flush_telemetry()  # bound the buffer on a long pump
+
+    def flush_telemetry(self) -> None:
+        """Drain the staged polls into the registry and the per-query
+        trajectories. Each staged poll carries its own live ticket set, so
+        a flush may run at any time: at the end of `pump`, when the buffer
+        reaches its bound, and from `Telemetry`'s read accessors."""
+        tel = self.telemetry
+        if tel is None:
+            return
+        p = self._tel_pending
+        if p["syncs"]:
+            self._c_syncs.inc(p["syncs"])
+            self._c_rounds.inc(p["rounds"])
+            self._c_blocks.inc(p["blocks"])
+            self._c_tuples.inc(p["tuples"])
+            self._c_passes.inc(p["passes"])
+            for key in p:
+                p[key] = 0
+        buf = self._poll_buf
+        if not buf:
+            return
+        self._poll_buf = []
+        v_z, v_x = self.spec.v_z, self.spec.v_x
+        for rounds, tuples, n, tau, du, live in buf:
+            # each poll's reductions in place: stacking the batch first
+            # would copy every staged (Q, V_Z) tau
+            n_min = float(n.min())
+            tau_mins = tau.min(axis=1)
+            for slot, t in live:
+                d_up = float(du[slot])
+                tel.record_curve_point(t.qid, dict(
+                    round=rounds,
+                    tuples=tuples,
+                    tuples_live=tuples - t.admit_tuples_read,
+                    n_min=n_min,
+                    tau_min=float(tau_mins[slot]),
+                    # eps(n) at the per-candidate budget delta / V_Z: the
+                    # AnyActive threshold of the stats tail
+                    eps_n=_metric_eps_np(n_min, t.delta / v_z, v_x, self.spec.metric),
+                    delta_upper=d_up,
+                    confidence=max(0.0, 1.0 - d_up),
+                ))
+
+    def _round_batch_extra(self) -> dict:
+        """Extra ``round_batch`` fields: the data-parallel pump's per-worker
+        timings (ROADMAP A9); none here."""
+        return {}
+
+    def _emit_round_batch(self, acc: _BatchAcc) -> None:
+        """Drain one poll's timing accumulators into a ``round_batch`` event."""
+        self._h_batch.observe(acc.gather_s + acc.dispatch_s + acc.sync_s)
+        self.telemetry.tracer.emit(
+            "round_batch", windows=acc.windows, rounds=self.rounds,
+            blocks_read=self.blocks_read, tuples_read=self.tuples_read,
+            gather_s=acc.gather_s, dispatch_s=acc.dispatch_s, sync_s=acc.sync_s,
+            **self._round_batch_extra(),
+        )
+        acc.reset()
 
     # -- warm cache ----------------------------------------------------------
 
@@ -985,6 +1167,20 @@ class SharedCountsScheduler:
             admit_tuples_read=self.tuples_read,
             stop=stop if stop is not None else self.spec.default_stop,
         )
+        if self.telemetry is not None:
+            self._c_admitted.inc(1)
+            self.telemetry.tracer.emit(
+                "query_admit", qid=qid, slot=slot, k=int(k), eps=float(eps),
+                delta=float(delta), qtype=qtype, gap=float(gap),
+                round=self.rounds, tuples=self.tuples_read,
+            )
+            # admission's poll ran before the ticket existed, so its staged
+            # entry does not carry this query: stage its first point (on a
+            # warm cache perhaps already terminal) from the same mirrors
+            self._poll_buf.append(
+                (self.rounds, self.tuples_read, self._tel_n, self._tel_tau,
+                 self._delta_upper, [(slot, self.tickets[slot])])
+            )
         return qid
 
     def peek(self, slot: int) -> AnytimeAnswer:
@@ -1097,6 +1293,18 @@ class SharedCountsScheduler:
         self.state = clear_slot(self.state, slot)
         self._closeness_live -= t.qtype == "closeness"
         self.outcomes[t.qid] = outcome
+        if self.telemetry is not None:
+            self._c_retired.inc(1)
+            self._h_q_tuples.observe(outcome.tuples_read)
+            self._h_q_rounds.observe(outcome.rounds)
+            self._h_q_wall.observe(outcome.wall_time_s)
+            self.telemetry.tracer.emit(
+                "query_retire", qid=t.qid, slot=slot, exact=outcome.exact,
+                terminated=outcome.terminated, rounds=outcome.rounds, passes=outcome.passes,
+                blocks=outcome.blocks_read, tuples=outcome.tuples_read,
+                delta_upper=outcome.delta_upper, wall_s=outcome.wall_time_s,
+                stopped=outcome.stopped, stop_reason=outcome.stop_reason,
+            )
         return outcome
 
     def _poll_terminated(self) -> None:
@@ -1161,10 +1369,26 @@ class SharedCountsScheduler:
         if win.size == 0:
             return 0
         before = self.blocks_read
-        wd = self._fetch_window_or_quarantine(win)
-        if wd is not None:
-            self._dispatch_round(wd)
-        self._sync()
+        if self.telemetry is None:
+            wd = self._fetch_window_or_quarantine(win)
+            if wd is not None:
+                self._dispatch_round(wd)
+            self._sync()
+        else:
+            acc = _BatchAcc()
+            t0 = time.perf_counter()
+            wd = self._fetch_window_or_quarantine(win)
+            acc.gather_s = time.perf_counter() - t0
+            if wd is not None:
+                t0 = time.perf_counter()
+                self._dispatch_round(wd)
+                acc.dispatch_s = time.perf_counter() - t0
+                acc.windows = 1
+            t0 = time.perf_counter()
+            self._sync()
+            acc.sync_s = time.perf_counter() - t0
+            self._emit_round_batch(acc)
+        self.loop_syncs += 1
         return self.blocks_read - before
 
     def complete_remaining(self) -> None:
@@ -1176,6 +1400,8 @@ class SharedCountsScheduler:
         if remaining.size == 0:
             return
         self.passes += 1
+        t0 = time.perf_counter()
+        windows = 0
         stream, _ = self._open_pass_stream(remaining)
         try:
             for wd in stream:
@@ -1183,10 +1409,17 @@ class SharedCountsScheduler:
                     self.state, self.cursor, self._on_device(wd), spec=self.spec,
                     plans=self.plans,
                 )
+                windows += 1
         finally:
             stream.close()
         self._stats_step()
         self._sync()
+        if self.telemetry is not None:
+            self.telemetry.tracer.emit(
+                "exact_completion", windows=windows, blocks=int(remaining.size),
+                rounds=self.rounds, tuples_read=self.tuples_read,
+                dur_s=time.perf_counter() - t0,
+            )
 
     def pump(
         self,
@@ -1200,8 +1433,37 @@ class SharedCountsScheduler:
         front end admits queued queries there) and the budget check
         happen at polls. The budgets count this call only; a budget cut
         leaves the live queries best-effort and sets
-        ``budget_exhausted``."""
+        ``budget_exhausted``. Telemetry staged during the call is
+        flushed when it returns."""
         self.budget_exhausted = False
+        try:
+            self._pump(max_rounds=max_rounds, max_passes=max_passes, on_round=on_round)
+        finally:
+            self.flush_telemetry()
+
+    def _loop_poll(self, acc: Optional[_BatchAcc], on_round) -> None:
+        """A poll of the window loop: sync (timed into ``acc`` under
+        telemetry), retire what fired, then ``on_round``."""
+        if acc is None:
+            self._sync()
+        else:
+            t0 = time.perf_counter()
+            self._sync()
+            acc.sync_s += time.perf_counter() - t0
+            self._emit_round_batch(acc)
+        self.loop_syncs += 1
+        self._poll_terminated()
+        if on_round is not None:
+            on_round(self)
+
+    def _pump(
+        self,
+        *,
+        max_rounds: int,
+        max_passes: int,
+        on_round: Optional[Callable[["SharedCountsScheduler"], None]],
+    ) -> None:
+        tel = self.telemetry
         self._sync()
         rounds0, passes0 = self.rounds, self.passes
         # a late query may already terminate on the accumulated counts
@@ -1215,17 +1477,31 @@ class SharedCountsScheduler:
             pass_start_blocks = self.blocks_read
             stream, n_rounds = self._open_pass_stream(pass_order)
             dispatched = 0
+            if tel is None:
+                acc, windows = None, stream
+            else:
+                tel.tracer.emit("pass_start", passes=self.passes, windows=n_rounds,
+                                unread=int(pass_order.size))
+                acc = _BatchAcc()
+                windows = _timed_iter(stream, acc)
             try:
-                for dispatched, wd in enumerate(stream, start=1):
-                    self._dispatch_round(wd)
+                for dispatched, wd in enumerate(windows, start=1):
+                    if acc is None:
+                        self._dispatch_round(wd)
+                    else:
+                        t0 = time.perf_counter()
+                        self._dispatch_round(wd)
+                        acc.dispatch_s += time.perf_counter() - t0
+                        acc.windows += 1
                     if dispatched % self.poll_every == 0 or dispatched == n_rounds:
-                        self._sync()
-                        self._poll_terminated()
-                        if on_round is not None:
-                            on_round(self)
+                        self._loop_poll(acc, on_round)
                         if self.rounds - rounds0 >= max_rounds:
+                            # budget cut: live queries stay best-effort
                             self.budget_exhausted = True
-                            return  # budget cut: live queries stay best-effort
+                            if tel is not None:
+                                tel.tracer.emit("budget_exhausted", rounds=self.rounds,
+                                                live=len(self.tickets))
+                            return
                         if not self.tickets:
                             break
             finally:
@@ -1235,10 +1511,7 @@ class SharedCountsScheduler:
                 # only a resilient source skipping quarantined trailing
                 # windows does: poll now, or the zero-progress check below
                 # would judge stale mirrors
-                self._sync()
-                self._poll_terminated()
-                if on_round is not None:
-                    on_round(self)
+                self._loop_poll(acc, on_round)
             if self.blocks_read - pass_start_blocks == 0 and self.tickets:
                 # a query admitted in the pass's final windows deserves
                 # one fresh pass of its own before sampling gives up

@@ -35,8 +35,12 @@ words are int32 tensors carrying the uint32 bits, window ids are
 int64, and a device-resident source's window carries the whole
 (num_blocks, W) bitmap table (``bitmap_by_id``), which the structural
 check holds to the table's shape and which a fault copy gathers to the
-window's rows before it leaves the device. Telemetry is refused
-(ROADMAP A7).
+window's rows before it leaves the device.
+
+With ``telemetry=`` (a `repro_torch.obs.Telemetry`) the resilient source
+counts its retries, transient and permanent faults, validation failures
+and quarantined blocks in the ``io_*`` counters, and emits one
+``window_quarantine`` event a quarantined window.
 """
 
 from __future__ import annotations
@@ -390,13 +394,10 @@ class ResilientSource:
     ):
         if validate not in ("auto", "structural", "content", "off"):
             raise ValueError(f"unknown validation level {validate!r}")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "ResilientSource(telemetry=...) is not ported yet (ROADMAP A7)"
-            )
         _wrap_attrs(self, inner)
         self.policy = policy
         self.validate = validate
+        self.telemetry = telemetry
         self._clock = clock
         self._sleep = sleep
         self._rng = np.random.default_rng(policy.seed)
@@ -409,6 +410,19 @@ class ResilientSource:
         self.blocks_quarantined = 0
         self._lock = threading.Lock()
         self._pending: List[Tuple[np.ndarray, str]] = []
+        if telemetry is not None:
+            reg = telemetry.registry
+            self._c_retries = reg.counter(
+                "io_fetch_retries_total", "fetch attempts repeated after a transient fault")
+            self._c_transient = reg.counter(
+                "io_transient_faults_total", "transient fetch failures observed")
+            self._c_permanent = reg.counter(
+                "io_permanent_faults_total",
+                "fetches escalated to permanent (retries/deadline exhausted)")
+            self._c_validation = reg.counter(
+                "io_validation_failures_total", "windows that failed integrity validation")
+            self._c_quarantined = reg.counter(
+                "io_blocks_quarantined_total", "blocks quarantined at the source boundary")
 
     def set_cancel_event(self, event: Optional[threading.Event]) -> None:
         """Install (or clear, with None) the cooperative cancellation flag;
@@ -427,6 +441,11 @@ class ResilientSource:
             self.windows_quarantined += 1
             self.blocks_quarantined += int(ids.size)
         logger.warning("quarantining window of %d blocks (%s): %r", ids.size, kind, cause)
+        if self.telemetry is not None:
+            self._c_quarantined.inc(int(ids.size))
+            self.telemetry.tracer.emit(
+                "window_quarantine", blocks=int(ids.size), why=kind, cause=repr(cause)
+            )
         return WindowQuarantined(ids, cause)
 
     def take_quarantined(self) -> np.ndarray:
@@ -481,15 +500,21 @@ class ResilientSource:
                 wd = self.inner.fetch(win, pad_to)
             except self.TRANSIENT as exc:
                 self.transient_faults += 1
+                if self.telemetry is not None:
+                    self._c_transient.inc(1)
                 deadline_hit = (
                     policy.deadline_s is not None and self._clock() - t0 >= policy.deadline_s
                 )
                 if retries >= policy.max_retries or deadline_hit:
                     self.permanent_faults += 1
+                    if self.telemetry is not None:
+                        self._c_permanent.inc(1)
                     why = "deadline" if deadline_hit else "retries-exhausted"
                     raise self._quarantine(win, exc, why) from exc
                 retries += 1
                 self.retries_total += 1
+                if self.telemetry is not None:
+                    self._c_retries.inc(1)
                 jitter = 1.0 + policy.jitter * (2.0 * self._rng.random() - 1.0)
                 self._wait(delay * jitter)
                 delay *= policy.backoff_mult
@@ -501,6 +526,9 @@ class ResilientSource:
                 # returns the same corruption
                 self.validation_failures += 1
                 self.permanent_faults += 1
+                if self.telemetry is not None:
+                    self._c_validation.inc(1)
+                    self._c_permanent.inc(1)
                 raise self._quarantine(win, exc, "validation") from exc
             return wd
 

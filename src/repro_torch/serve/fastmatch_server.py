@@ -48,9 +48,17 @@ sampling is target-independent, so a re-submitted query loses nothing.
 `serve.ServeSupervisor` adds deadlines, shedding and crash recovery;
 ``last_error`` and ``queries_shed`` in `metrics` are what it reports.
 
+Telemetry: ``telemetry=True`` builds a `repro_torch.obs.Telemetry` on
+the server's device (an instance is adopted as it is; None or False
+leaves it off) and threads it into the scheduler, the `PrefetchSource`
+and the `CheckpointManager`; the server adds the submitted counter and
+the ``query_enqueue`` and ``query_done`` events (the rid <-> qid join).
+`export_trace` and `prometheus_metrics` export it. A server with
+telemetry on serves bitwise as one with it off.
+
 Not ported yet, and refused with `NotImplementedError` naming the
 ROADMAP item: the mesh and data-parallel pump servers and restoring onto
-another mesh (A9), and telemetry and its exports (A7).
+another mesh (A9).
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from typing import Deque, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.engine import MatchResult
 from repro_torch.core.multiquery import (
@@ -77,6 +86,7 @@ from repro_torch.core.multiquery import (
 )
 from repro_torch.io import PrefetchSource, as_block_source, maybe_chaos
 from repro_torch.kernels.autotune import PlanPair
+from repro_torch.obs import Telemetry
 
 __all__ = [
     "AnytimeAnswer",
@@ -93,7 +103,6 @@ _UNPORTED = {
     "model_axis": ("model", "A9"),
     "pump": (False, "A9"),
     "data_axes": (("data",), "A9"),
-    "telemetry": (None, "A7"),
 }
 
 # the reference's dtypes of a snapshot's counters (int32); the port's
@@ -182,6 +191,7 @@ class MatchServer:
         autosave_every: int = 8,
         autosave_rounds: Optional[int] = None,
         checkpoint_keep_last: int = 3,
+        telemetry=None,
         **unported,
     ):
         # k_cap: static bound on any query's k (the deviation assignment
@@ -195,7 +205,10 @@ class MatchServer:
         # current round runs. checkpoint_dir: keep warm-cache snapshots
         # there; autosave_every: snapshot after this many retirements (0
         # never); autosave_rounds: also after this many new rounds;
-        # checkpoint_keep_last: snapshots kept.
+        # checkpoint_keep_last: snapshots kept. telemetry: True builds a
+        # Telemetry on the server's device, an instance is adopted (one
+        # server to a handle: query ids key its curves), None or False
+        # leaves every layer on its untouched path.
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"MatchServer() got an unexpected keyword argument {name!r}")
@@ -203,8 +216,16 @@ class MatchServer:
             if (tuple(value) if name == "data_axes" else value) != off:
                 raise _not_ported(f"MatchServer({name}=...)", item)
         source = maybe_chaos(as_block_source(dataset, device=device))
+        if telemetry is True:
+            telemetry = Telemetry(device=getattr(source, "device", None) or resolve_device(device))
+        elif telemetry is False:
+            telemetry = None
+        self.telemetry = telemetry
+        if telemetry is not None:
+            self._c_submitted = telemetry.registry.counter(
+                "fastmatch_queries_submitted_total", "requests accepted into the queue")
         if prefetch:
-            source = PrefetchSource(source)
+            source = PrefetchSource(source, telemetry=telemetry)
         self.spec = MultiQuerySpec(
             v_z=source.v_z,
             v_x=source.v_x,
@@ -225,6 +246,7 @@ class MatchServer:
             start_block=start_block,
             poll_every=poll_every,
             device=device,
+            telemetry=telemetry,
             plans=kernel_plans,
         )
         self.max_passes = max_passes
@@ -234,6 +256,7 @@ class MatchServer:
                 checkpoint_dir,
                 keep_last=checkpoint_keep_last,
                 config_hash=cache_config_hash(self.scheduler.source, self.spec),
+                telemetry=telemetry,
             )
         self.autosave_every = autosave_every
         self.autosave_rounds = autosave_rounds
@@ -320,6 +343,12 @@ class MatchServer:
                 submit_time=time.perf_counter(), qtype=qtype, gap=gap, stop=stop,
             )
         )
+        if self.telemetry is not None:
+            self._c_submitted.inc(1)
+            self.telemetry.tracer.emit(
+                "query_enqueue", rid=rid, k=k, eps=eps, delta=delta, qtype=qtype, gap=gap,
+                queued=len(self.pending),
+            )
         return rid
 
     def _admit_free(self, _sched: Optional[SharedCountsScheduler] = None) -> None:
@@ -348,6 +377,13 @@ class MatchServer:
                 out.anytime.result = res
                 self._anytime[rid] = out.anytime
             self._retired_since_save += 1
+            if self.telemetry is not None:
+                # the rid <-> qid join: query_enqueue carries the request id,
+                # the scheduler's admit and retire events the qid
+                self.telemetry.tracer.emit(
+                    "query_done", rid=rid, qid=qid, exact=res.exact, tuples=res.tuples_read,
+                    wall_s=res.wall_time_s,
+                )
         self._maybe_autosave()
 
     def _to_result(self, rid: int, out: QueryOutcome) -> MatchResult:
@@ -568,7 +604,15 @@ class MatchServer:
         }
 
     def export_trace(self, path) -> int:
-        raise _not_ported("MatchServer.export_trace", "A7")
+        """Write the lifecycle and round trace as JSONL; returns the event count."""
+        if self.telemetry is None:
+            raise RuntimeError("MatchServer was constructed without telemetry")
+        self.scheduler.flush_telemetry()
+        return self.telemetry.tracer.export_jsonl(path)
 
     def prometheus_metrics(self) -> str:
-        raise _not_ported("MatchServer.prometheus_metrics", "A7")
+        """The registry in Prometheus text exposition format."""
+        if self.telemetry is None:
+            raise RuntimeError("MatchServer was constructed without telemetry")
+        self.scheduler.flush_telemetry()
+        return self.telemetry.registry.to_prometheus()

@@ -21,8 +21,14 @@ Rebuilds reuse the dataset object the supervisor was given: pass a
 resident `InMemorySource` so a rebuild uploads nothing. Every reference
 to the wounded server, the failed call's frames included, is dropped
 before the new one allocates. The supervisor's request ids stay stable
-across rebuilds; ``results`` and ``shed`` are keyed by them. Telemetry
-is refused by the server it builds (ROADMAP A7).
+across rebuilds; ``results`` and ``shed`` are keyed by them.
+
+Every decision is observable through one `repro_torch.obs.Telemetry`
+shared by every server the supervisor builds (``telemetry=True`` makes
+it, on the servers' device): the ``serve_crashes_total``,
+``serve_recoveries_total`` and ``serve_queries_shed_total`` counters, the
+``serve_recovery_seconds`` histogram, and the ``serve_crash``,
+``serve_recovered``, ``query_shed`` and ``query_deadline_retire`` events.
 """
 
 from __future__ import annotations
@@ -35,7 +41,9 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from repro_torch import resolve_device
 from repro_torch.core.engine import MatchResult
+from repro_torch.obs import Telemetry
 from repro_torch.serve.fastmatch_server import (
     AnytimeAnswer,
     MatchServer,
@@ -89,6 +97,25 @@ class ServeSupervisor:
         self.policy = policy
         self._dataset = dataset
         self._server_kwargs = dict(server_kwargs)
+        # one telemetry handle across rebuilds: a crash must not reset the
+        # counters that count crashes
+        tel = self._server_kwargs.get("telemetry")
+        if tel is True:
+            device = (getattr(dataset, "device", None)
+                      or resolve_device(self._server_kwargs.get("device")))
+            tel = Telemetry(device=device)
+            self._server_kwargs["telemetry"] = tel
+        self.telemetry = tel or None
+        if self.telemetry is not None:
+            reg = self.telemetry.registry
+            self._c_crashes = reg.counter(
+                "serve_crashes_total", "unrecoverable serving-loop failures")
+            self._c_recoveries = reg.counter(
+                "serve_recoveries_total", "successful crash recoveries")
+            self._c_shed = reg.counter(
+                "serve_queries_shed_total", "requests shed (overload or deadline)")
+            self._h_recovery = reg.histogram(
+                "serve_recovery_seconds", help="crash-to-serving recovery wall time")
         self.restarts = 0
         self.last_error = ""
         self.recovery_s_total = 0.0
@@ -117,6 +144,9 @@ class ServeSupervisor:
         self.last_error = repr(exc)
         logger.warning("serving loop crashed (%r); recovery %d/%d",
                        exc, self.restarts, self.policy.max_restarts)
+        if self.telemetry is not None:
+            self._c_crashes.inc(1)
+            self.telemetry.tracer.emit("serve_crash", error=repr(exc), restarts=self.restarts)
         if self.restarts > self.policy.max_restarts:
             raise exc
         if self.policy.restart_backoff_s:
@@ -127,15 +157,27 @@ class ServeSupervisor:
         # of the failed call (whose locals hold its scheduler and
         # windows), before the new server allocates
         traceback.clear_frames(exc.__traceback__)
+        if self.telemetry is not None:
+            self.telemetry.remove_flush_hook(self.server.scheduler.flush_telemetry)
         self.server = None
         self.server = self._build_server()
+        resubmitted = 0
         for req in self._requests.values():
             if req.rid in self.results or req.rid in self.shed:
                 continue
             req.server_rid = self.server.submit(
                 req.target, k=req.k, eps=req.eps, delta=req.delta, stop=req.stop
             )
-        self.recovery_s_total += time.perf_counter() - t0
+            resubmitted += 1
+        recovery_s = time.perf_counter() - t0
+        self.recovery_s_total += recovery_s
+        if self.telemetry is not None:
+            self._c_recoveries.inc(1)
+            self._h_recovery.observe(recovery_s)
+            self.telemetry.tracer.emit(
+                "serve_recovered", recovery_s=recovery_s,
+                resumed_step=self.server.scheduler.rounds, resubmitted=resubmitted,
+            )
 
     # -- requests ----------------------------------------------------------
 
@@ -166,6 +208,9 @@ class ServeSupervisor:
     def _shed(self, req: _Request, reason: str) -> None:
         self.shed[req.rid] = reason
         self.server.queries_shed = len(self.shed)
+        if self.telemetry is not None:
+            self._c_shed.inc(1)
+            self.telemetry.tracer.emit("query_shed", rid=req.rid, reason=reason)
 
     def _enforce_deadlines(self) -> None:
         now = time.monotonic()
@@ -199,6 +244,8 @@ class ServeSupervisor:
                 fired = bool(sched._delta_upper[slot] < sched.tickets[slot].delta)
                 sched.retire(slot, exact=False, terminated=fired, stopped=True,
                              stop_reason="deadline")
+                if self.telemetry is not None:
+                    self.telemetry.tracer.emit("query_deadline_retire", rid=req.rid, qid=qid)
             # else: resolved between the scan and here
         if retired_any:
             server._collect()

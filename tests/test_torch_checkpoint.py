@@ -4,12 +4,12 @@ Twins of tests/test_checkpoint.py (round trip, LATEST, specific steps,
 atomicity, GC of orphaned tmp dirs, re-saves, structure and config-hash
 mismatches, the checksum sidecar and its fallbacks) on tensors, plus the
 cross-package checks: a snapshot written by either manager restores in
-the other bitwise, with the same leaf names, dtypes and files.
+the other bitwise, with the same leaf names, dtypes and files. With a
+`repro_torch.obs.Telemetry` the ``checkpoint_*`` metrics and events
+equal the reference's.
 
 Left out, waiting for ROADMAP A9: ``test_restore_resharded_roundtrip``
-(here the port's `restore_resharded` must refuse, naming A9); waiting
-for A7: ``test_corrupt_counter_and_event_with_telemetry`` (its counter
-half, ``corrupt_steps``, is checked here).
+(here the port's `restore_resharded` must refuse, naming A9).
 """
 
 import hashlib
@@ -22,7 +22,9 @@ import pytest
 import torch
 
 from repro.checkpoint import CheckpointManager as JManager
+from repro.obs import Telemetry as JTelemetry
 from repro_torch.checkpoint import CheckpointManager, config_hash
+from repro_torch.obs import Telemetry
 
 
 def _state(seed=0):
@@ -199,11 +201,39 @@ class TestFaultTolerance:
             m.restore_resharded(_state(), None, None)
 
     def test_telemetry_refused(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="A7"):
-            CheckpointManager(str(tmp_path), telemetry=object())
+        """The manager takes a `Telemetry` and records its saves into it:
+        the same counters, bytes and events as the reference's."""
+        out = {}
+        for pkg, cls, tel, state in (("port", CheckpointManager, Telemetry(device="cpu"), _state),
+                                     ("ref", JManager, JTelemetry(), _jstate)):
+            m = cls(str(tmp_path / pkg), telemetry=tel, keep_last=1)
+            m.save(state(0), 1)
+            m.save(state(1), 2)
+            reg = tel.registry
+            assert reg.get("checkpoint_saves_total").value == 2
+            assert reg.get("checkpoint_save_seconds").count == 2
+            out[pkg] = (reg.get("checkpoint_save_bytes_total").value,
+                        tel.tracer.skeleton("checkpoint_save"))
+        assert out["port"] == out["ref"]
+        assert out["port"][0] == 2 * (64 * 4 + 4 * 4 + 4 + 5)
 
 
 class TestChecksums:
+    def test_corrupt_counter_and_event_with_telemetry(self, tmp_path):
+        out = {}
+        for pkg, cls, tel, state in (("port", CheckpointManager, Telemetry(device="cpu"), _state),
+                                     ("ref", JManager, JTelemetry(), _jstate)):
+            m = cls(str(tmp_path / pkg), telemetry=tel, keep_last=10)
+            m.save(state(0), 1)
+            m.save(state(1), 2)
+            next((tmp_path / pkg / "step_2").glob("arr_*.npy")).write_bytes(b"junk")
+            m.restore(state(0))
+            assert tel.registry.get("checkpoint_corrupt_steps_total").value == 1
+            (ev,) = tel.tracer.events("checkpoint_corrupt")
+            assert ev["step"] == 2
+            out[pkg] = tel.tracer.skeleton("checkpoint_corrupt")
+        assert out["port"] == out["ref"]
+
     def test_sidecar_written_and_covers_every_file(self, tmp_path):
         m = CheckpointManager(str(tmp_path))
         m.save(_state(), 3)

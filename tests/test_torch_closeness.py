@@ -410,10 +410,12 @@ class TestAnytimeAnswerShape:
 
     def test_default_flags_and_curve_point(self):
         from repro.obs import CURVE_COLUMNS
+        from repro_torch import obs
 
         ans = self._answer(tmq)
         assert not ans.exact and not ans.stopped and ans.result is None
-        assert tuple(ans.curve_point()) == tuple(CURVE_COLUMNS)
+        assert obs.CURVE_COLUMNS == CURVE_COLUMNS
+        assert tuple(ans.curve_point()) == tuple(obs.CURVE_COLUMNS)
         assert ans.curve_point() == self._answer(jmq).curve_point()
 
     @pytest.mark.parametrize("metric", METRICS)

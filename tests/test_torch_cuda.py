@@ -633,3 +633,146 @@ def test_snapshot_written_on_card_restores_on_cpu(cuda, tmp_path):
     assert torch.equal(back.scheduler.state.counts, srv.scheduler.state.counts.cpu())
     np.testing.assert_array_equal(back.scheduler.read_mask, srv.scheduler.read_mask)
     assert back.scheduler.tuples_read == srv.scheduler.tuples_read
+
+
+# ---------------------------------------------------------------------------
+# telemetry on the card: the registry's binning is kernel B at V_Z = 1
+# ---------------------------------------------------------------------------
+
+# the registry's three edge sets: the latency bins, fastmatch_query_tuples'
+# and fastmatch_query_rounds'
+REGISTRY_EDGES = {
+    "latency": None,
+    "tuples": tuple(float(10 ** e) for e in range(2, 11)),
+    "rounds": tuple(float(2 ** e) for e in range(0, 14)),
+}
+
+
+def _registry_samples(edges, n, seed):
+    """``n`` samples spread log-uniformly around the edges, a quarter of
+    them exactly on an edge (le semantics: they count in that bucket)."""
+    rng = np.random.default_rng(seed)
+    e = np.asarray(edges)
+    vals = np.exp(rng.uniform(np.log(e[0] / 10), np.log(e[-1] * 10), size=n))
+    on_edge = rng.random(n) < 0.25
+    vals[on_edge] = rng.choice(e, size=int(on_edge.sum()))
+    return vals
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 4096, 1_000_000])
+@pytest.mark.parametrize("which", list(REGISTRY_EDGES))
+def test_registry_histogram_on_card(cuda, which, n):
+    """A card histogram bins bitwise as np.bincount(np.searchsorted(...)),
+    with one kernel-B launch per non-empty flush and none for an empty one."""
+    from repro_torch.obs import DEFAULT_LATENCY_BINS, MetricsRegistry
+
+    edges = REGISTRY_EDGES[which] or DEFAULT_LATENCY_BINS
+    reg = MetricsRegistry()
+    assert reg.device.type == "cuda"
+    h = reg.histogram(f"{which}_seconds", edges=edges)
+    vals = _registry_samples(edges, n, seed=n + len(which))
+    h.observe_many(vals)
+    want = np.bincount(np.searchsorted(edges, vals, side="left"), minlength=len(edges) + 1)
+    before = ops.KERNELS["histogram"].launches
+    got = h.bucket_counts()
+    assert ops.KERNELS["histogram"].launches == before + (n > 0)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int64 and h.count == n
+    # a second flush with nothing pending launches nothing; new samples add
+    h.bucket_counts()
+    assert ops.KERNELS["histogram"].launches == before + (n > 0)
+    h.observe(edges[0])
+    want[0] += 1
+    np.testing.assert_array_equal(h.bucket_counts(), want)
+    assert ops.KERNELS["histogram"].launches == before + (n > 0) + 1
+
+
+def test_registry_flush_on_side_stream_thread(cuda):
+    """A registry read from a second thread whose current stream is a side
+    stream (as the prefetch worker's is) gets its own kernel-B scratch and
+    the same counts as a read from the default stream."""
+    import threading
+
+    from repro_torch.obs import MetricsRegistry
+
+    edges = REGISTRY_EDGES["rounds"]
+    vals = _registry_samples(edges, 50_000, seed=5)
+    want = np.bincount(np.searchsorted(edges, vals, side="left"), minlength=len(edges) + 1)
+    reg = MetricsRegistry(device=cuda)
+    main, side_h = reg.histogram("a_total_rounds", edges=edges), reg.histogram("b_rounds", edges=edges)
+    main.observe_many(vals)
+    side_h.observe_many(vals)
+    out, errors = {}, []
+
+    def read():
+        try:
+            side = torch.cuda.Stream(cuda)
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(10_000_000)  # the side stream is busy first
+                out["side"] = side_h.bucket_counts()
+        except BaseException as exc:  # surfaced below
+            errors.append(exc)
+
+    t = threading.Thread(target=read)
+    t.start()
+    out["main"] = main.bucket_counts()
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    np.testing.assert_array_equal(out["main"], want)
+    np.testing.assert_array_equal(out["side"], want)
+
+
+def test_server_telemetry_bitwise_on_card(cuda):
+    """On the 3M fixture: a `MatchServer(telemetry=True)` serves bitwise as
+    its telemetry=None twin, with the same polls and the same launches;
+    its registry is binned on the card afterwards."""
+    from repro_torch.core.multiquery import StopPolicy
+    from repro_torch.data.synth import perturb_distribution
+
+    spec = SynthSpec(v_z=80, v_x=16, num_tuples=3_000_000, k=8, n_close=8,
+                     close_distance=0.02, far_distance=0.3, zipf_a=0.9, seed=7)
+    ds = make_dataset(spec)
+    blocked = block_layout(ds.z, ds.x, v_z=80, v_x=16, block_size=512, seed=7)
+    rng = np.random.default_rng(17)
+    targets = [ds.target] + [perturb_distribution(ds.target, d, rng) for d in (0.05, 0.1)]
+    runs = []
+    for telemetry in (None, True, None, True):
+        before = {name: kern.launches for name, kern in ops.KERNELS.items()}
+        srv = MatchServer(blocked, device=cuda, max_queries=4, lookahead=64, seed=3,
+                          telemetry=telemetry)
+        srv.submit(targets[0], k=8, eps=0.08, delta=0.05)
+        srv.submit(targets[1], k=8, eps=0.08, delta=0.05, stop=StopPolicy(tuples=20_000))
+        srv.submit(targets[2], k=4, eps=0.08, delta=0.05)
+        while not srv.results:
+            srv.step()
+        for tg in targets[:2]:
+            srv.submit_closeness(tg, eps=0.1, gap=0.2, delta=0.05)
+        results = srv.run_until_idle()
+        torch.cuda.synchronize()
+        launched = {name: kern.launches - before[name] for name, kern in ops.KERNELS.items()}
+        runs.append((srv, results, launched))
+    (off, off_res, off_launched) = runs[0]
+    for srv, results, launched in runs[1:]:
+        assert launched == off_launched
+        assert sorted(results) == sorted(off_res) == list(range(5))
+        for rid, b in off_res.items():
+            a = results[rid]
+            np.testing.assert_array_equal(a.ids, b.ids)
+            for f in ("rounds", "passes", "blocks_read", "tuples_read", "exact", "stopped",
+                      "stop_reason", "qtype"):
+                assert getattr(a, f) == getattr(b, f), (rid, f)
+            assert torch.equal(a.state.tau, b.state.tau)
+        s, o = srv.scheduler, off.scheduler
+        assert (s.host_syncs, s.loop_syncs, s.rounds) == (o.host_syncs, o.loop_syncs, o.rounds)
+        for x, y in zip(s.export_cache(), o.export_cache()):
+            assert torch.equal(x, y)
+    on = runs[1][0]
+    reg = on.telemetry.registry
+    assert reg.device.type == "cuda"
+    before = ops.KERNELS["histogram"].launches
+    snap = reg.snapshot()
+    hists = [name for name, m in snap.items() if m["kind"] == "histogram" and m["count"]]
+    assert ops.KERNELS["histogram"].launches == before + len(hists)
+    assert snap["fastmatch_rounds_total"]["value"] == on.scheduler.rounds
+    assert snap["fastmatch_query_rounds"]["count"] == 5
+    assert sum(snap["fastmatch_query_rounds"]["buckets"]) == 5

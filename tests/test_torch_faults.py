@@ -11,11 +11,10 @@ the same block ids with the same ``eps_effective``, a run under
 `maybe_chaos` is bitwise the fault-free run and within the tolerance
 contract of the reference's run under the same chaos seed, and
 `PrefetchSource` (with `EngineConfig(prefetch=True)`) changes no answer
-and leaves no worker thread behind.
-
-Left out, waiting for ROADMAP A7: the reference's telemetry counters and
-events (``test_telemetry_counters``, the counter and event halves of the
-prefetch cancellation tests). Their other assertions are twinned here.
+and leaves no worker thread behind. With a `repro_torch.obs.Telemetry`
+the resilient source's ``io_*`` counters and ``window_quarantine`` event
+equal the reference's for the same faults, and the prefetch stream's
+failure counters and events are the reference's.
 """
 
 import logging
@@ -31,6 +30,7 @@ from repro.data.synth import SynthSpec, make_dataset, perturb_distribution
 from repro.io import InMemorySource as JSource
 from repro.io.block_source import WindowData as JWindow
 from repro.io import faults as jfaults
+from repro.obs import Telemetry as JTelemetry
 from repro.serve.fastmatch_server import MatchServer as JServer
 from repro_torch import convert
 from repro_torch.core import engine as tengine
@@ -38,6 +38,7 @@ from repro_torch.core import histsim as thistsim
 from repro_torch.core import multiquery as tmq
 from repro_torch.io import InMemorySource, PrefetchSource, WindowData
 from repro_torch.io import faults as tfaults
+from repro_torch.obs import Telemetry
 from repro_torch.io.faults import (
     CorruptWindowError,
     FaultInjector,
@@ -431,12 +432,45 @@ class TestResilientSource:
             attempts.append(src.inner.injector.attempts)
         assert hashes[0] == hashes[1] and attempts[0] == attempts[1] >= 1
 
+    def test_telemetry_counters(self, sources):
+        """Two transient faults with one retry allowed: the same counters,
+        Prometheus text and quarantine event as the reference's."""
+        out = {}
+        for pkg, inner, mod, tel in (("port", sources[1], tfaults, Telemetry(device="cpu")),
+                                     ("ref", sources[0], jfaults, JTelemetry())):
+            flaky = _FlakySource(inner, [mod.TransientIOError("x")] * 10)
+            src = mod.ResilientSource(flaky, policy=mod.RetryPolicy(max_retries=1, backoff_s=0.0),
+                                      telemetry=tel)
+            with pytest.raises(mod.WindowQuarantined):
+                src.fetch(np.array([1, 2]))
+            reg = tel.registry
+            assert reg.get("io_fetch_retries_total").value == 1
+            assert reg.get("io_transient_faults_total").value == 2
+            assert reg.get("io_permanent_faults_total").value == 1
+            assert reg.get("io_blocks_quarantined_total").value == 2
+            (ev,) = tel.tracer.events("window_quarantine")
+            assert ev["blocks"] == 2 and ev["why"] == "retries-exhausted"
+            out[pkg] = reg.to_prometheus(), tel.tracer.skeleton()
+        assert out["port"] == out["ref"]
+
     def test_telemetry_refused(self, sources):
+        """Both wrappers take a `Telemetry` and record into it: a corrupt
+        window's validation failure, and a prefetched stream."""
         _, src = sources
-        for make in (lambda: ResilientSource(src, telemetry=object()),
-                     lambda: PrefetchSource(src, telemetry=object())):
-            with pytest.raises(NotImplementedError, match="A7"):
-                make()
+        tel = Telemetry(device="cpu")
+        corrupt = FaultySource(src, FaultPlan(p_corrupt=1.0), seed=0)
+        res = ResilientSource(corrupt, telemetry=tel)
+        with pytest.raises(WindowQuarantined):
+            res.fetch(np.arange(4), pad_to=4)
+        assert tel.registry.get("io_validation_failures_total").value == 1
+        assert tel.registry.get("io_permanent_faults_total").value == 1
+        assert [e["why"] for e in tel.tracer.events("window_quarantine")] == ["validation"]
+        wins = _windows(src.num_blocks, width=4, count=3)
+        got = list(PrefetchSource(src, telemetry=tel).stream(wins, pad_to=4))
+        assert len(got) == 3
+        (ev,) = tel.tracer.events("prefetch_stream")
+        assert ev["windows"] == 4 and ev["source"] == "InMemorySource"
+        assert tel.registry.get("prefetch_fetch_seconds").count == 3
 
 
 # ------------------------------------------------ prefetch
@@ -466,12 +500,16 @@ class TestPrefetch:
         _, src = sources
         res = ResilientSource(_HangingSource(src),
                               policy=RetryPolicy(max_retries=100, backoff_s=30.0))
-        pf = PrefetchSource(res, join_timeout=5.0)
+        tel = Telemetry(device="cpu")
+        pf = PrefetchSource(res, telemetry=tel, join_timeout=5.0)
         it = pf.stream(_windows(src.num_blocks, width=4, count=4), pad_to=4)
         next(it)
         t0 = time.perf_counter()
         it.close()
         assert time.perf_counter() - t0 < 5.0
+        # a clean shutdown: no error, no abandoned worker, no quarantine
+        assert tel.registry.get("prefetch_worker_errors_total").value == 0
+        assert tel.registry.get("prefetch_join_timeouts_total").value == 0
         assert res.take_quarantined().size == 0 and res.cancel_event is None
         assert not _prefetch_threads()
 
@@ -486,12 +524,16 @@ class TestPrefetch:
                     raise RuntimeError("disk on fire")
                 return self.inner.fetch(win, pad_to)
 
-        pf = PrefetchSource(_LateFailSource(src))
+        tel = Telemetry(device="cpu")
+        pf = PrefetchSource(_LateFailSource(src), telemetry=tel)
         it = pf.stream(_windows(src.num_blocks, width=4, count=4), pad_to=4)
         next(it)
         with caplog.at_level(logging.WARNING, logger="repro_torch.io.prefetch"):
             it.close()
         assert "disk on fire" in caplog.text and "after the stream was closed" in caplog.text
+        assert tel.registry.get("prefetch_dropped_errors_total").value == 1
+        (ev,) = tel.tracer.events("prefetch_dropped_error")
+        assert ev["source"] == "_LateFailSource" and "disk on fire" in ev["error"]
         assert not _prefetch_threads()
 
     def test_worker_error_raised_at_next_pull(self, sources):

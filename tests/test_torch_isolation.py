@@ -33,6 +33,8 @@ def test_every_module_is_covered():
         "repro_torch.data.synth", "repro_torch.serve", "repro_torch.serve.fastmatch_server",
         "repro_torch.kernels.autotune", "repro_torch.io.faults", "repro_torch.io.prefetch",
         "repro_torch.checkpoint.manager", "repro_torch.serve.supervisor",
+        "repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.tracer",
+        "repro_torch.obs.telemetry",
     ):
         assert expected in names
 

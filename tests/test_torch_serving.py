@@ -721,7 +721,7 @@ class TestNotPorted:
     @pytest.mark.parametrize(
         "option,value,item",
         [("mesh", object(), "A9"), ("pump", True, "A9"), ("model_axis", "m", "A9"),
-         ("data_axes", ("x",), "A9"), ("telemetry", True, "A7")],
+         ("data_axes", ("x",), "A9")],
         ids=lambda v: v if isinstance(v, str) else "",
     )
     def test_option_raises_naming_its_item(self, served, option, value, item):
@@ -739,13 +739,20 @@ class TestNotPorted:
 
     @pytest.mark.parametrize(
         "call,item",
-        [(lambda s: s.export_trace("t.jsonl"), "A7"), (lambda s: s.prometheus_metrics(), "A7")],
+        [(lambda s: s.export_trace("t.jsonl"), "without telemetry"),
+         (lambda s: s.prometheus_metrics(), "without telemetry")],
         ids=["export_trace", "prometheus_metrics"],
     )
     def test_method_raises_naming_its_item(self, served, call, item):
+        """A server built without telemetry has nothing to export: both
+        packages raise the same RuntimeError."""
         _, sides, _ = served
-        with pytest.raises(NotImplementedError, match=item):
-            call(sides[1].server())
+        errors = []
+        for side in sides:
+            with pytest.raises(RuntimeError, match=item) as info:
+                call(side.server())
+            errors.append(str(info.value))
+        assert errors[0] == errors[1]
 
     def test_health_keys_report_a_healthy_server(self, served):
         ds, sides, _ = served

@@ -7,12 +7,10 @@ answers as a run that never crashed, and as the reference's supervisor
 under the same fault plan (the same restarts, and results within the
 tolerance contract); cold recovery without a checkpoint directory; the
 restart bound; overload shedding, deadlines while queued and while
-live, the default deadline, and the merged metrics.
-
-Left out, waiting for ROADMAP A7: the telemetry counters and events the
-reference's twins also read (``serve_crashes_total``, ``query_shed``
-and the rest); the outcomes they count are checked here through
-``restarts``, ``last_error``, ``shed`` and `metrics`.
+live, the default deadline, and the merged metrics. Under
+``telemetry=True`` one `repro_torch.obs.Telemetry` outlives the rebuilds
+and counts the crash, the recovery and the shed requests, with the
+reference's ``serve_*`` counters and events.
 """
 
 import time
@@ -36,6 +34,7 @@ from repro_torch.io.faults import (
     RetryPolicy,
     UnrecoverableIOError,
 )
+from repro_torch.obs import Telemetry
 from repro_torch.serve import ServeSupervisor, SupervisorPolicy
 
 TAU_ATOL = 2e-5
@@ -111,18 +110,36 @@ class TestCrashRecovery:
         sup = ServeSupervisor(_chaos_source(ported, crash_at=2),
                               policy=SupervisorPolicy(max_restarts=2),
                               checkpoint_dir=tmp_path / "crash", autosave_rounds=2,
-                              device="cpu", **SERVER_KW)
+                              telemetry=True, device="cpu", **SERVER_KW)
+        tel = sup.telemetry
         got = _supervise(sup, targets)
         assert sup.restarts == 1 and "UnrecoverableIOError" in sup.last_error
+        assert sup.server.telemetry is tel  # one handle across the rebuild
+        # the wounded scheduler was flushed and let go
+        assert tel._flush_hooks == [sup.server.scheduler.flush_telemetry]
+        reg = tel.registry
+        assert reg.get("serve_crashes_total").value == 1
+        assert reg.get("serve_recoveries_total").value == 1
+        assert reg.get("serve_recovery_seconds").count == 1
+        (crash_ev,) = tel.tracer.events("serve_crash")
+        assert "UnrecoverableIOError" in crash_ev["error"]
+        (rec_ev,) = tel.tracer.events("serve_recovered")
+        assert rec_ev["resubmitted"] >= 1 and rec_ev["recovery_s"] > 0.0
         assert sup.unresolved == 0 and sup.recovery_s_total > 0.0
         for a, b in zip(got, clean):
             np.testing.assert_array_equal(a.ids, b.ids)
 
         jsup = JSupervisor(_ref_chaos_source(blocked, crash_at=2),
                            policy=JPolicy(max_restarts=2), checkpoint_dir=tmp_path / "ref",
-                           autosave_rounds=2, **SERVER_KW)
+                           autosave_rounds=2, telemetry=True, **SERVER_KW)
         want = _supervise(jsup, targets)
         assert jsup.restarts == 1
+        for kind in ("serve_crash", "serve_recovered", "checkpoint_save", "query_enqueue"):
+            got_ev = [{k: v for k, v in e.items() if k not in ("seq", "recovery_s")}
+                      for e in tel.tracer.skeleton(kind)]
+            want_ev = [{k: v for k, v in e.items() if k not in ("seq", "recovery_s")}
+                       for e in jsup.telemetry.tracer.skeleton(kind)]
+            assert got_ev == want_ev, kind
         for a, b in zip(got, want):
             _assert_same_result(a, b)
         assert sorted(p.name for p in (tmp_path / "crash").glob("step_*")) == sorted(
@@ -169,7 +186,8 @@ class TestSheddingAndDeadlines:
     def test_overload_sheds_at_the_door(self, dataset, targets):
         _, _, ported = dataset
         sup = ServeSupervisor(_host(ported), policy=SupervisorPolicy(max_queue=1),
-                              max_queries=1, lookahead=64, poll_every=2, seed=11, device="cpu")
+                              max_queries=1, lookahead=64, poll_every=2, seed=11, device="cpu",
+                              telemetry=True)
         rids = [sup.submit(t, k=K, eps=EPS, delta=DELTA) for t in targets]
         res = sup.run_until_idle()
         shed = [r for r in rids if r in sup.shed]
@@ -177,6 +195,9 @@ class TestSheddingAndDeadlines:
         assert len([r for r in rids if r in res]) + len(shed) == len(rids)
         assert sup.metrics["queries_shed"] == len(shed)
         assert sup.server.metrics["queries_shed"] == len(shed)
+        assert sup.telemetry.registry.get("serve_queries_shed_total").value == len(shed)
+        assert [e["rid"] for e in sup.telemetry.tracer.events("query_shed")] == shed
+        assert {e["reason"] for e in sup.telemetry.tracer.events("query_shed")} == {"overload"}
 
     def test_queued_query_shed_at_deadline(self, dataset, targets):
         _, _, ported = dataset
@@ -192,7 +213,7 @@ class TestSheddingAndDeadlines:
     def test_live_query_early_retired_at_deadline(self, dataset, targets):
         _, _, ported = dataset
         sup = ServeSupervisor(_host(ported), max_queries=2, lookahead=16, poll_every=2, seed=11,
-                              device="cpu")
+                              device="cpu", telemetry=True)
         rid = sup.submit(targets[2], k=K, eps=EPS, delta=DELTA)
         sup.server.step()
         assert sup.server.scheduler.tickets
@@ -200,6 +221,10 @@ class TestSheddingAndDeadlines:
         res = sup.run_until_idle()
         assert rid in res and rid not in sup.shed
         assert res[rid].exact is False and len(res[rid].ids) == K
+        (ev,) = sup.telemetry.tracer.events("query_deadline_retire")
+        assert ev["rid"] == rid and ev["qid"] == 0
+        (retire,) = sup.telemetry.tracer.events("query_retire")
+        assert retire["stopped"] and retire["stop_reason"] == "deadline"
         assert res[rid].stopped and res[rid].stop_reason == "deadline"
         assert sup.poll_result(rid).status == "done"
 
@@ -225,9 +250,26 @@ class TestSheddingAndDeadlines:
         assert m == pytest.approx(jm)
         assert m["queries_done"] == 1 and m["restarts"] == 0
 
-    def test_telemetry_refused(self, dataset):
-        with pytest.raises(NotImplementedError, match="A7"):
-            ServeSupervisor(_host(dataset[2]), telemetry=True, device="cpu")
+    def test_telemetry_refused(self, dataset, targets):
+        """``telemetry=True`` makes one handle on the servers' device that
+        the server records into; a handle passed in is adopted as it is;
+        a request queued past its deadline is counted as shed."""
+        _, _, ported = dataset
+        sup = ServeSupervisor(_host(ported), telemetry=True, device="cpu", **SERVER_KW)
+        tel = sup.telemetry
+        assert tel.registry.device == torch.device("cpu") and sup.server.telemetry is tel
+        ok = sup.submit(targets[0], k=K, eps=EPS, delta=DELTA)
+        late = sup.submit(targets[1], k=K, eps=EPS, delta=DELTA, deadline_s=0.0)
+        res = sup.run_until_idle()
+        assert ok in res and sup.shed[late] == "deadline"
+        assert tel.registry.get("serve_queries_shed_total").value == 1
+        assert [(e["rid"], e["reason"]) for e in tel.tracer.events("query_shed")] == [
+            (late, "deadline")]
+        assert tel.registry.get("fastmatch_queries_retired_total").value == 1
+        assert tel.registry.get("serve_crashes_total").value == 0
+        mine = Telemetry(device="cpu")
+        assert ServeSupervisor(_host(ported), telemetry=mine, device="cpu",
+                               **SERVER_KW).server.telemetry is mine
 
 
 def test_outcome_tuples_match_on_the_device_the_server_runs(dataset, targets):
