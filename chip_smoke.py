@@ -135,7 +135,29 @@ Phases, each of which raises (non-zero exit) when a check fails:
    as a share of the off walls' median, the ``round_batch`` split of
    each on run's wall into gather, dispatch and sync, and kernel B at the
    registry's shape against its plain version and `torch.bincount`.
-   The host arrays are dropped after phase 9.
+10. The mesh and the data-parallel pump, right after phase 9 on phase
+   4's table (7548 x 24: V_Z divides by 2 and 4), generating none: the
+   host arrays go into shared memory and four gloo ranks on the card
+   (`distributed.run_ranks`) map them; each sub-phase has its own launch
+   counts on every rank (kernels A and B once a round, kernel C at least
+   once a statistics step). 10a: a 2 x 2 (data x model) `DistributedPump`
+   and the single-stream scheduler here, driven with the same 12
+   shuffled global windows of 512 blocks, 3 queries admitted first (the
+   first stops after two windows of tuples), a fourth at round 3: every
+   round's counts, n, read mask, counters, live and retired slots equal,
+   and tau and delta_upper bitwise (within the Theorem-1 tolerance of
+   `tests/test_torch_rounds.py` if the shard resolved another plan). 10b: phase 4's query
+   through `MatchServer(mesh=, pump=True)`, first on a one-rank NCCL
+   mesh here, bitwise phase 4 (ids, rounds, blocks, tau, counts, n,
+   delta_upper), then on a 4 x 1 pump: Guarantee 1 against Scan's exact
+   tau, the bound fired, and the counts and n bitwise the histogram of
+   the blocks the read mask marks. 10c: phase 5's workload through a
+   2 x 2 pump server, every answer through phase 5's checks. It prints
+   rounds, passes, blocks, walls beside phases 4 and 5, every worker's
+   gather seconds, collective calls, KB and host ms a round and kernel
+   launches a round on every rank, and the phase's seconds with the
+   children's start-up; ``{"check": "mesh", ...}``.
+   The host arrays are dropped after phase 10.
 6. The tuner on the card at the taxi keys (Q = 1 and 8 for l1, Q = 8
    for chi2 and hellinger, and the ingest) into build/tuned_smoke/: every
    candidate's time, and whether each winner is the committed file's
@@ -184,6 +206,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 T0 = time.perf_counter()
+T0_WALL = time.time()  # this module's import, comparable across processes
 
 
 def log(msg: str) -> None:
@@ -1036,17 +1059,21 @@ class _StatsProbe:
 
 
 def _serve_taxi(torch, source, topk_targets, close_targets, stop_tuples: int,
-                telemetry=None) -> dict:
+                telemetry=None, server=None, **server_kw) -> dict:
     """Phase 5's workload on one fresh server: 8 top-k queries (the first
     with a tuples stop), served step by step until the first retirement,
     then 4 closeness queries, the first followed through `iter_results`,
-    then the rest drained. Returns the server, request ids and stream."""
+    then the rest drained. Returns the server, request ids and stream.
+    A ``server`` built beforehand is served as it is (its construction
+    outside the wall)."""
     from repro_torch.core.multiquery import StopPolicy
     from repro_torch.serve import MatchServer
 
     k, eps, delta, eps_c, gap = 10, 0.12, 0.01, 0.10, 0.20
     t = time.perf_counter()
-    server = MatchServer(source, max_queries=8, lookahead=512, metric="l1", telemetry=telemetry)
+    if server is None:
+        server = MatchServer(source, max_queries=8, lookahead=512, metric="l1",
+                             telemetry=telemetry, **server_kw)
     topk = [server.submit(tg, k=k, eps=eps, delta=delta,
                           stop=StopPolicy(tuples=stop_tuples) if i == 0 else None)
             for i, tg in enumerate(topk_targets)]
@@ -1922,6 +1949,407 @@ def phase_telemetry(torch, timer, ctx) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the mesh and the data-parallel pump on phase 4's resident table
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+LOCKSTEP_ROUNDS = 12
+LOCKSTEP_ORDER_SEED = 10  # 10a's shuffled global windows
+
+
+def _digest(*arrays) -> str:
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _lockstep_targets(ctx):
+    """10a's four queries: phase 5's first top-k targets; the first stops
+    after ~2 windows of tuples (a retirement inside the 12 rounds), the
+    fourth is admitted at round 3."""
+    topk, _, _ = ctx["workload"]
+    return [topk[0], topk[1], topk[2], topk[3]]
+
+
+def _lockstep(sched, targets, order, window: int, full_counts) -> list:
+    """Drive ``sched`` through 10a's rounds; one record a round."""
+    from repro_torch.core.multiquery import StopPolicy
+
+    k, eps, delta = 10, 0.12, 0.01
+    sched.admit(targets[0], k=k, eps=eps, delta=delta,
+                stop=StopPolicy(tuples=2 * window * 512))
+    for tg in targets[1:3]:
+        sched.admit(tg, k=k, eps=eps, delta=delta)
+    records = []
+    for r in range(LOCKSTEP_ROUNDS):
+        if r == 3:
+            sched.admit(targets[3], k=k, eps=0.2, delta=delta)
+        sched.run_window(order[r * window : (r + 1) * window])
+        sched._poll_terminated()
+        counts, n = full_counts()
+        st = sched.state
+        records.append(dict(
+            counts=_digest(counts.cpu().numpy()), n=_digest(n.cpu().numpy()),
+            tau=st.tau.cpu().numpy(), du=st.delta_upper.cpu().numpy(),
+            eps_i=st.eps_i.cpu().numpy(), n_full=n.cpu().numpy(),
+            mask=_digest(sched.read_mask),
+            counters=[sched.rounds, sched.blocks_read, sched.blocks_considered,
+                      sched.tuples_read],
+            live=sorted(sched.tickets), retired=sorted(sched.outcomes)))
+    return records
+
+
+def _mesh_rank(rank, world, shared, meta):
+    """One gloo rank of phase 10 on the card: 10a's lockstep at 2 x 2, 10b's
+    query at 4 x 1, 10c's serving at 2 x 2. Rank 0 returns the records;
+    every rank its launches and collective time per sub-phase."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed
+    from repro_torch.core.multiquery import MultiQuerySpec
+    from repro_torch.core.pump import DistributedPump
+    from repro_torch.data.layout import BlockedDataset
+    from repro_torch.serve import MatchServer
+
+    entered_at = time.time()  # the wall clock, comparable with the parent's
+    t_start = time.perf_counter()
+    blocked = BlockedDataset(shared["z"].numpy(), shared["x"].numpy(),
+                             shared["bitmap"].numpy().view(np.uint32), meta["v_z"], meta["v_x"])
+    order = np.random.default_rng(LOCKSTEP_ORDER_SEED).permutation(blocked.num_blocks)
+    mesh22 = distributed.init_mesh((2, 2), device_type="cuda")
+    mesh41 = distributed.init_mesh((4, 1), device_type="cuda")
+    out = dict(rank=rank, entered_at=entered_at, attach_s=time.perf_counter() - t_start,
+               startup=dict(imported=T0_WALL, **distributed.RANK_STARTUP))
+
+    def measured(name, fn):
+        _reset_launches()
+        c0 = dict(distributed.COLLECTIVES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(
+            wall_s=time.perf_counter() - t, launches=_launch_counts(),
+            collective_calls=distributed.COLLECTIVES["calls"] - c0["calls"],
+            collective_s=distributed.COLLECTIVES["seconds"] - c0["seconds"],
+            collective_bytes=distributed.COLLECTIVES["bytes"] - c0["bytes"])
+        return result
+
+    # -- 10a: the lockstep golden at 2 x 2
+    spec = MultiQuerySpec(v_z=meta["v_z"], v_x=meta["v_x"], max_queries=4)
+    pmp = DistributedPump(blocked, spec, mesh=mesh22, window=512, seed=0, start_block=0)
+    records = measured("lockstep", lambda: _lockstep(pmp, meta["lockstep_targets"], order, 512,
+                                                     pmp._full_counts))
+    out["lockstep"].update(rounds=pmp.rounds, plans=dataclasses.asdict(pmp.plans),
+                           stats_steps=LOCKSTEP_ROUNDS + 4)
+    if rank == 0:
+        out["lockstep_records"] = records
+    del pmp
+    torch.cuda.empty_cache()
+
+    # -- 10b: phase 4's query through a 4 x 1 pump server, telemetry on
+    t = time.perf_counter()
+    srv = MatchServer(blocked, mesh=mesh41, pump=True, max_queries=1, k_cap=10,
+                      lookahead=512, seed=meta["seed"], telemetry=True)
+    construct_s = time.perf_counter() - t
+
+    def query():
+        rid = srv.submit(meta["target"], k=10, eps=0.12, delta=0.01)
+        return srv.run_until_idle()[rid]
+
+    res = measured("query", query)
+    sched = srv.scheduler
+    gathers = [e["worker_gather_s"] for e in srv.telemetry.tracer.events("round_batch")]
+    out["query"].update(
+        rounds=sched.rounds, passes=sched.passes, host_syncs=sched.host_syncs,
+        worker_gather_s=np.sum(gathers, axis=0).tolist(), shard_blocks=sched.shard.num_blocks,
+        construct_s=construct_s)
+    if rank == 0:
+        counts, n = sched._full_counts()
+        out["query_result"] = dict(
+            ids=np.asarray(res.ids), rounds=res.rounds, passes=res.passes,
+            blocks_read=res.blocks_read, tuples_read=res.tuples_read, exact=res.exact,
+            delta_upper=res.delta_upper, counts=counts.cpu().numpy(), n=n.cpu().numpy(),
+            read_mask=np.array(sched.read_mask))
+    del srv, sched, res
+    torch.cuda.empty_cache()
+
+    # -- 10c: phase 5's workload through a 2 x 2 pump server
+    topk, close, stop_tuples = meta["workload"]
+    t = time.perf_counter()
+    server = MatchServer(blocked, max_queries=8, lookahead=512, metric="l1", mesh=mesh22,
+                         pump=True)
+    construct_s = time.perf_counter() - t
+    run = measured("serving", lambda: _serve_taxi(torch, blocked, topk, close, stop_tuples,
+                                                  server=server))
+    server, sched = run["server"], run["server"].scheduler
+    out["serving"].update(rounds=sched.rounds, host_syncs=sched.host_syncs,
+                          tuples=sched.tuples_read, served_wall_s=run["wall_s"],
+                          construct_s=construct_s)
+    if rank == 0:
+        results = server.results
+        blocking = results[run["close"][0]]
+        final = run["stream"][-1]
+        out["serving_results"] = dict(
+            topk=[dict(ids=np.asarray(results[r].ids), stopped=results[r].stopped,
+                       stop_reason=results[r].stop_reason, exact=results[r].exact,
+                       tuples=results[r].tuples_read, qtype=results[r].qtype)
+                  for r in run["topk"]],
+            close=[dict(ids=np.asarray(results[r].ids), stopped=results[r].stopped,
+                        qtype=results[r].qtype, tuples=results[r].tuples_read)
+                   for r in run["close"]],
+            stream_ok=bool(final.status == "done"
+                           and all(a.status != "done" for a in run["stream"][:-1])
+                           and final.result is blocking
+                           and np.array_equal(final.ids, blocking.ids)),
+            stopped_last_poll=bool(np.array_equal(server.poll_result(run["topk"][0]).ids,
+                                                  results[run["topk"][0]].ids)))
+    out["total_s"] = time.perf_counter() - t_start
+    out["done_at"] = time.time()
+    return out
+
+
+def _share_table(torch, blocked) -> dict:
+    """The host arrays in shared memory: a child maps them by handle."""
+    import numpy as np
+
+    return dict(
+        z=torch.from_numpy(blocked.z_blocks).share_memory_(),
+        x=torch.from_numpy(blocked.x_blocks).share_memory_(),
+        bitmap=torch.from_numpy(np.ascontiguousarray(blocked.bitmap).view(np.int32))
+        .share_memory_())
+
+
+def _one_rank_nccl(torch, ctx, seed: int) -> dict:
+    """10b on a one-rank NCCL mesh in this process: phase 4's query through
+    `MatchServer(mesh=, pump=True)`, which must be bitwise phase 4."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed
+    from repro_torch.serve import MatchServer
+
+    fm = ctx["fastmatch"]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{distributed._free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = distributed.init_mesh((1, 1), device_type="cuda")
+        walls = []
+        for _ in range(2):  # the second run's wall, after a warm-up; both checked
+            server = MatchServer(ctx["blocked"], mesh=mesh, pump=True, max_queries=1, k_cap=10,
+                                 lookahead=512, seed=seed)
+            _reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rid = server.submit(ctx["target"], k=10, eps=0.12, delta=0.01)
+            res = server.run_until_idle()[rid]
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            launches = _launch_counts()
+            counts, n = server.scheduler._full_counts()
+            check(np.array_equal(res.ids, fm.ids)
+                  and (res.rounds, res.blocks_read, res.tuples_read, res.exact)
+                  == (fm.rounds, fm.blocks_read, fm.tuples_read, fm.exact),
+                  f"10b one-rank NCCL: {res.rounds} rounds, {res.blocks_read} blocks, ids "
+                  f"{res.ids}, not phase 4's {fm.rounds} / {fm.blocks_read} / {fm.ids}")
+            check(torch.equal(res.state.tau, fm.state.tau) and torch.equal(counts, fm.state.counts)
+                  and torch.equal(n, fm.state.n) and res.delta_upper == fm.delta_upper,
+                  "10b one-rank NCCL: tau, counts, n or delta_upper not bitwise phase 4's")
+            _check_per_round(launches, res.rounds, res.rounds + 1, "10b one-rank NCCL")
+            del server, counts, n
+            torch.cuda.empty_cache()
+        check(dist.get_backend() == "nccl", "10b: the one-rank mesh is not NCCL")
+        wall = walls[-1]
+        out = dict(rounds=res.rounds, blocks_read=res.blocks_read, wall_s=wall,
+                   walls_s=walls, launches=launches, bitwise_phase4=True,
+                   backend=dist.get_backend(), phase4_wall_s=ctx["fastmatch"].wall_time_s)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"10b one-rank NCCL: {out['rounds']} rounds, {out['blocks_read']} blocks, "
+        f"{wall * 1e3:.1f} ms, bitwise phase 4")
+    return out
+
+
+def _theorem1_ok(du_got, du_want, tau_got, tau_want, n, eps_i) -> bool:
+    """log(delta_upper) within max_i n_i (eps_i + 2D) 2D + 1e-6 of the
+    single stream's, D the tau gap (the Theorem-1 tolerance of
+    `tests/test_torch_rounds.py`)."""
+    import numpy as np
+
+    d = float(np.abs(tau_got.astype(np.float64) - tau_want.astype(np.float64)).max())
+    if d > TAU_ATOL:
+        return False
+    for s in range(len(du_want)):
+        if du_want[s] == 0.0 or du_got[s] == 0.0:
+            if du_want[s] != du_got[s]:
+                return False
+            continue
+        bound = float(np.max(n.astype(np.float64) * (eps_i[s].astype(np.float64) + 2 * d)
+                             * 2 * d)) + 1e-6
+        if abs(np.log(float(du_got[s])) - np.log(float(du_want[s]))) > bound:
+            return False
+    return True
+
+
+def phase_mesh(torch, ctx, *, seed: int) -> dict:
+    """Phase 10 (see the module docstring): the mesh paths on phase 4's
+    resident table and its host arrays."""
+    import numpy as np
+
+    from repro_torch.core import distributed
+    from repro_torch.core.multiquery import MultiQuerySpec, SharedCountsScheduler
+    from repro_torch.kernels import metrics
+
+    t_phase = time.perf_counter()
+    blocked, source = ctx["blocked"], ctx["source"]
+    v_z, v_x, nb = source.v_z, source.v_x, source.num_blocks
+
+    # -- 10b, first half: a one-rank NCCL mesh in this process
+    nccl = _one_rank_nccl(torch, ctx, seed)
+
+    # -- 10a's single stream, here, on the resident table
+    targets = _lockstep_targets(ctx)
+    order = np.random.default_rng(LOCKSTEP_ORDER_SEED).permutation(nb)
+    spec = MultiQuerySpec(v_z=v_z, v_x=v_x, max_queries=4)
+    single = SharedCountsScheduler(source, spec, window=512, seed=0, start_block=0)
+    want = _lockstep(single, targets, order, 512, lambda: (single.state.counts, single.state.n))
+    single_plans = dataclasses.asdict(single.plans)
+    del single
+
+    # -- the children: 10a at 2 x 2, 10b at 4 x 1, 10c at 2 x 2
+    t = time.perf_counter()
+    shared = _share_table(torch, blocked)
+    share_s = time.perf_counter() - t
+    # small arguments only: a child reads its pickled arguments after it
+    # imports torch, and the parent's write of a large pickle waits for
+    # it, which would start the children one after another
+    meta = dict(v_z=v_z, v_x=v_x, seed=seed, target=ctx["target"], lockstep_targets=targets,
+                workload=ctx["workload"])
+    t, spawned_at = time.perf_counter(), time.time()
+    ranks = distributed.run_ranks(_mesh_rank, MESH_RANKS, shared, meta, backend="gloo",
+                                  device_type="cuda", timeout=600)
+    ranks_s = time.perf_counter() - t
+    del shared
+    r0 = ranks[0]
+
+    # -- 10a: every round bitwise the single stream (delta_upper within
+    # Theorem 1 if the shard resolved another plan)
+    got = r0["lockstep_records"]
+    same_plans = r0["lockstep"]["plans"] == single_plans
+    check(any(w["retired"] for w in want), "10a: no query retired inside the lockstep rounds")
+    for r, (g, w) in enumerate(zip(got, want)):
+        for key in ("counts", "n", "mask", "counters", "live", "retired"):
+            check(g[key] == w[key], f"10a round {r}: {key} differs from the single stream")
+        if same_plans:
+            check(np.array_equal(g["tau"], w["tau"]) and np.array_equal(g["du"], w["du"]),
+                  f"10a round {r}: tau or delta_upper not bitwise the single stream's")
+        else:
+            check(_theorem1_ok(g["du"], w["du"], g["tau"], w["tau"], w["n_full"], w["eps_i"]),
+                  f"10a round {r}: tau or delta_upper past the Theorem-1 tolerance")
+    for rk in ranks:
+        lk = rk["lockstep"]
+        for name in ("anyactive", "histogram"):
+            check(lk["launches"][name] == LOCKSTEP_ROUNDS,
+                  f"10a rank {rk['rank']}: {lk['launches'][name]} {name} launches for "
+                  f"{LOCKSTEP_ROUNDS} rounds")
+        check(sum(lk["launches"][c] for c in C_FORMS) >= lk["stats_steps"],
+              f"10a rank {rk['rank']}: kernel C launched under once a statistics step")
+
+    # -- 10b: Guarantee 1 against the exact truth; the counts the read
+    # blocks' histogram
+    q = r0["query_result"]
+    truth = ctx["counts"]  # Scan's exact counts: the exact tau below
+    q_hat = torch.from_numpy((ctx["target"] / ctx["target"].sum()).astype(np.float32))
+    exact_tau = metrics.distance_multi_ref(truth, q_hat[None].to(truth.device))[0]
+    exact_tau = exact_tau.cpu().numpy().astype(np.float64)
+    check(_meets_guarantee1(q["ids"], exact_tau, 0.12, 10),
+          "10b 4 x 1: the answer misses Guarantee 1")
+    check(q["delta_upper"] < 0.01 and not q["exact"], "10b 4 x 1: the bound did not fire")
+    read = torch.from_numpy(np.flatnonzero(q["read_mask"])).to(source.device)
+    z, x = source._z[read].reshape(-1), source._x[read].reshape(-1)
+    keep = z >= 0
+    hist = torch.bincount(z[keep].long() * v_x + x[keep].long(), minlength=v_z * v_x)
+    hist = hist.to(torch.float32).reshape(v_z, v_x).cpu().numpy()
+    check(np.array_equal(hist, q["counts"]) and np.array_equal(hist.sum(1), q["n"]),
+          "10b 4 x 1: the counts are not the histogram of the blocks the read mask marks")
+    check(int(q["read_mask"].sum()) == q["blocks_read"], "10b 4 x 1: read mask and blocks differ")
+    for rk in ranks:
+        qr = rk["query"]
+        _check_per_round(qr["launches"], qr["rounds"], qr["rounds"], f"10b rank {rk['rank']}")
+
+    # -- 10c: phase 5's checks on every answer
+    sv = r0["serving_results"]
+    wtruth, _ = _workload_truth(torch, ctx)
+    for i, res in enumerate(sv["topk"]):
+        check(res["qtype"] == "topk" and len(res["ids"]) == 10, f"10c top-k {i} malformed")
+        if i == 0:
+            check(res["stopped"] and res["stop_reason"] == "tuples" and not res["exact"],
+                  f"10c: the stopped query reports {res['stopped']} {res['stop_reason']!r}")
+        else:
+            check(not res["stopped"] and _meets_guarantee1(res["ids"], wtruth[i], 0.12, 10),
+                  f"10c top-k request {i} is not (eps, k)-correct")
+    for i, res in enumerate(sv["close"]):
+        d, ids = wtruth[8 + i], set(res["ids"].tolist())
+        check(res["qtype"] == "closeness" and not res["stopped"], f"10c closeness {i} malformed")
+        check(set(np.flatnonzero(d <= 0.10).tolist()) <= ids,
+              f"10c closeness {i} missed a candidate within eps")
+        check(ids.isdisjoint(np.flatnonzero(d >= 0.30).tolist()),
+              f"10c closeness {i} labeled a far candidate close")
+    check(sv["stream_ok"] and sv["stopped_last_poll"], "10c: the anytime stream or stop differs")
+    for rk in ranks:
+        sr = rk["serving"]
+        _check_per_round(sr["launches"], sr["rounds"], 1, f"10c rank {rk['rank']}")
+
+    def per_round(rk, name, rounds):
+        m = rk[name]
+        return dict(launches_per_round={k: v / rounds for k, v in m["launches"].items() if v},
+                    collective_ms_per_round=m["collective_s"] * 1e3 / rounds,
+                    collectives_per_round=m["collective_calls"] / rounds,
+                    collective_kb_per_round=m["collective_bytes"] / 1e3 / rounds)
+
+    out = dict(
+        seconds=time.perf_counter() - t_phase, share_s=share_s, ranks_s=ranks_s,
+        rank_startup_s=[rk["entered_at"] - spawned_at for rk in ranks],
+        rank_startup_steps_s=[{k: v - spawned_at for k, v in rk["startup"].items()}
+                              for rk in ranks],
+        ranks_shutdown_s=spawned_at + ranks_s - max(rk["done_at"] for rk in ranks),
+        rank_attach_s=[rk["attach_s"] for rk in ranks], rank_total_s=[rk["total_s"] for rk in ranks],
+        one_rank_nccl=nccl,
+        lockstep=dict(rounds=LOCKSTEP_ROUNDS, bitwise=same_plans, plans_equal=same_plans,
+                      retired=got[-1]["retired"], wall_s=r0["lockstep"]["wall_s"],
+                      per_rank=[per_round(rk, "lockstep", LOCKSTEP_ROUNDS) for rk in ranks]),
+        query=dict(mesh=[4, 1], rounds=q["rounds"], passes=q["passes"], blocks_read=q["blocks_read"],
+                   tuples_read=q["tuples_read"], wall_s=r0["query"]["wall_s"],
+                   construct_s=[rk["query"]["construct_s"] for rk in ranks],
+                   phase4=dict(rounds=ctx["fastmatch"].rounds,
+                               blocks_read=ctx["fastmatch"].blocks_read,
+                               wall_s=ctx["fastmatch"].wall_time_s),
+                   worker_gather_s=r0["query"]["worker_gather_s"],
+                   per_rank=[per_round(rk, "query", rk["query"]["rounds"]) for rk in ranks]),
+        serving=dict(mesh=[2, 2], rounds=r0["serving"]["rounds"],
+                     host_syncs=r0["serving"]["host_syncs"], shared_tuples=r0["serving"]["tuples"],
+                     wall_s=r0["serving"]["served_wall_s"],
+                     construct_s=[rk["serving"]["construct_s"] for rk in ranks],
+                     phase5=dict(rounds=ctx["phase5"]["rounds"], wall_s=ctx["phase5"]["wall_s"],
+                                 shared_tuples=int(ctx["phase5"]["cache"][5])),
+                     tuples=[r["tuples"] for r in sv["topk"] + sv["close"]],
+                     per_rank=[per_round(rk, "serving", rk["serving"]["rounds"]) for rk in ranks]),
+        launches=dict(lockstep=r0["lockstep"]["launches"], query=r0["query"]["launches"],
+                      serving=r0["serving"]["launches"], one_rank_nccl=nccl["launches"]),
+    )
+    emit({"check": "mesh", **{k: v for k, v in out.items() if k != "launches"}})
+    log(f"phase 10 took {out['seconds']:.1f}s (children {ranks_s:.1f}s)")
+    return out
+
+
 def _le(edge: float) -> str:
     """An edge as the registry's Prometheus text writes it."""
     from repro_torch.obs.registry import _fmt
@@ -2039,6 +2467,8 @@ def main(argv=None) -> int:
     log(f"phase 8 took {time.perf_counter() - t:.1f}s")
     log("phase 9: telemetry on the resident table")
     telemetry = phase_telemetry(torch, timer, ctx)
+    log(f"phase 10: the mesh and the data-parallel pump, {MESH_RANKS} gloo ranks on the card")
+    mesh = phase_mesh(torch, ctx, seed=args.seed)
     del ctx  # the resident table and the host arrays
     torch.cuda.empty_cache()
     log("phase 6: the tuner at the taxi keys")
@@ -2065,6 +2495,7 @@ def main(argv=None) -> int:
                  fault_quarantine=faults["quarantine"]["launches"],
                  fault_recovery=faults["recovery"]["launches"],
                  telemetry_on=telemetry["launches"],
+                 **{f"mesh_{name}": counts for name, counts in mesh["launches"].items()},
                  **{f"prefetch_{name}": run["launches"]
                     for name, run in faults["prefetch"]["runs"].items()})
     kernels = []
@@ -2092,7 +2523,8 @@ def main(argv=None) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, device=device, kernels=kernels, scale=scale, serving=serving,
-             faults=faults, telemetry=telemetry, tuner=tuner["report"], wide_rows=wide,
+             faults=faults, telemetry=telemetry, mesh=mesh, tuner=tuner["report"],
+             wide_rows=wide,
              wall_s=time.perf_counter() - T0), indent=1))
     log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
     emit({"kernels": kernels})

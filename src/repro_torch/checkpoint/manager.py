@@ -25,8 +25,9 @@ structure or config-hash mismatch raises. ``gc_swept``,
 ``save_failures`` and ``corrupt_steps`` count what happened; with
 ``telemetry=`` (a `repro_torch.obs.Telemetry`) so do the ``checkpoint_*``
 metrics, with the ``checkpoint_save``, ``checkpoint_gc`` and
-``checkpoint_corrupt`` events. Restoring onto another mesh
-(`restore_resharded`) waits for ROADMAP A9.
+``checkpoint_corrupt`` events. `restore_resharded` restores onto a
+`torch.distributed` mesh of any shape: each rank reads the verified step
+and keeps its pieces (`repro_torch.core.distributed.cache_pspecs`).
 """
 
 from __future__ import annotations
@@ -313,9 +314,22 @@ class CheckpointManager:
         return rebuild(out)
 
     def restore_resharded(self, like: Any, mesh, pspecs, step: Optional[int] = None) -> Any:
-        raise NotImplementedError(
-            "CheckpointManager.restore_resharded is not ported yet (ROADMAP A9)"
-        )
+        """`restore` onto a mesh (elastic restart): every rank reads the
+        verified step and keeps its pieces per ``pspecs``, a tree of the
+        structure of ``like`` whose leaves are
+        `repro_torch.core.distributed.WHOLE` or a `DimSplit`, on the mesh's
+        device. The mesh that wrote the snapshot does not matter: files
+        hold whole leaves."""
+        from repro_torch.core.distributed import place_leaf
+
+        whole = self.restore(like, step)
+        _, leaves, rebuild = _flatten_with_names(whole)
+        _, placements, _ = _flatten_with_names(pspecs)
+        if len(placements) != len(leaves):
+            raise ValueError(
+                f"pspecs has {len(placements)} leaves, the snapshot {len(leaves)}"
+            )
+        return rebuild([place_leaf(v, p, mesh) for v, p in zip(leaves, placements)])
 
 
 def config_hash(obj: Any) -> str:

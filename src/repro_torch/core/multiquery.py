@@ -54,9 +54,17 @@ split of gather, dispatch and sync). A run with telemetry on is bitwise
 the run with it off, with the same polls (``host_syncs``, and
 ``loop_syncs``, the polls of the window loop itself) and launches.
 
+On a mesh (``mesh=``, a `torch.distributed` `DeviceMesh`; every rank
+runs this same host loop) the counts and n are candidate-sharded over
+the model axis and every round is `repro_torch.core.distributed`'s;
+`repro_torch.core.pump.DistributedPump` adds data-parallel workers.
+What the host loop decides on is replicated, and what one rank alone
+would see (the clock a `StopPolicy` reads, quarantine verdicts, gather
+times) is shared once a poll, in the one all-reduce that also gathers
+the read mask and n (`_exchange`), so every rank decides alike.
+
 Packed words are int32 tensors carrying the uint32 bits; counters and
-``qtype`` are int64. Still to be ported: the mesh paths with their
-per-worker quarantine drain and timings (ROADMAP A9).
+``qtype`` are int64.
 """
 
 from __future__ import annotations
@@ -741,7 +749,17 @@ class SharedCountsScheduler:
     (``budget_exhausted``). ``telemetry`` (a `repro_torch.obs.Telemetry`)
     records the polls, the queries' lifecycles and the round batches
     (see the module docstring).
+
+    With ``mesh`` (a `DeviceMesh` over an initialised process group) the
+    shared counts and n are sliced over ``model_axis`` per
+    `distributed.multi_state_pspecs`, the rounds run on the mesh's
+    device through `distributed.make_pump_round`, and the kernel plans
+    resolve on the shard shapes; the answers are the single-device
+    scheduler's.
     """
+
+    # the mesh axes the read mask is sliced over (the data-parallel pump's)
+    data_axes: tuple = ()
 
     def __init__(
         self,
@@ -754,12 +772,32 @@ class SharedCountsScheduler:
         start_block: Optional[int] = None,
         poll_every: int = 1,
         device=None,
+        mesh=None,
+        model_axis: str = "model",
         telemetry=None,
         plans: Optional[autotune.PlanPair] = None,
     ):
+        self.mesh = mesh
+        self.model_axis = model_axis
+        if mesh is not None:
+            from repro_torch.core import distributed  # it imports this module
+
+            self._axes = distributed.mesh_axes(mesh, self.data_axes, model_axis)
+            self._vz_shard = distributed._vz_shard(spec, self._axes)
+            if device is None:
+                device = self._axes.device
+            elif resolve_device(device) != self._axes.device:
+                raise ValueError(f"device {device} is not the mesh's {self._axes.device}")
         source = as_block_source(dataset, device=device)
         if spec.v_z != source.v_z or spec.v_x != source.v_x:
             raise ValueError("spec/dataset dimension mismatch")
+        if getattr(source, "lo", 0) != 0:
+            # a ShardedSource speaks global ids of one worker's range; this
+            # loop's visit order and read mask span the whole dataset
+            raise ValueError(
+                "SharedCountsScheduler needs a 0-based source (whole dataset); "
+                "use ShardedSource with the distributed rounds instead"
+            )
         if policy not in ("anyactive", "scan"):
             raise ValueError(f"unknown policy {policy!r}")
         if poll_every < 1:
@@ -773,7 +811,8 @@ class SharedCountsScheduler:
         # this may tune and save missing keys), so one scheduler's whole
         # lifetime runs one consistent plan
         self.plans = plans if plans is not None else autotune.resolve_plans(
-            spec.v_z, spec.v_x, spec.max_queries, metric=spec.metric, device=self.device
+            self._vz_shard if mesh is not None else spec.v_z, spec.v_x, spec.max_queries,
+            metric=spec.metric, device=self.device,
         )
         if not isinstance(self.plans, autotune.PlanPair):
             raise TypeError(f"plans must be an autotune.PlanPair, got {self.plans!r}")
@@ -787,8 +826,10 @@ class SharedCountsScheduler:
         self._start = start  # the visit order's offset, carried by export_cache
         self.order = np.roll(np.arange(nb), -start)  # cyclic visit order
 
-        self.state = init_multi_state(spec, device=self.device)
-        self.cursor = init_cursor(nb, device=self.device)
+        self.state = self._place_state(init_multi_state(spec, device=self.device))
+        self.cursor = self._place_cursor(init_cursor(nb, device=self.device))
+        if mesh is not None:
+            self._build_mesh_rounds()
         self.tickets: Dict[int, _Ticket] = {}  # slot -> ticket
         self.outcomes: Dict[int, QueryOutcome] = {}  # qid -> outcome
         self._next_qid = 0
@@ -821,6 +862,12 @@ class SharedCountsScheduler:
         # the polls of the window loop itself (pump, run_window): the
         # cadence poll_every sets, without admission's fixed polls
         self.loop_syncs = 0
+        # what a mesh poll shares (see `_exchange`): rank 0's clock, the
+        # verdicts still to apply, each worker's gather seconds
+        self._shared_clock = time.perf_counter()
+        self._shared_quarantine = np.zeros(0, np.int64)
+        self._worker_gather_s = np.zeros(1)
+        self._shared_gather_s = np.zeros(self._axes.num_workers if mesh is not None else 1)
 
         # telemetry records at polls only (see the module docstring)
         self.telemetry = telemetry
@@ -862,7 +909,83 @@ class SharedCountsScheduler:
             self._h_q_wall = reg.histogram(
                 "fastmatch_query_wall_seconds", help="admit-to-retire wall time")
 
+    # -- device placement (the mesh paths) -----------------------------------
+
+    def _place_state(self, state: MultiQueryState) -> MultiQueryState:
+        """This rank's pieces of a fresh state: on a mesh, the counts and
+        n rows of its model shard (`distributed.multi_state_pspecs`)."""
+        if self.mesh is None:
+            return state
+        from repro_torch.core import distributed
+
+        placed = distributed.multi_state_pspecs(self.model_axis)
+        return state._replace(**{
+            f: distributed.place_leaf(getattr(state, f), getattr(placed, f), self.mesh)
+            for f in ("counts", "n")
+        })
+
+    def _place_cursor(self, cursor: SampleCursor) -> SampleCursor:
+        """Place a freshly built or restored cursor (whole, global ids).
+        The scheduler keeps it as it is; `DistributedPump` pads the read
+        mask to the worker grid and keeps this worker's slice. Called from
+        __init__ and `import_cache`, so a restored cursor lands as a fresh
+        one does."""
+        return cursor
+
+    def _global_read_mask(self) -> torch.Tensor:
+        """The (num_blocks,) global read mask of the device cursor, what
+        `export_cache` writes. The pump gathers its sliced mask and strips
+        the worker-grid padding, so snapshots are interchangeable across
+        pump widths and with this scheduler."""
+        return self.cursor.read_mask
+
+    def _build_mesh_rounds(self, histogram_impl: str = "auto", onehot_dtype=torch.float32) -> None:
+        """The mesh's round, exact-completion round and stats step."""
+        from repro_torch.core import distributed
+
+        nb = self.source.num_blocks
+        kw = dict(data_axes=self.data_axes, model_axis=self.model_axis, plans=self.plans,
+                  histogram_impl=histogram_impl, onehot_dtype=onehot_dtype)
+        per = -(-nb // self._axes.num_workers)
+        self._mesh_round = distributed.make_pump_round(
+            self.mesh, self.spec, blocks_per_worker=per, policy=self.policy, **kw)
+        self._mesh_ingest = distributed.make_pump_ingest_round(
+            self.mesh, self.spec, blocks_per_worker=per, **kw)
+        self._mesh_stats = distributed.make_stats_step(
+            self.mesh, self.spec, model_axis=self.model_axis, plans=self.plans)
+
+    def _full_counts(self) -> tuple:
+        """The whole (V_Z, V_X) counts and (V_Z,) n (a model gather on
+        a mesh; every rank calls it at the same point)."""
+        if self.mesh is None:
+            return self.state.counts, self.state.n
+        from repro_torch.core import distributed
+
+        return distributed.gather_counts(self.state.counts, self.state.n, self._axes,
+                                         self.spec.v_z)
+
+    def _poll_clock(self) -> float:
+        """The clock `StopPolicy` and admission read: this process's, or
+        on a mesh rank 0's at the last poll (one clock for every rank)."""
+        return time.perf_counter() if self.mesh is None else self._shared_clock
+
     # -- quarantine (degraded guarantees) ----------------------------------
+
+    def _quarantine_sources(self) -> tuple:
+        """The sources whose `ResilientSource` layers this scheduler
+        drains for quarantined block ids; the pump adds its worker's
+        stream source."""
+        return (self.source,)
+
+    def _take_quarantined(self) -> np.ndarray:
+        """The block ids every `ResilientSource` of this rank quarantined
+        since the last drain."""
+        ids = []
+        for src in self._quarantine_sources():
+            resilient = find_resilient(src)
+            if resilient is not None:
+                ids.append(np.asarray(resilient.take_quarantined(), np.int64).ravel())
+        return np.unique(np.concatenate(ids)) if ids else np.zeros(0, np.int64)
 
     def quarantine_blocks(self, ids, *, reason: str = "io") -> int:
         """Drop blocks from the probe set (an I/O quarantine verdict of
@@ -890,13 +1013,15 @@ class SharedCountsScheduler:
         return int(ids.size)
 
     def _drain_quarantine(self) -> None:
-        """Pull the quarantined block ids out of the `ResilientSource` in
-        the source chain (at every poll; fault-free, an attribute probe)."""
-        resilient = find_resilient(self.source)
-        if resilient is not None:
-            ids = resilient.take_quarantined()
-            if ids.size:
-                self.quarantine_blocks(ids, reason="source")
+        """Apply the quarantine verdicts of the source chains (at every
+        poll; fault-free, an attribute probe): this process's, or on a
+        mesh every worker's, shared by the poll's exchange."""
+        if self.mesh is None:
+            ids = self._take_quarantined()
+        else:
+            ids, self._shared_quarantine = self._shared_quarantine, np.zeros(0, np.int64)
+        if ids.size:
+            self.quarantine_blocks(ids, reason="source")
 
     @property
     def quarantine_fraction(self) -> float:
@@ -918,30 +1043,107 @@ class SharedCountsScheduler:
         """One device->host poll: cursor, per-slot bounds, and the anytime
         mirrors (tau, n, matching sets, pruned masks), in two copies: one
         f32 buffer and one byte buffer. Everything the host loop decides
-        on is refreshed here and only here."""
+        on is refreshed here and only here. On a mesh the byte buffer
+        carries the poll's one all-reduce (`_exchange`): the gathered n
+        and read mask and what each rank shares."""
         c, st = self.cursor, self.state
         q, v_z = self.spec.max_queries, self.spec.v_z
-        floats = torch.cat((st.delta_upper, st.tau.reshape(-1), st.n)).cpu().numpy()
         counters = (c.rounds, c.blocks_read, c.blocks_considered, c.tuples_read)
-        raw = torch.cat(
-            [_bytes(t) for t in counters] + [_bytes(c.read_mask), _bytes(st.in_top_k),
-                                              _bytes(st.pruned)]
-        ).cpu().numpy()
+        head = [_bytes(t) for t in counters] + [_bytes(st.in_top_k), _bytes(st.pruned)]
+        if self.mesh is None:
+            floats = torch.cat((st.delta_upper, st.tau.reshape(-1), st.n)).cpu().numpy()
+            raw = torch.cat(head + [_bytes(c.read_mask)]).cpu().numpy()
+            self._tel_n = floats[q + q * v_z :]
+        else:
+            floats = torch.cat((st.delta_upper, st.tau.reshape(-1))).cpu().numpy()
+            raw = torch.cat(head + [self._exchange()]).cpu().numpy()
         self._delta_upper = floats[:q]
         self._tel_tau = floats[q : q + q * v_z].reshape(q, v_z)
-        self._tel_n = floats[q + q * v_z :]
-        head = 8 * len(counters)
+        top = 8 * len(counters)
         self.rounds, self.blocks_read, self.blocks_considered, self.tuples_read = (
-            int(v) for v in raw[:head].view(np.int64)
+            int(v) for v in raw[:top].view(np.int64)
         )
-        nb = self.read_mask.size
-        self.read_mask = raw[head : head + nb].view(bool)
-        flags = raw[head + nb :].view(bool).reshape(2, q, v_z)
+        flags = raw[top : top + 2 * q * v_z].view(bool).reshape(2, q, v_z)
         self._in_top_k_host, self._pruned_host = flags[0], flags[1]
+        tail = raw[top + 2 * q * v_z :]
+        if self.mesh is None:
+            self.read_mask = tail.view(bool)
+        else:
+            shared = self._take_shared(tail)
+            self._tel_n = shared["n"]
+            self.read_mask = shared["read_mask"]
+            self._shared_clock = shared["clock"]
         self.host_syncs += 1
         self._drain_quarantine()
         if self.telemetry is not None:
             self._record_poll()
+
+    def _exchange(self) -> torch.Tensor:
+        """A mesh poll's one all-reduce over every rank, as bytes: rank 0's
+        clock (f64), each worker's gather seconds since the last poll (f64
+        each), n (f32, each model shard's rows), the padded read mask (each
+        worker's slice) and the quarantine verdicts (one byte a block, each
+        worker's). Every byte is written by exactly one rank and is zero on
+        the others, so the sum is a gather, exact in any order. Drains this
+        rank's local verdicts and gather seconds."""
+        from repro_torch.core import distributed
+
+        ax = self._axes
+        f = self._shared_layout()
+        buf = torch.zeros(f["end"], dtype=torch.uint8, device=self.device)
+        ids = self._take_quarantined()
+        gather = float(self._worker_gather_s.sum())
+        self._worker_gather_s[:] = 0.0
+
+        def put(field, offset, data: np.ndarray) -> None:
+            lo = f[field].start + offset
+            buf[lo : lo + data.nbytes] = torch.from_numpy(data.view(np.uint8)).to(self.device)
+
+        if ax.rank == 0:
+            put("clock", 0, np.array([time.perf_counter()], np.float64))
+        if ax.worker == 0 and ax.replica == 0:
+            lo = f["n"].start + 4 * ax.model_rank * self._vz_shard
+            buf[lo : lo + 4 * self._vz_shard] = _bytes(self.state.n)
+        if ax.writer:
+            put("gather", 8 * ax.worker, np.array([gather], np.float64))
+            local = self.cursor.read_mask
+            lo = f["mask"].start + ax.worker * local.shape[0]
+            buf[lo : lo + local.shape[0]] = _bytes(local)
+            if ids.size:
+                buf[f["quarantine"].start + torch.from_numpy(ids).to(self.device)] = 1
+        elif ids.size:
+            # a verdict on a model or replica rank: its worker's writer rank
+            # reads the same windows and shares it; keep it here as well
+            self._shared_quarantine = np.union1d(self._shared_quarantine, ids)
+        if ax.world > 1:
+            distributed.all_reduce(buf, None)
+        return buf
+
+    def _shared_layout(self) -> dict:
+        """Byte ranges of `_exchange`'s buffer (the f64 fields first)."""
+        w = self._axes.num_workers
+        padded = -(-self.source.num_blocks // w) * w
+        edges = np.cumsum([0, 8, 8 * w, 4 * self.spec.v_z, padded, padded])
+        names = ("clock", "gather", "n", "mask", "quarantine")
+        out = {k: slice(int(a), int(b)) for k, a, b in zip(names, edges[:-1], edges[1:])}
+        out["end"] = int(edges[-1])
+        return out
+
+    def _take_shared(self, raw: np.ndarray) -> dict:
+        """Read `_exchange`'s bytes on the host: the clock, n and global
+        read mask are returned; the verdicts wait for `_drain_quarantine`
+        and the gather seconds for the next ``round_batch`` event."""
+        f = self._shared_layout()
+        nb = self.source.num_blocks
+        ids = np.flatnonzero(raw[f["quarantine"]][:nb])
+        if ids.size:
+            self._shared_quarantine = np.union1d(self._shared_quarantine, ids)
+        self._shared_gather_s += np.frombuffer(raw[f["gather"]].tobytes(), np.float64)
+        return {
+            "clock": float(np.frombuffer(raw[f["clock"]].tobytes(), np.float64)[0]),
+            "n": np.frombuffer(raw[f["n"]].tobytes(), np.float32).copy(),
+            "read_mask": raw[f["mask"]][:nb].view(bool),
+        }
 
     def _record_poll(self) -> None:
         """Stage this poll for telemetry (from `_sync` only): counter deltas
@@ -1017,7 +1219,7 @@ class SharedCountsScheduler:
 
     def _round_batch_extra(self) -> dict:
         """Extra ``round_batch`` fields: the data-parallel pump's per-worker
-        timings (ROADMAP A9); none here."""
+        timings; none here."""
         return {}
 
     def _emit_round_batch(self, acc: _BatchAcc) -> None:
@@ -1034,15 +1236,17 @@ class SharedCountsScheduler:
     # -- warm cache ----------------------------------------------------------
 
     def export_cache(self) -> CacheSnapshot:
-        """The target-independent serving state (see `CacheSnapshot`).
-        Counts and cursor come out of the same round, so a snapshot is
-        consistent at any time; live slots are not exported."""
+        """The target-independent serving state (see `CacheSnapshot`), in
+        whole leaves on every rank of a mesh (every rank calls it: it
+        gathers). Counts and cursor come out of the same round, so a
+        snapshot is consistent at any time; live slots are not exported."""
         c = self.cursor
         as_counter = dict(dtype=torch.int64, device=self.device)
+        counts, n = self._full_counts()
         return CacheSnapshot(
-            counts=self.state.counts,
-            n=self.state.n,
-            read_mask=c.read_mask,
+            counts=counts,
+            n=n,
+            read_mask=self._global_read_mask(),
             blocks_read=c.blocks_read,
             blocks_considered=c.blocks_considered,
             tuples_read=c.tuples_read,
@@ -1054,12 +1258,18 @@ class SharedCountsScheduler:
     def import_cache(self, snap: CacheSnapshot) -> None:
         """Adopt a warm cache: shared counts, sampling cursor, pass count
         and visit order. Refused under live queries, whose admission-time
-        counters it would invalidate."""
+        counters it would invalidate. On a mesh the counts and n may be
+        whole or this rank's shard (`distributed.place_cache`,
+        `CheckpointManager.restore_resharded`)."""
         if self.tickets:
             raise RuntimeError("import_cache requires a scheduler with no live queries")
         nb = self.source.num_blocks
         shape = (self.spec.v_z, self.spec.v_x)
-        if tuple(snap.counts.shape) != shape:
+        sharded = (
+            self.mesh is not None and self._axes.model_size > 1
+            and tuple(snap.counts.shape) == (self._vz_shard, self.spec.v_x)
+        )
+        if not sharded and tuple(snap.counts.shape) != shape:
             raise ValueError(
                 f"snapshot counts shape {tuple(snap.counts.shape)} != {shape} — "
                 "wrong dataset/spec for this cache"
@@ -1073,13 +1283,15 @@ class SharedCountsScheduler:
         def put(t, dtype):
             return torch.as_tensor(t).to(device=self.device, dtype=dtype)
 
-        self.state = self.state._replace(
-            counts=put(snap.counts, torch.float32), n=put(snap.n, torch.float32)
-        )
-        self.cursor = SampleCursor(
+        counts, n = put(snap.counts, torch.float32), put(snap.n, torch.float32)
+        if not sharded:
+            placed = self._place_state(self.state._replace(counts=counts, n=n))
+            counts, n = placed.counts, placed.n
+        self.state = self.state._replace(counts=counts, n=n)
+        self.cursor = self._place_cursor(SampleCursor(
             read_mask=put(snap.read_mask, torch.bool),
             **{f: put(getattr(snap, f), torch.int64) for f in SampleCursor._fields[1:]},
-        )
+        ))
         self._start = int(snap.start)
         self.order = np.roll(np.arange(nb), -self._start)
         self.passes = int(snap.passes)
@@ -1096,6 +1308,9 @@ class SharedCountsScheduler:
         return len(self.tickets)
 
     def _stats_step(self) -> None:
+        if self.mesh is not None:
+            self.state = self._mesh_stats(self.state, closeness=self._closeness_live > 0)
+            return
         self.state = stats_step(
             self.state, spec=self.spec, closeness=self._closeness_live > 0, plan=self.plans.tau
         )
@@ -1159,7 +1374,7 @@ class SharedCountsScheduler:
             delta=float(delta),
             qtype=qtype,
             gap=float(gap),
-            admit_time=time.perf_counter(),
+            admit_time=self._poll_clock(),
             admit_rounds=self.rounds,
             admit_passes=self.passes,
             admit_blocks_read=self.blocks_read,
@@ -1253,7 +1468,11 @@ class SharedCountsScheduler:
             exact = exact or bool(self.read_mask[~self.quarantined].all())
         else:
             exact = exact or bool(self.read_mask.all())
-        view = slot_state(self.state, slot)
+        state = self.state
+        if self.mesh is not None:
+            counts, n = self._full_counts()
+            state = state._replace(counts=counts, n=n)
+        view = slot_state(state, slot)
         if t.qtype == "closeness":
             # the close labels, nearest first; their number is data-dependent
             close = np.flatnonzero(view.in_top_k.cpu().numpy())
@@ -1277,7 +1496,7 @@ class SharedCountsScheduler:
             blocks_read=self.blocks_read - t.admit_blocks_read,
             blocks_considered=self.blocks_considered - t.admit_blocks_considered,
             tuples_read=self.tuples_read - t.admit_tuples_read,
-            wall_time_s=time.perf_counter() - t.admit_time,
+            wall_time_s=self._poll_clock() - t.admit_time,
             degraded=degraded,
             eps_effective=t.eps + (self.eps_inflation if degraded else 0.0),
             blocks_quarantined=self.blocks_quarantined,
@@ -1312,7 +1531,7 @@ class SharedCountsScheduler:
         then every one whose `StopPolicy` fires (the statistical rule
         wins a tie)."""
         du = self._delta_upper
-        now = time.perf_counter()
+        now = self._poll_clock()
         for slot in list(self.tickets):
             t = self.tickets[slot]
             if du[slot] < t.delta:
@@ -1345,19 +1564,40 @@ class SharedCountsScheduler:
         return WindowData(
             *(getattr(wd, f).to(self.device) for f in WindowData._fields[:5]),
             bitmap_by_id=wd.bitmap_by_id,
+            id_base=wd.id_base,
         )
 
     def _dispatch_round(self, wd: WindowData) -> None:
+        """One sampling round over a prepared window (no host sync)."""
+        if self.mesh is not None:
+            self.state, self.cursor = self._mesh_round(
+                self.state, self.cursor, self._on_device(wd), closeness=self._closeness_live > 0)
+            return
         self.state, self.cursor = fused_round(
             self.state, self.cursor, self._on_device(wd), spec=self.spec, policy=self.policy,
             closeness=self._closeness_live > 0, plans=self.plans,
         )
 
+    def _dispatch_ingest(self, wd: WindowData) -> None:
+        """One exact-completion ingest round over a prepared window."""
+        if self.mesh is not None:
+            self.state, self.cursor = self._mesh_ingest(self.state, self.cursor,
+                                                        self._on_device(wd))
+            return
+        self.state, self.cursor = ingest_round(
+            self.state, self.cursor, self._on_device(wd), spec=self.spec, plans=self.plans,
+        )
+
+    def _fetch_window(self, win: np.ndarray) -> WindowData:
+        """The window of one ad-hoc (global-id) window; the pump fetches
+        this worker's share of it."""
+        return self.source.fetch(win, pad_to=max(self.window, win.size))
+
     def _fetch_window_or_quarantine(self, win: np.ndarray) -> Optional[WindowData]:
         """Fetch an ad-hoc window; a `WindowQuarantined` verdict drops its
         blocks from the probe set instead (None: the window is gone)."""
         try:
-            return self.source.fetch(win, pad_to=max(self.window, win.size))
+            return self._fetch_window(win)
         except WindowQuarantined as exc:
             self.quarantine_blocks(exc.block_ids, reason="fetch")
             return None
@@ -1405,10 +1645,7 @@ class SharedCountsScheduler:
         stream, _ = self._open_pass_stream(remaining)
         try:
             for wd in stream:
-                self.state, self.cursor = ingest_round(
-                    self.state, self.cursor, self._on_device(wd), spec=self.spec,
-                    plans=self.plans,
-                )
+                self._dispatch_ingest(wd)
                 windows += 1
         finally:
             stream.close()

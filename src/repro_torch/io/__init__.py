@@ -5,16 +5,22 @@ Port of `repro.io`: where window data comes from, behind the
 
   InMemorySource  — the whole blocked dataset, resident on the device (a
                     fetch is a device gather) or in host memory
+  ShardedSource   — one data-parallel worker's contiguous block range,
+                    in global block ids (the pump's per-worker feed)
   PrefetchSource  — a worker thread fetches the next window while the
                     current round runs
   ResilientSource — retry and backoff, integrity validation and block
                     quarantine at the source boundary (`io.faults`;
                     `FaultySource` is the seeded chaos wrapper)
-
-The data-parallel `ShardedSource` waits for ROADMAP A9.
 """
 
-from repro_torch.io.block_source import BlockSource, InMemorySource, WindowData, as_block_source
+from repro_torch.io.block_source import (
+    BlockSource,
+    InMemorySource,
+    ShardedSource,
+    WindowData,
+    as_block_source,
+)
 from repro_torch.io.faults import (
     FaultInjector,
     FaultPlan,
@@ -36,6 +42,7 @@ __all__ = [
     "PrefetchSource",
     "ResilientSource",
     "RetryPolicy",
+    "ShardedSource",
     "WindowData",
     "WindowQuarantined",
     "as_block_source",

@@ -14,8 +14,13 @@ pass's padded window indices to the device in one copy, so the loop
 issues no host-to-device copy per window (a copy from pageable host
 memory would wait for the device). A host-resident source hands its
 windows over in host memory; the scheduler moves each to its device
-once, or a `PrefetchSource` stages it there ahead of the round. The
-data-parallel `ShardedSource` is still to be ported (ROADMAP A9).
+once, or a `PrefetchSource` stages it there ahead of the round.
+
+`ShardedSource` is one data-parallel worker's contiguous block range
+(`BlockedDataset.shard`) behind the same interface: it speaks global
+block ids, and `owned(win)` filters a global window to its range. Its
+device-resident windows hand over the shard's bitmap table, whose row
+for global id ``i`` is ``i - id_base``.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.data.layout import BlockedDataset
 
-__all__ = ["BlockSource", "InMemorySource", "WindowData", "as_block_source"]
+__all__ = ["BlockSource", "InMemorySource", "ShardedSource", "WindowData", "as_block_source"]
 
 
 class WindowData(NamedTuple):
@@ -36,7 +41,8 @@ class WindowData(NamedTuple):
 
     ``bitmap`` is either the window's (L, W) presence rows, gathered, or
     (``bitmap_by_id``) the source's whole (num_blocks, W) table, whose
-    rows the marking kernel reads in place through ``indices``.
+    rows the marking kernel reads in place through ``indices``; a shard's
+    table starts at block ``id_base`` (0 for a whole-dataset source).
     """
 
     indices: torch.Tensor  # (L,) int64 global block ids (padding repeats id 0)
@@ -45,11 +51,14 @@ class WindowData(NamedTuple):
     bitmap: torch.Tensor  # (L, W) or (num_blocks, W) int32 packed presence rows (uint32 bits)
     valid: torch.Tensor  # (L,) bool — False on window padding rows
     bitmap_by_id: bool = False  # bitmap is the whole table, indexed by `indices`
+    id_base: int = 0  # global id of the by-id table's first row
 
     def bitmap_rows(self) -> torch.Tensor:
         """(L, W) the window's presence rows (a gather from the table
         when ``bitmap_by_id``)."""
-        return self.bitmap[self.indices] if self.bitmap_by_id else self.bitmap
+        if not self.bitmap_by_id:
+            return self.bitmap
+        return self.bitmap[self.indices - self.id_base if self.id_base else self.indices]
 
 
 @runtime_checkable
@@ -143,6 +152,65 @@ class InMemorySource:
         idx, valid = self._place(idx), self._place(valid)
         for i in range(len(windows)):
             yield self._gather(idx[i], valid[i])
+
+
+class ShardedSource(InMemorySource):
+    """One data-parallel worker's contiguous block range.
+
+    Built on `BlockedDataset.shard`; callers keep speaking global block
+    ids (one read mask and visit order span the mesh) and the source
+    translates them to its range ``[lo, hi)``. `owned(win)` filters a
+    global window to this worker's share. It feeds the data-parallel
+    rounds of `repro_torch.core.distributed` and `DistributedPump`; it is
+    not a dataset for `SharedCountsScheduler`, whose visit order starts at
+    block 0 over the whole dataset (the scheduler refuses it).
+    """
+
+    def __init__(
+        self,
+        dataset: BlockedDataset,
+        num_shards: int,
+        shard_id: int,
+        *,
+        device_resident: bool = True,
+        device=None,
+    ):
+        if not (0 <= shard_id < num_shards):
+            raise ValueError(f"need 0 <= shard_id < num_shards, got {shard_id}/{num_shards}")
+        shard = dataset.shard(num_shards, shard_id)
+        super().__init__(shard, device_resident=device_resident, device=device)
+        per = -(-dataset.num_blocks // num_shards)
+        self.lo = shard_id * per
+        self.hi = self.lo + shard.num_blocks
+        self.global_num_blocks = dataset.num_blocks
+
+    def owned(self, win: np.ndarray) -> np.ndarray:
+        """The ids of ``win`` in this worker's range, in window order."""
+        win = np.asarray(win, np.int64).ravel()
+        return win[(win >= self.lo) & (win < self.hi)]
+
+    def _check(self, win) -> np.ndarray:
+        win = np.asarray(win, np.int64).ravel()
+        if win.size and ((win < self.lo) | (win >= self.hi)).any():
+            raise ValueError(
+                f"block ids outside shard range [{self.lo}, {self.hi}); filter with owned()"
+            )
+        return win - self.lo
+
+    def _globalize(self, wd: WindowData) -> WindowData:
+        return wd._replace(
+            indices=wd.indices + self.lo, id_base=self.lo if wd.bitmap_by_id else 0
+        )
+
+    def fetch(self, win: np.ndarray, pad_to: Optional[int] = None) -> WindowData:
+        return self._globalize(super().fetch(self._check(win), pad_to))
+
+    def stream(
+        self, windows: Iterable[np.ndarray], pad_to: Optional[int] = None
+    ) -> Iterator[WindowData]:
+        local = [self._check(w) for w in windows]
+        for wd in super().stream(local, pad_to):
+            yield self._globalize(wd)
 
 
 def as_block_source(data, *, device=None) -> BlockSource:

@@ -63,7 +63,7 @@ def _stage(wd: WindowData, device: torch.device, side) -> tuple:
         moved = [getattr(wd, f).pin_memory().to(device, non_blocking=True) for f in _TENSORS]
         done = torch.cuda.Event()
         done.record(side)
-    return WindowData(*moved, bitmap_by_id=wd.bitmap_by_id), done
+    return WindowData(*moved, bitmap_by_id=wd.bitmap_by_id, id_base=wd.id_base), done
 
 
 class PrefetchSource:

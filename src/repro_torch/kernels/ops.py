@@ -19,6 +19,7 @@ ran before plans existed), and a plan instance passes through.
                           histogram form + adds)       (or its two-step form)
   histogram               kernel B, no input counts    ref.histogram_ref
   histogram_with_rowsums  kernel B, no input counts    ref.histogram_with_rowsums_ref
+                          (impl="matmul": ref.histogram_matmul on either device)
   distance_multi          kernel C (plan: branch,      metrics.distance_multi_ref
                           uint16 form, Q launches      (plan: unrolled, xla,
                           at Q = 1)                    uint16 counts)
@@ -92,10 +93,19 @@ def histogram(z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int) -
 
 
 def histogram_with_rowsums(
-    z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int, plan="auto"
+    z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int, plan="auto",
+    impl: str = "auto", onehot_dtype=torch.float32,
 ) -> tuple:
     """((V_Z, V_X), (V_Z,)) histogram + row-sum delta: one pass, or the
-    histogram and a row reduction under an unfused ``plan``."""
+    histogram and a row reduction under an unfused ``plan``.
+    ``impl="matmul"`` is the plain one-hot product
+    (`ref.histogram_matmul`, ``onehot_dtype`` its one-hots, f32 counts) on
+    either device and bypasses the plan; "auto" dispatches by device."""
+    if impl == "matmul":
+        counts = ref.histogram_matmul(z_idx, x_idx, v_z=v_z, v_x=v_x, onehot_dtype=onehot_dtype)
+        return counts, torch.sum(counts, dim=1)
+    if impl != "auto":
+        raise ValueError(f"impl must be 'auto' or 'matmul', got {impl!r}")
     ingest_plan = autotune.coerce_ingest_plan(plan, v_z, v_x, autotune.backend_of(z_idx))
     return autotune.run_ingest(z_idx, x_idx, v_z=v_z, v_x=v_x, plan=ingest_plan)
 

@@ -15,8 +15,10 @@ import torch
 
 from repro_torch.kernels import metrics
 
+
 __all__ = [
     "histogram_ref",
+    "histogram_matmul",
     "histogram_with_rowsums_ref",
     "l1_distance_ref",
     "l1_distance_multi_ref",
@@ -44,6 +46,41 @@ def histogram_ref(
     xc = torch.where(valid, x_idx, 0).to(torch.int64)
     counts = torch.zeros((v_z, v_x), dtype=dtype, device=z_idx.device)
     return counts.index_put_((zc, xc), w, accumulate=True)
+
+
+def histogram_matmul(
+    z_idx: torch.Tensor,
+    x_idx: torch.Tensor,
+    *,
+    v_z: int,
+    v_x: int,
+    chunk: int = 32_768,
+    onehot_dtype=torch.float32,
+) -> torch.Tensor:
+    """The one-hot contraction form of `histogram_ref`: counts =
+    onehot(z)^T @ onehot(x), in sample chunks of ``chunk`` so the one-hot
+    buffers stay bounded; out-of-range ids drop. The counts accumulate
+    and return in f32 for any ``onehot_dtype``: a bf16 or f16 product
+    rounds a count past 256 (2048 in f16), so a low-precision product
+    covers at most 256 samples and is added into the f32 sum, where it
+    is exact. Counts are exact up to 2^24 a cell."""
+    if onehot_dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"onehot_dtype must be float32, bfloat16 or float16, got {onehot_dtype}")
+    z = z_idx.reshape(-1).to(torch.int64)
+    x = x_idx.reshape(-1).to(torch.int64)
+    keep = (z >= 0) & (z < v_z) & (x >= 0) & (x < v_x)
+    # a dropped sample selects the all-zero last row of the one-hot table
+    z = torch.where(keep, z, v_z)
+    x = torch.where(keep, x, v_x)
+    dev = z_idx.device
+    eye_z = torch.eye(v_z + 1, v_z, dtype=onehot_dtype, device=dev)
+    eye_x = torch.eye(v_x + 1, v_x, dtype=onehot_dtype, device=dev)
+    step = chunk if onehot_dtype == torch.float32 else min(chunk, 256)
+    acc = torch.zeros((v_z, v_x), dtype=torch.float32, device=dev)
+    for c in range(0, z.shape[0], step):
+        part = eye_z[z[c : c + step]].T @ eye_x[x[c : c + step]]
+        acc += part.to(torch.float32)
+    return acc
 
 
 def histogram_with_rowsums_ref(

@@ -56,9 +56,16 @@ the ``query_enqueue`` and ``query_done`` events (the rid <-> qid join).
 `export_trace` and `prometheus_metrics` export it. A server with
 telemetry on serves bitwise as one with it off.
 
-Not ported yet, and refused with `NotImplementedError` naming the
-ROADMAP item: the mesh and data-parallel pump servers and restoring onto
-another mesh (A9).
+Meshes: with ``mesh`` (a `torch.distributed` `DeviceMesh` with the
+reference's axis names; every rank builds the same server and submits
+the same requests) the shared counts are candidate-sharded over
+``model_axis`` and one global stream feeds every rank; ``pump=True``
+serves through `repro_torch.core.pump.DistributedPump` instead, one
+`ShardedSource` stream per data-parallel worker along ``data_axes``
+(with ``prefetch``, each behind a `PrefetchSource`). On a mesh rank 0
+writes the snapshots while the others wait, and `restore_cache` keeps
+each rank's pieces of the snapshot whatever mesh wrote it
+(`CheckpointManager.restore_resharded`).
 """
 
 from __future__ import annotations
@@ -84,6 +91,7 @@ from repro_torch.core.multiquery import (
     StopPolicy,
     cache_config_hash,
 )
+from repro_torch.core.pump import DistributedPump
 from repro_torch.io import PrefetchSource, as_block_source, maybe_chaos
 from repro_torch.kernels.autotune import PlanPair
 from repro_torch.obs import Telemetry
@@ -95,15 +103,6 @@ __all__ = [
     "StopPolicy",
     "answer_from_result",
 ]
-
-# Reference options this port does not have yet: name -> (the value that
-# leaves the feature off, the ROADMAP item that ports it).
-_UNPORTED = {
-    "mesh": (None, "A9"),
-    "model_axis": ("model", "A9"),
-    "pump": (False, "A9"),
-    "data_axes": (("data",), "A9"),
-}
 
 # the reference's dtypes of a snapshot's counters (int32); the port's
 # are int64 and widen again on import
@@ -120,10 +119,6 @@ def _on_disk(snap: CacheSnapshot) -> CacheSnapshot:
             raise ValueError(f"snapshot counter {f}={int(v)} does not fit the int32 on disk")
         counters[f] = v.to(torch.int32)
     return snap._replace(**counters)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def answer_from_result(res: MatchResult, *, metric: str) -> AnytimeAnswer:
@@ -192,7 +187,10 @@ class MatchServer:
         autosave_rounds: Optional[int] = None,
         checkpoint_keep_last: int = 3,
         telemetry=None,
-        **unported,
+        mesh=None,
+        model_axis: str = "model",
+        pump: bool = False,
+        data_axes=("data",),
     ):
         # k_cap: static bound on any query's k (the deviation assignment
         # then reads k_cap + 1 order statistics). metric: the distance
@@ -208,47 +206,53 @@ class MatchServer:
         # checkpoint_keep_last: snapshots kept. telemetry: True builds a
         # Telemetry on the server's device, an instance is adopted (one
         # server to a handle: query ids key its curves), None or False
-        # leaves every layer on its untouched path.
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"MatchServer() got an unexpected keyword argument {name!r}")
-            off, item = _UNPORTED[name]
-            if (tuple(value) if name == "data_axes" else value) != off:
-                raise _not_ported(f"MatchServer({name}=...)", item)
-        source = maybe_chaos(as_block_source(dataset, device=device))
+        # leaves every layer on its untouched path. mesh: a DeviceMesh to
+        # serve on (counts sliced over model_axis); pump: one ShardedSource
+        # stream per worker along data_axes (needs the raw BlockedDataset).
+        if pump and mesh is None:
+            raise ValueError("pump=True is the data-parallel mesh path; pass mesh=")
+        if not pump and tuple(data_axes) != ("data",):
+            raise ValueError("data_axes only shapes the data-parallel pump; pass pump=True")
+        if mesh is not None:
+            from repro_torch.core.distributed import mesh_axes
+
+            # raises without a process group or with an axis the mesh lacks
+            on = mesh_axes(mesh, tuple(data_axes) if pump else (), model_axis).device
+            if device is not None and resolve_device(device) != on:
+                raise ValueError(f"device {device} is not the mesh's {on}")
+            device = on
         if telemetry is True:
-            telemetry = Telemetry(device=getattr(source, "device", None) or resolve_device(device))
+            telemetry = Telemetry(device=resolve_device(device))
         elif telemetry is False:
             telemetry = None
         self.telemetry = telemetry
         if telemetry is not None:
             self._c_submitted = telemetry.registry.counter(
                 "fastmatch_queries_submitted_total", "requests accepted into the queue")
-        if prefetch:
-            source = PrefetchSource(source, telemetry=telemetry)
-        self.spec = MultiQuerySpec(
-            v_z=source.v_z,
-            v_x=source.v_x,
-            max_queries=max_queries,
-            criterion=criterion,
-            k_cap=k_cap,
-            metric=metric,
-            bounds_mode=bounds_mode,
-            prune=prune,
-            default_stop=default_stop,
+        spec_kw = dict(
+            max_queries=max_queries, criterion=criterion, k_cap=k_cap, metric=metric,
+            bounds_mode=bounds_mode, prune=prune, default_stop=default_stop,
         )
-        self.scheduler = SharedCountsScheduler(
-            source,
-            self.spec,
-            policy=policy,
-            window=lookahead,
-            seed=seed,
-            start_block=start_block,
-            poll_every=poll_every,
-            device=device,
-            telemetry=telemetry,
-            plans=kernel_plans,
+        loop_kw = dict(
+            policy=policy, window=lookahead, seed=seed, start_block=start_block,
+            poll_every=poll_every, telemetry=telemetry, plans=kernel_plans,
         )
+        if pump:
+            self.spec = MultiQuerySpec(v_z=dataset.v_z, v_x=dataset.v_x, **spec_kw)
+            self.scheduler = DistributedPump(
+                dataset, self.spec, mesh=mesh, data_axes=data_axes, model_axis=model_axis,
+                prefetch=prefetch, **loop_kw,
+            )
+        else:
+            source = maybe_chaos(as_block_source(dataset, device=device))
+            if prefetch:
+                source = PrefetchSource(source, telemetry=telemetry)
+            self.spec = MultiQuerySpec(v_z=source.v_z, v_x=source.v_x, **spec_kw)
+            self.scheduler = SharedCountsScheduler(
+                source, self.spec, device=device, mesh=mesh, model_axis=model_axis, **loop_kw,
+            )
+        self._mesh = mesh
+        self._model_axis = model_axis
         self.max_passes = max_passes
         self._manager: Optional[CheckpointManager] = None
         if checkpoint_dir is not None:
@@ -424,7 +428,10 @@ class MatchServer:
 
         The step is the round counter, so steps grow across restarts; a
         save with no new rounds since the newest step takes the next step
-        instead of rewriting the one LATEST points at."""
+        instead of rewriting the one LATEST points at. On a mesh every rank
+        calls it: each gathers the snapshot and reads the newest step,
+        then rank 0 writes while the others wait at a barrier, so all
+        return the same step."""
         if self._manager is None:
             raise RuntimeError("MatchServer was constructed without checkpoint_dir")
         snap = _on_disk(self.scheduler.export_cache())
@@ -432,7 +439,16 @@ class MatchServer:
         newest = self._manager.latest_step()
         if newest is not None and step <= newest:
             step = newest + 1
-        path = self._manager.save(snap, step)
+        if self._mesh is None:
+            path = self._manager.save(snap, step)
+        else:
+            from repro_torch.core.distributed import barrier
+
+            barrier(self._mesh)  # every rank has read the newest step
+            if self.scheduler._axes.rank == 0:
+                self._manager.save(snap, step)
+            barrier(self._mesh)  # the save is committed for every rank
+            path = self._manager.dir / f"step_{step}"
         self._retired_since_save = 0
         self._rounds_at_save = step
         return path
@@ -441,10 +457,18 @@ class MatchServer:
         """Adopt the newest verified snapshot (or ``step``) from
         ``checkpoint_dir``, written by either package. A snapshot of
         another layout or spec is refused with ValueError through the
-        config hash; none at all raises FileNotFoundError."""
+        config hash; none at all raises FileNotFoundError. On a mesh each
+        rank keeps its pieces of it, whatever mesh wrote it."""
         if self._manager is None:
             raise RuntimeError("MatchServer was constructed without checkpoint_dir")
-        snap = self._manager.restore(self.scheduler.export_cache(), step=step)
+        like = self.scheduler.export_cache()
+        if self._mesh is not None:
+            from repro_torch.core.distributed import cache_pspecs
+
+            snap = self._manager.restore_resharded(
+                like, self._mesh, cache_pspecs(self._model_axis), step=step)
+        else:
+            snap = self._manager.restore(like, step=step)
         self.scheduler.import_cache(snap)
         self._retired_since_save = 0
         self._rounds_at_save = self.scheduler.rounds

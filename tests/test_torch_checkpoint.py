@@ -6,10 +6,8 @@ mismatches, the checksum sidecar and its fallbacks) on tensors, plus the
 cross-package checks: a snapshot written by either manager restores in
 the other bitwise, with the same leaf names, dtypes and files. With a
 `repro_torch.obs.Telemetry` the ``checkpoint_*`` metrics and events
-equal the reference's.
-
-Left out, waiting for ROADMAP A9: ``test_restore_resharded_roundtrip``
-(here the port's `restore_resharded` must refuse, naming A9).
+equal the reference's. `restore_resharded` restores onto a 2-rank
+gloo mesh (`distributed.run_ranks`), each rank keeping its pieces.
 """
 
 import hashlib
@@ -195,9 +193,10 @@ class TestFaultTolerance:
         assert m.save_failures == 1
 
     def test_restore_resharded_refused(self, tmp_path):
+        """A placement tree that does not match the snapshot is refused."""
         m = CheckpointManager(str(tmp_path))
         m.save(_state(), 1)
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(ValueError, match="pspecs"):
             m.restore_resharded(_state(), None, None)
 
     def test_telemetry_refused(self, tmp_path):
@@ -216,6 +215,46 @@ class TestFaultTolerance:
                         tel.tracer.skeleton("checkpoint_save"))
         assert out["port"] == out["ref"]
         assert out["port"][0] == 2 * (64 * 4 + 4 * 4 + 4 + 5)
+
+
+def _resharded_rank(rank, world, directory):
+    """Restore onto a (1, 2) mesh: ``w`` sliced over the model axis, the
+    rest whole; returns this rank's leaves."""
+    from repro_torch.core import distributed
+
+    mesh = distributed.init_mesh((1, 2), device_type="cpu")
+    s = _state()
+    pspecs = {"params": {"w": distributed.DimSplit(("model",)),
+                         "layers": [{"a": distributed.WHOLE}]},
+              "step": distributed.WHOLE, "mask": distributed.WHOLE}
+    back = CheckpointManager(directory).restore_resharded(s, mesh, pspecs)
+    return {name: leaf.numpy() for name, leaf in zip(*_leaves_named(back))}
+
+
+def _leaves_named(tree):
+    from repro_torch.checkpoint.manager import _flatten_with_names
+
+    names, leaves, _ = _flatten_with_names(tree)
+    return names, leaves
+
+
+class TestElasticReshard:
+    @pytest.mark.slow
+    def test_restore_resharded_roundtrip(self, tmp_path):
+        """Saved whole, restored onto a 2-rank mesh: each rank holds its
+        rows of ``w`` and every other leaf whole, bitwise."""
+        from repro_torch.core import distributed
+
+        s = _state()
+        CheckpointManager(str(tmp_path)).save(s, 1)
+        ranks = distributed.run_ranks(_resharded_rank, 2, str(tmp_path), timeout=120)
+        names, leaves = _leaves_named(s)
+        for rank, got in enumerate(ranks):
+            assert list(got) == names
+            for name, want in zip(names, leaves):
+                if name == "params/w":
+                    want = want[4 * rank : 4 * (rank + 1)]
+                np.testing.assert_array_equal(got[name], want.numpy(), err_msg=name)
 
 
 class TestChecksums:

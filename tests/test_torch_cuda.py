@@ -776,3 +776,87 @@ def test_server_telemetry_bitwise_on_card(cuda):
     assert snap["fastmatch_rounds_total"]["value"] == on.scheduler.rounds
     assert snap["fastmatch_query_rounds"]["count"] == 5
     assert sum(snap["fastmatch_query_rounds"]["buckets"]) == 5
+
+
+def _card_lockstep_rank(rank, world, shape):
+    """One rank on the card: its `DistributedPump` and a single-stream
+    scheduler driven with the same 12 shuffled windows (an admission at
+    round 3, retirements at the polls), then, with one worker, a `pump()`
+    loop of each; every rank returns its checks and kernel launches."""
+    from repro_torch.core import distributed
+    from repro_torch.core import multiquery as mq
+    from repro_torch.core.pump import DistributedPump
+    from repro_torch.data.synth import perturb_distribution
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = distributed.init_mesh(shape, device_type="cuda")
+    ds = make_dataset(SynthSpec(v_z=64, v_x=16, num_tuples=300_000, k=5, n_close=5, seed=3))
+    blocked = block_layout(ds.z, ds.x, v_z=64, v_x=16, block_size=512, seed=3)
+    spec = mq.MultiQuerySpec(v_z=64, v_x=16, max_queries=4)
+    rng = np.random.default_rng(9)
+    targets = [ds.target] + [perturb_distribution(ds.target, d, rng) for d in (0.01, 0.03, 0.05)]
+    ref = mq.SharedCountsScheduler(blocked, spec, window=32, seed=0, start_block=7, device=dev)
+    pmp = DistributedPump(blocked, spec, mesh=mesh, window=32, seed=0, start_block=7)
+    for t in targets[:3]:
+        ref.admit(t, k=5, eps=0.08, delta=0.02)
+        pmp.admit(t, k=5, eps=0.08, delta=0.02)
+    order = np.random.default_rng(1).permutation(blocked.num_blocks)
+    before = {k: c.launches for k, c in ops.KERNELS.items()}
+    checks = []
+
+    def same():
+        counts, n = pmp._full_counts()
+        return [torch.equal(counts, ref.state.counts), torch.equal(n, ref.state.n),
+                torch.equal(pmp.state.tau, ref.state.tau),
+                torch.equal(pmp.state.delta_upper, ref.state.delta_upper),
+                bool(np.array_equal(ref.read_mask, pmp.read_mask)),
+                (ref.rounds, ref.tuples_read) == (pmp.rounds, pmp.tuples_read),
+                sorted(ref.tickets) == sorted(pmp.tickets)]
+
+    for r in range(12):
+        if r == 3:
+            ref.admit(targets[3], k=3, eps=0.1, delta=0.02)
+            pmp.admit(targets[3], k=3, eps=0.1, delta=0.02)
+        win = order[r * 32 : (r + 1) * 32]
+        ref.run_window(win)
+        pmp.run_window(win)
+        ref._poll_terminated()
+        pmp._poll_terminated()
+        checks.append(all(same()))
+    if pmp.num_workers == 1:
+        # one worker: the whole pump() loop is the scheduler's too (more
+        # workers read other blocks a round)
+        for s in (ref, pmp):
+            s.admit(targets[0], k=3, eps=0.05, delta=0.05)
+            s.pump(max_passes=2)
+        checks.append(all(same()))
+    launched = {k: c.launches - before[k] for k, c in ops.KERNELS.items()}
+    return dict(checks=checks, retired=len(ref.outcomes), launched=launched,
+                on_card=pmp.state.counts.is_cuda and pmp.shard._z.is_cuda)
+
+
+def test_one_rank_nccl_pump_bitwise_scheduler(cuda):
+    """A one-rank NCCL mesh: the pump is the single-stream scheduler, bit
+    for bit, through the hand-written kernels."""
+    from repro_torch.core import distributed
+
+    (res,) = distributed.run_ranks(_card_lockstep_rank, 1, (1, 1), backend="nccl",
+                                   device_type="cuda", timeout=600)
+    assert all(res["checks"]) and res["retired"] > 0 and res["on_card"], res
+    assert res["launched"]["anyactive"] > 0 and res["launched"]["histogram"] > 0
+    assert res["launched"]["distance_multi"] > 0
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)], ids=["2x1", "1x2"])
+def test_two_gloo_ranks_on_one_card_lockstep(cuda, shape):
+    """Two gloo ranks on cuda:0 (data- or candidate-sharded): bitwise the
+    single-stream scheduler every round; every rank launches kernels A, B
+    and C."""
+    from repro_torch.core import distributed
+
+    ranks = distributed.run_ranks(_card_lockstep_rank, 2, shape, backend="gloo",
+                                  device_type="cuda", timeout=600)
+    for res in ranks:
+        assert all(res["checks"]) and res["retired"] > 0 and res["on_card"], res
+        for kernel in ("anyactive", "histogram", "distance_multi"):
+            assert res["launched"][kernel] > 0, (kernel, res["launched"])

@@ -34,7 +34,7 @@ def test_every_module_is_covered():
         "repro_torch.kernels.autotune", "repro_torch.io.faults", "repro_torch.io.prefetch",
         "repro_torch.checkpoint.manager", "repro_torch.serve.supervisor",
         "repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.tracer",
-        "repro_torch.obs.telemetry",
+        "repro_torch.obs.telemetry", "repro_torch.core.distributed", "repro_torch.core.pump",
     ):
         assert expected in names
 

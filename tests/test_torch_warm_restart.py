@@ -13,9 +13,21 @@ rtol 1e-5); the port's snapshot restores in the reference the same way;
 both refuse the same stale snapshots and find nothing in an empty
 directory.
 
-Left out, waiting for ROADMAP A9: ``test_place_cache_reshard_in_memory``
-and ``TestReshardedRestore`` (restoring onto another mesh).
+Elastic restarts run in gloo ranks (`distributed.run_ranks`) on the
+reference's `TestReshardedRestore` fixture (400K tuples): a snapshot of
+one device restores onto a 4-rank mesh whose counts are sliced over the
+model axis and, re-saved from there, onto 2 ranks; a 4-worker pump's
+restores into a 2-worker pump and a single-device server; a snapshot
+written by the reference's 8-way pump (8 forced host devices, in a
+subprocess) restores into the port's 2-worker pump. Counts, n, read mask
+and counters are bitwise in every case, and `distributed.place_cache`
+slices a snapshot in memory the way the restore does.
 """
+
+import os
+import subprocess
+import sys
+
 
 import numpy as np
 import pytest
@@ -25,6 +37,7 @@ from repro.data.layout import block_layout
 from repro.data.synth import SynthSpec, make_dataset, perturb_distribution
 from repro.serve.fastmatch_server import MatchServer as JServer
 from repro_torch import convert
+from repro_torch.core import distributed
 from repro_torch.core import multiquery as tmq
 from repro_torch.serve import MatchServer
 
@@ -287,3 +300,214 @@ class TestAutosave:
         sched.cursor = sched.cursor._replace(tuples_read=torch.tensor(2**31, dtype=torch.int64))
         with pytest.raises(ValueError, match="int32"):
             server.save_cache()
+
+
+# ---------------------------------------------------------------------------
+# elastic restarts across mesh shapes (gloo ranks)
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MESH_KW = dict(max_queries=4, lookahead=64)
+
+_REFERENCE_PUMP = r"""
+import sys, numpy as np, jax
+from jax.sharding import Mesh
+from repro.data.layout import block_layout
+from repro.data.synth import SynthSpec, make_dataset, perturb_distribution
+from repro.serve.fastmatch_server import MatchServer
+
+spec = SynthSpec(v_z=64, v_x=16, num_tuples=400_000, k=5, n_close=5,
+                 close_distance=0.02, far_distance=0.3, zipf_a=0.9, seed=5)
+ds = make_dataset(spec)
+blocked = block_layout(ds.z, ds.x, v_z=64, v_x=16, block_size=512, seed=5)
+rng = np.random.default_rng(9)
+mesh8 = Mesh(np.array(jax.devices()).reshape(8, 1), ("data", "model"))
+a = MatchServer(blocked, seed=3, checkpoint_dir=sys.argv[1], mesh=mesh8, pump=True,
+                max_queries=4, lookahead=64)
+for d in (0.0, 0.01, 0.03):
+    a.submit(perturb_distribution(ds.target, d, rng) if d else ds.target,
+             k=5, eps=0.08, delta=0.05)
+a.run_until_idle()
+a.save_cache()
+sc = a.scheduler
+np.savez(sys.argv[2], counts=np.asarray(sc.state.counts), n=np.asarray(sc.state.n),
+         mask=sc.read_mask, ctr=np.asarray([sc.rounds, sc.passes, sc.blocks_read,
+                                            sc.blocks_considered, sc.tuples_read]))
+"""
+
+
+def _mesh_data():
+    from repro_torch.data.layout import block_layout
+    from repro_torch.data.synth import SynthSpec as TSpec
+    from repro_torch.data.synth import make_dataset as tmake
+
+    spec = TSpec(v_z=64, v_x=16, num_tuples=400_000, k=5, n_close=5,
+                 close_distance=0.02, far_distance=0.3, zipf_a=0.9, seed=5)
+    ds = tmake(spec)
+    return ds, block_layout(ds.z, ds.x, v_z=64, v_x=16, block_size=512, seed=5)
+
+
+def _cache_of(sched) -> dict:
+    counts, n = sched._full_counts()
+    return dict(counts=counts.numpy(), n=n.numpy(), mask=np.array(sched.read_mask),
+                ctr=np.asarray([sched.rounds, sched.passes, sched.blocks_read,
+                                sched.blocks_considered, sched.tuples_read]))
+
+
+def _result_of(res) -> dict:
+    return dict(ids=np.asarray(res.ids), tau=res.state.tau.numpy(), tuples=res.tuples_read,
+                exact=res.exact)
+
+
+def _hard(ds):
+    return perturb_distribution(ds.target, 0.05, np.random.default_rng(11))
+
+
+def _covered(ds):
+    return perturb_distribution(ds.target, 0.02, np.random.default_rng(4))
+
+
+def _ranks_four(rank, world, dirs):
+    """4 ranks: the 1-device snapshot restored onto a (1, 4) mesh and
+    re-saved; a (4, 1) pump serving and saving."""
+    ds, blocked = _mesh_data()
+    out = {}
+    mesh = distributed.init_mesh((1, 4), device_type="cpu")
+    b = MatchServer.restore(blocked, checkpoint_dir=dirs["one"], mesh=mesh, **MESH_KW)
+    out["b_cache"] = _cache_of(b.scheduler)
+    out["b_local_rows"] = b.scheduler.state.counts.shape[0]
+    b.save_cache()  # the same cache, gathered, to a 4-rank step
+    out["b_hard"] = _result_of(_answer(b, _hard(ds), eps=0.04, delta=0.01))
+    pump_mesh = distributed.init_mesh((4, 1), device_type="cpu")
+    a = MatchServer(blocked, seed=3, checkpoint_dir=dirs["pump"], mesh=pump_mesh, pump=True,
+                    **MESH_KW)
+    rng = np.random.default_rng(9)
+    for d in (0.0, 0.01, 0.03):
+        a.submit(perturb_distribution(ds.target, d, rng) if d else ds.target,
+                 k=K, eps=EPS, delta=DELTA)
+    a.run_until_idle()
+    a.save_cache()
+    out["pump_cache"] = _cache_of(a.scheduler)
+    out["pump_covered"] = _result_of(_answer(a, _covered(ds), eps=EPS, delta=DELTA))
+    out["pump_hard"] = _result_of(_answer(a, _hard(ds), eps=0.04, delta=0.01))
+    return out if rank == 0 else None
+
+
+def _ranks_two(rank, world, dirs):
+    """2 ranks: the 4-rank step onto a (1, 2) mesh; the 4-worker pump's
+    step into a 2-worker pump and a plain server; the reference's 8-way
+    pump step into a 2-worker pump; `place_cache` in memory."""
+    ds, blocked = _mesh_data()
+    out = {}
+    mesh = distributed.init_mesh((1, 2), device_type="cpu")
+    c = MatchServer.restore(blocked, checkpoint_dir=dirs["one"], mesh=mesh, **MESH_KW)
+    out["c_cache"] = _cache_of(c.scheduler)
+    out["c_hard"] = _result_of(_answer(c, _hard(ds), eps=0.04, delta=0.01))
+    pump_mesh = distributed.init_mesh((2, 1), device_type="cpu")
+    for tag, d in (("pump", dirs["pump"]), ("ref", dirs["ref"])):
+        b = MatchServer.restore(blocked, checkpoint_dir=d, mesh=pump_mesh, pump=True, **MESH_KW)
+        out[f"{tag}2_cache"] = _cache_of(b.scheduler)
+        if tag == "pump":
+            plain = MatchServer.restore(blocked, checkpoint_dir=d, device="cpu", **MESH_KW)
+            out["plain_cache"] = _cache_of(plain.scheduler)
+            for name, srv in (("pump2", b), ("plain", plain)):
+                out[f"{name}_covered"] = _result_of(_answer(srv, _covered(ds), eps=EPS,
+                                                            delta=DELTA))
+                out[f"{name}_hard"] = _result_of(_answer(srv, _hard(ds), eps=0.04, delta=0.01))
+    sched = tmq.SharedCountsScheduler(blocked, tmq.MultiQuerySpec(v_z=64, v_x=16, max_queries=2),
+                                      window=64, seed=1, device="cpu")
+    sched.admit(ds.target, k=K, eps=EPS, delta=DELTA)
+    sched.pump()
+    snap = sched.export_cache()
+    placed = distributed.place_cache(snap, mesh)
+    rows = slice(32 * rank, 32 * (rank + 1))
+    out["placed"] = dict(
+        counts=torch.equal(placed.counts, snap.counts[rows]),
+        n=torch.equal(placed.n, snap.n[rows]),
+        mask=torch.equal(placed.read_mask, snap.read_mask),
+        counters=all(torch.equal(getattr(placed, f), getattr(snap, f))
+                     for f in tmq.CacheSnapshot._fields[3:]),
+    )
+    return out if rank == 0 else [out["placed"]]
+
+
+@pytest.fixture(scope="module")
+def resharded(tmp_path_factory):
+    """(the single-device server's cache and answer, 4-rank records,
+    2-rank records, the reference pump's cache)."""
+    root = tmp_path_factory.mktemp("reshard")
+    dirs = {k: str(root / k) for k in ("one", "pump", "ref")}
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    ref_npz = str(root / "ref.npz")
+    proc = subprocess.Popen([sys.executable, "-c", _REFERENCE_PUMP, dirs["ref"], ref_npz],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ds, blocked = _mesh_data()
+        a = MatchServer(blocked, seed=3, checkpoint_dir=dirs["one"], device="cpu", **MESH_KW)
+        a.submit(ds.target, k=5, eps=0.08, delta=0.05)
+        a.run_until_idle()
+        a.save_cache()
+        one = dict(cache=_cache_of(a.scheduler),
+                   hard=_result_of(_answer(a, _hard(ds), eps=0.04, delta=0.01)))
+        four = distributed.run_ranks(_ranks_four, 4, dirs, timeout=300)[0]
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-4000:]
+        two = distributed.run_ranks(_ranks_two, 2, dirs, timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    return one, four, two, dict(np.load(ref_npz))
+
+
+def _assert_cache(got: dict, want: dict):
+    for key in ("counts", "n", "mask", "ctr"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.slow
+class TestReshardedRestore:
+    def test_reshard_1_to_4_to_2(self, resharded):
+        """A 1-device snapshot restores onto 4 ranks (counts sliced over the
+        model axis), is re-saved from there and restores onto 2; a fresh
+        query then follows one trajectory on all three."""
+        one, four, two, _ = resharded
+        assert four["b_local_rows"] == 16
+        _assert_cache(four["b_cache"], one["cache"])
+        _assert_cache(two[0]["c_cache"], one["cache"])
+        for got in (four["b_hard"], two[0]["c_hard"]):
+            np.testing.assert_array_equal(got["ids"], one["hard"]["ids"])
+            np.testing.assert_array_equal(got["tau"], one["hard"]["tau"])
+            assert got["tuples"] == one["hard"]["tuples"]
+
+    def test_pump_reshard_4_to_2_workers(self, resharded):
+        """A 4-worker pump's snapshot restores into a 2-worker pump and a
+        single-device server bitwise; a covered query answers with no
+        I/O, bitwise, on every width; a demanding one agrees as a set."""
+        _, four, two, _ = resharded
+        rec = two[0]
+        _assert_cache(rec["pump2_cache"], four["pump_cache"])
+        _assert_cache(rec["plain_cache"], four["pump_cache"])
+        for name in ("pump2", "plain"):
+            got, want = rec[f"{name}_covered"], four["pump_covered"]
+            np.testing.assert_array_equal(got["ids"], want["ids"])
+            np.testing.assert_array_equal(got["tau"], want["tau"])
+            assert got["tuples"] == want["tuples"] == 0
+            hard = rec[f"{name}_hard"]
+            assert sorted(hard["ids"].tolist()) == sorted(four["pump_hard"]["ids"].tolist())
+            assert hard["exact"] == four["pump_hard"]["exact"]
+
+    def test_reference_pump_snapshot_restores_in_port_pump(self, resharded):
+        """The reference's 8-way pump's snapshot, restored by the port's
+        2-worker pump: counts, n, read mask and counters bitwise."""
+        _, _, two, want = resharded
+        _assert_cache(two[0]["ref2_cache"], want)
+
+
+@pytest.mark.slow
+def test_place_cache_reshard_in_memory(resharded):
+    """`place_cache` keeps each rank's model rows of the counts and n and
+    the whole read mask and counters, on the mesh's device."""
+    _, _, two, _ = resharded
+    for placed in (two[0]["placed"], two[1][0]):
+        assert all(placed.values()), placed
