@@ -16,15 +16,18 @@ Phases, each of which raises (non-zero exit) when a check fails:
    window read in place from a 781,250 x 236 bitmap table (737 MB, made
    on the card from a seed): on a permuted window with padding rows,
    rows read already and a bit-31 row, in the table, gathered-window and
-   scan forms, and at W = 237 (the word-by-word path), then timed warm
+   scan forms, at W = 237 (the word-by-word path) and at phase 11a's
+   W = 2 (a 32,768 x 2 table, 256-id windows), then timed warm
    and with the table cold against the parent's six-launch marking
    (gather, A, &, read-mask gather, ~, &); the fused ingest of one
    262,144-id window into 7548 x 24 counts, its ids drawn as the main
    path sends them (z zipf 0.3, the tuples of ~10 % of the blocks -1),
    and of uniform, out-of-range and empty batches: bitwise equal to its
    plain version, its inputs unchanged and its scratch back at zero,
-   and the fresh histograms it also serves; the batched distance for Q
-   in {1, 8} and every metric at 7548 x 24 (narrow branch) and, in the
+   and the fresh histograms it also serves; the same cases at phase
+   11a's 64 x 128 (a 256-block window of 2048 tokens a block, each
+   block one domain); the batched distance for Q
+   in {1, 8} and every metric at 7548 x 24 and 64 x 128 (narrow branch) and, in the
    wide branch, at 256 x 8192, 161 x 1440 (phase 7's shape), 7548 x 1440,
    191 x 2 under a forced sweeps = 2 and 3 x 524,288 (past the shared
    memory of a cluster: the two-sweep fallback), each in its f32 and its
@@ -172,12 +175,35 @@ Phases, each of which raises (non-zero exit) when a check fails:
    tau the true distances; Guarantee 1; the pinned
    lowprec plan with the same ids, rounds and blocks, tau bitwise the
    default's and kernel C only as its wide uint16 form; a profiled rerun.
+11. The data layer and the LM, last (after phase 7 freed its table),
+   each sub-phase with the launch counts at 0 just before and read just
+   after. 11a: the token corpus `make_corpus(CorpusSpec(vocab_size=
+   151936, num_blocks=32768))` (seed 0, 67.1M tokens) and
+   `select_domains(corpus, k=8, seed=0)` on the card: the planted
+   `close_ids` in 9 rounds and 449 blocks (the reference's numbers on
+   XLA:CPU), kernels A and B once a round, kernel C once a statistics
+   step. 11b: a full-width qwen2.5-3b (`get_config`, bf16, weights from
+   a seeded generator) behind `ServeEngine(slots=8, max_len=512)`, 16
+   requests of 256-token prompts (two batches of `TokenStream(corpus,
+   selected, batch_size=8, seq_len=256, seed=0)`), 32 new tokens each: 2
+   prefills, 62 decode ticks, 512 tokens, every output the greedy
+   prefill + decode loop's on the same 8-prompt batch, every logit
+   finite; prefill ms, ms a decode tick and tokens/s. 11d: an
+   `ActivationMonitor` over the 72 filled K and V caches of the loop's
+   final caches (8 x 287 x 2 x 128 values each), captured on batch 1 and
+   checked on batch 2 with its layer-0 keys times 4: one kernel-B launch
+   a tensor, every histogram bitwise `ref.histogram_ref` on the card, the
+   planted drift flagged (the other 71 flags printed), kernel B at (1,
+   64) beside `torch.bincount`. 11c: the same configuration in float32:
+   prefill 128 tokens and decode the next 128, against `forward` on all
+   256 (max |dlogits| <= 1e-3, equal argmax). ``{"check": "lm", ...}``.
 
 Every kernel must have launched on some path, each path's counts set to
 0 just before it and read just after; a kernel's ``launches`` in the
 ``kernels`` line are those of the first path that runs it (``path``),
 with every path's count beside them; kernel B's row adds the registry
-read's launches and its registry-shape timing. The last lines are the
+read's launches and its registry-shape timing, and the monitor's
+launches and its (1, 64) timing (phase 11d). The last lines are the
 ``kernels`` JSON line, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
 also go to ``chiprun_out/chip_smoke.json``. Exits 2 without a CUDA
@@ -328,8 +354,8 @@ def phase_setup(torch):
 
 
 # kernel C's phase-2 shapes: (V_Z, V_X, the plan's sweeps)
-C_SHAPES = ((7548, 24, 0), (256, 8192, 0), (161, 1440, 0), (7548, 1440, 0), (191, 2, 2),
-            (3, 524_288, 0))
+C_SHAPES = ((7548, 24, 0), (64, 128, 0), (256, 8192, 0), (161, 1440, 0), (7548, 1440, 0),
+            (191, 2, 2), (3, 524_288, 0))
 
 
 def phase_kernels(torch, timer) -> dict:
@@ -376,31 +402,13 @@ def phase_kernels(torch, timer) -> dict:
 
     v_z, v_x, n = 7548, 24, 262_144
     z, x = (t(a) for a in _window_ids(rng, v_z, v_x))
-    uniform = [t(rng.integers(0, v, size=n).astype(np.int32)) for v in (v_z, v_x)]
-    dropped = [t(rng.integers(-2, v + 2, size=n).astype(np.int32)) for v in (v_z, v_x)]
-    empty = [t(np.zeros(0, np.int32))] * 2
+    _check_ingest_cases(torch, rng, z, x, v_z, v_x)
     counts = t(rng.integers(0, 2000, size=(v_z, v_x)).astype(np.float32))
     rows = counts.sum(dim=1)
     scratch = histogram.delta_scratch(v_z, v_x, dev)
-    cases = ((z, x, "zipf window ids"), (*uniform, "uniform ids"),
-             (*dropped, "out-of-range ids"), (*empty, "empty batch"))
-    for zz, xx, tag in cases:
-        kept = [a.clone() for a in (counts, rows, zz, xx)]
-        got = histogram.ingest_counts(counts, rows, zz, xx, v_z=v_z, v_x=v_x)
-        want = histogram.ingest_counts_ref(counts, rows, zz, xx, v_z=v_z, v_x=v_x)
-        torch.cuda.synchronize()
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-              f"ingest_counts disagrees with its plain version ({tag})")
-        check(all(torch.equal(a, b) for a, b in zip((counts, rows, zz, xx), kept)),
-              f"ingest_counts changed its inputs ({tag})")
-        check(not bool(scratch.any()), f"ingest_counts left the scratch nonzero ({tag})")
-        c, r = histogram.histogram_with_rowsums(zz, xx, v_z=v_z, v_x=v_x)
-        wc, wr = ref.histogram_with_rowsums_ref(zz, xx, v_z=v_z, v_x=v_x)
-        c1 = histogram.histogram(zz, xx, v_z=v_z, v_x=v_x)
-        torch.cuda.synchronize()
-        check(torch.equal(c, wc) and torch.equal(r, wr) and torch.equal(c1, wc),
-              f"histogram disagrees with its plain version ({tag})")
-        check(not bool(scratch.any()), f"histogram left the scratch nonzero ({tag})")
+    # phase 11a's shape: the corpus's 64 domains x 128 token buckets, one
+    # 256-block window of 2048 tokens a block, each block one domain
+    _check_ingest_cases(torch, rng, *(t(a) for a in _corpus_window_ids(rng)), 64, 128)
     # the library yardstick: one torch.bincount over the flattened kept ids
     keep = z >= 0
     flat = (z.long() * v_x + x.long())[keep]
@@ -436,7 +444,7 @@ def phase_kernels(torch, timer) -> dict:
           "ingest_kernels": ingest_kernels})
 
     # -- C: batched distance in its f32 and its uint16 form: the narrow
-    # branch at the taxi shape; the wide branch at the minute-of-day path's
+    # branch at the taxi shape and at phase 11a's 64 x 128; the wide branch at the minute-of-day path's
     # shape (phase 7), at 7548 x 1440 where the bytes bound dominates, at
     # 256 x 8192, at police_q1's shape under a forced sweeps = 2 (191 x 2) and past
     # its shared-memory threshold (3 x 524,288, the two-sweep fallback)
@@ -497,9 +505,9 @@ def phase_kernels(torch, timer) -> dict:
                     extra["stats_step_ms"], host = timer(
                         lambda: mq.stats_step(state, spec=spec, closeness=False), reps=5)
                     extra["stats_step_host_us"] = host * 1e3
-                if vx == 24 and metric == "l1":
+                if vx in (24, 128) and metric == "l1":
                     # the launch the main path makes: the plan the scheduler resolves
-                    # for this key from the committed plan file (phases 4 and 5)
+                    # for this key from the committed plan file (phases 4, 5 and 11a)
                     resolved = autotune.resolve_plans(vz, vx, q, metric=metric, device=dev).tau
                     planned = ops.distance_multi(counts, q_hat, metric=metric, plan=resolved)
                     torch.cuda.synchronize()
@@ -579,6 +587,7 @@ def _phase_marking(torch, timer) -> dict:
     forms, and at W = 237 (the word-by-word path); then timed against
     the parent's six-launch marking (gather, A, &, read-mask gather, ~,
     &), warm and with the table cold. Returns the main-path row."""
+    from repro_torch.core.bitmap import words_for
     from repro_torch.kernels import anyactive, ops, ref
 
     nb, W, L = 781_250, 236, 512  # the 400M-tuple TAXI table and window
@@ -607,6 +616,21 @@ def _phase_marking(torch, timer) -> dict:
           "mark_blocks at W = 237 disagrees with its plain version")
     emit({"check": "mark_blocks", "table": [230_000, 237], "window": L, "equal": True})
     del g2, t2, m2, r2, i2, v2, w2
+    # W = 2: phase 11a's shape, the corpus's 64 domains over its 32,768-block
+    # table, windows of 256 ids (select_domains' lookahead)
+    g3, t3, m3, r3 = _marking_table(torch, 32_768, words_for(64), 13)
+    i3, v3 = _permuted_window(torch, g3, t3, m3, r3, length=256)
+    w3 = ref.mark_blocks_ref(i3, v3, r3, t3, m3, by_id=True)
+    check(torch.equal(ops.mark_blocks(i3, v3, r3, t3, m3, by_id=True), w3) and bool(w3[0]),
+          "mark_blocks at W = 2 disagrees with its plain version")
+    check(torch.equal(ops.mark_blocks(i3, v3, r3, t3[i3], m3), w3),
+          "mark_blocks on a gathered window at W = 2 disagrees")
+    check(torch.equal(anyactive.anyactive(t3[i3], m3), ref.anyactive_ref(t3[i3], m3)),
+          "anyactive at W = 2 disagrees with its plain version")
+    emit({"check": "mark_blocks", "table": [32_768, words_for(64)], "window": 256,
+          "marked": int(w3.sum()), "equal": True, "gathered_equal": True,
+          "anyactive_equal": True})
+    del g3, t3, m3, r3, i3, v3, w3
 
     def parent(i, v):  # the parent's round: gather, kernel A, then four elementwise ops
         return anyactive.anyactive(table[i], mask) & v & ~read_mask[i]
@@ -671,6 +695,64 @@ def _window_ids(rng, v_z: int, v_x: int, *, blocks: int = 512, block: int = 512)
     x[unmarked] = -1
     return z.reshape(-1), x.reshape(-1)
 
+
+def _corpus_window_ids(rng, v_z: int = 64, v_x: int = 128, *, blocks: int = 256,
+                       block: int = 2048) -> tuple:
+    """One lookahead window of phase 11a's corpus as `fused_round` hands
+    it to ingest: every block one domain, its tokens' buckets uniform,
+    and every tuple of ~10 % of the blocks -1 (blocks left unmarked)."""
+    import numpy as np
+
+    z = np.repeat(rng.integers(0, v_z, size=blocks), block).reshape(blocks, block)
+    z = z.astype(np.int32)
+    x = rng.integers(0, v_x, size=(blocks, block)).astype(np.int32)
+    unmarked = rng.random(blocks) < 0.1
+    z[unmarked] = -1
+    x[unmarked] = -1
+    return z.reshape(-1), x.reshape(-1)
+
+def _check_ingest_cases(torch, rng, z, x, v_z: int, v_x: int) -> None:
+    """Kernel B at (v_z, v_x), its fused ingest and its histogram forms,
+    bitwise against their plain versions on the window (z, x) and on
+    uniform, out-of-range and empty batches of its size: the inputs
+    unchanged and the scratch back at zero."""
+    import numpy as np
+
+    from repro_torch.kernels import histogram, ref
+
+    dev, n = z.device, z.numel()
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    uniform = [t(rng.integers(0, v, size=n).astype(np.int32)) for v in (v_z, v_x)]
+    dropped = [t(rng.integers(-2, v + 2, size=n).astype(np.int32)) for v in (v_z, v_x)]
+    empty = [t(np.zeros(0, np.int32))] * 2
+    counts = t(rng.integers(0, 2000, size=(v_z, v_x)).astype(np.float32))
+    rows = counts.sum(dim=1)
+    scratch = histogram.delta_scratch(v_z, v_x, dev)
+    cases = ((z, x, "window ids"), (*uniform, "uniform ids"),
+             (*dropped, "out-of-range ids"), (*empty, "empty batch"))
+    for zz, xx, tag in cases:
+        tag = f"{tag}, {v_z} x {v_x}"
+        kept = [a.clone() for a in (counts, rows, zz, xx)]
+        got = histogram.ingest_counts(counts, rows, zz, xx, v_z=v_z, v_x=v_x)
+        want = histogram.ingest_counts_ref(counts, rows, zz, xx, v_z=v_z, v_x=v_x)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"ingest_counts disagrees with its plain version ({tag})")
+        check(all(torch.equal(a, b) for a, b in zip((counts, rows, zz, xx), kept)),
+              f"ingest_counts changed its inputs ({tag})")
+        check(not bool(scratch.any()), f"ingest_counts left the scratch nonzero ({tag})")
+        c, r = histogram.histogram_with_rowsums(zz, xx, v_z=v_z, v_x=v_x)
+        wc, wr = ref.histogram_with_rowsums_ref(zz, xx, v_z=v_z, v_x=v_x)
+        c1 = histogram.histogram(zz, xx, v_z=v_z, v_x=v_x)
+        torch.cuda.synchronize()
+        check(torch.equal(c, wc) and torch.equal(r, wr) and torch.equal(c1, wc),
+              f"histogram disagrees with its plain version ({tag})")
+        check(not bool(scratch.any()), f"histogram left the scratch nonzero ({tag})")
+    emit({"check": "ingest_counts_cases", "shape": [n, v_z, v_x], "kept": int((z >= 0).sum()),
+          "equal": True, "inputs_unchanged": True, "scratch_zero": True})
 
 def _fixture_dataset(num_tuples: int, seed: int):
     from repro_torch.data.layout import block_layout
@@ -1911,7 +1993,9 @@ def phase_telemetry(torch, timer, ctx) -> dict:
     b_ms, b_host = timer(lambda: histogram.histogram(z, x, v_z=1, v_x=v_x))
     b_plain, _ = timer(lambda: ref.histogram_ref(z, x, v_z=1, v_x=v_x))
     b_lib, _ = timer(lambda: torch.bincount(x, minlength=v_x))
-    b_bound, b_by = bound_ms(2 * 4 * x.numel() + 4 * v_x, x.numel())
+    # a V_Z = 1 histogram needs only the x ids: the zero z ids that fill
+    # kernel B's (z, x) interface are not counted
+    b_bound, b_by = bound_ms(4 * x.numel() + 4 * v_x, x.numel())
     flush_h = type(hists[name])(name, edges, device=source.device)
     flush_h.observe_many(vals)
     t = time.perf_counter()
@@ -2406,6 +2490,246 @@ def phase_tuner(torch) -> dict:
     return dict(launches=launches, report=report)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the data layer and the LM
+# ---------------------------------------------------------------------------
+
+LM_DEVICE = "cuda"
+LM_CORPUS = dict(vocab_size=151936, num_blocks=32768)  # seed 0: 67.1M tokens
+LM_SELECT_EXPECT = (9, 449)  # the reference's rounds and blocks on XLA:CPU
+LM_ARCH = "qwen2_5_3b"
+LM_PROMPT, LM_NEW, LM_SLOTS, LM_MAX_LEN = 256, 32, 8, 512
+LM_F32_SPLIT = 128  # 11c: prefill this many tokens, decode as many again
+LM_F32_ATOL = 1e-3
+LM_MONITOR_BINS = 64
+
+
+def _greedy_loop(torch, model, prompts, max_len: int, steps: int) -> tuple:
+    """The greedy prefill + decode loop on one batch: its tokens a row,
+    its final cache, whether every logit was finite, and its prefill and
+    per-tick ms (each synchronised)."""
+    toks = torch.from_numpy(prompts).to(LM_DEVICE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = model.prefill(toks, max_len)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    finite = bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    out = [tok]
+    t = time.perf_counter()
+    for _ in range(steps - 1):
+        logits, cache = model.decode_step(cache, tok)
+        finite &= bool(torch.isfinite(logits).all())
+        tok = torch.argmax(logits, dim=-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t) * 1e3 / max(steps - 1, 1)
+    rows = torch.stack(out, 1).cpu().numpy().tolist()
+    return rows, cache, finite, prefill_ms, tick_ms
+
+
+def _cache_tensors(cache) -> dict:
+    """The filled part of every layer's K and V cache, by monitor name."""
+    n = cache.length
+    out = {f"k{i}": k[:, :n] for i, k in enumerate(cache.k)}
+    out.update({f"v{i}": v[:, :n] for i, v in enumerate(cache.v)})
+    return out
+
+
+def phase_lm(torch, timer, card: str) -> dict:
+    """Phase 11 (see the module docstring): selection, serving at full
+    width, the monitor, decode consistency in float32."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import CorpusSpec, make_corpus
+    from repro_torch.data.pipeline import TokenStream, select_domains
+    from repro_torch.kernels import histogram, ref
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import ActivationMonitor
+    from repro_torch.train import monitor as monitor_mod
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    # -- 11a: FastMatch picks the corpus's domains on the card
+    t = time.perf_counter()
+    corpus = make_corpus(CorpusSpec(**LM_CORPUS))
+    corpus_s = time.perf_counter() - t
+    _reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rep = select_domains(corpus, k=8, seed=0, device=LM_DEVICE)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t
+    launches = _launch_counts()
+    res = rep.result
+    selected = np.sort(rep.selected_domains)
+    check(np.array_equal(selected, corpus.close_ids),
+          f"11a: selected {selected.tolist()}, planted {corpus.close_ids.tolist()}")
+    if LM_SELECT_EXPECT is not None:
+        check((res.rounds, res.blocks_read) == LM_SELECT_EXPECT,
+              f"11a: {res.rounds} rounds, {res.blocks_read} blocks, not {LM_SELECT_EXPECT}")
+    c = sum(launches[name] for name in C_FORMS)
+    check(launches["anyactive"] == launches["histogram"] == res.rounds
+          and res.rounds <= c <= res.rounds + 1,
+          f"11a: launches {launches} for {res.rounds} rounds")
+    out["select"] = dict(
+        ids=selected.tolist(), rounds=res.rounds, blocks_read=res.blocks_read,
+        blocks_scanned_frac=rep.blocks_scanned_frac, delta_upper=res.delta_upper,
+        exact=res.exact, query_wall_ms=res.wall_time_s * 1e3, select_s=select_s,
+        corpus_s=corpus_s, tokens=int(corpus.tokens.size), launches=launches)
+    log(f"11a selection: {selected.tolist()} in {res.rounds} rounds, {res.blocks_read} blocks "
+        f"(blocks_scanned_frac {rep.blocks_scanned_frac:.6f}), delta_upper "
+        f"{res.delta_upper:.6g}; query {res.wall_time_s * 1e3:.1f} ms, select_domains "
+        f"{select_s:.2f}s, corpus {corpus_s:.1f}s; launches {launches}")
+
+    # -- 11b: serving at full width
+    stream = TokenStream(corpus, rep.selected_domains, batch_size=LM_SLOTS, seq_len=LM_PROMPT,
+                         seed=0)
+    batches = [next(stream)["tokens"] for _ in range(2)]
+    del corpus, rep, res, stream
+    cfg = get_config(LM_ARCH)
+    t = time.perf_counter()
+    model = get_model(cfg, device=LM_DEVICE,
+                      generator=torch.Generator(device=LM_DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    # the loop first on batch 1: it also warms the card's libraries
+    loops = [_greedy_loop(torch, model, b, LM_MAX_LEN, LM_NEW) for b in batches]
+    engine = ServeEngine(model, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    reqs = [Request(rid=i, prompt=row, max_new_tokens=LM_NEW)
+            for i, row in enumerate(np.concatenate(batches))]
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    done = engine.run()
+    serve_s = time.perf_counter() - t
+    want_metrics = {"prefills": 2, "decode_ticks": 2 * (LM_NEW - 1),
+                    "tokens_out": len(reqs) * LM_NEW}
+    check(engine.metrics == want_metrics, f"11b: metrics {engine.metrics}, not {want_metrics}")
+    check(all(loop[2] for loop in loops), "11b: a logit was not finite")
+    manual = loops[0][0] + loops[1][0]
+    check([r.rid for r in done] == list(range(len(reqs)))
+          and all(r.output == manual[r.rid] for r in done),
+          "11b: an engine output differs from the greedy loop on the same batch")
+    # where a decode tick's time goes: one tick at the served depth, profiled
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = model.init_cache(LM_SLOTS, LM_MAX_LEN)._replace(length=LM_PROMPT + LM_NEW - 1)
+    tok = torch.zeros(LM_SLOTS, dtype=torch.int64, device=LM_DEVICE)
+    model.decode_step(cache, tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        model.decode_step(cache, tok)
+        torch.cuda.synchronize()
+        tick_wall_ms = (time.perf_counter() - t) * 1e3
+    del cache
+    device_ms, by_kernel, by_host_op = _profile_tables(torch, prof)
+    out["serve"] = dict(
+        arch=LM_ARCH, dtype=cfg.dtype, params=sum(p.numel() for p in model.parameters()),
+        build_s=build_s, metrics=engine.metrics, wall_s=serve_s,
+        tokens_per_s=engine.metrics["tokens_out"] / serve_s,
+        prefill_ms=[loop[3] for loop in loops], tick_ms=[loop[4] for loop in loops],
+        distinct_outputs=len({tuple(r.output) for r in done}),
+        profiled_tick=dict(
+            wall_ms=tick_wall_ms, device_ms=device_ms,
+            host_launches=sum(c for name, _, c in by_host_op if name.startswith("cudaLaunch")),
+            top_kernels=by_kernel[:8], top_host_ops=by_host_op[:8]))
+    log(f"11b serving {LM_ARCH} ({out['serve']['params'] / 1e9:.3f}B params, {cfg.dtype}, built "
+        f"in {build_s:.1f}s): {engine.metrics} in {serve_s * 1e3:.1f} ms, "
+        f"{out['serve']['tokens_per_s']:.1f} tokens/s; loop prefill "
+        f"{[round(x, 2) for x in out['serve']['prefill_ms']]} ms, decode tick "
+        f"{[round(x, 3) for x in out['serve']['tick_ms']]} ms; outputs equal the loop's; {card}; "
+        f"a profiled tick: device {device_ms:.2f} of {tick_wall_ms:.2f} ms wall, top kernels "
+        f"{[(name[:60], round(ms, 3), n) for name, ms, n in by_kernel[:4]]}")
+
+    # -- 11d: the monitor bins the served model's KV caches
+    names = [f"{kv}{i}" for kv in "kv" for i in range(cfg.num_layers)]
+    mon = ActivationMonitor(names=names, bins=LM_MONITOR_BINS)
+    first = _cache_tensors(loops[0][1])
+    second = _cache_tensors(loops[1][1])
+    second["k0"] = second["k0"] * 4  # the planted drift
+    _reset_launches()
+    t = time.perf_counter()
+    mon.capture_reference(first)
+    report = mon.check(second)
+    monitor_s = time.perf_counter() - t
+    mon_launches = _launch_counts()
+    check(mon_launches["histogram"] == 2 * len(names)
+          and sum(mon_launches.values()) == 2 * len(names),
+          f"11d: launches {mon_launches} for 2 x {len(names)} tensors")
+    check(report["k0"]["drifted"], f"11d: the planted drift was not flagged: {report['k0']}")
+    flagged = sorted(n for n in names[1:] if report[n]["drifted"])
+    rows = mon._histogram(second)
+    samples = set()
+    for name, row in zip(names, rows):
+        ids = monitor_mod._bin_ids(second[name], mon.lo, mon.hi, mon.bins)
+        plain = ref.histogram_ref(torch.zeros_like(ids), ids, v_z=1, v_x=mon.bins)[0]
+        check(np.array_equal(row, plain.cpu().numpy()),
+              f"11d: {name}'s histogram is not its plain version's")
+        samples.add(int(ids.numel()))
+    ids = monitor_mod._bin_ids(second["k0"], mon.lo, mon.hi, mon.bins)
+    zeros = torch.zeros_like(ids)
+    b_ms, b_host = timer(lambda: histogram.histogram(zeros, ids, v_z=1, v_x=mon.bins))
+    b_plain, _ = timer(lambda: ref.histogram_ref(zeros, ids, v_z=1, v_x=mon.bins))
+    b_lib, _ = timer(lambda: torch.bincount(ids, minlength=mon.bins))
+    # the bin ids read once, the counts written once: the zero z ids that
+    # fill kernel B's (z, x) interface are not counted
+    b_bound, b_by = bound_ms(4 * ids.numel() + 4 * mon.bins, ids.numel())
+    out["monitor"] = dict(
+        tensors=len(names), samples_per_tensor=sorted(samples), launches=mon_launches,
+        wall_s=monitor_s, drift_k0=report["k0"], flagged_others=flagged,
+        kernel=dict(shape=[1, mon.bins], samples=int(ids.numel()), ms=b_ms,
+                    host_us=b_host * 1e3, plain_ms=b_plain, library_ms=b_lib,
+                    bound_ms=b_bound, bound_by=b_by, max_abs_err=0.0))
+    log(f"11d monitor: {len(names)} tensors of {sorted(samples)} values, {monitor_s * 1e3:.1f} ms "
+        f"for capture + check, launches {mon_launches}; k0 x 4 flagged (distance "
+        f"{report['k0']['distance']:.4f}, bound {report['k0']['sampling_bound']:.4f}); "
+        f"{len(flagged)} of the other {len(names) - 1} flagged {flagged}; kernel B at (1, "
+        f"{mon.bins}) {b_ms * 1e3:.2f} us (plain {b_plain * 1e3:.2f}, bincount "
+        f"{b_lib * 1e3:.2f}, bound {b_bound * 1e3:.4f} us)")
+    del model, loops, first, second, engine, done
+    torch.cuda.empty_cache()
+
+    # -- 11c: decode consistency at full width in float32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg32, device=LM_DEVICE,
+                      generator=torch.Generator(device=LM_DEVICE).manual_seed(1))
+    toks = torch.from_numpy(batches[0][:2]).to(LM_DEVICE)
+    with torch.no_grad():
+        full, _ = model(toks)
+    logits, cache = model.prefill(toks[:, :LM_F32_SPLIT], LM_PROMPT)
+    steps = [logits]
+    for i in range(LM_F32_SPLIT, LM_PROMPT):
+        step, cache = model.decode_step(cache, toks[:, i])
+        steps.append(step[:, None])
+    got = torch.cat(steps, dim=1)
+    err = float((got - full).abs().max())
+    same_argmax = bool(torch.equal(got.argmax(-1), full.argmax(-1)))
+    scale = float(full.abs().max())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model, cache, full, got, steps, logits
+    torch.cuda.empty_cache()
+    check(err <= LM_F32_ATOL and same_argmax,
+          f"11c: max |dlogits| {err:.3g} (bound {LM_F32_ATOL}), argmax equal {same_argmax}")
+    out["f32_decode"] = dict(max_abs_dlogits=err, bound=LM_F32_ATOL, argmax_equal=same_argmax,
+                             max_abs_logit=scale, tokens=[2, LM_PROMPT], peak_gb=peak_gb)
+    log(f"11c float32: prefill {LM_F32_SPLIT} + decode {LM_PROMPT - LM_F32_SPLIT} against "
+        f"forward: max |dlogits| {err:.3g} (largest |logit| {scale:.3g}), argmax equal; "
+        f"peak {peak_gb:.1f} GB")
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 11 took {out['phase_s']:.1f}s")
+    emit({"check": "lm", **out})
+    return out
+
+
 # kernel name -> (its source, the pallas_call it replaces), and the path
 # whose run gives its launches: the first of PATHS that launches it
 KERNEL_ROWS = {
@@ -2477,6 +2801,9 @@ def main(argv=None) -> int:
     wide, _ = phase_engine_scale(torch, minute_spec(args.tuples), args.seed,
                                  check_name="wide_rows",
                                  expect=(53, 27_134) if full_size else None)
+    torch.cuda.empty_cache()
+    log(f"phase 11: the data layer and a full-width {LM_ARCH} on the card")
+    lm = phase_lm(torch, timer, smi)
 
     leaked = sorted(m for m in sys.modules if m.startswith("jax") or m == "repro"
                     or m.startswith("repro."))
@@ -2491,6 +2818,7 @@ def main(argv=None) -> int:
                  minute_fastmatch=wide["launches"], minute_scan=wide["scan_launches"],
                  minute_fastmatch_lowprec=wide["lowprec"]["fastmatch"]["launches"],
                  minute_scan_lowprec=wide["lowprec"]["scan"]["launches"],
+                 lm_select=lm["select"]["launches"], lm_monitor=lm["monitor"]["launches"],
                  fault_chaos=faults["chaos"]["launches"],
                  fault_quarantine=faults["quarantine"]["launches"],
                  fault_recovery=faults["recovery"]["launches"],
@@ -2512,6 +2840,9 @@ def main(argv=None) -> int:
             # the registry's binning: one launch a non-empty histogram read
             row["registry_launches"] = telemetry["registry_read"]["launches"]
             row["registry_shape"] = telemetry["registry_kernel"]
+            # the activation monitor's binning: one launch a monitored tensor
+            row["monitor_launches"] = lm["monitor"]["launches"]["histogram"]
+            row["monitor_shape"] = lm["monitor"]["kernel"]
         kernels.append(row)
     for row in kernels:
         check(all(isinstance(row[k], (int, float)) and math.isfinite(row[k])
@@ -2524,7 +2855,7 @@ def main(argv=None) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, device=device, kernels=kernels, scale=scale, serving=serving,
              faults=faults, telemetry=telemetry, mesh=mesh, tuner=tuner["report"],
-             wide_rows=wide,
+             wide_rows=wide, lm=lm,
              wall_s=time.perf_counter() - T0), indent=1))
     log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
     emit({"kernels": kernels})

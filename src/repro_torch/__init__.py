@@ -5,9 +5,12 @@ the three CUDA kernels (AnyActive marking, histogram ingest, batched
 distance) with a plain PyTorch version beside each, `core` the HistSim
 statistics and the shared-counts scheduling loop, `data` and `io` the
 synthetic datasets, the block layout and the block sources with their
-fault layer (retries, validation, quarantine, prefetch), `checkpoint`
-the on-disk snapshots, `serve` the query server and its supervisor, and
-`convert` carries data and state over from the reference.
+fault layer (retries, validation, quarantine, prefetch) and the token
+corpus with its FastMatch domain selection and stream, `checkpoint` the
+on-disk snapshots, `train` the activation drift monitor, `configs` and
+`models` the LM configurations and the dense / vlm transformer, `serve`
+the query server, its supervisor and the LM serving engine, and
+`convert` carries data, state and LM weights over from the reference.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no device given and no GPU present they raise

@@ -1,13 +1,15 @@
 """Carry data and state over from the reference package.
 
-The system has no weights; what it carries is its data and its state.
-These functions take plain numpy arrays (what ``jax.device_get`` of the
-reference's structures gives, or the reference's `BlockedDataset`
+The matching engine has no weights; what it carries is its data and its
+state. These functions take plain numpy arrays (what ``jax.device_get``
+of the reference's structures gives, or the reference's `BlockedDataset`
 fields) and build the port's counterparts, so both packages can start
 from the same dataset or the same mid-run state, or run the same kernel
 plans. Packed uint32 words
 are reinterpreted as int32 with the same bits; counters widen to int64.
-Nothing here imports the reference.
+`lm_params_from_numpy` loads an LM's parameter tree into the port's
+model: bf16 leaves move bit for bit through uint16, without importing
+``ml_dtypes``. Nothing here imports the reference.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from repro_torch.kernels.autotune import IngestPlan, PlanPair, TauPlan
 
 __all__ = [
     "dataset_from_numpy", "multi_state_from_numpy", "cursor_from_numpy", "plan_pair_from_fields",
+    "lm_params_from_numpy",
 ]
 
 _INT64_LEAVES = (
@@ -96,3 +99,79 @@ def plan_pair_from_fields(fields: Mapping) -> PlanPair:
     tau.validate()
     ingest.validate()
     return PlanPair(tau=tau, ingest=ingest)
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    """Dotted names -> leaves of a nested dict/list tree; a dict of
+    stacked per-layer arrays under ``layers`` (``scan_layers``) unstacks
+    into one entry per layer."""
+    if isinstance(tree, Mapping):
+        if prefix == "layers.":
+            tree = _unstack(tree)
+        else:
+            out = {}
+            for key, sub in tree.items():
+                out.update(_flatten(sub, f"{prefix}{key}."))
+            return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, sub in enumerate(tree):
+            out.update(_flatten(sub, f"{prefix}{i}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _unstack(stacked: Mapping) -> list:
+    leaves = _flatten(stacked)
+    depth = {np.shape(a)[0] for a in leaves.values()}
+    if len(depth) != 1:
+        raise ValueError(f"stacked layer leaves disagree on the layer count: {sorted(depth)}")
+    out = []
+    for i in range(depth.pop()):
+        layer: dict = {}
+        for name, arr in leaves.items():
+            *groups, leaf = name.split(".")
+            node = layer
+            for g in groups:
+                node = node.setdefault(g, {})
+            node[leaf] = arr[i]
+        out.append(layer)
+    return out
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A numpy leaf as a tensor with the same bits (bf16 via uint16)."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def lm_params_from_numpy(tree: Mapping, cfg, *, device=None):
+    """The port's model for ``cfg`` on ``device`` holding the reference's
+    parameters: ``tree`` is the reference's parameter tree with numpy
+    leaves (``jax.tree.map(np.asarray, params)``), its layers a list or,
+    under ``scan_layers``, stacked. Every leaf must match a parameter
+    by name, shape and dtype."""
+    from repro_torch.models import model_zoo
+
+    device = resolve_device(device)
+    model = model_zoo.build(cfg, torch.device("meta"))
+    leaves = _flatten(tree)
+    names = dict(model.named_parameters())
+    if set(leaves) != set(names):
+        raise ValueError(
+            f"parameter trees differ: missing {sorted(set(names) - set(leaves))}, "
+            f"unexpected {sorted(set(leaves) - set(names))}"
+        )
+    model = model.to_empty(device=device)
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            t = _tensor(leaves[name])
+            if t.shape != param.shape or t.dtype != param.dtype:
+                raise ValueError(
+                    f"{name}: got {tuple(t.shape)} {t.dtype}, "
+                    f"the model holds {tuple(param.shape)} {param.dtype}"
+                )
+            param.copy_(t)
+    return model

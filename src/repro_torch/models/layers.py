@@ -1,0 +1,402 @@
+"""Shared model layers: norms, RoPE, GQA attention (direct + online-softmax
+chunked), SwiGLU/GeGLU MLPs.
+
+Port of the math of `repro.models.layers`. Layers are plain functions
+over dict-like parameter groups (a `torch.nn.ParameterDict` or a dict of
+tensors) with the reference's names and its ``(d_in, d_out)`` weight
+layout. dtype policy, as in the reference: parameters in the config's
+dtype, every product the reference marks ``preferred_element_type=f32``
+produces f32 (here by upcasting both operands, the plain route) and is
+cast where the reference casts; softmax and norms run in f32. Attention
+is the reference's einsum and softmax, not a fused library kernel, so
+its numbers can be held against the reference.
+
+The logical-axis sharding helpers (`set_sharding_rules`,
+`logical_to_pspec`, `manual_mode`, `shard`) belong to the LM-sharding
+slice (ROADMAP A12e) and are not here; on one device they are no-ops.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "AttnSpec",
+    "apply_rope",
+    "attention",
+    "attention_chunked",
+    "attention_direct",
+    "attention_out",
+    "boundary_cast",
+    "decode_attention",
+    "dense_init",
+    "embed_init",
+    "init_attention",
+    "init_layernorm",
+    "init_mlp",
+    "init_mlp_gelu",
+    "init_rmsnorm",
+    "layer_norm",
+    "mlp_geglu",
+    "mlp_gelu",
+    "mlp_swiglu",
+    "qkv_proj",
+    "rms_norm",
+    "rope_freqs",
+    "set_tp_reduce_dtype",
+]
+
+# dtype of the TP output projections' (wo / w_down) products: None is
+# f32 accumulation, as in the reference's baseline
+_TP_REDUCE_DTYPE = [None]
+
+
+def set_tp_reduce_dtype(dtype) -> None:
+    _TP_REDUCE_DTYPE[0] = dtype
+
+
+def _out_proj_dtype():
+    return _TP_REDUCE_DTYPE[0] or torch.float32
+
+
+def boundary_cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    """Cast an activation at a dot boundary when a TP reduce dtype is set
+    (the reference's bf16-TP-reduce option); a no-op otherwise."""
+    return t.to(dtype) if _TP_REDUCE_DTYPE[0] is not None else t
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+    """``a @ b`` (b: (d_in, d_out)) with the product in ``out_dtype``:
+    both operands upcast, so a bf16 product is not rounded before the
+    bias add or the cast the reference makes."""
+    return torch.matmul(a.to(out_dtype), b.to(out_dtype))
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An f32 einsum of two operands (``preferred_element_type=f32``)."""
+    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(shape, dtype, *, generator=None, device=None, scale: float = 1.0):
+    """N(0, (scale / sqrt(fan_in))^2) in f32, cast to ``dtype``."""
+    fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
+    std = scale / (fan_in ** 0.5)
+    w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return (w * std).to(dtype)
+
+
+def embed_init(shape, dtype, *, generator=None, device=None):
+    w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, dtype, *, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rms_norm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+def init_layernorm(d: int, dtype, *, device=None) -> dict:
+    return {
+        "scale": torch.ones((d,), dtype=dtype, device=device),
+        "bias": torch.zeros((d,), dtype=dtype, device=device),
+    }
+
+
+def layer_norm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].to(torch.float32) + params["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
+    angles = positions[..., :, None].to(torch.float32) * freqs  # (..., seq, half)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    causal: bool = True
+    sliding_window: int = 0  # 0 = unbounded
+    chunk: int = 1024
+    impl: str = "auto"  # auto | direct | chunked
+    decode_seq_shard: bool = False  # flash-decoding cache layout (§Perf)
+    gqa_grouped: bool = False  # grouped einsum instead of kv-repeat (§Perf)
+
+
+def init_attention(d_model: int, spec: AttnSpec, dtype, qkv_bias: bool, *,
+                   generator=None, device=None) -> dict:
+    h, kvh, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    kw = dict(generator=generator, device=device)
+    p = {
+        "wq": dense_init((d_model, h * hd), dtype, **kw),
+        "wk": dense_init((d_model, kvh * hd), dtype, **kw),
+        "wv": dense_init((d_model, kvh * hd), dtype, **kw),
+        "wo": dense_init((h * hd, d_model), dtype, **kw),
+    }
+    if qkv_bias:
+        p["bq"] = torch.zeros((h * hd,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((kvh * hd,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((kvh * hd,), dtype=dtype, device=device)
+    return p
+
+
+def qkv_proj(params, x: torch.Tensor, spec: AttnSpec):
+    """(B,S,D) -> q (B,S,H,hd), k/v (B,S,Hkv,hd)."""
+    b, s, _ = x.shape
+    q = _dot(x, params["wq"])
+    k = _dot(x, params["wk"])
+    v = _dot(x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
+    q = q.to(x.dtype).reshape(b, s, spec.num_heads, spec.head_dim)
+    k = k.to(x.dtype).reshape(b, s, spec.num_kv_heads, spec.head_dim)
+    v = v.to(x.dtype).reshape(b, s, spec.num_kv_heads, spec.head_dim)
+    return q, k, v
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    if groups == 1:
+        return k
+    return torch.repeat_interleave(k, groups, dim=2)
+
+
+def _mask_bias(q_pos, k_pos, causal: bool, window: int) -> torch.Tensor:
+    """(Sq, Sk) additive f32 bias: 0 allowed, -inf masked."""
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, -math.inf)
+
+
+def attention_direct(q, k, v, spec: AttnSpec, q_pos, k_pos) -> torch.Tensor:
+    """Materialized-scores attention. q:(B,Sq,H,hd) k/v:(B,Sk,Hkv,hd)."""
+    groups = spec.num_heads // spec.num_kv_heads
+    scale = spec.head_dim ** -0.5
+    bias = _mask_bias(q_pos, k_pos, spec.causal, spec.sliding_window)
+    if spec.gqa_grouped and groups > 1:
+        # contract each q-head group against its kv head directly, with no
+        # repeated K/V
+        b, sq, h, hd = q.shape
+        q5 = q.reshape(b, sq, spec.num_kv_heads, groups, hd)
+        scores = _einsum("bqhgd,bkhd->bhgqk", q5, k) * scale
+        scores = scores + bias[None, None, None]
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = _einsum("bhgqk,bkhd->bqhgd", probs, v)
+        return out.to(q.dtype).reshape(b, sq, h, hd)
+    k = _repeat_kv(k, groups)
+    v = _repeat_kv(v, groups)
+    scores = _einsum("bqhd,bkhd->bhqk", q, k) * scale
+    scores = scores + bias[None, None]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return _einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
+
+
+def attention_chunked(q, k, v, spec: AttnSpec, q_pos, k_pos) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (flash-style), a loop in
+    place of the reference's scan.
+
+    Never materializes the (Sq, Sk) score matrix: peak extra memory is
+    (B, H, Sq, chunk). Exact same math as attention_direct.
+    """
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    groups = spec.num_heads // spec.num_kv_heads
+    chunk = min(spec.chunk, sk)
+    n_chunks = -(-sk // chunk)
+    pad = n_chunks * chunk - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=torch.iinfo(torch.int32).max)
+    scale = hd ** -0.5
+    grouped = spec.gqa_grouped and groups > 1
+    hkv = spec.num_kv_heads
+
+    m = torch.full((b, h, sq), -math.inf, dtype=torch.float32, device=q.device)
+    denom = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, h, hd), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        kci = k[:, c * chunk : (c + 1) * chunk]
+        vci = v[:, c * chunk : (c + 1) * chunk]
+        pci = k_pos[c * chunk : (c + 1) * chunk]
+        if grouped:
+            q5 = q.reshape(b, sq, hkv, groups, hd)
+            s = (_einsum("bqhgd,bkhd->bhgqk", q5, kci) * scale).reshape(b, h, sq, chunk)
+        else:
+            s = _einsum("bqhd,bkhd->bhqk", q, _repeat_kv(kci, groups)) * scale
+        s = s + _mask_bias(q_pos, pci, spec.causal, spec.sliding_window)[None, None]
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        # guard fully-masked rows: m_new may be -inf; exp(-inf - -inf)=nan
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        p = torch.exp(s - m_safe[..., None])
+        alpha = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
+        denom = denom * alpha + torch.sum(p, dim=-1)
+        if grouped:
+            p5 = p.to(q.dtype).reshape(b, hkv, groups, sq, chunk)
+            pv = _einsum("bhgqk,bkhd->bqhgd", p5, vci).reshape(b, sq, h, hd)
+        else:
+            pv = _einsum("bhqk,bkhd->bqhd", p.to(q.dtype), _repeat_kv(vci, groups))
+        acc = acc * alpha.transpose(1, 2)[..., None] + pv
+        m = m_new
+    denom = torch.clamp_min(denom, 1e-30)
+    out = acc / denom.transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+def attention(q, k, v, spec: AttnSpec, q_pos, k_pos) -> torch.Tensor:
+    impl = spec.impl
+    if impl == "auto":
+        impl = "chunked" if k.shape[1] > 2048 else "direct"
+    fn = attention_chunked if impl == "chunked" else attention_direct
+    return fn(q, k, v, spec, q_pos, k_pos)
+
+
+def attention_out(params, attn: torch.Tensor) -> torch.Tensor:
+    b, s, h, hd = attn.shape
+    out = _dot(attn.reshape(b, s, h * hd), params["wo"], _out_proj_dtype())
+    return out.to(attn.dtype)
+
+
+def decode_attention(params, x, cache_k, cache_v, pos, spec: AttnSpec,
+                     rope_theta: float = 0.0) -> tuple:
+    """Single-token decode. x:(B,1,D); cache:(B,Smax,Hkv,hd); pos:(B,)
+    int32, equal in every row (the serving engine's one position).
+
+    Returns (attn_out (B,1,D), cache_k, cache_v). The new key and value
+    are written into the caches in place at ``pos[0]`` clamped to
+    [0, Smax - 1], as the reference's ``dynamic_update_slice`` clamps
+    its start: a write past the end overwrites the last slot.
+    """
+    q, k, v = qkv_proj(params, x, spec)
+    if rope_theta:
+        q = apply_rope(q, pos[:, None], rope_theta)
+        k = apply_rope(k, pos[:, None], rope_theta)
+    smax = cache_k.shape[1]
+    idx = torch.clamp(pos[:1].to(torch.int64), 0, smax - 1)
+    cache_k.index_copy_(1, idx, k)
+    cache_v.index_copy_(1, idx, v)
+    groups = spec.num_heads // spec.num_kv_heads
+    scale = spec.head_dim ** -0.5
+    k_pos = torch.arange(smax, dtype=torch.int32, device=x.device)
+    valid = k_pos[None, :] <= pos[:, None]
+    if spec.sliding_window > 0:
+        valid &= k_pos[None, :] > (pos[:, None] - spec.sliding_window)
+
+    if spec.decode_seq_shard:
+        # the flash-decoding layout's grouped einsum straight against the
+        # cache, with no head repeat (one device: no sharding to apply)
+        bq, hk = q.shape[0], spec.num_kv_heads
+        q5 = q.reshape(bq, 1, hk, groups, spec.head_dim)
+        s = _einsum("bqhgd,bkhd->bhgqk", q5, cache_k) * scale
+        s = torch.where(valid[:, None, None, None, :], s, -math.inf)
+        p = torch.softmax(s, dim=-1).to(x.dtype)
+        o = _einsum("bhgqk,bkhd->bqhgd", p, cache_v)
+        out = o.to(x.dtype).reshape(bq, 1, spec.num_heads, spec.head_dim)
+        return attention_out(params, out), cache_k, cache_v
+
+    kk = _repeat_kv(cache_k, groups)
+    vv = _repeat_kv(cache_v, groups)
+    s = _einsum("bqhd,bkhd->bhqk", q, kk) * scale
+    s = torch.where(valid[:, None, None, :], s, -math.inf)
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    out = _einsum("bhqk,bkhd->bqhd", p, vv).to(x.dtype)
+    return attention_out(params, out), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(d_model: int, d_ff: int, dtype, *, generator=None, device=None) -> dict:
+    kw = dict(generator=generator, device=device)
+    return {
+        "w_gate": dense_init((d_model, d_ff), dtype, **kw),
+        "w_up": dense_init((d_model, d_ff), dtype, **kw),
+        "w_down": dense_init((d_ff, d_model), dtype, **kw),
+    }
+
+
+def mlp_swiglu(params, x: torch.Tensor) -> torch.Tensor:
+    g = boundary_cast(_dot(x, params["w_gate"]), x.dtype)
+    u = boundary_cast(_dot(x, params["w_up"]), x.dtype)
+    h = (F.silu(g) * u).to(x.dtype)
+    return _dot(h, params["w_down"], _out_proj_dtype()).to(x.dtype)
+
+
+def mlp_geglu(params, x: torch.Tensor) -> torch.Tensor:
+    g = boundary_cast(_dot(x, params["w_gate"]), x.dtype)
+    u = boundary_cast(_dot(x, params["w_up"]), x.dtype)
+    # jax.nn.gelu's default is the tanh approximation
+    h = (F.gelu(g, approximate="tanh") * u).to(x.dtype)
+    return _dot(h, params["w_down"], _out_proj_dtype()).to(x.dtype)
+
+
+def init_mlp_gelu(d_model: int, d_ff: int, dtype, *, generator=None, device=None) -> dict:
+    kw = dict(generator=generator, device=device)
+    return {
+        "w_up": dense_init((d_model, d_ff), dtype, **kw),
+        "b_up": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "w_down": dense_init((d_ff, d_model), dtype, **kw),
+        "b_down": torch.zeros((d_model,), dtype=dtype, device=device),
+    }
+
+
+def mlp_gelu(params, x: torch.Tensor) -> torch.Tensor:
+    h = _dot(x, params["w_up"]) + params["b_up"].to(torch.float32)
+    h = F.gelu(h, approximate="tanh").to(x.dtype)
+    out = _dot(h, params["w_down"]) + params["b_down"].to(torch.float32)
+    return out.to(x.dtype)

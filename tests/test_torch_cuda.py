@@ -860,3 +860,72 @@ def test_two_gloo_ranks_on_one_card_lockstep(cuda, shape):
         assert all(res["checks"]) and res["retired"] > 0 and res["on_card"], res
         for kernel in ("anyactive", "histogram", "distance_multi"):
             assert res["launched"][kernel] > 0, (kernel, res["launched"])
+
+
+# ---------------------------------------------------------------------------
+# the data layer and the LM on the card
+# ---------------------------------------------------------------------------
+
+
+def test_monitor_bin_ids_on_card_equal_cpu(cuda):
+    """CUDA's saturating cast and the CPU's wrapping one give the same
+    bins, because the ids are clamped in float first."""
+    from repro_torch.train import monitor
+
+    rng = np.random.default_rng(11)
+    x = np.concatenate([
+        np.asarray([np.nan, np.inf, -np.inf, 1e30, -1e30, 3e38, -3e38, -8.0, 8.0, 7.9999995,
+                    -8.0000005, 0.0], np.float32),
+        (rng.standard_normal(100_000) * 5).astype(np.float32),
+    ])
+    for bins in (64, 7):
+        want = monitor._bin_ids(torch.from_numpy(x), -8.0, 8.0, bins)
+        got = monitor._bin_ids(_t(x, cuda), -8.0, 8.0, bins)
+        assert torch.equal(got.cpu(), want)
+        assert int(want[0]) == 0 and int(want[1]) == bins - 1 and int(want[3]) == bins - 1
+
+
+@pytest.mark.parametrize("n", [0, 1, 4096, 587_776])
+def test_monitor_histogram_is_kernel_b(cuda, n):
+    """Kernel B at (1, 64), the monitor's shape, bitwise `histogram_ref`,
+    one launch a monitored tensor."""
+    from repro_torch.train import ActivationMonitor
+
+    rng = np.random.default_rng(n)
+    x = _t((rng.standard_normal(n) * 3).astype(np.float32), cuda).to(torch.bfloat16)
+    mon = ActivationMonitor(names=["a", "b"], bins=64)
+    before = ops.KERNELS["histogram"].launches
+    h = mon._histogram({"a": x, "b": x * 4})
+    assert ops.KERNELS["histogram"].launches == before + 2
+    from repro_torch.train import monitor
+
+    for row, t in zip(h, (x, x * 4)):
+        ids = monitor._bin_ids(t, mon.lo, mon.hi, mon.bins)
+        want = ref.histogram_ref(torch.zeros_like(ids), ids, v_z=1, v_x=64)[0]
+        assert np.array_equal(row, want.cpu().numpy())
+        assert row.sum() == n
+
+
+def test_lm_decode_consistency_on_card(cuda):
+    """prefill(first half) + decode(second half) == forward at the smoke
+    config on the card, in float32 (atol 1e-4) and bfloat16 (0.06)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model_zoo import get_model
+
+    for dtype, atol in (("float32", 1e-4), ("bfloat16", 0.06)):
+        cfg = dataclasses.replace(get_smoke_config("qwen2_5_3b"), dtype=dtype)
+        model = get_model(cfg, device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(0))
+        toks = _t(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32),
+                  cuda)
+        with torch.no_grad():
+            full, _ = model(toks)
+        lg, cache = model.prefill(toks[:, :8], 16)
+        outs = []
+        for t in range(8, 16):
+            step, cache = model.decode_step(cache, toks[:, t])
+            outs.append(step)
+        torch.testing.assert_close(lg, full[:, :8], atol=atol, rtol=0)
+        torch.testing.assert_close(torch.stack(outs, 1), full[:, 8:], atol=atol, rtol=0)

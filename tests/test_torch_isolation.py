@@ -35,6 +35,11 @@ def test_every_module_is_covered():
         "repro_torch.checkpoint.manager", "repro_torch.serve.supervisor",
         "repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.tracer",
         "repro_torch.obs.telemetry", "repro_torch.core.distributed", "repro_torch.core.pump",
+        "repro_torch.data.corpus", "repro_torch.core.extensions", "repro_torch.data.pipeline",
+        "repro_torch.train", "repro_torch.train.monitor", "repro_torch.configs",
+        "repro_torch.configs.base", "repro_torch.configs.qwen2_5_3b", "repro_torch.models.layers",
+        "repro_torch.models.transformer", "repro_torch.models.model_zoo",
+        "repro_torch.serve.engine",
     ):
         assert expected in names
 
