@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FastMatch on one NVIDIA GPU and check it.
 
-Run from the root of a checkout (one card; about 9 to 12 minutes at the
+Run from the root of a checkout (one card; about 10 to 13 minutes at the
 default size, most of it generating the two datasets on the host):
 
     python3 chip_smoke.py [--tuples N] [--seed S]
@@ -197,13 +197,37 @@ Phases, each of which raises (non-zero exit) when a check fails:
    64) beside `torch.bincount`. 11c: the same configuration in float32:
    prefill 128 tokens and decode the next 128, against `forward` on all
    256 (max |dlogits| <= 1e-3, equal argmax). ``{"check": "lm", ...}``.
+12. Training, last (after phase 11 freed its model). 12a: the launcher's
+   `train_loop` on a full-width qwen2.5-3b as its config defines it (bf16,
+   AdamW, remat "full"; weights from a generator seeded 0), 4 steps of 8 x
+   256 tokens at lr 3e-4, behind the launcher's own default corpus
+   (`CorpusSpec(vocab_size=151936, num_blocks=512, block_tokens=2048,
+   seed=0)`): the selected domains are the planted `close_ids`, kernels A
+   and B once a round of the selection and kernel C once a statistics step
+   (counts at 0 just before the loop, read just after: path
+   ``train_select``; the LM itself runs none of the repo's kernels), every
+   step ``step_ok`` 1 with a finite loss and grad norm, every weight matrix
+   changed; it prints ms a step (median of the steps after the first),
+   tokens/s and peak memory. 12b: three more steps on one fixed batch, the
+   loss falling strictly at each; the first profiled (device time, top
+   kernels, launches). 12c: a NaN in an embedding row the batch uses: the
+   step reports ``step_ok`` 0, every parameter and moment bitwise unchanged
+   (exact digests of every leaf), the step incremented. 12d: the smoke
+   config in float32, the same weights on the card and the CPU: one step
+   each within the CPU twins' bars (loss 1e-5, grad norm 1e-5 relative,
+   parameters 5 % of the learning rate); remat none / full / dots give
+   bitwise equal grads on the card. 12e: at the smoke config on the card,
+   10 steps against 5, a save and a resume to 10 (atol 2e-2, the
+   reference test's), and a bf16 train state through `CheckpointManager`
+   bitwise. ``{"check": "train", ...}``.
 
 Every kernel must have launched on some path, each path's counts set to
 0 just before it and read just after; a kernel's ``launches`` in the
 ``kernels`` line are those of the first path that runs it (``path``),
 with every path's count beside them; kernel B's row adds the registry
 read's launches and its registry-shape timing, and the monitor's
-launches and its (1, 64) timing (phase 11d). The last lines are the
+launches and its (1, 64) timing (phase 11d); every row's
+``launches_by_path`` includes ``train_select`` (phase 12a). The last lines are the
 ``kernels`` JSON line, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
 also go to ``chiprun_out/chip_smoke.json``. Exits 2 without a CUDA
@@ -217,6 +241,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2730,6 +2755,274 @@ def phase_lm(torch, timer, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training
+# ---------------------------------------------------------------------------
+
+TRAIN_DEVICE = "cuda"
+TRAIN_ARCH = "qwen2_5_3b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 8, 256, 3e-4
+TRAIN_CORPUS = dict(num_blocks=512, block_tokens=2048, seed=0)  # the launcher's default
+TRAIN_F32_ATOL, TRAIN_F32_PARAM_FRAC = 1e-5, 0.05  # the CPU twins' f32 bars
+TRAIN_RESUME_ATOL = 2e-2  # tests/test_train_serve.py's resume bar
+TINY_CORPUS = dict(num_domains=16, num_buckets=32, vocab_size=256, num_blocks=256,
+                   block_tokens=512, n_reference=4, reference_alpha=0.08, seed=1)
+
+
+def _bits_digest(torch, t) -> tuple:
+    """An exact fingerprint of a tensor's bits: the plain and the
+    position-weighted sums of its words as int64 (wrapping)."""
+    t = t.detach().reshape(-1)
+    words = t.view(torch.int16 if t.element_size() == 2 else torch.int32).to(torch.int64)
+    weights = torch.arange(1, words.numel() + 1, dtype=torch.int64, device=t.device) % 65521
+    return int(words.sum()), int((words * weights).sum())
+
+
+def _state_digests(torch, state) -> list:
+    from repro_torch.optimizer.base import tree_leaves
+
+    return [_bits_digest(torch, t) for t in tree_leaves((state.params, state.opt_state))]
+
+
+def _smoke_models(torch, dtype: str, remat: str = "none"):
+    """The smoke qwen2.5-3b drawn on the CPU from seed 0 and its copy on the
+    card (the same weights on both sides)."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model_zoo import get_model
+
+    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH), dtype=dtype, remat=remat)
+    host = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    return host, copy.deepcopy(host).to(TRAIN_DEVICE)
+
+
+def phase_train(torch, card: str) -> dict:
+    """Phase 12 (see the module docstring): training on the card."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import CorpusSpec, make_corpus
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import train as launch
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.optimizer.base import tree_leaves
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.train.step import make_loss_fn
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    # -- 12a: the entry point at full width
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.optimizer == "adamw" and cfg.remat == "full",
+          f"12a: {TRAIN_ARCH} is {cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}")
+    spec = CorpusSpec(vocab_size=cfg.vocab_size, **TRAIN_CORPUS)
+    close_ids = make_corpus(spec).close_ids
+    built, step_times = {}, []
+    real_get_model = launch.get_model
+
+    def recording_get_model(*args, **kwargs):
+        model = real_get_model(*args, **kwargs)
+        torch.cuda.synchronize()
+        built["model"] = model
+        built["digests"] = [_bits_digest(torch, p) for p in model.parameters()]
+        return model
+
+    def log_fn(msg):
+        if msg.startswith("[train]"):
+            torch.cuda.synchronize()
+            step_times.append(time.perf_counter())
+        log(f"  {msg}")
+
+    launch.get_model = recording_get_model
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t = time.perf_counter()
+    try:
+        run = launch.train_loop(cfg=cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                                seq_len=TRAIN_SEQ, lr=TRAIN_LR, seed=0, log_every=1,
+                                log_fn=log_fn, device=TRAIN_DEVICE)
+    finally:
+        launch.get_model = real_get_model
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model, state, sel = run["model"], run["state"], run["selection"]
+    res = sel.result
+    selected = np.sort(sel.selected_domains)
+    check(model is built["model"], "12a: the loop trained another model than it built")
+    check(np.array_equal(selected, close_ids),
+          f"12a: selected {selected.tolist()}, planted {close_ids.tolist()}")
+    c = sum(launches[name] for name in C_FORMS)
+    check(launches["anyactive"] == launches["histogram"] == res.rounds
+          and res.rounds <= c <= res.rounds + 1,
+          f"12a: launches {launches} for {res.rounds} rounds of the selection")
+    hist = run["history"]
+    check(len(hist) == TRAIN_STEPS and int(state.step) == TRAIN_STEPS,
+          f"12a: {len(hist)} logged steps, state at step {int(state.step)}")
+    check(all(h["step_ok"] == 1.0 and math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), f"12a: a step was skipped or not finite: {hist}")
+    # every weight matrix moved; a norm scale at 1.0 may not, in bf16: an
+    # update of lr is under half its ulp (2^-8)
+    moved = {name: d != _bits_digest(torch, p)
+             for d, (name, p) in zip(built["digests"], model.named_parameters())}
+    still = sorted(name for name, p in model.named_parameters()
+                   if not moved[name] and (p.ndim >= 2 or not name.endswith("scale")))
+    check(not still, f"12a: parameters that did not change: {still}")
+    step_ms = [(b - a) * 1e3 for a, b in zip(step_times, step_times[1:])]
+    warm_ms = statistics.median(step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out["loop"] = dict(
+        arch=TRAIN_ARCH, dtype=cfg.dtype, remat=cfg.remat, optimizer=cfg.optimizer,
+        params=sum(p.numel() for p in model.parameters()), steps=TRAIN_STEPS,
+        leaves_moved=sum(moved.values()), leaves=len(moved),
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, loop_s=loop_s, step_ms_after_first=step_ms,
+        ms_per_step=warm_ms, tokens_per_s=tokens / warm_ms * 1e3, peak_gb=peak_gb,
+        losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
+        select=dict(ids=selected.tolist(), rounds=res.rounds, blocks_read=res.blocks_read,
+                    blocks_scanned_frac=sel.blocks_scanned_frac,
+                    delta_upper=res.delta_upper, launches=launches))
+    log(f"12a train_loop {TRAIN_ARCH} ({out['loop']['params'] / 1e9:.3f}B params, bf16, AdamW, "
+        f"remat full), {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: selection "
+        f"{selected.tolist()} in {res.rounds} rounds, launches {launches}; ms a step after the "
+        f"first {[round(x, 1) for x in step_ms]} (median {warm_ms:.1f}, "
+        f"{out['loop']['tokens_per_s']:.0f} tokens/s), peak {peak_gb:.2f} GB, loop "
+        f"{loop_s:.1f}s; {card}")
+
+    # -- 12b: learning on one fixed batch (its first step profiled)
+    corpus = make_corpus(spec)
+    batch = next(TokenStream(corpus, sel.selected_domains, batch_size=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ, seed=1))
+    batch = {"tokens": torch.from_numpy(batch["tokens"]).to(TRAIN_DEVICE)}
+    del corpus
+    optimizer = get_optimizer(cfg.optimizer, TRAIN_LR)
+    train_step = make_train_step(model, optimizer)
+    losses = []
+    for i in range(3):
+        if i == 0:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                state, m = train_step(state, batch)
+                torch.cuda.synchronize()
+                prof_wall_ms = (time.perf_counter() - t) * 1e3
+        else:
+            state, m = train_step(state, batch)
+        check(float(m["step_ok"]) == 1.0, f"12b: step {i} skipped")
+        losses.append(float(m["loss"]))
+    check(all(a > b for a, b in zip(losses, losses[1:])),
+          f"12b: the loss on one batch did not fall at every step: {losses}")
+    device_ms, by_kernel, by_host_op = _profile_tables(torch, prof)
+    out["learn"] = dict(losses=losses)
+    out["profiled_step"] = dict(
+        wall_ms=prof_wall_ms, device_ms=device_ms,
+        device_kernels=sum(n for _, _, n in by_kernel),
+        host_launches=sum(n for name, _, n in by_host_op if name.startswith("cudaLaunch")),
+        top_kernels=by_kernel[:10], top_host_ops=by_host_op[:8])
+    del prof
+    log(f"12b one batch, 3 steps: losses {[round(x, 5) for x in losses]} (strictly falling); "
+        f"a profiled step: device {device_ms:.1f} of {prof_wall_ms:.1f} ms wall, "
+        f"{out['profiled_step']['device_kernels']} device kernels, "
+        f"{out['profiled_step']['host_launches']} launches; top "
+        f"{[(name[:50], round(ms, 1), n) for name, ms, n in by_kernel[:5]]}")
+
+    # -- 12c: the guard at full width
+    row = int(batch["tokens"][0, 5])
+    with torch.no_grad():
+        model.embed["table"][row] = float("nan")
+    before = _state_digests(torch, state)
+    step_before = int(state.step)
+    state, m = train_step(state, batch)
+    after = _state_digests(torch, state)
+    check(float(m["step_ok"]) == 0.0, f"12c: the NaN step was not skipped: {m}")
+    check(before == after, "12c: a parameter or moment changed on a skipped step")
+    check(int(state.step) == step_before + 1, "12c: the step did not increment")
+    out["guard"] = dict(step_ok=float(m["step_ok"]), loss=float(m["loss"]), leaves=len(before),
+                        unchanged=True, step=int(state.step))
+    log(f"12c guard: NaN in embedding row {row}: step_ok 0, {len(before)} leaves bitwise "
+        f"unchanged, step {step_before} -> {int(state.step)}")
+    del model, state, run, built, train_step, batch, m
+    torch.cuda.empty_cache()
+
+    # -- 12d: card against CPU at the smoke config, and remat on the card
+    host, dev = _smoke_models(torch, "float32")
+    opt = get_optimizer("adamw", 1e-3)
+    hs, ds = TrainState.create(host, opt), TrainState.create(dev, opt)
+    toks = np.random.default_rng(0).integers(0, host.cfg.vocab_size, (2, 16)).astype(np.int32)
+    hs, hm = make_train_step(host, opt)(hs, {"tokens": torch.from_numpy(toks)})
+    ds, dm = make_train_step(dev, opt)(ds, {"tokens": torch.from_numpy(toks).to(TRAIN_DEVICE)})
+    loss_err = max(abs(float(dm[k]) - float(hm[k])) for k in ("loss", "ce"))
+    gnorm_rel = abs(float(dm["grad_norm"]) / float(hm["grad_norm"]) - 1)
+    param_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                    for a, b in zip(tree_leaves(ds.params), tree_leaves(hs.params)))
+    check(loss_err <= TRAIN_F32_ATOL and gnorm_rel <= TRAIN_F32_ATOL
+          and param_err <= TRAIN_F32_PARAM_FRAC * 1e-3,
+          f"12d: card against CPU: loss {loss_err:.3g}, grad_norm {gnorm_rel:.3g} relative, "
+          f"params {param_err:.3g}")
+    toks_c = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 32))
+                              .astype(np.int32)).to(TRAIN_DEVICE)
+    grads = {}
+    for remat in ("none", "full", "dots"):
+        dev.cfg = dataclasses.replace(dev.cfg, remat=remat)
+        loss = make_loss_fn(dev)({"tokens": toks_c})[0]
+        loss.backward()
+        grads[remat] = [loss.detach()] + [p.grad.clone() for p in tree_leaves(ds.params)]
+        for p in tree_leaves(ds.params):
+            p.grad = None
+    remat_equal = {r: all(torch.equal(a, b) for a, b in zip(grads[r], grads["none"]))
+                   for r in ("full", "dots")}
+    check(all(remat_equal.values()), f"12d: remat grads differ from none: {remat_equal}")
+    out["card_vs_cpu"] = dict(loss_abs=loss_err, grad_norm_rel=gnorm_rel, param_abs=param_err,
+                              bars=dict(loss=TRAIN_F32_ATOL, grad_norm=TRAIN_F32_ATOL,
+                                        params=TRAIN_F32_PARAM_FRAC * 1e-3),
+                              remat_bitwise=remat_equal)
+    log(f"12d smoke f32 card against CPU: loss {loss_err:.3g}, grad_norm {gnorm_rel:.3g} "
+        f"relative, params {param_err:.3g}; remat full / dots grads bitwise none's")
+    del host, dev, hs, ds, grads
+
+    # -- 12e: resume, and a bf16 state through the checkpoint manager
+    tiny = make_corpus(CorpusSpec(**TINY_CORPUS))
+    from repro_torch.configs import get_smoke_config
+
+    kw = dict(cfg=get_smoke_config(TRAIN_ARCH), batch_size=4, seq_len=64, lr=1e-3, corpus=tiny,
+              select_k=4, log_fn=lambda *_: None, seed=3, device=TRAIN_DEVICE)
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as tmp:
+        full = launch.train_loop(steps=10, **kw)
+        launch.train_loop(steps=5, ckpt_dir=tmp, ckpt_every=5, **kw)
+        resumed = launch.train_loop(steps=10, ckpt_dir=tmp, ckpt_every=5, **kw)
+        resume_err = max(float((a.detach().float() - b.detach().float()).abs().max())
+                         for a, b in zip(tree_leaves(full["state"].params),
+                                         tree_leaves(resumed["state"].params)))
+        check(int(resumed["state"].step) == 10 and resume_err <= TRAIN_RESUME_ATOL,
+              f"12e: resumed to step {int(resumed['state'].step)}, max |dparam| {resume_err:.3g}")
+        mgr = CheckpointManager(os.path.join(tmp, "roundtrip"))
+        saved = resumed["state"]
+        mgr.save(saved.to_disk(), 10)
+        _, fresh_model = _smoke_models(torch, "bfloat16")
+        fresh = TrainState.create(fresh_model, get_optimizer("adamw", 1e-3))
+        loaded = fresh.load_(mgr.restore(fresh.skeleton()))
+        round_trip = _state_digests(torch, loaded) == _state_digests(torch, saved)
+        check(round_trip and int(loaded.step) == 10,
+              "12e: a bf16 train state did not round-trip bitwise")
+    out["resume"] = dict(max_abs_dparam=resume_err, bar=TRAIN_RESUME_ATOL,
+                         bf16_round_trip_bitwise=round_trip)
+    log(f"12e resume 5 + 5 against 10 uninterrupted: max |dparam| {resume_err:.3g} (bar "
+        f"{TRAIN_RESUME_ATOL}); bf16 state round-trips bitwise")
+    del full, resumed, saved, fresh, loaded, fresh_model
+    torch.cuda.empty_cache()
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12 took {out['phase_s']:.1f}s")
+    emit({"check": "train", **out})
+    return out
+
+
 # kernel name -> (its source, the pallas_call it replaces), and the path
 # whose run gives its launches: the first of PATHS that launches it
 KERNEL_ROWS = {
@@ -2804,6 +3097,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"phase 11: the data layer and a full-width {LM_ARCH} on the card")
     lm = phase_lm(torch, timer, smi)
+    log(f"phase 12: training a full-width {TRAIN_ARCH} on the card")
+    train = phase_train(torch, smi)
 
     leaked = sorted(m for m in sys.modules if m.startswith("jax") or m == "repro"
                     or m.startswith("repro."))
@@ -2819,6 +3114,7 @@ def main(argv=None) -> int:
                  minute_fastmatch_lowprec=wide["lowprec"]["fastmatch"]["launches"],
                  minute_scan_lowprec=wide["lowprec"]["scan"]["launches"],
                  lm_select=lm["select"]["launches"], lm_monitor=lm["monitor"]["launches"],
+                 train_select=train["loop"]["select"]["launches"],
                  fault_chaos=faults["chaos"]["launches"],
                  fault_quarantine=faults["quarantine"]["launches"],
                  fault_recovery=faults["recovery"]["launches"],
@@ -2855,7 +3151,7 @@ def main(argv=None) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, device=device, kernels=kernels, scale=scale, serving=serving,
              faults=faults, telemetry=telemetry, mesh=mesh, tuner=tuner["report"],
-             wide_rows=wide, lm=lm,
+             wide_rows=wide, lm=lm, train=train,
              wall_s=time.perf_counter() - T0), indent=1))
     log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
     emit({"kernels": kernels})

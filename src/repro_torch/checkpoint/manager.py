@@ -9,6 +9,8 @@ byte, so a snapshot written by either package restores in the other:
         CHECKSUMS.json       sha256 of each file's bytes, written last
     <dir>/LATEST             "step_<N>", committed by rename
 
+A bf16 leaf is stored as its bits in a uint16 ``.npy`` with ``"dtype":
+"bfloat16"`` in its metadata, and restores as bf16, as in the reference.
 Leaves are named as the reference's ``jax.tree_util`` paths name them:
 a dict key as itself (keys sorted), a list or tuple index as its
 number, a `NamedTuple` field as ``.field`` (so a `CacheSnapshot` is
@@ -99,10 +101,25 @@ def _rebuild_parts(parts, leaves) -> list:
     return out
 
 
-def _to_numpy(leaf) -> np.ndarray:
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """(the array a leaf's file holds, the leaf's logical dtype): a bf16
+    tensor goes as its bits in a uint16 array (npy has no bf16), as the
+    reference stores it."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A leaf's file back as a tensor of its logical dtype."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 class CheckpointManager:
@@ -161,14 +178,14 @@ class CheckpointManager:
         nbytes = 0  # the arrays' bytes, headers left out (the reference's count)
         sums = {}
         for i, (name, leaf) in enumerate(zip(names, leaves)):
-            arr = _to_numpy(leaf)
+            arr, dtype = _to_numpy(leaf)
             fname = f"arr_{i}.npy"
             np.save(tmp / fname, arr)
             # the file's bytes, header included: restore must catch a
             # truncated or bit-rotted file
             sums[fname] = hashlib.sha256((tmp / fname).read_bytes()).hexdigest()
             nbytes += int(arr.nbytes)
-            meta["leaves"].append({"name": name, "dtype": str(arr.dtype),
+            meta["leaves"].append({"name": name, "dtype": dtype,
                                    "shape": list(arr.shape)})
         meta_bytes = json.dumps(meta).encode()
         (tmp / "META.json").write_bytes(meta_bytes)
@@ -284,7 +301,7 @@ class CheckpointManager:
 
     def restore(self, like: Any, step: Optional[int] = None) -> Any:
         """Restore into the structure of ``like``: each leaf a tensor of
-        its saved dtype and shape, on the device of ``like``'s leaf when
+        its saved dtype (bf16 where the leaf's metadata says so) and shape, on the device of ``like``'s leaf when
         that is a tensor, else on the CPU.
 
         ``step=None`` resumes from the newest step whose checksums verify;
@@ -308,8 +325,8 @@ class CheckpointManager:
                 f"{set(saved_names) ^ set(names) or 'ordering differs'}"
             )
         out = []
-        for i, want in enumerate(leaves):
-            t = torch.from_numpy(np.load(path / f"arr_{i}.npy"))
+        for i, (want, saved) in enumerate(zip(leaves, meta["leaves"])):
+            t = _from_numpy(np.load(path / f"arr_{i}.npy"), saved["dtype"])
             out.append(t.to(want.device) if isinstance(want, torch.Tensor) else t)
         return rebuild(out)
 

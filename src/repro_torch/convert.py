@@ -9,7 +9,8 @@ plans. Packed uint32 words
 are reinterpreted as int32 with the same bits; counters widen to int64.
 `lm_params_from_numpy` loads an LM's parameter tree into the port's
 model: bf16 leaves move bit for bit through uint16, without importing
-``ml_dtypes``. Nothing here imports the reference.
+``ml_dtypes``; `train_state_from_numpy` adds the optimizer's state and
+the step. Nothing here imports the reference.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from repro_torch.kernels.autotune import IngestPlan, PlanPair, TauPlan
 
 __all__ = [
     "dataset_from_numpy", "multi_state_from_numpy", "cursor_from_numpy", "plan_pair_from_fields",
-    "lm_params_from_numpy",
+    "lm_params_from_numpy", "train_state_from_numpy",
 ]
 
 _INT64_LEAVES = (
@@ -175,3 +176,43 @@ def lm_params_from_numpy(tree: Mapping, cfg, *, device=None):
                 )
             param.copy_(t)
     return model
+
+
+def _tree_to_torch(tree, device: torch.device):
+    """A tree of dicts and lists with numpy leaves as the same tree of
+    tensors on ``device`` (bf16 through uint16)."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_torch(v, device) for v in tree]
+    return _tensor(tree).to(device)
+
+
+def train_state_from_numpy(params_tree: Mapping, opt_state_tree: Mapping, step, cfg, *,
+                           device=None) -> tuple:
+    """(model, `TrainState`) holding the reference's training state: its
+    parameter tree (as `lm_params_from_numpy` takes it), its optimizer
+    state (AdamW's ``{"mu", "nu"}`` trees, or Adafactor's per-parameter
+    ``{"row", "col"}`` / ``{"nu"}``) with numpy leaves, and its step.
+    The state's tree must have the structure the port's optimizer for
+    ``cfg.optimizer`` builds."""
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.train.train_state import TrainState
+
+    device = resolve_device(device)
+    model = lm_params_from_numpy(params_tree, cfg, device=device)
+    state = TrainState.create(model, get_optimizer(cfg.optimizer, 0.0))
+    opt_state = _tree_to_torch(opt_state_tree, device)
+    if _signature(opt_state) != _signature(state.opt_state):
+        raise ValueError(f"the optimizer state does not fit {cfg.optimizer}'s for this model")
+    step = torch.tensor(int(np.asarray(step)), dtype=torch.int64, device=device)
+    return model, state._replace(opt_state=opt_state, step=step)
+
+
+def _signature(tree, prefix: str = "") -> list:
+    """(path, shape, dtype) of every leaf of a tree of tensors."""
+    if isinstance(tree, Mapping):
+        return [x for k in sorted(tree) for x in _signature(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _signature(v, f"{prefix}{i}/")]
+    return [(prefix, tuple(tree.shape), tree.dtype)]

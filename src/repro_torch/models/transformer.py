@@ -18,18 +18,26 @@ argument:
 
 Layers always run as a loop over a `ModuleList`: ``scan_layers`` (the
 reference's stacked parameters under ``lax.scan``) runs the same layers,
-and the converter unstacks its parameters. ``remat`` is a training
-matter (activation recomputation under autodiff) and is ignored here.
-`prefill` and `decode_step` run without autograd; `decode_step` writes
-the new keys and values into the cache's tensors in place.
+and the converter unstacks its parameters. ``remat`` maps to activation
+checkpointing of each block in `forward` while autograd records:
+``"full"`` keeps only each block's input and recomputes the block in the
+backward pass (``jax.checkpoint``), ``"dots"`` also keeps the block's
+weight products (``aten.mm`` / ``aten.addmm``) and recomputes the rest
+(``checkpoint_dots_with_no_batch_dims``: the attention products carry
+batch dimensions and are recomputed). Parameters start without
+gradients (serving); `repro_torch.train.TrainState.create` turns them
+on. `prefill` and `decode_step` run without autograd; `decode_step`
+writes the new keys and values into the cache's tensors in place.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -64,10 +72,25 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _group(tensors: dict) -> nn.ParameterDict:
-    """A parameter group of serving weights (no gradients)."""
+    """A parameter group, gradients off until a train state turns them on."""
     return nn.ParameterDict(
         {name: nn.Parameter(t, requires_grad=False) for name, t in tensors.items()}
     )
+
+
+# the products "dots" remat keeps: the weight products, which have no batch
+# dimensions (attention's products run as bmm and are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_dots_policy)
 
 
 class Layer(nn.Module):
@@ -184,9 +207,25 @@ class Transformer(nn.Module):
             x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
         positions = self._positions(b, s)
         for lp in self.layers:
-            x, _, _ = self._block(lp, x, positions)
+            x = self._remat_block(lp, x, positions)
         x = L.rms_norm(self.final_norm, x, cfg.norm_eps)
         return unembed(self, x), {}
+
+    def _remat_block(self, lp: Layer, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """One block of `forward`, checkpointed as ``cfg.remat`` says when
+        autograd records it."""
+        remat = self.cfg.remat
+        if remat not in ("none", "full", "dots"):
+            raise ValueError(f"unknown remat {remat!r}")
+        fn = functools.partial(self._block_x, lp, positions=positions)
+        if remat == "none" or not torch.is_grad_enabled():
+            return fn(x)
+        if remat == "full":
+            return ckpt.checkpoint(fn, x, use_reentrant=False)
+        return ckpt.checkpoint(fn, x, use_reentrant=False, context_fn=_dots_context)
+
+    def _block_x(self, lp: Layer, x: torch.Tensor, *, positions: torch.Tensor) -> torch.Tensor:
+        return self._block(lp, x, positions)[0]
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int) -> tuple:

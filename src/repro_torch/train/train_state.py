@@ -1,0 +1,98 @@
+"""Training state: params + optimizer state + step.
+
+Port of `repro.train.train_state`. ``params`` is the model's parameter
+tree under the reference's names (nested dicts and lists, leaves the
+model's own `nn.Parameter`s, not copies: `param_tree`), ``opt_state``
+the optimizer's tree and ``step`` a () int64 tensor (the reference's is
+int32; counters widen to int64 in the port). A train step updates
+``params`` and ``opt_state`` in place and returns a state with the next
+step.
+
+On disk (`repro_torch.checkpoint.CheckpointManager`) the state has the
+reference's leaf names (``.params/...``, ``.opt_state/...``, ``.step``)
+and dtypes: `to_disk` writes the step as int32, bf16 leaves go as their
+bits, so either package restores the other's snapshot; `load_` copies
+a restored snapshot into a live state.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.optimizer.base import tree_leaves, tree_map, tree_map_
+
+__all__ = ["SCAN_LAYERS_ITEM", "TrainState", "param_tree"]
+
+SCAN_LAYERS_ITEM = "ROADMAP A12g (training under scan_layers)"
+
+
+def param_tree(model) -> dict:
+    """The model's parameters as the reference's tree: dotted names split
+    into nested dicts, with the per-layer groups under ``layers`` a list."""
+    tree: dict = {}
+    for name, param in model.named_parameters():
+        *groups, leaf = name.split(".")
+        node = tree
+        for g in groups:
+            node = node.setdefault(g, {})
+        node[leaf] = param
+    if "layers" in tree:
+        layers = tree["layers"]
+        tree["layers"] = [layers[str(i)] for i in range(len(layers))]
+    return tree
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt_state: Any
+    step: torch.Tensor  # () int64
+
+    @classmethod
+    def create(cls, model, optimizer) -> "TrainState":
+        """The state of a model about to train: its parameter tree (with
+        gradients turned on), the optimizer's initial state, step 0.
+
+        Under ``scan_layers`` the reference stacks each layer's leaves,
+        so its 1-D norm scales and biases become (L, D) matrices that
+        AdamW decays and Adafactor factors over the whole stack; the
+        port's layers are separate leaves, so it refuses to train that
+        configuration rather than compute something else."""
+        if model.cfg.scan_layers:
+            raise NotImplementedError(
+                f"training a scan_layers configuration is not ported: {SCAN_LAYERS_ITEM}"
+            )
+        params = param_tree(model)
+        tree_map_(lambda p: p.requires_grad_(True), params)
+        step = torch.zeros((), dtype=torch.int64, device=model.device)
+        return cls(params=params, opt_state=optimizer.init(params), step=step)
+
+    def to_disk(self) -> "TrainState":
+        """The state as a snapshot holds it: the step as int32 (the
+        reference's); raises past 2^31 - 1 rather than wrap."""
+        step = int(self.step)
+        if step > torch.iinfo(torch.int32).max:
+            raise OverflowError(f"step {step} does not fit a snapshot's int32 counter")
+        return self._replace(step=torch.tensor(step, dtype=torch.int32))
+
+    def skeleton(self) -> "TrainState":
+        """The state's structure with no tensors: restoring into it keeps
+        the snapshot's leaves on the CPU (`load_` then moves them)."""
+        return TrainState(tree_map(lambda _: None, self.params),
+                          tree_map(lambda _: None, self.opt_state), None)
+
+    @torch.no_grad()
+    def load_(self, restored: "TrainState") -> "TrainState":
+        """Copy a restored snapshot into this state's tensors in place
+        (shapes and dtypes must match); returns the state at its step."""
+        for live, saved in zip(tree_leaves((self.params, self.opt_state)),
+                               tree_leaves((restored.params, restored.opt_state))):
+            if live.shape != saved.shape or live.dtype != saved.dtype:
+                raise ValueError(
+                    f"snapshot leaf {tuple(saved.shape)} {saved.dtype} does not fit "
+                    f"{tuple(live.shape)} {live.dtype}"
+                )
+            live.copy_(saved)
+        step = torch.as_tensor(int(restored.step), dtype=torch.int64, device=self.step.device)
+        return self._replace(step=step)

@@ -929,3 +929,131 @@ def test_lm_decode_consistency_on_card(cuda):
             outs.append(step)
         torch.testing.assert_close(lg, full[:, :8], atol=atol, rtol=0)
         torch.testing.assert_close(torch.stack(outs, 1), full[:, 8:], atol=atol, rtol=0)
+
+
+def _smoke_pair(cuda, dtype="float32", remat="none"):
+    """A smoke qwen2.5-3b drawn on the CPU from seed 0 and its copy on the
+    card, each with a fresh AdamW train state."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.train import TrainState
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2_5_3b"), dtype=dtype, remat=remat)
+    host = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(host).to(cuda)
+    opt = get_optimizer("adamw", 1e-3)
+    return (host, TrainState.create(host, opt)), (card, TrainState.create(card, opt)), opt
+
+
+def _leaf_bits(state):
+    from repro_torch.optimizer.base import tree_leaves
+
+    return [x.detach().view(torch.int16) if x.dtype == torch.bfloat16 else x.detach().clone()
+            for x in tree_leaves((state.params, state.opt_state))]
+
+
+def test_train_step_on_card_equals_cpu(cuda):
+    """One train step of the f32 smoke model on the card and on the CPU,
+    the same weights and batch: loss and ce within 1e-5, grad_norm within
+    1e-5 relative, parameters within 5 % of the learning rate (the CPU
+    twins' f32 bars against the reference: Adam's first step normalises
+    each grad element)."""
+    from repro_torch.optimizer.base import tree_leaves
+    from repro_torch.train import make_train_step
+
+    (host, hs), (card, cs), opt = _smoke_pair(cuda)
+    toks = np.random.default_rng(0).integers(0, 256, (2, 16)).astype(np.int32)
+    hs, hm = make_train_step(host, opt)(hs, {"tokens": torch.from_numpy(toks)})
+    cs, cm = make_train_step(card, opt)(cs, {"tokens": _t(toks, cuda)})
+    for k in ("loss", "ce"):
+        assert abs(float(cm[k]) - float(hm[k])) <= 1e-5, k
+    assert float(cm["step_ok"]) == 1.0
+    np.testing.assert_allclose(float(cm["grad_norm"]), float(hm["grad_norm"]), rtol=1e-5)
+    assert int(cs.step) == 1
+    for a, b in zip(tree_leaves(cs.params), tree_leaves(hs.params)):
+        assert a.device.type == "cuda"
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 0.05 * 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_equal_grads_on_card(cuda, dtype):
+    """remat full and dots against none on the card: the loss and every
+    grad bit for bit (the recomputation reruns the same kernels)."""
+    import dataclasses
+
+    from repro_torch.optimizer.base import tree_leaves
+    from repro_torch.train.step import make_loss_fn
+
+    _, (card, cs), _ = _smoke_pair(cuda, dtype)
+    toks = _t(np.random.default_rng(1).integers(0, 256, (2, 32)).astype(np.int32), cuda)
+    out = {}
+    for remat in ("none", "full", "dots"):
+        card.cfg = dataclasses.replace(card.cfg, remat=remat)
+        loss = make_loss_fn(card)({"tokens": toks})[0]
+        loss.backward()
+        out[remat] = (loss.detach(), [p.grad.clone() for p in tree_leaves(cs.params)])
+        for p in tree_leaves(cs.params):
+            p.grad = None
+    for remat in ("full", "dots"):
+        assert torch.equal(out[remat][0], out["none"][0])
+        assert all(torch.equal(a, b) for a, b in zip(out[remat][1], out["none"][1]))
+
+
+def test_nan_guard_on_card(cuda):
+    """A NaN in an embedding row the batch uses: step_ok 0, every
+    parameter and moment bitwise as it was, the step incremented."""
+    from repro_torch.train import make_train_step
+
+    _, (card, cs), opt = _smoke_pair(cuda, "bfloat16")
+    step = make_train_step(card, opt)
+    rng = np.random.default_rng(2)
+    cs, _ = step(cs, {"tokens": _t(rng.integers(0, 256, (2, 16)).astype(np.int32), cuda)})
+    toks = rng.integers(0, 256, (2, 16)).astype(np.int32)
+    with torch.no_grad():
+        card.embed["table"][int(toks[0, 3])] = float("nan")
+    before = _leaf_bits(cs)
+    new, m = step(cs, {"tokens": _t(toks, cuda)})
+    assert float(m["step_ok"]) == 0.0 and int(new.step) == int(cs.step) + 1
+    assert all(torch.equal(a, b) for a, b in zip(before, _leaf_bits(new)))
+
+
+def test_bf16_train_state_checkpoint_from_card(cuda, tmp_path):
+    """A bf16 train state on the card, after a step, through
+    `CheckpointManager` (bf16 leaves as their bits, the step int32) into a
+    fresh state on the card: every leaf bitwise, the step back as int64."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.train import make_train_step
+
+    _, (card, cs), opt = _smoke_pair(cuda, "bfloat16")
+    toks = _t(np.random.default_rng(3).integers(0, 256, (2, 16)).astype(np.int32), cuda)
+    cs, _ = make_train_step(card, opt)(cs, {"tokens": toks})
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(cs.to_disk(), 1)
+    _, (other, fresh), _ = _smoke_pair(cuda, "bfloat16")
+    loaded = fresh.load_(mgr.restore(fresh.skeleton()))
+    assert loaded.step.dtype == torch.int64 and int(loaded.step) == 1
+    assert all(torch.equal(a, b) for a, b in zip(_leaf_bits(cs), _leaf_bits(loaded)))
+    assert all(p.device.type == "cuda" for p in other.parameters())
+
+
+def test_train_loop_on_card(cuda):
+    """`train_loop` at the smoke config on the card: the selection finds
+    the planted domains with kernels A, B and C, every step is finite."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.corpus import CorpusSpec, make_corpus
+    from repro_torch.launch.train import train_loop
+
+    corpus = make_corpus(CorpusSpec(num_domains=16, num_buckets=32, vocab_size=256,
+                                    num_blocks=256, block_tokens=512, n_reference=4,
+                                    reference_alpha=0.08, seed=1))
+    before = {k: ops.KERNELS[k].launches for k in ("anyactive", "histogram", "distance_multi")}
+    out = train_loop(cfg=get_smoke_config("qwen2_5_3b"), steps=4, batch_size=4, seq_len=64,
+                     corpus=corpus, select_k=4, log_every=1, log_fn=lambda *_: None)
+    assert set(out["selection"].selected_domains.tolist()) == set(corpus.close_ids.tolist())
+    assert all(ops.KERNELS[k].launches > n for k, n in before.items())
+    assert all(h["step_ok"] == 1.0 and np.isfinite(h["loss"]) for h in out["history"])
+    assert out["model"].device.type == "cuda"

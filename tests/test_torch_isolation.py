@@ -39,7 +39,10 @@ def test_every_module_is_covered():
         "repro_torch.train", "repro_torch.train.monitor", "repro_torch.configs",
         "repro_torch.configs.base", "repro_torch.configs.qwen2_5_3b", "repro_torch.models.layers",
         "repro_torch.models.transformer", "repro_torch.models.model_zoo",
-        "repro_torch.serve.engine",
+        "repro_torch.serve.engine", "repro_torch.optimizer", "repro_torch.optimizer.base",
+        "repro_torch.optimizer.adamw", "repro_torch.optimizer.adafactor",
+        "repro_torch.optimizer.compress", "repro_torch.train.step",
+        "repro_torch.train.train_state", "repro_torch.launch", "repro_torch.launch.train",
     ):
         assert expected in names
 
