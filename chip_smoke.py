@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FastMatch on one NVIDIA GPU and check it.
 
-Run from the root of a checkout (one card; about 10 to 13 minutes at the
+Run from the root of a checkout (one card; about 11 to 14 minutes at the
 default size, most of it generating the two datasets on the host):
 
     python3 chip_smoke.py [--tuples N] [--seed S]
@@ -220,14 +220,47 @@ Phases, each of which raises (non-zero exit) when a check fails:
    10 steps against 5, a save and a resume to 10 (atol 2e-2, the
    reference test's), and a bf16 train state through `CheckpointManager`
    bitwise. ``{"check": "train", ...}``.
+13. Every model family, last (after phase 12 freed its model; under 2 GB
+   allocated on the card when it starts), each sub-phase with the launch
+   counts at 0 just before and read just after. For mixtral-8x7b (16 of
+   its 32 layers: 23.48B parameters, the one cut; every width, all 8
+   experts, top-2 and the 4096 window whole), recurrentgemma-2b,
+   xlstm-125m and whisper-medium (whole), in turn: 13a
+   `make_corpus(CorpusSpec(vocab_size=<the model's>, num_blocks=4096))`
+   (seed 0) and `select_domains(corpus, k=8, seed=0)` on the card: the
+   planted `close_ids` in 9 rounds and 457 blocks (the reference's numbers
+   on XLA:CPU at every vocabulary), kernels A and B once a round, kernel C
+   once a statistics step (path ``families_select``). 13b: the model in
+   bf16 (`get_config`, weights from a generator seeded 0) behind
+   `ServeEngine(slots=8, max_len=512)`, 8 requests of one `TokenStream(
+   corpus, selected, batch_size=8, seq_len=256, seed=0)` batch (whisper:
+   the last 224 tokens of each, its prompt limit), 32 new tokens each: 1
+   prefill, 31 ticks, every output the greedy prefill + decode loop's on
+   the same batch, every logit finite; prefill ms, ms a tick, tokens/s,
+   peak memory and one profiled tick (device time, top kernels,
+   launches). 13d: an `ActivationMonitor` over the loop's final decode
+   state (mixtral: the K/V caches; recurrentgemma: the window K/V,
+   ``lru_h`` and ``conv``; xLSTM: the mLSTM c/n/m and the sLSTM c/n/h/m;
+   whisper: the self and cross K/V): one kernel-B launch at (1, 64) a
+   tensor, every histogram bitwise `ref.histogram_ref` (path
+   ``families_monitor``). 13c: float32 (mixtral at 4 layers, forward at
+   the dropless capacity; whisper with encoder frames N(0, 0.02^2) from a
+   seeded generator), 2 sequences: prefill 128 tokens (max_len 256, so
+   recurrentgemma's window is 256) and decode the next 128 against
+   `forward` on all 256 (max |dlogits| <= 1e-3, equal argmax). Then 13e:
+   one train step of each family's smoke config (grok-1-314b too) in
+   float32, the same weights and batch on the card and the CPU, within
+   12d's bars, the MoE aux terms reported and within the loss's bar.
+   ``{"check": "families", ...}``.
 
 Every kernel must have launched on some path, each path's counts set to
 0 just before it and read just after; a kernel's ``launches`` in the
 ``kernels`` line are those of the first path that runs it (``path``),
 with every path's count beside them; kernel B's row adds the registry
 read's launches and its registry-shape timing, and the monitor's
-launches and its (1, 64) timing (phase 11d); every row's
-``launches_by_path`` includes ``train_select`` (phase 12a). The last lines are the
+launches and its (1, 64) timing (phase 11d) and phase 13d's launches; every
+row's ``launches_by_path`` includes ``train_select`` (phase 12a),
+``families_select`` (13a) and ``families_monitor`` (13d). The last lines are the
 ``kernels`` JSON line, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
 also go to ``chiprun_out/chip_smoke.json``. Exits 2 without a CUDA
@@ -3023,6 +3056,304 @@ def phase_train(torch, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: every model family
+# ---------------------------------------------------------------------------
+
+FAM_ARCHS = ("mixtral_8x7b", "recurrentgemma_2b", "xlstm_125m", "whisper_medium")
+# the one cut: mixtral-8x7b's 32 layers (46.70B parameters, 93.4 GB in bf16)
+# do not fit one 80 GB card; its layers are alike, so 16 keep the pattern
+FAM_LAYERS = {"mixtral_8x7b": 16}
+FAM_CORPUS_BLOCKS = 4096
+FAM_SELECT_EXPECT = (9, 457)  # the reference's rounds and blocks on XLA:CPU, every vocab
+FAM_PROMPT = {"whisper_medium": 224}  # whisper's prompt limit; the others LM_PROMPT
+FAM_F32_LAYERS = {"mixtral_8x7b": 4}  # 13c: 24.3 GB in float32
+FAM_TRAIN_ARCHS = ("mixtral_8x7b", "grok_1_314b", "recurrentgemma_2b", "xlstm_125m",
+                   "whisper_medium")
+FAM_MEMORY_BEFORE = 2e9  # bytes allocated on the card when phase 13 starts, at most
+
+
+def _family_cfg(arch: str, **kw):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch in FAM_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=FAM_LAYERS[arch])
+    return dataclasses.replace(cfg, **kw)
+
+
+def _state_tensors(cache) -> dict:
+    """The decode state the activation monitor bins (13d), by name: the
+    filled K/V (transformer, whisper's self and cross), the RG-LRU's
+    window K/V, ``lru_h`` and ``conv``, the mLSTM's c/n/m and the sLSTM's
+    c/n/h/m."""
+    from repro_torch.models.rglru import HybridCache
+    from repro_torch.models.whisper import WhisperCache
+    from repro_torch.models.xlstm import XLSTMCache
+
+    n = cache.length
+    out = {}
+    if isinstance(cache, HybridCache):
+        for i, (k, v, h, c) in enumerate(zip(cache.attn_k, cache.attn_v, cache.lru_h,
+                                             cache.conv)):
+            if k.shape[1]:
+                out[f"k{i}"], out[f"v{i}"] = k[:, :n], v[:, :n]
+            else:
+                out[f"h{i}"], out[f"conv{i}"] = h, c
+    elif isinstance(cache, XLSTMCache):
+        for i, (m, s) in enumerate(zip(cache.mlstm, cache.slstm)):
+            state, fields = (m, "cnm") if m is not None else (s, "cnhm")
+            prefix = "m" if m is not None else "s"
+            out.update({f"{prefix}{f}{i}": getattr(state, f) for f in fields})
+    elif isinstance(cache, WhisperCache):
+        for i in range(len(cache.self_k)):
+            out[f"k{i}"], out[f"v{i}"] = cache.self_k[i][:, :n], cache.self_v[i][:, :n]
+            out[f"xk{i}"], out[f"xv{i}"] = cache.cross_k[i], cache.cross_v[i]
+    else:
+        out = _cache_tensors(cache)
+    return out
+
+
+def _family_select(torch, arch: str, vocab: int) -> tuple:
+    """13a for one family: the selection on the card and its launches
+    (counts at 0 just before, read just after), and the stream's prompts."""
+    import numpy as np
+
+    from repro_torch.data.corpus import CorpusSpec, make_corpus
+    from repro_torch.data.pipeline import TokenStream, select_domains
+
+    corpus = make_corpus(CorpusSpec(vocab_size=vocab, num_blocks=FAM_CORPUS_BLOCKS))
+    _reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rep = select_domains(corpus, k=8, seed=0, device=LM_DEVICE)
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t
+    launches = _launch_counts()
+    res = rep.result
+    selected = np.sort(rep.selected_domains)
+    check(np.array_equal(selected, corpus.close_ids),
+          f"13a {arch}: selected {selected.tolist()}, planted {corpus.close_ids.tolist()}")
+    if FAM_SELECT_EXPECT is not None:
+        check((res.rounds, res.blocks_read) == FAM_SELECT_EXPECT,
+              f"13a {arch}: {res.rounds} rounds, {res.blocks_read} blocks, "
+              f"not {FAM_SELECT_EXPECT}")
+    c = sum(launches[name] for name in C_FORMS)
+    check(launches["anyactive"] == launches["histogram"] == res.rounds
+          and res.rounds <= c <= res.rounds + 1,
+          f"13a {arch}: launches {launches} for {res.rounds} rounds")
+    batch = next(TokenStream(corpus, rep.selected_domains, batch_size=LM_SLOTS,
+                             seq_len=LM_PROMPT, seed=0))["tokens"]
+    report = dict(ids=selected.tolist(), rounds=res.rounds, blocks_read=res.blocks_read,
+                  blocks_scanned_frac=rep.blocks_scanned_frac, select_s=select_s,
+                  launches=launches)
+    return report, batch
+
+
+def _family_serve(torch, arch: str, prompts) -> tuple:
+    """13b (and 13d on its decode state) for one family at full width."""
+    import numpy as np
+
+    from repro_torch.kernels import ref
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import ActivationMonitor
+    from repro_torch.train import monitor as monitor_mod
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _family_cfg(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = get_model(cfg, device=LM_DEVICE,
+                      generator=torch.Generator(device=LM_DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    loop = _greedy_loop(torch, model, prompts, LM_MAX_LEN, LM_NEW)
+    engine = ServeEngine(model, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    for i, row in enumerate(prompts):
+        engine.submit(Request(rid=i, prompt=row, max_new_tokens=LM_NEW))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"prefills": 1, "decode_ticks": LM_NEW - 1, "tokens_out": len(prompts) * LM_NEW}
+    check(engine.metrics == want, f"13b {arch}: metrics {engine.metrics}, not {want}")
+    check(loop[2], f"13b {arch}: a logit was not finite")
+    check([r.rid for r in done] == list(range(len(prompts)))
+          and all(r.output == loop[0][r.rid] for r in done),
+          f"13b {arch}: an engine output differs from the greedy loop on the same batch")
+
+    # -- 13d: the monitor over the loop's final decode state
+    state = _state_tensors(loop[1])
+    names = sorted(state)
+    mon = ActivationMonitor(names=names, bins=LM_MONITOR_BINS)
+    _reset_launches()
+    t = time.perf_counter()
+    rows = mon._histogram(state)
+    monitor_s = time.perf_counter() - t
+    mon_launches = _launch_counts()
+    check(mon_launches["histogram"] == len(names)
+          and sum(mon_launches.values()) == len(names),
+          f"13d {arch}: launches {mon_launches} for {len(names)} tensors")
+    for name, row in zip(names, rows):
+        ids = monitor_mod._bin_ids(state[name], mon.lo, mon.hi, mon.bins)
+        plain = ref.histogram_ref(torch.zeros_like(ids), ids, v_z=1, v_x=mon.bins)[0]
+        check(np.array_equal(row, plain.cpu().numpy()),
+              f"13d {arch}: {name}'s histogram is not its plain version's")
+    values = sum(int(state[name].numel()) for name in names)
+    del state
+
+    # one decode tick at the served depth, profiled
+    tok = torch.zeros(LM_SLOTS, dtype=torch.int64, device=LM_DEVICE)
+    model.decode_step(loop[1], tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        model.decode_step(loop[1], tok)
+        torch.cuda.synchronize()
+        tick_wall_ms = (time.perf_counter() - t) * 1e3
+    device_ms, by_kernel, by_host_op = _profile_tables(torch, prof)
+    serve = dict(
+        arch=arch, layers=cfg.num_layers, dtype=cfg.dtype,
+        params=sum(p.numel() for p in model.parameters()), build_s=build_s,
+        prompt=int(prompts.shape[1]), metrics=engine.metrics, wall_s=serve_s,
+        tokens_per_s=engine.metrics["tokens_out"] / serve_s, prefill_ms=loop[3],
+        tick_ms=loop[4], peak_gb=peak_gb,
+        distinct_outputs=len({tuple(r.output) for r in done}),
+        profiled_tick=dict(
+            wall_ms=tick_wall_ms, device_ms=device_ms,
+            host_launches=sum(c for name, _, c in by_host_op if name.startswith("cudaLaunch")),
+            top_kernels=by_kernel[:6]))
+    monitor = dict(tensors=len(names), values=values, launches=mon_launches, wall_s=monitor_s)
+    del model, loop, engine, done, prof
+    torch.cuda.empty_cache()
+    return serve, monitor
+
+
+def _family_f32_decode(torch, arch: str, rows) -> dict:
+    """13c for one family: float32, 2 sequences, prefill LM_F32_SPLIT tokens
+    and decode the rest against `forward` on all LM_PROMPT (MoE forward at
+    the dropless capacity; whisper with seeded encoder frames)."""
+    from repro_torch.models.model_zoo import get_model
+
+    kw = dict(dtype="float32")
+    if arch in FAM_F32_LAYERS:
+        kw["num_layers"] = FAM_F32_LAYERS[arch]
+    cfg = _family_cfg(arch, **kw)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, expert_capacity_factor=float(cfg.num_experts))
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(1)
+    model = get_model(cfg, device=LM_DEVICE, generator=gen)
+    toks = torch.from_numpy(rows[:2]).to(LM_DEVICE)
+    extra = {}
+    if cfg.frontend == "audio_stub":
+        extra["encoder_frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                              device=LM_DEVICE) * 0.02
+    with torch.no_grad():
+        full, _ = model(toks, **extra)
+    logits, cache = model.prefill(toks[:, :LM_F32_SPLIT], LM_PROMPT, **extra)
+    steps = [logits]
+    for i in range(LM_F32_SPLIT, LM_PROMPT):
+        step, cache = model.decode_step(cache, toks[:, i])
+        steps.append(step[:, None])
+    got = torch.cat(steps, dim=1)
+    err = float((got - full).abs().max())
+    same_argmax = bool(torch.equal(got.argmax(-1), full.argmax(-1)))
+    out = dict(layers=cfg.num_layers, max_abs_dlogits=err, argmax_equal=same_argmax,
+               max_abs_logit=float(full.abs().max()),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model, cache, full, got, steps, logits
+    torch.cuda.empty_cache()
+    check(err <= LM_F32_ATOL and same_argmax,
+          f"13c {arch}: max |dlogits| {err:.3g} (bound {LM_F32_ATOL}), argmax equal {same_argmax}")
+    return out
+
+
+def _family_train_step(torch, arch: str) -> dict:
+    """13e for one family: one step of its smoke config in float32, the
+    same weights and batch on the card and the CPU (12d's bars; every aux
+    term of the MoE loss within the loss's)."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.optimizer.base import tree_leaves
+    from repro_torch.train import TrainState, make_train_step
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    host = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    dev = copy.deepcopy(host).to(TRAIN_DEVICE)
+    opt = get_optimizer("adamw", 1e-3)
+    hs, ds = TrainState.create(host, opt), TrainState.create(dev, opt)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16))
+                                        .astype(np.int32))}
+    if cfg.frontend == "audio_stub":
+        batch["encoder_frames"] = torch.from_numpy(
+            (rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32))
+    hs, hm = make_train_step(host, opt)(hs, batch)
+    ds, dm = make_train_step(dev, opt)(ds, {k: v.to(TRAIN_DEVICE) for k, v in batch.items()})
+    aux = sorted(k for k in hm if k.startswith("aux/"))
+    loss_err = max(abs(float(dm[k]) - float(hm[k])) for k in ("loss", "ce", *aux))
+    gnorm_rel = abs(float(dm["grad_norm"]) / float(hm["grad_norm"]) - 1)
+    param_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                    for a, b in zip(tree_leaves(ds.params), tree_leaves(hs.params)))
+    ok = float(dm["step_ok"]) == float(hm["step_ok"]) == 1.0
+    check(ok and set(dm) == set(hm) and loss_err <= TRAIN_F32_ATOL
+          and gnorm_rel <= TRAIN_F32_ATOL and param_err <= TRAIN_F32_PARAM_FRAC * 1e-3,
+          f"13e {arch}: card against CPU: loss/aux {loss_err:.3g}, grad_norm {gnorm_rel:.3g} "
+          f"relative, params {param_err:.3g}, step_ok {ok}")
+    return dict(loss_abs=loss_err, grad_norm_rel=gnorm_rel, param_abs=param_err,
+                aux={k: float(dm[k]) for k in aux})
+
+
+def phase_families(torch, card: str) -> dict:
+    """Phase 13 (see the module docstring): every model family on the card."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    allocated = torch.cuda.memory_allocated()
+    check(allocated < FAM_MEMORY_BEFORE,
+          f"13: {allocated / 1e9:.2f} GB allocated on the card before the phase")
+    out = dict(select={}, serve={}, monitor={}, f32_decode={}, train={},
+               cut={arch: dict(layers=n, of=get_config(arch).num_layers)
+                    for arch, n in FAM_LAYERS.items()})
+    for arch in FAM_ARCHS:
+        out["select"][arch], batch = _family_select(torch, arch, get_config(arch).vocab_size)
+        prompts = batch[:, -FAM_PROMPT.get(arch, LM_PROMPT):]
+        out["serve"][arch], out["monitor"][arch] = _family_serve(torch, arch, prompts)
+        out["f32_decode"][arch] = _family_f32_decode(torch, arch, batch)
+        s, m, f = out["serve"][arch], out["monitor"][arch], out["f32_decode"][arch]
+        sel, tick = out["select"][arch], s["profiled_tick"]
+        top = [(name[:50], round(ms, 2), n) for name, ms, n in tick["top_kernels"][:3]]
+        log(f"13 {arch} ({s['layers']} layers, {s['params'] / 1e9:.3f}B params, bf16): 13a "
+            f"{sel['ids']} in {sel['rounds']} rounds, {sel['blocks_read']} blocks, launches "
+            f"{sel['launches']}; 13b {LM_SLOTS} x {s['prompt']} prompts, {LM_NEW} new: prefill "
+            f"{s['prefill_ms']:.1f} ms, tick {s['tick_ms']:.2f} ms, {s['tokens_per_s']:.1f} "
+            f"tokens/s, peak {s['peak_gb']:.2f} GB, outputs equal the loop's; profiled tick "
+            f"device {tick['device_ms']:.2f} of {tick['wall_ms']:.2f} ms, "
+            f"{tick['host_launches']} launches, top {top}; 13d {m['tensors']} tensors bitwise, "
+            f"launches {m['launches']['histogram']}; 13c f32 ({f['layers']} layers) max "
+            f"|dlogits| {f['max_abs_dlogits']:.3g}, argmax equal; {card}")
+    for arch in FAM_TRAIN_ARCHS:
+        out["train"][arch] = _family_train_step(torch, arch)
+        log(f"13e {arch} smoke f32 card against CPU: {out['train'][arch]}")
+    out["select_launches"] = {name: sum(r["launches"][name] for r in out["select"].values())
+                              for name in KERNEL_ROWS}
+    out["monitor_launches"] = {name: sum(r["launches"][name] for r in out["monitor"].values())
+                               for name in KERNEL_ROWS}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 took {out['phase_s']:.1f}s")
+    emit({"check": "families", **out})
+    return out
+
+
 # kernel name -> (its source, the pallas_call it replaces), and the path
 # whose run gives its launches: the first of PATHS that launches it
 KERNEL_ROWS = {
@@ -3091,14 +3422,18 @@ def main(argv=None) -> int:
     log("phase 6: the tuner at the taxi keys")
     tuner = phase_tuner(torch)
     log(f"phase 7: wide rows, FastMatch at the minute-of-day shape, {args.tuples} tuples")
-    wide, _ = phase_engine_scale(torch, minute_spec(args.tuples), args.seed,
-                                 check_name="wide_rows",
-                                 expect=(53, 27_134) if full_size else None)
+    # [0]: phase 7's resident table (its context) is dropped here, so the LM
+    # phases start from an empty card
+    wide = phase_engine_scale(torch, minute_spec(args.tuples), args.seed,
+                              check_name="wide_rows",
+                              expect=(53, 27_134) if full_size else None)[0]
     torch.cuda.empty_cache()
     log(f"phase 11: the data layer and a full-width {LM_ARCH} on the card")
     lm = phase_lm(torch, timer, smi)
     log(f"phase 12: training a full-width {TRAIN_ARCH} on the card")
     train = phase_train(torch, smi)
+    log(f"phase 13: every model family at full width on the card ({', '.join(FAM_ARCHS)})")
+    families = phase_families(torch, smi)
 
     leaked = sorted(m for m in sys.modules if m.startswith("jax") or m == "repro"
                     or m.startswith("repro."))
@@ -3115,6 +3450,8 @@ def main(argv=None) -> int:
                  minute_scan_lowprec=wide["lowprec"]["scan"]["launches"],
                  lm_select=lm["select"]["launches"], lm_monitor=lm["monitor"]["launches"],
                  train_select=train["loop"]["select"]["launches"],
+                 families_select=families["select_launches"],
+                 families_monitor=families["monitor_launches"],
                  fault_chaos=faults["chaos"]["launches"],
                  fault_quarantine=faults["quarantine"]["launches"],
                  fault_recovery=faults["recovery"]["launches"],
@@ -3139,6 +3476,8 @@ def main(argv=None) -> int:
             # the activation monitor's binning: one launch a monitored tensor
             row["monitor_launches"] = lm["monitor"]["launches"]["histogram"]
             row["monitor_shape"] = lm["monitor"]["kernel"]
+            # phase 13d: one launch a decode-state tensor of the four families
+            row["families_monitor_launches"] = families["monitor_launches"]["histogram"]
         kernels.append(row)
     for row in kernels:
         check(all(isinstance(row[k], (int, float)) and math.isfinite(row[k])
@@ -3151,7 +3490,7 @@ def main(argv=None) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, device=device, kernels=kernels, scale=scale, serving=serving,
              faults=faults, telemetry=telemetry, mesh=mesh, tuner=tuner["report"],
-             wide_rows=wide, lm=lm, train=train,
+             wide_rows=wide, lm=lm, train=train, families=families,
              wall_s=time.perf_counter() - T0), indent=1))
     log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
     emit({"kernels": kernels})

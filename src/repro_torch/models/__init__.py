@@ -1,3 +1,3 @@
-"""The LM side of the port: layers, the dense / vlm transformer and the
-model zoo (port of `repro.models`; MoE, the recurrent families and
-whisper are ROADMAP A12c and A12d)."""
+"""The LM side of the port: layers, every model family (the transformer
+with its MoE FFN, the RG-LRU hybrid, xLSTM, whisper) and the model zoo
+(port of `repro.models`)."""

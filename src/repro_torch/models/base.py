@@ -1,0 +1,86 @@
+"""What the model families share: the `Model` interface, parameter groups
+and the stub-input shapes.
+
+Every family (`transformer.Transformer`, `rglru.HybridLM`, `xlstm.XLSTM`,
+`whisper.Whisper`) is a `Model`: an `nn.Module` that owns its weights on
+one device, under the reference's parameter tree names, with the
+reference's entry points less their ``params`` argument:
+
+    logits, aux = model.forward(tokens, **extras)        # teacher-forced
+    logits, cache = model.prefill(tokens, max_len, **extras)
+    logits, cache = model.decode_step(cache, token)
+    cache = model.init_cache(batch, max_len)
+    shapes = model.extra_input_shapes(batch, seq)       # frontend stubs
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+__all__ = ["Group", "Model", "TensorSpec", "model_dtype"]
+
+
+def model_dtype(cfg: ModelConfig) -> torch.dtype:
+    dt = getattr(torch, cfg.dtype, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {cfg.dtype!r}")
+    return dt
+
+
+class Group(nn.Module):
+    """A group of the reference's parameter tree: its tensors become
+    parameters (gradients off until a train state turns them on), its
+    nested dicts child groups. Indexed by name, as the reference's dicts
+    are (``g["wq"]``, ``"bq" in g``)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(name, Group(value))
+            else:
+                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a stub input (the reference's ShapeDtypeStruct)."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+class Model(nn.Module):
+    """The interface of every family (see the module docstring). A
+    subclass sets ``cfg`` and an ``embed`` group holding ``table``."""
+
+    cfg: ModelConfig
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["table"].device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed["table"].dtype
+
+    def extra_input_shapes(self, batch: int, seq: int) -> dict:
+        """The modality-frontend stub inputs `forward` takes (vlm, audio)."""
+        cfg = self.cfg
+        if cfg.frontend == "vision_stub" and cfg.vision_tokens:
+            shape = (batch, cfg.vision_tokens, cfg.d_model)
+            return {"vision_embeds": TensorSpec(shape, self.dtype)}
+        if cfg.frontend == "audio_stub":
+            shape = (batch, cfg.encoder_seq, cfg.d_model)
+            return {"encoder_frames": TensorSpec(shape, self.dtype)}
+        return {}

@@ -1,17 +1,17 @@
-"""Unified model interface over the ported architecture families.
+"""Unified model interface over all the architecture families.
 
-Port of `repro.models.model_zoo` for the families ``dense`` and ``vlm``:
+Port of `repro.models.model_zoo`:
 
     model = get_model(cfg, device=..., generator=...)   # owns its weights
     logits, aux = model.forward(tokens, **extras)
     cache = model.init_cache(batch, max_len)
-    logits, cache = model.prefill(tokens, max_len)
+    logits, cache = model.prefill(tokens, max_len, **extras)
     logits, cache = model.decode_step(cache, token)
-    shapes = model.extra_input_shapes(batch, seq)   # frontend stubs (vlm)
+    shapes = model.extra_input_shapes(batch, seq)   # frontend stubs (vlm, audio)
 
 The reference's ``init(rng)`` is the construction here, and no entry
-point takes ``params``. The other families raise `NotImplementedError`
-naming their ROADMAP item.
+point takes ``params``. Every family is a `base.Model`: the transformer
+(dense, moe, vlm), the RG-LRU hybrid, xLSTM and whisper.
 """
 
 from __future__ import annotations
@@ -20,18 +20,18 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
-from repro_torch.models.transformer import TensorSpec
+from repro_torch.models import rglru, transformer, whisper, xlstm
+from repro_torch.models.base import Model, TensorSpec
 
 __all__ = ["Model", "TensorSpec", "get_model"]
 
-Model = transformer.Transformer
-
-NOT_PORTED = {
-    "moe": "ROADMAP A12c (models/moe.py)",
-    "hybrid": "ROADMAP A12d (models/rglru.py)",
-    "ssm": "ROADMAP A12d (models/xlstm.py)",
-    "audio": "ROADMAP A12d (models/whisper.py)",
+FAMILIES = {
+    "dense": transformer.Transformer,
+    "moe": transformer.Transformer,
+    "vlm": transformer.Transformer,
+    "hybrid": rglru.HybridLM,
+    "ssm": xlstm.XLSTM,
+    "audio": whisper.Whisper,
 }
 
 
@@ -44,10 +44,6 @@ def get_model(cfg: ModelConfig, *, device=None, generator=None) -> Model:
 
 def build(cfg: ModelConfig, device: torch.device, generator=None) -> Model:
     """`get_model` on a resolved device (also "meta": shapes only)."""
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch_id}) is not ported yet: {NOT_PORTED[cfg.family]}"
-        )
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-    return transformer.init_params(cfg, device=device, generator=generator)
+    return FAMILIES[cfg.family](cfg, device=device, generator=generator)

@@ -1,20 +1,26 @@
-"""Decoder-only transformer LM: the dense GQA and vlm paths.
+"""Decoder-only transformer LM: the dense GQA, MoE and vlm paths.
 
 Port of `repro.models.transformer` for qwen2.5-3b, granite-8b,
-llama3-405b, codeqwen1.5-7b and internvl2-76b (text backbone +
-vision-stub prefix). The MoE variant (mixtral-8x7b, grok-1-314b) is
-ROADMAP A12c and raises.
+llama3-405b, codeqwen1.5-7b, internvl2-76b (text backbone +
+vision-stub prefix), mixtral-8x7b and grok-1-314b (MoE FFNs,
+`repro_torch.models.moe`).
 
-`Transformer` is an `nn.Module` that owns its weights, with the
+`Transformer` is a `base.Model` that owns its weights, with the
 reference's parameter tree names (``embed.table``, ``layers.<i>.attn.wq``,
-...) and its ``(d_in, d_out)`` layout, so the reference's parameters
-load by name with no transposes (`repro_torch.convert.lm_params_from_numpy`).
-Three entry points, as in the reference, without the ``params``
-argument:
+``layers.<i>.moe.w_gate``, ...) and its ``(d_in, d_out)`` layout, so the
+reference's parameters load by name with no transposes
+(`repro_torch.convert.lm_params_from_numpy`). Three entry points, as in
+the reference, without the ``params`` argument:
 
   forward(tokens[, vision_embeds]) -> (logits, aux)   (teacher-forced)
   prefill(tokens, max_len) -> (logits, cache)         (serving)
   decode_step(cache, token) -> (logits, cache)        (serving)
+
+``aux`` holds the MoE terms summed over the layers (empty for a dense
+model). `forward` routes at ``cfg.expert_capacity_factor``; `prefill`
+and `decode_step` at the dropless capacity ``num_experts``, as the
+reference serves, so at full width `forward` can drop tokens that
+serving keeps.
 
 Layers always run as a loop over a `ModuleList`: ``scan_layers`` (the
 reference's stacked parameters under ``lax.scan``) runs the same layers,
@@ -41,13 +47,14 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.base import Group, Model, TensorSpec, model_dtype
 from repro_torch.models.layers import AttnSpec
+from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_local
 
 __all__ = [
-    "KVCache", "TensorSpec", "Transformer", "embed_tokens", "init_cache", "init_params", "unembed",
+    "KVCache", "TensorSpec", "Transformer", "embed_tokens", "init_cache", "init_layer",
+    "init_params", "unembed",
 ]
-
-MOE_ITEM = "ROADMAP A12c (models/moe.py)"
 
 
 def _attn_spec(cfg: ModelConfig) -> AttnSpec:
@@ -61,20 +68,6 @@ def _attn_spec(cfg: ModelConfig) -> AttnSpec:
         impl=cfg.attn_impl,
         decode_seq_shard=cfg.decode_seq_shard,
         gqa_grouped=cfg.attn_gqa_grouped,
-    )
-
-
-def _dtype(cfg: ModelConfig) -> torch.dtype:
-    dt = getattr(torch, cfg.dtype, None)
-    if not isinstance(dt, torch.dtype):
-        raise ValueError(f"unknown dtype {cfg.dtype!r}")
-    return dt
-
-
-def _group(tensors: dict) -> nn.ParameterDict:
-    """A parameter group, gradients off until a train state turns them on."""
-    return nn.ParameterDict(
-        {name: nn.Parameter(t, requires_grad=False) for name, t in tensors.items()}
     )
 
 
@@ -93,24 +86,20 @@ def _dots_context():
     return ckpt.create_selective_checkpoint_contexts(_dots_policy)
 
 
-class Layer(nn.Module):
-    """One transformer block's parameters: attn_norm, attn, mlp_norm, mlp."""
-
-    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
-        super().__init__()
-        dt = _dtype(cfg)
-        kw = dict(generator=generator, device=device)
-        self.attn_norm = _group(L.init_rmsnorm(cfg.d_model, dt, device=device))
-        self.attn = _group(L.init_attention(cfg.d_model, _attn_spec(cfg), dt, cfg.qkv_bias, **kw))
-        self.mlp_norm = _group(L.init_rmsnorm(cfg.d_model, dt, device=device))
-        self.mlp = _group(L.init_mlp(cfg.d_model, cfg.d_ff, dt, **kw))
-
-
-class TensorSpec(NamedTuple):
-    """Shape and dtype of a stub input (the reference's ShapeDtypeStruct)."""
-
-    shape: tuple
-    dtype: torch.dtype
+def init_layer(cfg: ModelConfig, *, generator=None, device=None) -> dict:
+    """One block's parameters: attn_norm, attn, mlp_norm, and mlp or moe."""
+    dt = model_dtype(cfg)
+    kw = dict(generator=generator, device=device)
+    p = {
+        "attn_norm": L.init_rmsnorm(cfg.d_model, dt, device=device),
+        "attn": L.init_attention(cfg.d_model, _attn_spec(cfg), dt, cfg.qkv_bias, **kw),
+        "mlp_norm": L.init_rmsnorm(cfg.d_model, dt, device=device),
+    }
+    if cfg.num_experts > 0:
+        p["moe"] = init_moe(cfg.d_model, cfg.d_ff, cfg.num_experts, dt, **kw)
+    else:
+        p["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, dt, **kw)
+    return p
 
 
 class KVCache(NamedTuple):
@@ -119,13 +108,13 @@ class KVCache(NamedTuple):
     length: int  # tokens already written
 
 
-def embed_tokens(model: "Transformer", tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(model: Model, tokens: torch.Tensor) -> torch.Tensor:
     x = model.embed["table"][tokens]
     # the scale is cast to the dtype first, as in the reference
     return x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
 
 
-def unembed(model: "Transformer", x: torch.Tensor) -> torch.Tensor:
+def unembed(model: Model, x: torch.Tensor) -> torch.Tensor:
     """(..., D) -> (..., V) f32 logits."""
     if model.cfg.tie_embeddings:
         w = model.embed["table"].T
@@ -135,7 +124,7 @@ def unembed(model: "Transformer", x: torch.Tensor) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> KVCache:
-    dt = _dtype(cfg)
+    dt = model_dtype(cfg)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return KVCache(
         k=[torch.zeros(shape, dtype=dt, device=device) for _ in range(cfg.num_layers)],
@@ -144,40 +133,47 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> KV
     )
 
 
-class Transformer(nn.Module):
-    """The dense / vlm decoder LM with its weights, on one device.
+def _sum_aux(auxes: list) -> dict:
+    """The layers' aux terms summed leaf by leaf ({} for a dense model)."""
+    if not auxes:
+        return {}
+    return {k: torch.sum(torch.stack([a[k] for a in auxes])) for k in auxes[0]}
+
+
+class Transformer(Model):
+    """The dense / MoE / vlm decoder LM with its weights, on one device.
 
     Weights are drawn as the reference draws them (normal f32, scaled,
-    cast to ``cfg.dtype``; norms at one, biases at zero) from
-    ``generator``, a `torch.Generator` on ``device``; the reference's
-    own values load through `convert.lm_params_from_numpy`.
+    cast to ``cfg.dtype``; the router in f32; norms at one, biases at
+    zero) from ``generator``, a `torch.Generator` on ``device``; the
+    reference's own values load through `convert.lm_params_from_numpy`.
     """
 
     def __init__(self, cfg: ModelConfig, *, device, generator=None):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError(f"MoE layers are not ported yet: {MOE_ITEM}")
         self.cfg = cfg
-        dt = _dtype(cfg)
+        dt = model_dtype(cfg)
         kw = dict(generator=generator, device=device)
-        self.embed = _group({"table": L.embed_init((cfg.vocab_size, cfg.d_model), dt, **kw)})
-        self.final_norm = _group(L.init_rmsnorm(cfg.d_model, dt, device=device))
+        self.embed = Group({"table": L.embed_init((cfg.vocab_size, cfg.d_model), dt, **kw)})
+        self.final_norm = Group(L.init_rmsnorm(cfg.d_model, dt, device=device))
         self.layers = nn.ModuleList(
-            [Layer(cfg, generator=generator, device=device) for _ in range(cfg.num_layers)]
+            [Group(init_layer(cfg, **kw)) for _ in range(cfg.num_layers)]
         )
         if not cfg.tie_embeddings:
-            self.lm_head = _group({"w": L.dense_init((cfg.d_model, cfg.vocab_size), dt, **kw)})
+            self.lm_head = Group({"w": L.dense_init((cfg.d_model, cfg.vocab_size), dt, **kw)})
 
-    @property
-    def device(self) -> torch.device:
-        return self.embed["table"].device
+    def _ffn(self, lp: Group, h: torch.Tensor, capacity_factor: float) -> tuple:
+        """The block's FFN: (y, aux), aux empty for a dense layer."""
+        cfg = self.cfg
+        if cfg.num_experts == 0:
+            return L.mlp_swiglu(lp.mlp, h), {}
+        ffn = moe_ffn_local if cfg.moe_impl == "local" else moe_ffn
+        return ffn(lp.moe, h, num_experts=cfg.num_experts, top_k=cfg.experts_per_token,
+                   capacity_factor=capacity_factor)
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.embed["table"].dtype
-
-    def _block(self, lp: Layer, x: torch.Tensor, positions: torch.Tensor) -> tuple:
-        """One block over a whole sequence; returns (x, k, v)."""
+    def _block(self, lp: Group, x: torch.Tensor, positions: torch.Tensor,
+               capacity_factor: float) -> tuple:
+        """One block over a whole sequence; returns (x, k, v, aux)."""
         cfg = self.cfg
         spec = _attn_spec(cfg)
         h = L.rms_norm(lp.attn_norm, x, cfg.norm_eps)
@@ -187,7 +183,8 @@ class Transformer(nn.Module):
         attn = L.attention(q, k, v, spec, positions[0], positions[0])
         x = x + L.attention_out(lp.attn, attn)
         h = L.rms_norm(lp.mlp_norm, x, cfg.norm_eps)
-        return x + L.mlp_swiglu(lp.mlp, h), k, v
+        y, aux = self._ffn(lp, h, capacity_factor)
+        return x + y, k, v, aux
 
     def _positions(self, b: int, s: int) -> torch.Tensor:
         return torch.arange(s, dtype=torch.int32, device=self.device).expand(b, s)
@@ -206,14 +203,17 @@ class Transformer(nn.Module):
             nv = cfg.vision_tokens
             x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
         positions = self._positions(b, s)
+        auxes = []
         for lp in self.layers:
-            x = self._remat_block(lp, x, positions)
+            x, aux = self._remat_block(lp, x, positions)
+            if aux:
+                auxes.append(aux)
         x = L.rms_norm(self.final_norm, x, cfg.norm_eps)
-        return unembed(self, x), {}
+        return unembed(self, x), _sum_aux(auxes)
 
-    def _remat_block(self, lp: Layer, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """One block of `forward`, checkpointed as ``cfg.remat`` says when
-        autograd records it."""
+    def _remat_block(self, lp: Group, x: torch.Tensor, positions: torch.Tensor) -> tuple:
+        """One block of `forward` -> (x, aux), checkpointed as ``cfg.remat``
+        says when autograd records it."""
         remat = self.cfg.remat
         if remat not in ("none", "full", "dots"):
             raise ValueError(f"unknown remat {remat!r}")
@@ -224,12 +224,14 @@ class Transformer(nn.Module):
             return ckpt.checkpoint(fn, x, use_reentrant=False)
         return ckpt.checkpoint(fn, x, use_reentrant=False, context_fn=_dots_context)
 
-    def _block_x(self, lp: Layer, x: torch.Tensor, *, positions: torch.Tensor) -> torch.Tensor:
-        return self._block(lp, x, positions)[0]
+    def _block_x(self, lp: Group, x: torch.Tensor, *, positions: torch.Tensor) -> tuple:
+        x, _, _, aux = self._block(lp, x, positions, self.cfg.expert_capacity_factor)
+        return x, aux
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int) -> tuple:
-        """Run the prompt through the model, returning logits + filled cache."""
+        """Run the prompt through the model, returning logits + filled cache.
+        MoE layers route at the dropless capacity ``num_experts``."""
         cfg = self.cfg
         b, s = tokens.shape
         x = embed_tokens(self, tokens)
@@ -239,7 +241,7 @@ class Transformer(nn.Module):
             raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
         ks, vs = [], []
         for lp in self.layers:
-            x, k, v = self._block(lp, x, positions)
+            x, k, v, _ = self._block(lp, x, positions, float(cfg.num_experts))
             ks.append(torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)))
             vs.append(torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)))
         x = L.rms_norm(self.final_norm, x, cfg.norm_eps)
@@ -260,21 +262,13 @@ class Transformer(nn.Module):
             )
             x = x + attn_out
             h = L.rms_norm(lp.mlp_norm, x, cfg.norm_eps)
-            x = x + L.mlp_swiglu(lp.mlp, h)
+            x = x + self._ffn(lp, h, float(cfg.num_experts))[0]  # dropless at decode
         x = L.rms_norm(self.final_norm, x, cfg.norm_eps)
         logits = unembed(self, x)[:, 0]
         return logits, cache._replace(length=cache.length + 1)
 
     def init_cache(self, batch: int, max_len: int) -> KVCache:
         return init_cache(self.cfg, batch, max_len, device=self.device)
-
-    def extra_input_shapes(self, batch: int, seq: int) -> dict:
-        """The modality-frontend stub inputs `forward` takes (vlm)."""
-        cfg = self.cfg
-        if cfg.frontend == "vision_stub" and cfg.vision_tokens:
-            shape = (batch, cfg.vision_tokens, cfg.d_model)
-            return {"vision_embeds": TensorSpec(shape, self.dtype)}
-        return {}
 
 
 def init_params(cfg: ModelConfig, *, device, generator=None) -> Transformer:

@@ -1,0 +1,393 @@
+"""xLSTM: mLSTM (matrix-memory) + sLSTM (scalar-memory) blocks.
+
+Port of `repro.models.xlstm` (Beck et al. 2024, at block granularity):
+
+* mLSTM block: up-projection (factor 2), short causal conv feeding q/k,
+  matrix memory C_t = f_t C_{t-1} + i_t v_t k_t^T with exponential gating
+  and max-stabilizer m_t, gated output, down-projection, in the
+  chunk-recurrent form: a loop over chunks carries (C, n, m) and each
+  chunk is parallel einsum work (the reference's ``lax.scan`` over
+  chunks). Decode is the single-step recurrence.
+* sLSTM block: scalar memory with hidden-to-gate recurrence, a loop over
+  time (the reference's ``lax.scan``).
+
+One sLSTM block every ``cfg.slstm_every`` blocks, mLSTM elsewhere. Every
+dtype cast is the reference's; the recurrences run in f32.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.base import Group, Model, model_dtype
+
+__all__ = [
+    "MLSTMState", "SLSTMState", "XLSTM", "XLSTMCache", "init_cache", "init_params", "is_slstm",
+    "mlstm_block", "slstm_block",
+]
+
+
+def is_slstm(cfg: ModelConfig, layer_idx: int) -> bool:
+    if cfg.slstm_every <= 0:
+        return False
+    return layer_idx % cfg.slstm_every == cfg.slstm_every - 1
+
+
+def _dims(cfg: ModelConfig):
+    d = cfg.d_model
+    d_inner = int(cfg.proj_factor_mlstm * d)
+    h = cfg.num_heads
+    dh = d_inner // h
+    return d, d_inner, h, dh
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _normal(shape, scale: float, dt, *, generator=None, device=None) -> torch.Tensor:
+    w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return (w * scale).to(dt)
+
+
+def init_mlstm_block(cfg: ModelConfig, dt, *, generator=None, device=None) -> dict:
+    d, d_inner, h, dh = _dims(cfg)
+    kw = dict(generator=generator, device=device)
+    return {
+        "w_up": L.dense_init((d, 2 * d_inner), dt, **kw),
+        "conv_w": _normal((4, d_inner), 0.02, dt, **kw),
+        "conv_b": torch.zeros((d_inner,), dtype=dt, device=device),
+        "wq": L.dense_init((d_inner, d_inner), dt, **kw),
+        "wk": L.dense_init((d_inner, d_inner), dt, **kw),
+        "wv": L.dense_init((d_inner, d_inner), dt, **kw),
+        "w_if": L.dense_init((d_inner, 2 * h), torch.float32, **kw),
+        "b_i": torch.zeros((h,), dtype=torch.float32, device=device),
+        "b_f": torch.full((h,), 3.0, dtype=torch.float32, device=device),  # forget-dominant
+        "mix_norm": L.init_rmsnorm(d_inner, dt, device=device),
+        "w_down": L.dense_init((d_inner, d), dt, **kw),
+    }
+
+
+def init_slstm_block(cfg: ModelConfig, dt, *, generator=None, device=None) -> dict:
+    d = cfg.d_model
+    h = cfg.num_heads
+    dh = d // h
+    ff = int(cfg.proj_factor_slstm * d)
+    kw = dict(generator=generator, device=device)
+    zeros = torch.zeros((d,), dtype=torch.float32, device=device)
+    return {
+        # gates z,i,f,o each (d -> d) input + (dh -> dh per head) recurrent
+        "w_gates": L.dense_init((d, 4 * d), dt, **kw),
+        "r_gates": _normal((4, h, dh, dh), 0.02, dt, **kw),
+        "b_gates": torch.cat([zeros, zeros, torch.full_like(zeros, 3.0), zeros]),  # z,i|f|o
+        "group_norm": L.init_rmsnorm(d, dt, device=device),
+        "w_ff_gate": L.dense_init((d, ff), dt, **kw),
+        "w_ff_up": L.dense_init((d, ff), dt, **kw),
+        "w_ff_down": L.dense_init((ff, d), dt, **kw),
+    }
+
+
+def init_layer(cfg: ModelConfig, li: int, *, generator=None, device=None) -> dict:
+    dt = model_dtype(cfg)
+    kw = dict(generator=generator, device=device)
+    p = {"norm": L.init_rmsnorm(cfg.d_model, dt, device=device)}
+    if is_slstm(cfg, li):
+        p["slstm"] = init_slstm_block(cfg, dt, **kw)
+    else:
+        p["mlstm"] = init_mlstm_block(cfg, dt, **kw)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# mLSTM cell: chunk-recurrent evaluation
+# ---------------------------------------------------------------------------
+
+
+class MLSTMState(NamedTuple):
+    c: torch.Tensor  # (B,H,dh,dh) f32 matrix memory
+    n: torch.Tensor  # (B,H,dh) f32 normalizer
+    m: torch.Tensor  # (B,H) f32 stabilizer
+    conv: torch.Tensor  # (B,K-1,d_inner) streaming causal-conv state
+
+
+def _mlstm_chunk_scan(q, k, v, log_i, log_f, chunk: int, state: MLSTMState) -> tuple:
+    """q,k,v: (B,S,H,dh); log_i/log_f: (B,S,H). Returns (h (B,S,H,dh), state)."""
+    b, s, h, dh = q.shape
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        log_i = F.pad(log_i, (0, 0, 0, pad), value=-1e30)
+        log_f = F.pad(log_f, (0, 0, 0, pad))
+    scale = dh ** -0.5
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+
+    c_mat, n_vec, m = state.c, state.n, state.m  # (B,H,dh,dh), (B,H,dh), (B,H)
+    hs = []
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        qi, ki, vi, li, lf = q[:, sl], k[:, sl], v[:, sl], log_i[:, sl], log_f[:, sl]
+        bcum = torch.cumsum(lf, dim=1)  # inclusive cumsum of log f
+        g = li - bcum  # (B,Cn,H)
+        gmax = torch.cummax(g, dim=1).values
+        m_t = bcum + torch.maximum(m[:, None, :], gmax)  # (B,Cn,H)
+
+        # inter-chunk: q_t C_prev, scaled exp(m_prev - (m_t - b_t))
+        inter_scale = torch.exp(m[:, None, :] + bcum - m_t)  # (B,Cn,H)
+        qs = qi * scale
+        inter = torch.einsum("bthd,bhde->bthe", qs, c_mat) * inter_scale[..., None]
+        inter_n = torch.einsum("bthd,bhd->bth", qs, n_vec) * inter_scale
+
+        # intra-chunk: D[t,s] = exp(g_s - max(m_prev, gmax_t)) for s<=t
+        mt_rel = m_t - bcum  # = max(m_prev, gmax_t)
+        dmat = torch.exp(g[:, None, :, :] - mt_rel[:, :, None, :])  # (B,t,s,H)
+        dmat = torch.where(tri[None, :, :, None], dmat, 0.0)
+        qk = torch.einsum("bthd,bshd->btsh", qs, ki)  # (B,t,s,H)
+        w = qk * dmat
+        intra = torch.einsum("btsh,bshd->bthd", w, vi)
+        intra_n = torch.sum(w, dim=2)  # (B,t,H)
+
+        num = inter + intra  # (B,Cn,H,dh)
+        den = inter_n + intra_n
+        denom = torch.maximum(torch.abs(den), torch.exp(-m_t))
+        hs.append(num / denom[..., None])
+
+        # carry update to end of chunk
+        b_tot = bcum[:, -1, :]  # (B,H)
+        m_last = m_t[:, -1, :]
+        c_scale = torch.exp(m + b_tot - m_last)  # (B,H)
+        kv_scale = torch.exp(g + (b_tot[:, None, :] - m_last[:, None, :]))  # (B,Cn,H)
+        c_mat = c_mat * c_scale[..., None, None] + torch.einsum(
+            "bshd,bsh,bshe->bhde", ki, kv_scale, vi)
+        n_vec = n_vec * c_scale[..., None] + torch.einsum("bshd,bsh->bhd", ki, kv_scale)
+        m = m_last
+    h_full = torch.cat(hs, dim=1)[:, :s]
+    return h_full, MLSTMState(c_mat, n_vec, m, state.conv)
+
+
+def _mlstm_step(q, k, v, log_i, log_f, state: MLSTMState) -> tuple:
+    """Single-token recurrence. q,k,v: (B,H,dh); log_i/f: (B,H)."""
+    dh = q.shape[-1]
+    scale = dh ** -0.5
+    m_new = torch.maximum(log_f + state.m, log_i)
+    i_p = torch.exp(log_i - m_new)
+    f_p = torch.exp(log_f + state.m - m_new)
+    c = state.c * f_p[..., None, None] + i_p[..., None, None] * (
+        k[..., :, None] * v[..., None, :]
+    )
+    n = state.n * f_p[..., None] + i_p[..., None] * k
+    num = torch.einsum("bhd,bhde->bhe", q * scale, c)
+    den = torch.einsum("bhd,bhd->bh", q * scale, n)
+    denom = torch.maximum(torch.abs(den), torch.exp(-m_new))
+    return num / denom[..., None], MLSTMState(c, n, m_new, state.conv)
+
+
+def _zero_mlstm_state(cfg: ModelConfig, b: int, dt, device) -> MLSTMState:
+    _, d_inner, h, dh = _dims(cfg)
+    f32 = dict(dtype=torch.float32, device=device)
+    return MLSTMState(
+        c=torch.zeros((b, h, dh, dh), **f32),
+        n=torch.zeros((b, h, dh), **f32),
+        m=torch.zeros((b, h), **f32),
+        conv=torch.zeros((b, 3, d_inner), dtype=dt, device=device),
+    )
+
+
+def mlstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
+                single_step: bool = False) -> tuple:
+    """x: (B,S,D). Returns (y (B,S,D), MLSTMState)."""
+    d, d_inner, h, dh = _dims(cfg)
+    dt = x.dtype
+    b, s, _ = x.shape
+    f32 = torch.float32
+    up = L._dot(x, p["w_up"]).to(dt)
+    inner, z = up[..., :d_inner], up[..., d_inner:]
+
+    # short causal conv on the q/k path (streaming form carries K-1 taps)
+    kw = p["conv_w"].shape[0]
+    if single_step:
+        xs_cat = torch.cat([state.conv.to(dt), inner], dim=1)  # (B,K,d)
+        conv = sum(
+            xs_cat[:, i : i + 1, :] * p["conv_w"][i][None, None, :].to(dt) for i in range(kw)
+        ) + p["conv_b"].to(dt)
+        new_conv_state = xs_cat[:, 1:, :]
+    else:
+        xp = F.pad(inner, (0, 0, kw - 1, 0))
+        conv = sum(
+            xp[:, i : i + s, :] * p["conv_w"][i][None, None, :].to(dt) for i in range(kw)
+        ) + p["conv_b"].to(dt)
+        new_conv_state = xp[:, s : s + kw - 1, :]  # last K-1 inputs
+    conv = F.silu(conv.to(f32)).to(dt)
+
+    q = L._dot(conv, p["wq"]).to(dt).reshape(b, s, h, dh)
+    k = L._dot(conv, p["wk"]).to(dt).reshape(b, s, h, dh)
+    v = L._dot(inner, p["wv"]).to(dt).reshape(b, s, h, dh)
+    gates = torch.matmul(inner.to(f32), p["w_if"])  # (B,S,2H)
+    log_i = gates[..., :h] + p["b_i"]
+    log_f = F.logsigmoid(gates[..., h:] + p["b_f"])
+
+    if state is None:
+        state = _zero_mlstm_state(cfg, b, dt, x.device)
+    if single_step:
+        h_out, state = _mlstm_step(
+            q[:, 0].to(f32), k[:, 0].to(f32), v[:, 0].to(f32), log_i[:, 0], log_f[:, 0], state)
+        h_out = h_out[:, None]
+    else:
+        h_out, state = _mlstm_chunk_scan(
+            q.to(f32), k.to(f32), v.to(f32), log_i, log_f, cfg.mlstm_chunk, state)
+    state = state._replace(conv=new_conv_state)
+    h_mixed = L.rms_norm(p["mix_norm"], h_out.reshape(b, s, d_inner).to(dt), cfg.norm_eps)
+    y = h_mixed * F.silu(z.to(f32)).to(dt)
+    return L._dot(y, p["w_down"]).to(dt), state
+
+
+# ---------------------------------------------------------------------------
+# sLSTM cell: sequential scan
+# ---------------------------------------------------------------------------
+
+
+class SLSTMState(NamedTuple):
+    c: torch.Tensor  # (B,D) f32
+    n: torch.Tensor  # (B,D) f32
+    h: torch.Tensor  # (B,D) f32
+    m: torch.Tensor  # (B,D) f32
+
+
+def _slstm_scan(p, x_gates: torch.Tensor, cfg: ModelConfig, state: SLSTMState) -> tuple:
+    """x_gates: (B,S,4D) input contributions to z,i,f,o gates."""
+    b, s, _ = x_gates.shape
+    d = cfg.d_model
+    h_heads = cfg.num_heads
+    dh = d // h_heads
+    r = p["r_gates"].to(torch.float32)  # (4,H,dh,dh)
+    st = state
+    hs = []
+    for t in range(s):
+        xg = x_gates[:, t]
+        hprev = st.h.reshape(b, h_heads, dh)
+        rec = torch.einsum("bhd,ghde->gbhe", hprev, r).reshape(4, b, d)
+        zi = xg[:, 0 * d : 1 * d] + rec[0]
+        ii = xg[:, 1 * d : 2 * d] + rec[1]
+        ff = xg[:, 2 * d : 3 * d] + rec[2]
+        oo = xg[:, 3 * d : 4 * d] + rec[3]
+        z = torch.tanh(zi)
+        o = torch.sigmoid(oo)
+        log_f = F.logsigmoid(ff)
+        m_new = torch.maximum(log_f + st.m, ii)
+        i_p = torch.exp(ii - m_new)
+        f_p = torch.exp(log_f + st.m - m_new)
+        c = f_p * st.c + i_p * z
+        n = f_p * st.n + i_p
+        h = o * c / torch.clamp_min(n, 1.0)
+        st = SLSTMState(c, n, h, m_new)
+        hs.append(h)
+    return torch.stack(hs, dim=1), st  # (B,S,D)
+
+
+def slstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None) -> tuple:
+    b, s, d = x.shape
+    dt = x.dtype
+    xg = L._dot(x, p["w_gates"]) + p["b_gates"]
+    if state is None:
+        z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        state = SLSTMState(z, z, z, z)
+    h, state = _slstm_scan(p, xg, cfg, state)
+    h = L.rms_norm(p["group_norm"], h.to(dt), cfg.norm_eps)
+    g = L._dot(h, p["w_ff_gate"])
+    u = L._dot(h, p["w_ff_up"])
+    y = (F.gelu(g, approximate="tanh") * u).to(dt)
+    return L._dot(y, p["w_ff_down"]).to(dt), state
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+
+class XLSTMCache(NamedTuple):
+    mlstm: list  # MLSTMState or None per layer
+    slstm: list  # SLSTMState or None per layer
+    length: int
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> XLSTMCache:
+    dt = model_dtype(cfg)
+    ms, ss = [], []
+    for li in range(cfg.num_layers):
+        if is_slstm(cfg, li):
+            z = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device)
+            ss.append(SLSTMState(z, z, z, z))
+            ms.append(None)
+        else:
+            ms.append(_zero_mlstm_state(cfg, batch, dt, device))
+            ss.append(None)
+    return XLSTMCache(ms, ss, 0)
+
+
+class XLSTM(Model):
+    """The xLSTM LM with its weights, on one device (an untied ``lm_head``;
+    weights drawn as the reference draws them, from ``generator``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        dt = model_dtype(cfg)
+        kw = dict(generator=generator, device=device)
+        self.embed = Group({"table": L.embed_init((cfg.vocab_size, cfg.d_model), dt, **kw)})
+        self.final_norm = Group(L.init_rmsnorm(cfg.d_model, dt, device=device))
+        self.lm_head = Group({"w": L.dense_init((cfg.d_model, cfg.vocab_size), dt, **kw)})
+        self.layers = nn.ModuleList(
+            [Group(init_layer(cfg, i, **kw)) for i in range(cfg.num_layers)]
+        )
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = L.rms_norm(self.final_norm, x, self.cfg.norm_eps)
+        return L._dot(x, self.lm_head["w"])
+
+    def _layers(self, x: torch.Tensor, ms: list, ss: list, *, single_step: bool) -> torch.Tensor:
+        """Every block over x; ``ms`` / ``ss`` hold each layer's state in
+        and take its new state (None in, as `forward` passes, is zero)."""
+        cfg = self.cfg
+        for li, lp in enumerate(self.layers):
+            h = L.rms_norm(lp.norm, x, cfg.norm_eps)
+            if is_slstm(cfg, li):
+                y, ss[li] = slstm_block(lp.slstm, h, cfg, state=ss[li])
+            else:
+                y, ms[li] = mlstm_block(lp.mlstm, h, cfg, state=ms[li], single_step=single_step)
+            x = x + y
+        return x
+
+    def forward(self, tokens: torch.Tensor, **_) -> tuple:
+        n = self.cfg.num_layers
+        x = self._layers(self.embed["table"][tokens], [None] * n, [None] * n, single_step=False)
+        return self._logits(x), {}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: int) -> tuple:
+        b, s = tokens.shape
+        cache = self.init_cache(b, max_len)
+        ms, ss = list(cache.mlstm), list(cache.slstm)
+        x = self._layers(self.embed["table"][tokens], ms, ss, single_step=False)
+        return self._logits(x), XLSTMCache(ms, ss, s)
+
+    @torch.no_grad()
+    def decode_step(self, cache: XLSTMCache, token: torch.Tensor) -> tuple:
+        ms, ss = list(cache.mlstm), list(cache.slstm)
+        x = self._layers(self.embed["table"][token[:, None]], ms, ss, single_step=True)
+        return self._logits(x)[:, 0], XLSTMCache(ms, ss, cache.length + 1)
+
+    def init_cache(self, batch: int, max_len: int) -> XLSTMCache:
+        return init_cache(self.cfg, batch, max_len, device=self.device)
+
+
+def init_params(cfg: ModelConfig, *, device, generator=None) -> XLSTM:
+    return XLSTM(cfg, device=device, generator=generator)

@@ -30,7 +30,8 @@ SCAN_LAYERS_ITEM = "ROADMAP A12g (training under scan_layers)"
 
 def param_tree(model) -> dict:
     """The model's parameters as the reference's tree: dotted names split
-    into nested dicts, with the per-layer groups under ``layers`` a list."""
+    into nested dicts, with the per-layer groups (``layers``, whisper's
+    ``enc_layers`` and ``dec_layers``) lists."""
     tree: dict = {}
     for name, param in model.named_parameters():
         *groups, leaf = name.split(".")
@@ -38,9 +39,9 @@ def param_tree(model) -> dict:
         for g in groups:
             node = node.setdefault(g, {})
         node[leaf] = param
-    if "layers" in tree:
-        layers = tree["layers"]
-        tree["layers"] = [layers[str(i)] for i in range(len(layers))]
+    for key, sub in tree.items():
+        if isinstance(sub, dict) and sub and all(k.isdigit() for k in sub):
+            tree[key] = [sub[str(i)] for i in range(len(sub))]
     return tree
 
 

@@ -1057,3 +1057,66 @@ def test_train_loop_on_card(cuda):
     assert all(ops.KERNELS[k].launches > n for k, n in before.items())
     assert all(h["step_ok"] == 1.0 and np.isfinite(h["loss"]) for h in out["history"])
     assert out["model"].device.type == "cuda"
+
+
+FAMILY_ARCHS = ("mixtral_8x7b", "grok_1_314b", "recurrentgemma_2b", "xlstm_125m",
+                "whisper_medium")
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_decode_consistency_on_card(cuda, arch):
+    """Each family added with MoE, the RG-LRU hybrid, xLSTM and whisper at
+    its smoke size in float32 on the card: prefill 8 tokens, decode 8,
+    against `forward` on all 16 (atol 1e-4; the prefill stays inside
+    recurrentgemma's 16-token window; whisper with seeded encoder frames
+    in both)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model_zoo import get_model
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = get_model(cfg, device=cuda, generator=gen)
+    toks = _t(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32),
+              cuda)
+    extra = {}
+    if cfg.frontend == "audio_stub":
+        extra["encoder_frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                              device=cuda) * 0.02
+    with torch.no_grad():
+        full, _ = model(toks, **extra)
+    lg, cache = model.prefill(toks[:, :8], 16, **extra)
+    outs = [lg]
+    for t in range(8, 16):
+        step, cache = model.decode_step(cache, toks[:, t])
+        outs.append(step[:, None])
+    torch.testing.assert_close(torch.cat(outs, 1), full, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("top_k,cf", [(1, 1.0), (2, 1.0), (2, 8.0), (3, 1.0)])
+def test_moe_routing_and_combine_on_card_equal_cpu(cuda, top_k, cf):
+    """`moe.route` on the card gives the CPU's experts, kept pairs and
+    slots bit for bit (weights within 1e-6: the router's products round
+    otherwise), and `moe.combine` of the same expert outputs and weights
+    is the CPU's bit for bit (products and sums in k order, no atomics)."""
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(top_k)
+    e, d, t = 8, 64, 96
+    router = torch.from_numpy((rng.standard_normal((d, e)) / 8).astype(np.float32))
+    xt = torch.from_numpy(rng.standard_normal((t, d)).astype(np.float32))
+    kw = dict(num_experts=e, top_k=top_k, capacity_factor=cf)
+    host = moe.route(router, xt, **kw)
+    card = moe.route(router.to(cuda), xt.to(cuda), **kw)
+    assert card["capacity"] == host["capacity"]
+    for k in ("experts", "keep", "slot", "slot_token", "slot_used"):
+        assert torch.equal(card[k].cpu(), host[k]), k
+    torch.testing.assert_close(card["weights"].cpu(), host["weights"], atol=1e-6, rtol=0)
+    ye = torch.from_numpy(rng.standard_normal((e * host["capacity"], d)).astype(np.float32))
+    want = moe.combine(ye, host["slot"], host["keep"], host["weights"])
+    got = moe.combine(ye.to(cuda), host["slot"].to(cuda), host["keep"].to(cuda),
+                      host["weights"].to(cuda))
+    assert torch.equal(got.cpu(), want)
+    if cf < e:
+        assert not bool(host["keep"].all())  # the case drops pairs

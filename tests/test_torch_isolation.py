@@ -43,6 +43,8 @@ def test_every_module_is_covered():
         "repro_torch.optimizer.adamw", "repro_torch.optimizer.adafactor",
         "repro_torch.optimizer.compress", "repro_torch.train.step",
         "repro_torch.train.train_state", "repro_torch.launch", "repro_torch.launch.train",
+        "repro_torch.models.base", "repro_torch.models.moe", "repro_torch.models.rglru",
+        "repro_torch.models.xlstm", "repro_torch.models.whisper",
     ):
         assert expected in names
 

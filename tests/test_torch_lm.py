@@ -78,11 +78,27 @@ def test_config_registry_equal():
     assert tbase.get_config("qwen2.5-3b") == tbase.get_config("qwen2_5_3b")
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x7b", "grok_1_314b", "recurrentgemma_2b",
-                                  "xlstm_125m", "whisper_medium"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        model_zoo.get_model(tbase.get_smoke_config(arch), device="cpu")
+def _path_name(path) -> str:
+    return ".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+
+
+@pytest.mark.parametrize("arch", jbase.ARCH_IDS)
+def test_every_family_builds(arch):
+    """`get_model` builds every configuration at its smoke size, a
+    `model_zoo.Model` whose parameters are the reference's tree: the same
+    names, shapes and dtypes; its forward gives finite logits."""
+    cfg = tbase.get_smoke_config(arch)
+    model = model_zoo.get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert isinstance(model, model_zoo.Model)
+    shapes = jax.eval_shape(jget_model(jbase.get_smoke_config(arch)).init, jax.random.PRNGKey(0))
+    want = {_path_name(path): (tuple(leaf.shape), str(leaf.dtype))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    got = {name: (tuple(p.shape), str(p.dtype).removeprefix("torch."))
+           for name, p in model.named_parameters()}
+    assert got == want
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, (1, 8)))
+    logits, _ = model.forward(toks)
+    assert logits.shape == (1, 8, cfg.vocab_size) and bool(torch.isfinite(logits).all())
 
 
 # ---------------------------------------------------------------------------

@@ -363,12 +363,11 @@ def test_selection_finds_reference_domains(tiny_corpus):
 
 
 def test_checkpoint_resume_matches(tiny_corpus, tmp_path):
-    """TestTrainLoop.test_checkpoint_resume_matches on the port, with
-    qwen2.5-3b smoke (bf16, vocab 256) in place of xlstm-125m, which the
-    port does not build yet: 20 steps against 10, a save, and a resume to
-    20, within the reference test's atol 2e-2 on every parameter; the
-    snapshots hold bf16 leaves and an int32 step."""
-    cfg = tbase.get_smoke_config("qwen2_5_3b")
+    """TestTrainLoop.test_checkpoint_resume_matches on the port, with its
+    xlstm-125m smoke (bf16, vocab 256): 20 steps against 10, a save, and
+    a resume to 20, within the reference test's atol 2e-2 on every
+    parameter; the snapshots hold bf16 leaves and an int32 step."""
+    cfg = tbase.get_smoke_config("xlstm_125m")
     assert cfg.dtype == "bfloat16" and cfg.vocab_size == 256
     kw = dict(cfg=cfg, batch_size=4, seq_len=64, lr=1e-3, corpus=tiny_corpus, select_k=4,
               log_fn=_quiet, seed=3, device="cpu")
