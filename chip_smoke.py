@@ -253,6 +253,43 @@ Phases, each of which raises (non-zero exit) when a check fails:
    12d's bars, the MoE aux terms reported and within the loss's bar.
    ``{"check": "families", ...}``.
 
+14. Sharded serving, last (after phase 13 freed its models; under 2 GB
+   allocated on the card when it starts). 14a: `select_domains` on
+   qwen2.5-3b's vocabulary corpus (4,096 blocks, seed 0) in this process:
+   the planted `close_ids` in 9 rounds and 457 blocks, kernels A and B once
+   a round, kernel C once a statistics step (path ``sharded_select``), and
+   8 x 256-token prompts from its `TokenStream`. Then the one-process
+   references on the card (freed before the spawn), and one `run_ranks`
+   spawn of 4 gloo ranks sharing the card, re-meshing one process group.
+   14b: a full-width qwen2.5-3b (bf16, seed 0) placed by
+   `distributed.shard_model` on a 2 x 2 ("data", "model") mesh (local
+   heads, head-sharded caches), each data replica's `ServeEngine(slots=4)`
+   serving its 4 prompts, 32 new tokens: the prefill's last and the first
+   tick's logits against one process on the same weights and prompts
+   (the greedy loop on the replica's 4 rows: the engine's computation,
+   phase 11b) and against the float32 evaluation of those bf16 weights:
+   with delta the one-process logits' distance from the float32 ones at
+   that step, within max(0.05, 2 delta) of one process and delta + 0.05 of
+   float32 (at 36 bf16 layers delta is 0.09-0.10, over 0.05); every token
+   equal to that loop's up to its first top-two margin under 0.05, both
+   model ranks of a replica picking the same tokens; prefill ms, ms a
+   tick, tokens/s a replica and in all, all-reduce calls, bytes and host
+   seconds a tick (`COLLECTIVES`). 14c: the same weights on 1 x 4 under
+   ``decode_seq_shard`` (flash-decoding, the cache's 512 positions in 4
+   ranges): the prefill's and 4 ticks' logits under 14b's bars. 14d:
+   mixtral-8x7b at 4 of its 32 layers in float32 (``moe_impl="local"``,
+   the dropless capacity; in bf16 a router's near tie flips a token's
+   experts between any two evaluations) on 2 x 2, 8 x 128 tokens: forward
+   logits within 0.05 of one process, the aux terms within 0.05 of the
+   one-process mean over the data shards, ``drop_frac`` 0. 14e:
+   qwen2.5-3b in float32 at 4 layers on 2 x 2: the prefill's and 4 ticks'
+   logits within 1e-4. 14f: qwen2.5-3b's 36 blocks as 4 stages of 9
+   (`pipeline.stage_model`, a (4, 1, 1) ("pod", "data", "model") mesh), 4
+   microbatches of 2 x 256: every stage returns the same hidden states,
+   within 0.05 of one process on the same microbatches. No rank holds the
+   whole model, and each rank's peak is under the one-process serving
+   peak. ``{"check": "sharded", ...}``.
+
 Every kernel must have launched on some path, each path's counts set to
 0 just before it and read just after; a kernel's ``launches`` in the
 ``kernels`` line are those of the first path that runs it (``path``),
@@ -260,7 +297,8 @@ with every path's count beside them; kernel B's row adds the registry
 read's launches and its registry-shape timing, and the monitor's
 launches and its (1, 64) timing (phase 11d) and phase 13d's launches; every
 row's ``launches_by_path`` includes ``train_select`` (phase 12a),
-``families_select`` (13a) and ``families_monitor`` (13d). The last lines are the
+``families_select`` (13a), ``families_monitor`` (13d) and
+``sharded_select`` (14a). The last lines are the
 ``kernels`` JSON line, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
 also go to ``chiprun_out/chip_smoke.json``. Exits 2 without a CUDA
@@ -3114,9 +3152,10 @@ def _state_tensors(cache) -> dict:
     return out
 
 
-def _family_select(torch, arch: str, vocab: int) -> tuple:
-    """13a for one family: the selection on the card and its launches
-    (counts at 0 just before, read just after), and the stream's prompts."""
+def _family_select(torch, arch: str, vocab: int, label: str = "13a") -> tuple:
+    """13a (14a) for one family: the selection on the card and its
+    launches (counts at 0 just before, read just after), and the stream's
+    prompts."""
     import numpy as np
 
     from repro_torch.data.corpus import CorpusSpec, make_corpus
@@ -3133,15 +3172,15 @@ def _family_select(torch, arch: str, vocab: int) -> tuple:
     res = rep.result
     selected = np.sort(rep.selected_domains)
     check(np.array_equal(selected, corpus.close_ids),
-          f"13a {arch}: selected {selected.tolist()}, planted {corpus.close_ids.tolist()}")
+          f"{label} {arch}: selected {selected.tolist()}, planted {corpus.close_ids.tolist()}")
     if FAM_SELECT_EXPECT is not None:
         check((res.rounds, res.blocks_read) == FAM_SELECT_EXPECT,
-              f"13a {arch}: {res.rounds} rounds, {res.blocks_read} blocks, "
+              f"{label} {arch}: {res.rounds} rounds, {res.blocks_read} blocks, "
               f"not {FAM_SELECT_EXPECT}")
     c = sum(launches[name] for name in C_FORMS)
     check(launches["anyactive"] == launches["histogram"] == res.rounds
           and res.rounds <= c <= res.rounds + 1,
-          f"13a {arch}: launches {launches} for {res.rounds} rounds")
+          f"{label} {arch}: launches {launches} for {res.rounds} rounds")
     batch = next(TokenStream(corpus, rep.selected_domains, batch_size=LM_SLOTS,
                              seq_len=LM_PROMPT, seed=0))["tokens"]
     report = dict(ids=selected.tolist(), rounds=res.rounds, blocks_read=res.blocks_read,
@@ -3354,6 +3393,551 @@ def phase_families(torch, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: sharded serving
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 4
+SHARD_ARCH = "qwen2_5_3b"
+SHARD_MOE_ARCH = "mixtral_8x7b"
+# the one cut of 14d: mixtral-8x7b at 4 of its 32 layers, in float32 (its
+# layers are alike; the one-process reference must fit the card alone
+# before the spawn: 23.5 GB; in bf16 a router's near tie flips a token's
+# experts between any two evaluations, so its logits compare in float32)
+SHARD_MOE_LAYERS = 4
+SHARD_MOE_SEQ = 128  # 14d: 8 x 128 tokens, forward at the dropless capacity
+SHARD_F32_LAYERS = 4  # 14e: qwen2.5-3b in float32 at 4 of 36 layers
+SHARD_TICKS = 4  # 14b's timed ticks and 14c's and 14e's checked ticks
+SHARD_STAGES, SHARD_MICRO = 4, 4  # 14f: 36 blocks as 4 stages of 9, 4 microbatches
+SHARD_ATOL, SHARD_F32_ATOL, SHARD_MARGIN = 0.05, 1e-4, 0.05
+SHARD_SMOKE = False  # a CPU rehearsal sets it (smoke configs), SHARD_LAYERS and SHARD_DEVICE
+SHARD_LAYERS = None
+SHARD_DEVICE = "cuda"
+
+
+def _shard_cfg(meta: dict, arch: str, **kw):
+    """``arch``'s config (the smoke config in a CPU rehearsal, which may
+    also set qwen's depth: its smoke config's 2 layers are under 14f's 4
+    stages)."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_smoke_config if meta["smoke"] else get_config)(arch)
+    if arch == SHARD_ARCH and meta.get("layers"):
+        cfg = dataclasses.replace(cfg, num_layers=meta["layers"])
+    return dataclasses.replace(cfg, **kw)
+
+
+def _sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_reset(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(torch, device: str) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else 0.0
+
+
+def _shard_ref_loop(torch, model, rows, steps: int, device: str) -> dict:
+    """The one-process greedy loop on one data replica's rows: the
+    prefill's last logits, the first ``SHARD_TICKS`` ticks' logits, every
+    token and every step's top-two margin."""
+    import numpy as np
+
+    toks = torch.from_numpy(rows).to(device)
+    logits, cache = model.prefill(toks, LM_MAX_LEN)
+    logits = logits[:, -1]
+    kept, tokens, margins = [logits.float().cpu().numpy()], [], []
+    for i in range(steps):
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        margins.append((top[:, 0] - top[:, 1]).cpu().numpy())
+        tok = torch.argmax(logits, dim=-1)
+        tokens.append(tok.cpu().numpy())
+        if i == steps - 1:
+            break
+        logits, cache = model.decode_step(cache, tok)
+        if i < SHARD_TICKS:
+            kept.append(logits.float().cpu().numpy())
+    return dict(logits=kept, tokens=np.stack(tokens, 1), margins=np.stack(margins, 1))
+
+
+def _shard_references(torch, meta: dict) -> dict:
+    """The one-process side of 14b-14f on the card, then freed: the same
+    seeds, weights and inputs as the ranks'. Sets ``meta["forced"]``, the
+    tokens 14b's loop fed its first ticks, which every decode check feeds."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.models.transformer import embed_tokens
+
+    dev = meta["device"]
+    out = {}
+    prompts = meta["prompts"]
+    half = prompts.shape[0] // 2
+    cfg = _shard_cfg(meta, SHARD_ARCH)
+    _peak_reset(torch, dev)
+    model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        loops = [_shard_ref_loop(torch, model, prompts[r : r + half], LM_NEW, dev)
+                 for r in (0, half)]
+        out["serve"] = dict(
+            logits=[np.concatenate([a, b]) for a, b in zip(loops[0]["logits"], loops[1]["logits"])],
+            tokens=np.concatenate([lp["tokens"] for lp in loops]),
+            margins=np.concatenate([lp["margins"] for lp in loops]),
+            peak_gb=_peak_gb(torch, dev))
+        # 14c-14e decode what this loop decoded (teacher-forced)
+        meta["forced"] = np.ascontiguousarray(out["serve"]["tokens"][:, :SHARD_TICKS])
+        # the same bf16 weights evaluated in float32: how far each bf16
+        # evaluation (one process, sharded) rounds from it
+        exact = copy.deepcopy(model).float()
+        steps = []
+        for r in (0, half):
+            logits, cache = exact.prefill(torch.from_numpy(prompts[r : r + half]).to(dev),
+                                          LM_MAX_LEN)
+            kept = [logits[:, -1].cpu().numpy()]
+            for i in range(SHARD_TICKS):
+                tick, cache = exact.decode_step(
+                    cache, torch.from_numpy(meta["forced"][r : r + half, i]).to(dev))
+                kept.append(tick.cpu().numpy())
+            steps.append(kept)
+        out["serve"]["exact"] = [np.concatenate([a[i] for a in steps])
+                                 for i in range(SHARD_TICKS + 1)]
+        del exact, cache, logits, tick
+        # 14f: the 36 blocks on each microbatch (the stages' shapes)
+        mb = prompts.shape[0] // SHARD_MICRO
+        pos = torch.arange(prompts.shape[1], dtype=torch.int32, device=dev).expand(mb, -1)
+        hidden = []
+        for m in range(SHARD_MICRO):
+            h = embed_tokens(model, torch.from_numpy(prompts[m * mb : (m + 1) * mb]).to(dev))
+            for lp in model.layers:
+                h = model._block(lp, h, pos, cfg.expert_capacity_factor)[0]
+            hidden.append(h.float().cpu().numpy())
+        out["pipeline"] = np.concatenate(hidden)
+    del model, loops
+    # 14e: float32 at SHARD_F32_LAYERS layers, teacher-forced on 14b's tokens
+    cfg32 = _shard_cfg(meta, SHARD_ARCH, dtype="float32", num_layers=meta["f32_layers"])
+    model = get_model(cfg32, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        toks = torch.from_numpy(prompts).to(dev)
+        logits, cache = model.prefill(toks, LM_MAX_LEN)
+        f32 = [logits[:, -1].cpu().numpy()]
+        for i in range(SHARD_TICKS):
+            step, cache = model.decode_step(
+                cache, torch.from_numpy(meta["forced"][:, i]).to(dev))
+            f32.append(step.cpu().numpy())
+    out["f32"] = f32
+    del model, cache
+    # 14d: the MoE cut at the dropless capacity, and each data shard alone
+    cfg_moe = _shard_cfg(meta, SHARD_MOE_ARCH, num_layers=meta["moe_layers"], moe_impl="local",
+                         dtype="float32")
+    cfg_moe = dataclasses.replace(cfg_moe, expert_capacity_factor=float(cfg_moe.num_experts))
+    model = get_model(cfg_moe, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        toks = torch.from_numpy(meta["moe_tokens"]).to(dev)
+        logits, _ = model(toks)
+        auxes = [model(toks[r : r + half])[1] for r in (0, half)]
+    out["moe"] = dict(logits=logits.cpu().numpy(),
+                      aux={k: float(sum(float(a[k]) for a in auxes) / 2) for k in auxes[0]})
+    del model, logits, toks
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shard_rank(rank, world, meta):
+    """One gloo rank of phase 14 on the card: 14b at 2 x 2, 14c at 1 x 4,
+    14d and 14e at 2 x 2, 14f at 4 x 1 x 1, re-meshing one process group.
+    Returns numpy: this rank's logit columns of its data shard's rows,
+    timings, collectives and peak memory per sub-phase."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed
+    from repro_torch.distributed import shard_model
+    from repro_torch.distributed.pipeline import (
+        make_pipeline_forward, stage_model, transformer_stage_fn,
+    )
+    from repro_torch.models.transformer import embed_tokens
+    from repro_torch.serve import Request, ServeEngine
+
+    entered_at = time.time()
+    t_start = time.perf_counter()
+    dev = meta["device"]
+    mesh22 = distributed.init_mesh((2, 2), device_type=dev)
+    mesh14 = distributed.init_mesh((1, 4), device_type=dev)
+    mesh_pipe = distributed.init_mesh((SHARD_STAGES, 1, 1), ("pod", "data", "model"),
+                                      device_type=dev)
+    coord = dict(zip(mesh22.mesh_dim_names, mesh22.get_coordinate()))
+    d = coord["data"]
+    prompts, forced = meta["prompts"], meta["forced"]
+    half = prompts.shape[0] // 2
+    mine = slice(d * half, (d + 1) * half)
+    out = dict(rank=rank, entered_at=entered_at, coord=coord,
+               startup=dict(imported=T0_WALL, **distributed.RANK_STARTUP))
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    def collectives():
+        return dict(distributed.COLLECTIVES)
+
+    def delta(c0, ticks=1):
+        c = distributed.COLLECTIVES
+        return dict(calls=(c["calls"] - c0["calls"]) / ticks,
+                    bytes=(c["bytes"] - c0["bytes"]) / ticks,
+                    host_s=(c["seconds"] - c0["seconds"]) / ticks)
+
+    def decode(model, toks, ticks):
+        """prefill + ``ticks`` ticks fed ``forced``: logits, ms, collectives."""
+        _sync(torch, dev)
+        c0, t = collectives(), time.perf_counter()
+        logits, cache = model.prefill(toks, LM_MAX_LEN)
+        last = logits[:, -1].float().cpu().numpy()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        pre = delta(c0)
+        kept, walls, per_tick = [last], [], []
+        rows = forced[mine] if toks.shape[0] == half else forced
+        for i in range(ticks):
+            c0, t = collectives(), time.perf_counter()
+            step, cache = model.decode_step(cache, torch.from_numpy(rows[:, i]).to(dev))
+            kept.append(step.float().cpu().numpy())
+            walls.append((time.perf_counter() - t) * 1e3)
+            per_tick.append(delta(c0))
+        return dict(logits=kept, prefill_ms=prefill_ms, tick_ms=walls, prefill_collectives=pre,
+                    tick_collectives=per_tick[-1], cols=model.tp.logits, attn=model.tp.attn,
+                    seq=cache.seq, cache_shape=list(cache.k[0].shape))
+
+    # -- 14b: full-width qwen2.5-3b on 2 x 2, each data replica's engine
+    cfg = _shard_cfg(meta, SHARD_ARCH)
+    _peak_reset(torch, dev)
+    t = time.perf_counter()
+    model = shard_model(cfg, mesh22, generator=gen())
+    _sync(torch, dev)
+    build_s = time.perf_counter() - t
+    held = sum(p.numel() for p in model.parameters())
+    with torch.no_grad():
+        serve = decode(model, torch.from_numpy(prompts[mine]).to(dev), SHARD_TICKS)
+    engine = ServeEngine(model, slots=half, max_len=LM_MAX_LEN)
+    for i in range(mine.start, mine.stop):
+        engine.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=LM_NEW))
+    _sync(torch, dev)
+    c0, t = collectives(), time.perf_counter()
+    done = engine.run()
+    _sync(torch, dev)
+    serve.update(engine_s=time.perf_counter() - t, engine_collectives=delta(c0),
+                 outputs={r.rid: r.output for r in done}, metrics=engine.metrics,
+                 build_s=build_s, params_held=held, peak_gb=_peak_gb(torch, dev))
+    out["serve"] = serve
+    del model, engine, done
+
+    # -- 14c: the same weights on 1 x 4, flash-decoding
+    _peak_reset(torch, dev)
+    model = shard_model(dataclasses.replace(cfg, decode_seq_shard=True), mesh14, generator=gen())
+    with torch.no_grad():
+        out["seq"] = decode(model, torch.from_numpy(prompts).to(dev), SHARD_TICKS)
+    out["seq"].update(params_held=sum(p.numel() for p in model.parameters()),
+                      peak_gb=_peak_gb(torch, dev))
+    del model
+
+    # -- 14d: the mixtral cut in float32, shard-local MoE on 2 x 2, dropless
+    cfg_moe = _shard_cfg(meta, SHARD_MOE_ARCH, num_layers=meta["moe_layers"], moe_impl="local",
+                         dtype="float32")
+    cfg_moe = dataclasses.replace(cfg_moe, expert_capacity_factor=float(cfg_moe.num_experts))
+    _peak_reset(torch, dev)
+    model = shard_model(cfg_moe, mesh22, generator=gen())
+    _sync(torch, dev)
+    c0, t = collectives(), time.perf_counter()
+    with torch.no_grad():
+        logits, aux = model(torch.from_numpy(meta["moe_tokens"][mine]).to(dev))
+    _sync(torch, dev)
+    out["moe"] = dict(logits=logits.float().cpu().numpy(), cols=model.tp.logits,
+                      aux={k: float(v) for k, v in aux.items()}, wall_ms=(time.perf_counter() - t)
+                      * 1e3, collectives=delta(c0), attn=model.tp.attn,
+                      expert_block=list(model.layers[0].moe["w_gate"].shape),
+                      params_held=sum(p.numel() for p in model.parameters()),
+                      peak_gb=_peak_gb(torch, dev))
+    del model, logits
+
+    # -- 14e: float32 at SHARD_F32_LAYERS layers on 2 x 2
+    _peak_reset(torch, dev)
+    model = shard_model(_shard_cfg(meta, SHARD_ARCH, dtype="float32",
+                                   num_layers=meta["f32_layers"]), mesh22, generator=gen())
+    with torch.no_grad():
+        out["f32"] = decode(model, torch.from_numpy(prompts[mine]).to(dev), SHARD_TICKS)
+    del model
+
+    # -- 14f: GPipe, the 36 blocks as 4 stages of 9
+    _peak_reset(torch, dev)
+    model, layers = stage_model(cfg, mesh_pipe, n_stages=SHARD_STAGES, generator=gen())
+    mb = prompts.shape[0] // SHARD_MICRO
+    pos = torch.arange(prompts.shape[1], dtype=torch.int32, device=dev).expand(mb, -1)
+
+    def block(lp, h):
+        return model._block(lp, h, pos, cfg.expert_capacity_factor)[0]
+
+    fwd = make_pipeline_forward(transformer_stage_fn(block, len(layers)), mesh_pipe,
+                                n_stages=SHARD_STAGES, n_microbatches=SHARD_MICRO)
+    _sync(torch, dev)
+    c0, t = collectives(), time.perf_counter()
+    with torch.no_grad():
+        hidden = fwd([layers], embed_tokens(model, torch.from_numpy(prompts).to(dev)))
+    _sync(torch, dev)
+    hidden = hidden.float().cpu().numpy()
+    out["pipeline"] = dict(wall_ms=(time.perf_counter() - t) * 1e3, collectives=delta(c0),
+                           digest=hashlib.sha256(hidden.tobytes()).hexdigest(),
+                           params_held=sum(p.numel() for p in model.parameters()),
+                           peak_gb=_peak_gb(torch, dev))
+    if rank == 0:
+        out["pipeline"]["hidden"] = hidden
+    del model, layers
+    out["total_s"] = time.perf_counter() - t_start
+    out["done_at"] = time.time()
+    return out
+
+
+def _assemble(ranks, key: str, rows_of, index=None) -> "np.ndarray":
+    """The whole logits from the ranks' (rows, column blocks)."""
+    import numpy as np
+
+    parts = {}
+    for rk in ranks:
+        got = rk[key]
+        arr = got["logits"] if index is None else got["logits"][index]
+        lo, hi = got["cols"]
+        r0, r1 = rows_of(rk)
+        parts[(r0, lo)] = (r1, hi, arr)
+    n_rows = max(v[0] for v in parts.values())
+    n_cols = max(v[1] for v in parts.values())
+    whole = np.full((n_rows, *arr.shape[1:-1], n_cols), np.nan, np.float32)
+    for (r0, lo), (r1, hi, arr) in parts.items():
+        whole[r0:r1, ..., lo:hi] = arr
+    return whole
+
+
+def phase_sharded(torch, card: str) -> dict:
+    """Phase 14 (see the module docstring): sharded serving on gloo ranks
+    sharing the card."""
+    import numpy as np
+
+    from repro_torch.core import distributed
+
+    t_phase = time.perf_counter()
+    dev = SHARD_DEVICE
+    if dev == "cuda":
+        allocated = torch.cuda.memory_allocated()
+        check(allocated < FAM_MEMORY_BEFORE,
+              f"14: {allocated / 1e9:.2f} GB allocated on the card before the phase")
+    out = {}
+    # -- 14a: the selection, in this process
+    vocab = _shard_cfg(dict(smoke=SHARD_SMOKE), SHARD_ARCH).vocab_size
+    out["select"], batch = _family_select(torch, SHARD_ARCH, vocab, label="14a")
+    prompts = np.ascontiguousarray(batch[:, -LM_PROMPT:]).astype(np.int32)
+    meta = dict(device=dev, smoke=SHARD_SMOKE, layers=SHARD_LAYERS, prompts=prompts,
+                moe_layers=SHARD_MOE_LAYERS, f32_layers=SHARD_F32_LAYERS,
+                moe_tokens=np.random.default_rng(0).integers(
+                    0, _shard_cfg(dict(smoke=SHARD_SMOKE), SHARD_MOE_ARCH).vocab_size,
+                    (prompts.shape[0], SHARD_MOE_SEQ)).astype(np.int32))
+    # -- the one-process references, freed before the spawn
+    t = time.perf_counter()
+    ref = _shard_references(torch, meta)
+    out["reference_s"] = time.perf_counter() - t
+    allocated = torch.cuda.memory_allocated() / 1e9 if dev == "cuda" else 0.0
+    # -- the ranks: one spawn runs 14b-14f
+    t, spawned_at = time.perf_counter(), time.time()
+    ranks = distributed.run_ranks(_shard_rank, SHARD_RANKS, meta, backend="gloo",
+                                  device_type=dev, timeout=900)
+    out["ranks_s"] = time.perf_counter() - t
+    out["allocated_before_spawn_gb"] = allocated
+    out["rank_startup_s"] = [rk["entered_at"] - spawned_at for rk in ranks]
+    out["rank_total_s"] = [rk["total_s"] for rk in ranks]
+    half = prompts.shape[0] // 2
+    failed = []
+
+    def gate(cond: bool, msg: str) -> None:
+        """A phase-14 check: every failure is reported, then the phase raises."""
+        if not cond:
+            failed.append(msg)
+            log(f"FAILED {msg}")
+
+    def replica_rows(rk):
+        d = rk["coord"]["data"]
+        return d * half, (d + 1) * half
+
+    def max_err(got, want):
+        check(not np.isnan(got).any(), "14: the ranks' logit blocks do not tile the logits")
+        return float(np.abs(got - want).max())
+
+    # -- 14b: logits, tokens up to the first near tie, the engines' metrics
+    rs = ref["serve"]
+    errs = [max_err(_assemble(ranks, "serve", replica_rows, i), rs["logits"][i])
+            for i in range(2)]
+    tp_first = [_assemble(ranks, "serve", replica_rows, i) for i in range(2)]
+    # how far each bf16 evaluation is from the bf16 weights in float32
+    exact_err = dict(one_process=[float(np.abs(rs["logits"][i] - rs["exact"][i]).max())
+                                  for i in range(SHARD_TICKS + 1)],
+                     sharded=[float(np.abs(tp_first[i] - rs["exact"][i]).max())
+                              for i in range(2)],
+                     max_abs_logit=float(np.abs(rs["exact"][0]).max()))
+    log(f"14b: prefill / first-tick max |dlogits| {errs} from one process; from the float32 "
+        f"evaluation of the same weights: one process {exact_err['one_process']}, sharded "
+        f"{exact_err['sharded']} (largest |logit| {exact_err['max_abs_logit']:.3g})")
+    # the bars: at 36 bf16 layers the one-process model is itself delta =
+    # 0.09-0.10 from the float32 evaluation of its weights (H100, 700 W),
+    # above 0.05; so each step holds the sharded logits within
+    # max(0.05, 2 delta) of one process and within delta + 0.05 of float32
+    bars = [max(SHARD_ATOL, 2 * d) for d in exact_err["one_process"]]
+    gate(all(e <= b for e, b in zip(errs, bars)),
+         f"14b: prefill / first-tick logits {errs} from one process (bars {bars[:2]})")
+    gate(all(e <= d + SHARD_ATOL for e, d in zip(exact_err["sharded"],
+                                                 exact_err["one_process"])),
+         f"14b: {exact_err['sharded']} from float32, one process {exact_err['one_process'][:2]}")
+    tokens = {}
+    for rk in ranks:
+        for rid, output in rk["serve"]["outputs"].items():
+            gate(tokens.setdefault(rid, output) == output,
+                  f"14b: the model ranks of request {rid}'s replica picked different tokens")
+    compared, ties = 0, 0
+    for rid in range(prompts.shape[0]):
+        low = np.flatnonzero(rs["margins"][rid] < SHARD_MARGIN)
+        upto = int(low[0]) if low.size else LM_NEW
+        ties += int(low.size > 0)
+        gate(tokens[rid][:upto] == rs["tokens"][rid][:upto].tolist(),
+              f"14b request {rid}: tokens {tokens[rid][:upto]} differ from one process's "
+              f"{rs['tokens'][rid][:upto].tolist()} before its first near tie (step {upto})")
+        compared += upto
+    want_metrics = {"prefills": 1, "decode_ticks": LM_NEW - 1, "tokens_out": half * LM_NEW}
+    for rk in ranks:
+        gate(rk["serve"]["metrics"] == want_metrics,
+              f"14b rank {rk['rank']}: metrics {rk['serve']['metrics']}, not {want_metrics}")
+        gate(rk["serve"]["attn"] == "heads" and rk["serve"]["seq"] is None,
+              f"14b rank {rk['rank']}: layout {rk['serve']['attn']}, cache {rk['serve']['seq']}")
+    # -- 14c: flash-decoding, SHARD_TICKS ticks
+    seq_logits = [_assemble(ranks, "seq", lambda rk: (0, prompts.shape[0]), i)
+                  for i in range(SHARD_TICKS + 1)]
+    errs_c = [max_err(g, w) for g, w in zip(seq_logits, rs["logits"])]
+    exact_err["sharded_seq"] = [float(np.abs(g - w).max())
+                                for g, w in zip(seq_logits, rs["exact"])]
+    log(f"14c: max |dlogits| {errs_c} from one process; from the float32 evaluation "
+        f"{exact_err['sharded_seq']}")
+    gate(all(e <= b for e, b in zip(errs_c, bars)),
+         f"14c: logits {errs_c} from one process (bars {bars})")
+    gate(all(e <= d + SHARD_ATOL for e, d in zip(exact_err["sharded_seq"],
+                                                 exact_err["one_process"])),
+         f"14c: {exact_err['sharded_seq']} from float32, one process {exact_err['one_process']}")
+    for rk in ranks:
+        gate(rk["seq"]["attn"] == "whole" and rk["seq"]["seq"] is not None,
+              f"14c rank {rk['rank']}: layout {rk['seq']['attn']}, cache {rk['seq']['seq']}")
+    # -- 14d: the MoE cut
+    rm = ref["moe"]
+    err_d = max_err(_assemble(ranks, "moe", replica_rows), rm["logits"])
+    gate(err_d <= SHARD_ATOL, f"14d: forward logits {err_d:.3g} from one process")
+    aux_err = {}
+    for rk in ranks:
+        got = rk["moe"]["aux"]
+        gate(set(got) == set(rm["aux"]) and got["drop_frac"] == 0.0,
+              f"14d rank {rk['rank']}: aux {got}")
+        for k in ("load_balance_loss", "router_z_loss"):
+            aux_err[k] = max(aux_err.get(k, 0.0), abs(got[k] - rm["aux"][k]))
+    gate(max(aux_err.values()) <= SHARD_ATOL,
+          f"14d: aux terms {aux_err} from the data shards' one-process mean")
+    # -- 14e: float32
+    errs_e = [max_err(_assemble(ranks, "f32", replica_rows, i), ref["f32"][i])
+              for i in range(SHARD_TICKS + 1)]
+    gate(max(errs_e) <= SHARD_F32_ATOL, f"14e: float32 logits {errs_e} (bar {SHARD_F32_ATOL})")
+    # -- 14f: every stage returns the last stage's hidden states
+    r0 = ranks[0]["pipeline"]
+    gate(len({rk["pipeline"]["digest"] for rk in ranks}) == 1,
+          "14f: the stages returned different hidden states")
+    err_f = float(np.abs(r0["hidden"] - ref["pipeline"]).max())
+    gate(err_f <= SHARD_ATOL, f"14f: hidden states {err_f:.3g} from one process")
+    # no rank holds the whole model; each rank's peak under one process's
+    whole = sum(p.numel() for p in _meta_model(torch, meta).parameters())
+    peaks = [max(rk[k]["peak_gb"] for k in ("serve", "seq", "pipeline")) for rk in ranks]
+    for rk in ranks:
+        for k in ("serve", "seq", "pipeline"):
+            gate(rk[k]["params_held"] < whole,
+                  f"14 rank {rk['rank']}: {k} holds {rk[k]['params_held']} of {whole} parameters")
+    if dev == "cuda":
+        gate(max(peaks) < rs["peak_gb"],
+              f"14: a rank's peak {max(peaks):.2f} GB is not under one process's "
+              f"{rs['peak_gb']:.2f} GB")
+
+    def tick_stats(rk, key):
+        m = rk[key]
+        return dict(prefill_ms=m["prefill_ms"], tick_ms=m["tick_ms"],
+                    prefill_collectives=m["prefill_collectives"],
+                    tick_collectives=m["tick_collectives"])
+
+    serve = [rk["serve"] for rk in ranks]
+    engine_s = max(s["engine_s"] for s in serve)
+    out.update(
+        serve=dict(mesh=[2, 2], max_abs_dlogits=errs, bars=bars, from_float32=exact_err,
+                   tokens_compared=compared,
+                   rows_with_near_tie=ties, metrics=serve[0]["metrics"],
+                   tokens_per_s_replica=[half * LM_NEW / s["engine_s"] for s in serve[::2]],
+                   tokens_per_s=prompts.shape[0] * LM_NEW / engine_s,
+                   engine_s=[s["engine_s"] for s in serve],
+                   engine_collectives=[s["engine_collectives"] for s in serve],
+                   build_s=[s["build_s"] for s in serve],
+                   per_rank=[tick_stats(rk, "serve") for rk in ranks],
+                   params_held=[s["params_held"] for s in serve], params_whole=whole,
+                   peak_gb=[s["peak_gb"] for s in serve],
+                   one_process_peak_gb=rs["peak_gb"]),
+        seq=dict(mesh=[1, 4], max_abs_dlogits=errs_c,
+                 cache_shape=ranks[0]["seq"]["cache_shape"],
+                 per_rank=[tick_stats(rk, "seq") for rk in ranks],
+                 peak_gb=[rk["seq"]["peak_gb"] for rk in ranks]),
+        moe=dict(mesh=[2, 2], layers=SHARD_MOE_LAYERS, tokens=list(meta["moe_tokens"].shape),
+                 dtype="float32", max_abs_dlogits=err_d, aux_err=aux_err,
+                 aux=ranks[0]["moe"]["aux"],
+                 aux_reference=rm["aux"], expert_block=ranks[0]["moe"]["expert_block"],
+                 wall_ms=[rk["moe"]["wall_ms"] for rk in ranks],
+                 collectives=[rk["moe"]["collectives"] for rk in ranks],
+                 peak_gb=[rk["moe"]["peak_gb"] for rk in ranks]),
+        f32=dict(mesh=[2, 2], layers=SHARD_F32_LAYERS, max_abs_dlogits=errs_e),
+        pipeline=dict(mesh=[SHARD_STAGES, 1, 1], microbatches=SHARD_MICRO, max_abs_dhidden=err_f,
+                      wall_ms=[rk["pipeline"]["wall_ms"] for rk in ranks],
+                      collectives=[rk["pipeline"]["collectives"] for rk in ranks],
+                      params_held=[rk["pipeline"]["params_held"] for rk in ranks],
+                      peak_gb=[rk["pipeline"]["peak_gb"] for rk in ranks]),
+        rank_peak_gb=peaks, reduced={SHARD_MOE_ARCH: dict(
+            layers=SHARD_MOE_LAYERS, of=_shard_cfg(dict(smoke=False), SHARD_MOE_ARCH).num_layers,
+            why="14d's float32 one-process reference must fit the card alone before the "
+                "spawn")},
+    )
+    out["phase_s"] = time.perf_counter() - t_phase
+    p0 = out["serve"]["per_rank"][0]
+    log(f"14 sharded serving ({card}): 14a {out['select']['ids']} in "
+        f"{out['select']['rounds']} rounds, launches {out['select']['launches']}; 14b 2 x 2 "
+        f"max |dlogits| {max(errs):.3g}, {compared} tokens equal ({ties} rows with a near "
+        f"tie), prefill {p0['prefill_ms']:.1f} ms, ticks {[round(x, 1) for x in p0['tick_ms']]} "
+        f"ms, {p0['tick_collectives']['calls']:.0f} all-reduces a tick "
+        f"({p0['tick_collectives']['host_s'] * 1e3:.1f} ms host, "
+        f"{p0['tick_collectives']['bytes'] / 1e3:.1f} KB), {out['serve']['tokens_per_s']:.1f} "
+        f"tokens/s; 14c 1 x 4 max {max(errs_c):.3g}; 14d {err_d:.3g}, aux {aux_err}; 14e "
+        f"{max(errs_e):.3g}; 14f {err_f:.3g}; rank peaks {[round(p, 2) for p in peaks]} GB "
+        f"(one process {rs['peak_gb']:.2f}); ranks {out['ranks_s']:.1f}s of "
+        f"{out['phase_s']:.1f}s")
+    out["failed"] = failed
+    emit({"check": "sharded", **out})
+    check(not failed, f"phase 14: {len(failed)} checks failed: {failed}")
+    return out
+
+
+def _meta_model(torch, meta: dict):
+    from repro_torch.models import model_zoo
+
+    return model_zoo.build(_shard_cfg(meta, SHARD_ARCH), torch.device("meta"))
+
+
 # kernel name -> (its source, the pallas_call it replaces), and the path
 # whose run gives its launches: the first of PATHS that launches it
 KERNEL_ROWS = {
@@ -3434,6 +4018,8 @@ def main(argv=None) -> int:
     train = phase_train(torch, smi)
     log(f"phase 13: every model family at full width on the card ({', '.join(FAM_ARCHS)})")
     families = phase_families(torch, smi)
+    log(f"phase 14: sharded serving, {SHARD_RANKS} gloo ranks on the card")
+    sharded = phase_sharded(torch, smi)
 
     leaked = sorted(m for m in sys.modules if m.startswith("jax") or m == "repro"
                     or m.startswith("repro."))
@@ -3452,6 +4038,7 @@ def main(argv=None) -> int:
                  train_select=train["loop"]["select"]["launches"],
                  families_select=families["select_launches"],
                  families_monitor=families["monitor_launches"],
+                 sharded_select=sharded["select"]["launches"],
                  fault_chaos=faults["chaos"]["launches"],
                  fault_quarantine=faults["quarantine"]["launches"],
                  fault_recovery=faults["recovery"]["launches"],
@@ -3491,6 +4078,7 @@ def main(argv=None) -> int:
         dict(card=smi, device=device, kernels=kernels, scale=scale, serving=serving,
              faults=faults, telemetry=telemetry, mesh=mesh, tuner=tuner["report"],
              wide_rows=wide, lm=lm, train=train, families=families,
+             sharded=sharded,
              wall_s=time.perf_counter() - T0), indent=1))
     log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
     emit({"kernels": kernels})

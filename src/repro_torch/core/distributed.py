@@ -35,8 +35,9 @@ Collectives a round: the data all-reduce of (V_Z/m) * (V_X + 1) + 3
 floats and the model all-reduce of (Q + 1) * V_Z floats, independent of
 the samples read; window bytes never leave their worker. A group of one
 rank issues no collective (decided when the round is built). Every
-collective is an ``all_reduce`` with SUM, the one form both gloo and
-NCCL take on CUDA and CPU tensors alike.
+collective is an ``all_reduce`` (SUM in the rounds; the sharded LM's
+greedy pick and flash-decoding also take MAX and MIN), the one form
+both gloo and NCCL take on CUDA and CPU tensors alike.
 
 The placement trees (`multi_state_pspecs`, `cache_pspecs`,
 `cursor_pspecs`, `window_pspecs`) replace the reference's
@@ -233,11 +234,14 @@ def mesh_axes(mesh, data_axes=("data",), model_axis: str = "model") -> MeshAxes:
     return axes
 
 
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """SUM ``t`` in place over ``group`` (None: the default group), timed
-    into `COLLECTIVES`."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """Reduce ``t`` in place over ``group`` (None: the default group) with
+    ``op`` ("sum", "max" or "min"), timed into `COLLECTIVES`."""
     t0 = time.perf_counter()
-    dist.all_reduce(t, group=group)
+    dist.all_reduce(t, op=_OPS[op], group=group)
     COLLECTIVES["calls"] += 1
     COLLECTIVES["bytes"] += t.numel() * t.element_size()
     COLLECTIVES["seconds"] += time.perf_counter() - t0

@@ -11,12 +11,14 @@ reference's entry points less their ``params`` argument:
     logits, cache = model.decode_step(cache, token)
     cache = model.init_cache(batch, max_len)
     shapes = model.extra_input_shapes(batch, seq)       # frontend stubs
+    ids = model.greedy_pick(logits)                     # (B,) int32 numpy
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -73,6 +75,12 @@ class Model(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.embed["table"].dtype
+
+    def greedy_pick(self, logits: torch.Tensor) -> np.ndarray:
+        """The first index of the largest logit a row (``argmax``'s rule in
+        both frameworks), as int32 numpy; a rank-local model reduces it
+        over its vocab shards."""
+        return torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
 
     def extra_input_shapes(self, batch: int, seq: int) -> dict:
         """The modality-frontend stub inputs `forward` takes (vlm, audio)."""

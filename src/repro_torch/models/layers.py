@@ -11,9 +11,15 @@ cast where the reference casts; softmax and norms run in f32. Attention
 is the reference's einsum and softmax, not a fused library kernel, so
 its numbers can be held against the reference.
 
-The logical-axis sharding helpers (`set_sharding_rules`,
-`logical_to_pspec`, `manual_mode`, `shard`) belong to the LM-sharding
-slice (ROADMAP A12e) and are not here; on one device they are no-ops.
+Tensor parallelism is explicit: a rank-local model
+(`repro_torch.distributed.shard_model`) passes its `TP` (the model
+group, this rank, the group's size) to the row-parallel products
+(`attention_out`, the MLPs' ``w_down``), which produce the local
+partial product in ``_out_proj_dtype()``, sum it with one all-reduce
+over the model group and then cast, where the reference's partitioner
+puts its reduction. The logical-axis helpers (`set_sharding_rules`,
+`logical_to_pspec`, `manual_mode`, `shard`) resolve the reference's
+rules; `shard` on a local tensor changes nothing.
 """
 
 from __future__ import annotations
@@ -26,12 +32,15 @@ import torch.nn.functional as F
 
 __all__ = [
     "AttnSpec",
+    "TP",
+    "all_reduce",
     "apply_rope",
     "attention",
     "attention_chunked",
     "attention_direct",
     "attention_out",
     "boundary_cast",
+    "clear_sharding_rules",
     "decode_attention",
     "dense_init",
     "embed_init",
@@ -41,14 +50,128 @@ __all__ = [
     "init_mlp_gelu",
     "init_rmsnorm",
     "layer_norm",
+    "logical_to_pspec",
+    "manual_mode",
     "mlp_geglu",
     "mlp_gelu",
     "mlp_swiglu",
     "qkv_proj",
     "rms_norm",
     "rope_freqs",
+    "row_parallel",
+    "set_sharding_rules",
     "set_tp_reduce_dtype",
+    "shard",
 ]
+
+# ---------------------------------------------------------------------------
+# logical axis -> mesh axis mapping (MaxText-style logical axis rules)
+# ---------------------------------------------------------------------------
+
+# logical axes used in sharding constraints throughout the models
+#   "batch"   -> data-parallel axes ("pod","data")
+#   "seq"     -> optional sequence sharding (prefill)
+#   "embed"   -> FSDP axis ("data")      [weights' d_model dim]
+#   "heads"   -> tensor-parallel ("model")
+#   "ff"      -> tensor-parallel ("model")
+#   "vocab"   -> tensor-parallel ("model")
+#   "expert"  -> None (experts iterate locally; ff dim is TP-sharded)
+_DEFAULT_RULES = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": "data",
+    "heads": "model",
+    "kv_heads": "model",
+    "ff": "model",
+    "vocab": "model",
+    "expert": None,
+    "lru": "model",
+    "kv_seq": "model",  # flash-decoding: cache sequence dim over TP axis
+}
+
+_ACTIVE_RULES = dict(_DEFAULT_RULES)
+_ACTIVE_MESH_AXES: tuple = ()  # axis names present in the active mesh
+_ACTIVE_MESH = None  # the mesh itself (moe_ffn_local's default mesh)
+
+
+def set_sharding_rules(rules, mesh_axis_names, mesh=None) -> None:
+    """Install logical->mesh rules for subsequent shard() calls."""
+    global _ACTIVE_RULES, _ACTIVE_MESH_AXES, _ACTIVE_MESH
+    _ACTIVE_RULES = dict(_DEFAULT_RULES)
+    if rules:
+        _ACTIVE_RULES.update(rules)
+    _ACTIVE_MESH_AXES = tuple(mesh_axis_names)
+    _ACTIVE_MESH = mesh
+
+
+def clear_sharding_rules() -> None:
+    global _ACTIVE_MESH_AXES, _ACTIVE_MESH
+    _ACTIVE_MESH_AXES = ()
+    _ACTIVE_MESH = None
+
+
+def logical_to_pspec(logical_axes):
+    """Resolve logical axis names to a `PSpec` under the active rules."""
+    from repro_torch.distributed.sharding import PSpec
+
+    spec = []
+    for ax in logical_axes:
+        if ax is None:
+            spec.append(None)
+            continue
+        mesh_ax = _ACTIVE_RULES.get(ax)
+        if mesh_ax is None:
+            spec.append(None)
+        elif isinstance(mesh_ax, tuple):
+            present = tuple(m for m in mesh_ax if m in _ACTIVE_MESH_AXES)
+            spec.append(present if present else None)
+        else:
+            spec.append(mesh_ax if mesh_ax in _ACTIVE_MESH_AXES else None)
+    return PSpec(*spec)
+
+
+_MANUAL_DEPTH = [0]  # >0 inside a shard-local region: shard() resolves nothing
+
+
+class manual_mode:
+    """Context manager disabling shard() inside shard-local regions."""
+
+    def __enter__(self):
+        _MANUAL_DEPTH[0] += 1
+
+    def __exit__(self, *exc):
+        _MANUAL_DEPTH[0] -= 1
+
+
+def shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
+    """The reference's sharding constraint by logical axes. A local
+    tensor already is this rank's block, and the collectives the layout
+    implies are issued where it changes (the row-parallel products, the
+    assembled q/k/v, the vocab-parallel embedding): ``x`` is returned
+    as it is, its values unchanged, on a mesh or not, inside
+    `manual_mode` or not."""
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """This rank's place in its model (tensor-parallel) group: the
+    process group (None for one rank), its rank in it, the group's size."""
+
+    group: object
+    rank: int
+    size: int
+
+
+def all_reduce(t: torch.Tensor, tp, op: str = "sum") -> torch.Tensor:
+    """Reduce ``t`` in place over ``tp``'s group ("sum", "max" or
+    "min"), timed into `core.distributed.COLLECTIVES`; nothing without a
+    group."""
+    if tp is None or tp.group is None:
+        return t
+    from repro_torch.core.distributed import all_reduce as _all_reduce
+
+    return _all_reduce(t, tp.group, op=op)
 
 # dtype of the TP output projections' (wo / w_down) products: None is
 # f32 accumulation, as in the reference's baseline
@@ -304,14 +427,21 @@ def attention(q, k, v, spec: AttnSpec, q_pos, k_pos) -> torch.Tensor:
     return fn(q, k, v, spec, q_pos, k_pos)
 
 
-def attention_out(params, attn: torch.Tensor) -> torch.Tensor:
+def row_parallel(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    """``x @ w`` with ``w``'s rows (and ``x``'s columns) this rank's block
+    over ``tp``'s group: the local partial product in
+    ``_out_proj_dtype()`` and one all-reduce over the group (bf16 under
+    ``set_tp_reduce_dtype(bf16)``). Not cast."""
+    return all_reduce(_dot(x, w, _out_proj_dtype()), tp)
+
+
+def attention_out(params, attn: torch.Tensor, tp=None) -> torch.Tensor:
     b, s, h, hd = attn.shape
-    out = _dot(attn.reshape(b, s, h * hd), params["wo"], _out_proj_dtype())
-    return out.to(attn.dtype)
+    return row_parallel(attn.reshape(b, s, h * hd), params["wo"], tp).to(attn.dtype)
 
 
 def decode_attention(params, x, cache_k, cache_v, pos, spec: AttnSpec,
-                     rope_theta: float = 0.0) -> tuple:
+                     rope_theta: float = 0.0, tp=None) -> tuple:
     """Single-token decode. x:(B,1,D); cache:(B,Smax,Hkv,hd); pos:(B,)
     int32, equal in every row (the serving engine's one position).
 
@@ -345,7 +475,7 @@ def decode_attention(params, x, cache_k, cache_v, pos, spec: AttnSpec,
         p = torch.softmax(s, dim=-1).to(x.dtype)
         o = _einsum("bhgqk,bkhd->bqhgd", p, cache_v)
         out = o.to(x.dtype).reshape(bq, 1, spec.num_heads, spec.head_dim)
-        return attention_out(params, out), cache_k, cache_v
+        return attention_out(params, out, tp), cache_k, cache_v
 
     kk = _repeat_kv(cache_k, groups)
     vv = _repeat_kv(cache_v, groups)
@@ -353,7 +483,7 @@ def decode_attention(params, x, cache_k, cache_v, pos, spec: AttnSpec,
     s = torch.where(valid[:, None, None, :], s, -math.inf)
     p = torch.softmax(s, dim=-1).to(x.dtype)
     out = _einsum("bhqk,bkhd->bqhd", p, vv).to(x.dtype)
-    return attention_out(params, out), cache_k, cache_v
+    return attention_out(params, out, tp), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -370,19 +500,19 @@ def init_mlp(d_model: int, d_ff: int, dtype, *, generator=None, device=None) -> 
     }
 
 
-def mlp_swiglu(params, x: torch.Tensor) -> torch.Tensor:
+def mlp_swiglu(params, x: torch.Tensor, tp=None) -> torch.Tensor:
     g = boundary_cast(_dot(x, params["w_gate"]), x.dtype)
     u = boundary_cast(_dot(x, params["w_up"]), x.dtype)
-    h = (F.silu(g) * u).to(x.dtype)
-    return _dot(h, params["w_down"], _out_proj_dtype()).to(x.dtype)
+    h = shard((F.silu(g) * u).to(x.dtype), "batch", None, "ff")
+    return row_parallel(h, params["w_down"], tp).to(x.dtype)
 
 
-def mlp_geglu(params, x: torch.Tensor) -> torch.Tensor:
+def mlp_geglu(params, x: torch.Tensor, tp=None) -> torch.Tensor:
     g = boundary_cast(_dot(x, params["w_gate"]), x.dtype)
     u = boundary_cast(_dot(x, params["w_up"]), x.dtype)
     # jax.nn.gelu's default is the tanh approximation
-    h = (F.gelu(g, approximate="tanh") * u).to(x.dtype)
-    return _dot(h, params["w_down"], _out_proj_dtype()).to(x.dtype)
+    h = shard((F.gelu(g, approximate="tanh") * u).to(x.dtype), "batch", None, "ff")
+    return row_parallel(h, params["w_down"], tp).to(x.dtype)
 
 
 def init_mlp_gelu(d_model: int, d_ff: int, dtype, *, generator=None, device=None) -> dict:

@@ -13,8 +13,9 @@ loss, the router z-loss and the share of pairs dropped.
 
 The combine is a (T, K, D) product summed over K in k order, not an
 atomic scatter-add, so it is deterministic on the card for any top-k.
-`moe_ffn_local` without a mesh is `moe_ffn`, as in the reference; its
-shard-local form belongs to the LM-sharding slice (ROADMAP A12e).
+`moe_ffn_local` without a mesh is `moe_ffn`, as in the reference; on a
+mesh it is the shard-local dispatch (each data shard slots its own
+tokens, the experts' ff dim split over "model", one all-reduce).
 """
 
 from __future__ import annotations
@@ -81,6 +82,14 @@ def route(router: torch.Tensor, xt: torch.Tensor, *, num_experts: int, top_k: in
 def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int,
             capacity_factor: float) -> Tuple[torch.Tensor, dict]:
     """x: (B, S, D) -> (out (B,S,D), aux {load_balance_loss, router_z_loss, drop_frac})."""
+    out, aux = _moe_core(params, x, num_experts=num_experts, top_k=top_k,
+                         capacity_factor=capacity_factor)
+    return out.to(x.dtype), aux
+
+
+def _moe_core(params, x: torch.Tensor, *, num_experts: int, top_k: int,
+              capacity_factor: float) -> Tuple[torch.Tensor, dict]:
+    """`moe_ffn` before its final cast: the combined output in f32."""
     b, s, d = x.shape
     t = b * s
     e = num_experts
@@ -114,7 +123,7 @@ def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int,
 
     drop_frac = 1.0 - torch.mean(keep.to(torch.float32))
     aux = {"load_balance_loss": load_balance, "router_z_loss": z_loss, "drop_frac": drop_frac}
-    return out.to(x.dtype).reshape(b, s, d), aux
+    return out.reshape(b, s, d), aux
 
 
 def combine(ye: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
@@ -133,9 +142,46 @@ def combine(ye: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
     return out
 
 
+_AUX = ("load_balance_loss", "router_z_loss", "drop_frac")
+
+
 def moe_ffn_local(params, x: torch.Tensor, *, num_experts: int, top_k: int,
-                  capacity_factor: float) -> Tuple[torch.Tensor, dict]:
-    """The reference's shard-local dispatch without a mesh: `moe_ffn`
-    (one device has one shard). Its mesh form is ROADMAP A12e."""
-    return moe_ffn(params, x, num_experts=num_experts, top_k=top_k,
-                   capacity_factor=capacity_factor)
+                  capacity_factor: float, mesh=None) -> Tuple[torch.Tensor, dict]:
+    """Shard-local MoE dispatch (the reference's ``moe_impl="local"``).
+
+    ``mesh`` (a `DeviceMesh`; by default the one `L.set_sharding_rules`
+    installed): ``x`` is this rank's data shard of the tokens, routed and
+    slotted on the shard alone, so capacity is enforced per shard (drops
+    depend on the shard's own token mix) and no token crosses ranks. The
+    experts arrive with their ff dim this rank's block over "model"
+    (``w_gate`` / ``w_up`` (E, D, F/m), ``w_down`` (E, F/m, D)) and the
+    router whole; the dispatch, expert products and combine on them leave
+    the output partial over ff, and one all-reduce over the model group
+    completes it, in ``_out_proj_dtype()`` as the dense row-parallel
+    products reduce (f32, or bf16 under ``set_tp_reduce_dtype(bf16)``,
+    the reference's ``psum`` of the bf16 output), before the cast to
+    ``x``'s dtype. The aux terms
+    are averaged over the data axes (a SUM, then a divide: the
+    reference's ``pmean``). Without a mesh: `moe_ffn` (one shard).
+    """
+    mesh = mesh if mesh is not None else L._ACTIVE_MESH
+    kw = dict(num_experts=num_experts, top_k=top_k, capacity_factor=capacity_factor)
+    if mesh is None:  # no mesh -> identical math, one shard
+        return moe_ffn(params, x, **kw)
+    from repro_torch.core.distributed import all_reduce, mesh_axes
+    from repro_torch.distributed.sharding import data_axes
+
+    axes = mesh_axes(mesh, data_axes(mesh), "model")
+    with L.manual_mode():
+        out, aux = _moe_core(params, x, **kw)
+    out = out.to(L._out_proj_dtype())
+    if axes.model_group is not None:
+        all_reduce(out, axes.model_group)  # complete the ff contraction
+    out = out.to(x.dtype)
+    if axes.data_groups:
+        buf = torch.stack([aux[k].to(torch.float32) for k in _AUX])
+        for group in axes.data_groups:
+            all_reduce(buf, group)
+        buf = buf / axes.num_workers
+        aux = dict(zip(_AUX, buf.unbind()))
+    return out, aux

@@ -34,13 +34,38 @@ batch dimensions and are recomputed). Parameters start without
 gradients (serving); `repro_torch.train.TrainState.create` turns them
 on. `prefill` and `decode_step` run without autograd; `decode_step`
 writes the new keys and values into the cache's tensors in place.
+
+A rank-local model (`repro_torch.distributed.shard_model`) holds its
+blocks of each parameter and a `ShardPlan` in ``tp`` (None on one
+device), and issues the collectives the reference's layout implies, all
+over the model group:
+
+  * vocab-parallel embedding: ids outside the rank's rows give zero rows,
+    then one all-reduce (adding exact zeros keeps the sum exact);
+  * attention, "heads": local q/k/v heads from the column blocks, the
+    cache head-sharded, one all-reduce after ``wo``; "whole" (Hkv not
+    divisible by |model|, or ``decode_seq_shard``): q, k and v assembled
+    whole after their column products (one all-reduce of a zero-filled
+    buffer), every head attended, the rank's columns into ``wo`` and one
+    all-reduce; under ``decode_seq_shard`` the cache's sequence dim is
+    split (flash-decoding: a MAX all-reduce of the scores' maxima, a SUM
+    of the exp sums, the probabilities cast as the one-device softmax
+    casts them, a SUM of the p.V partials; the new key written by the
+    rank whose range holds the position);
+  * MLP: one all-reduce after ``w_down``; MoE: `moe_ffn_local`'s mesh form;
+  * column-parallel unembedding: the logits stay vocab-sharded (no
+    gather of (B, S, V)); `greedy_pick` reduces the argmax over the group
+    (MAX of the values, then MIN of the indices holding it).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
@@ -106,12 +131,25 @@ class KVCache(NamedTuple):
     k: list  # per layer (B, S_max, Hkv, hd)
     v: list
     length: int  # tokens already written
+    # a sequence-sharded cache's (first position, S_max); None when whole
+    seq: Optional[tuple] = None
 
 
 def embed_tokens(model: Model, tokens: torch.Tensor) -> torch.Tensor:
-    x = model.embed["table"][tokens]
+    plan = getattr(model, "tp", None)
+    table = model.embed["table"]
+    if plan is None or plan.vocab is None:
+        x = table[tokens]
+    else:
+        lo, hi = plan.vocab
+        local = tokens.to(torch.int64) - lo
+        ok = (local >= 0) & (local < hi - lo)
+        x = torch.where(ok[..., None], table[torch.where(ok, local, 0)], 0)
     # the scale is cast to the dtype first, as in the reference
-    return x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    x = x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    if plan is not None and plan.vocab is not None:
+        L.all_reduce(x, plan.tp)
+    return x
 
 
 def unembed(model: Model, x: torch.Tensor) -> torch.Tensor:
@@ -133,6 +171,106 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> KV
     )
 
 
+def _placed(place, prefix: str, tree: dict) -> dict:
+    """``place(name, leaf)`` over a nested parameter dict, by dotted name."""
+    return {k: _placed(place, f"{prefix}.{k}", v) if isinstance(v, dict)
+            else place(f"{prefix}.{k}", v) for k, v in tree.items()}
+
+
+def _whole(name: str, t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _qkv_whole(p, x: torch.Tensor, spec: AttnSpec, tp) -> tuple:
+    """q (B,S,H,hd), k and v (B,S,Hkv,hd) whole from column blocks of
+    wq / wk / wv: each product (and bias) on the rank's columns, then
+    one all-reduce of a zero-filled buffer holding every split one."""
+    b, s, _ = x.shape
+    hd = spec.head_dim
+    widths = (spec.num_heads * hd, spec.num_kv_heads * hd, spec.num_kv_heads * hd)
+    parts = []
+    for w, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
+        c = L._dot(x, p[w])
+        if bias in p:
+            c = c + p[bias].to(c.dtype)
+        parts.append(c.to(x.dtype))
+    split = [c.shape[-1] != width for c, width in zip(parts, widths)]
+    if any(split):
+        buf = torch.zeros((b, s, sum(widths)), dtype=x.dtype, device=x.device)
+        off = 0
+        for c, width, sp in zip(parts, widths, split):
+            if sp:
+                lo = off + tp.rank * c.shape[-1]
+                buf[..., lo : lo + c.shape[-1]] = c
+            off += width
+        L.all_reduce(buf, tp)
+        whole, off = [], 0
+        for c, width, sp in zip(parts, widths, split):
+            whole.append(buf[..., off : off + width] if sp else c)
+            off += width
+        parts = whole
+    q, k, v = parts
+    return (q.reshape(b, s, spec.num_heads, hd), k.reshape(b, s, spec.num_kv_heads, hd),
+            v.reshape(b, s, spec.num_kv_heads, hd))
+
+
+def _out_whole(p, attn: torch.Tensor, tp) -> torch.Tensor:
+    """Whole attention output (B,S,H,hd) into ``wo``: the rank's columns
+    against its row block and one all-reduce, or the whole product."""
+    b, s, h, hd = attn.shape
+    flat = attn.reshape(b, s, h * hd)
+    rows = p["wo"].shape[0]
+    if rows == h * hd:
+        return L.row_parallel(flat, p["wo"]).to(attn.dtype)
+    flat = flat[..., tp.rank * rows : (tp.rank + 1) * rows]
+    return L.row_parallel(flat, p["wo"], tp).to(attn.dtype)
+
+
+def _decode_whole(p, x, cache_k, cache_v, position: int, seq, spec: AttnSpec,
+                  rope_theta: float, tp) -> torch.Tensor:
+    """One decode step of the "whole" layout (see the module docstring):
+    every head against this rank's range of cache positions, the
+    softmax's max, its sum and the p.V product reduced over the group
+    when the cache's sequence dim is split. Writes the new key and value
+    in place into the rank whose range holds the position (clamped to
+    S_max - 1, as the one-device write is)."""
+    b = x.shape[0]
+    q, k, v = _qkv_whole(p, x, spec, tp)
+    pos = torch.full((b,), position, dtype=torch.int32, device=x.device)
+    if rope_theta:
+        q = L.apply_rope(q, pos[:, None], rope_theta)
+        k = L.apply_rope(k, pos[:, None], rope_theta)
+    s_loc = cache_k.shape[1]
+    lo, smax = seq if seq is not None else (0, s_loc)
+    idx = min(max(position, 0), smax - 1)
+    if lo <= idx < lo + s_loc:
+        at = torch.tensor([idx - lo], dtype=torch.int64, device=x.device)
+        cache_k.index_copy_(1, at, k)
+        cache_v.index_copy_(1, at, v)
+    groups = spec.num_heads // spec.num_kv_heads
+    k_pos = lo + torch.arange(s_loc, dtype=torch.int32, device=x.device)
+    valid = k_pos[None, :] <= pos[:, None]
+    if spec.sliding_window > 0:
+        valid &= k_pos[None, :] > (pos[:, None] - spec.sliding_window)
+    q5 = q.reshape(b, 1, spec.num_kv_heads, groups, spec.head_dim)
+    sc = L._einsum("bqhgd,bkhd->bhgqk", q5, cache_k) * spec.head_dim ** -0.5
+    sc = torch.where(valid[:, None, None, None, :], sc, -math.inf)
+    m = torch.amax(sc, dim=-1, keepdim=True)
+    if seq is not None:
+        L.all_reduce(m, tp, op="max")
+    e = torch.exp(sc - torch.where(torch.isneginf(m), 0.0, m))
+    denom = torch.sum(e, dim=-1, keepdim=True)
+    if seq is not None:
+        L.all_reduce(denom, tp)
+    # the probabilities in the activations' dtype, as the one-device softmax
+    probs = (e / denom).to(x.dtype)
+    o = L._einsum("bhgqk,bkhd->bqhgd", probs, cache_v)  # (B,1,Hkv,G,hd), partial over S
+    if seq is not None:
+        L.all_reduce(o, tp)
+    out = o.to(x.dtype).reshape(b, 1, spec.num_heads, spec.head_dim)
+    return _out_whole(p, out, tp)
+
+
 def _sum_aux(auxes: list) -> dict:
     """The layers' aux terms summed leaf by leaf ({} for a dense model)."""
     if not auxes:
@@ -149,39 +287,79 @@ class Transformer(Model):
     reference's own values load through `convert.lm_params_from_numpy`.
     """
 
-    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+    def __init__(self, cfg: ModelConfig, *, device, generator=None, place=None):
         super().__init__()
         self.cfg = cfg
         dt = model_dtype(cfg)
         kw = dict(generator=generator, device=device)
-        self.embed = Group({"table": L.embed_init((cfg.vocab_size, cfg.d_model), dt, **kw)})
-        self.final_norm = Group(L.init_rmsnorm(cfg.d_model, dt, device=device))
+        # ``place(name, leaf)`` keeps a rank's block of each leaf as it is
+        # drawn (`distributed.shard_model`); one layer is whole at a time
+        place = place or _whole
+        self.embed = Group(
+            {"table": place("embed.table", L.embed_init((cfg.vocab_size, cfg.d_model), dt, **kw))}
+        )
+        self.final_norm = Group(_placed(place, "final_norm",
+                                        L.init_rmsnorm(cfg.d_model, dt, device=device)))
         self.layers = nn.ModuleList(
-            [Group(init_layer(cfg, **kw)) for _ in range(cfg.num_layers)]
+            [Group(_placed(place, f"layers.{i}", init_layer(cfg, **kw)))
+             for i in range(cfg.num_layers)]
         )
         if not cfg.tie_embeddings:
-            self.lm_head = Group({"w": L.dense_init((cfg.d_model, cfg.vocab_size), dt, **kw)})
+            self.lm_head = Group(
+                {"w": place("lm_head.w", L.dense_init((cfg.d_model, cfg.vocab_size), dt, **kw))}
+            )
+        self.tp = None  # a ShardPlan on a rank-local model
 
     def _ffn(self, lp: Group, h: torch.Tensor, capacity_factor: float) -> tuple:
         """The block's FFN: (y, aux), aux empty for a dense layer."""
-        cfg = self.cfg
+        cfg, plan = self.cfg, self.tp
         if cfg.num_experts == 0:
-            return L.mlp_swiglu(lp.mlp, h), {}
+            return L.mlp_swiglu(lp.mlp, h, plan.tp if plan is not None and plan.mlp else None), {}
+        kw = dict(num_experts=cfg.num_experts, top_k=cfg.experts_per_token,
+                  capacity_factor=capacity_factor)
+        if plan is not None:
+            if (cfg.moe_impl != "local" and plan.axes.num_workers > 1
+                    and capacity_factor < cfg.num_experts):
+                raise ValueError(
+                    "moe_impl='gather' slots tokens across the data shards; a rank-local "
+                    "model routes each shard's own tokens (moe_impl='local')")
+            return moe_ffn_local(lp.moe, h, mesh=plan.mesh, **kw)
         ffn = moe_ffn_local if cfg.moe_impl == "local" else moe_ffn
-        return ffn(lp.moe, h, num_experts=cfg.num_experts, top_k=cfg.experts_per_token,
-                   capacity_factor=capacity_factor)
+        return ffn(lp.moe, h, **kw)
+
+    def _heads_tp(self) -> Optional[L.TP]:
+        """The model group the "heads" layout's ``wo`` reduces over."""
+        return self.tp.tp if self.tp is not None and self.tp.attn == "heads" else None
+
+    def _local_spec(self) -> AttnSpec:
+        """The attention spec of this rank's heads."""
+        spec = _attn_spec(self.cfg)
+        if self.tp is not None and self.tp.attn == "heads":
+            m = self.tp.model_size
+            spec = dataclasses.replace(spec, num_heads=spec.num_heads // m,
+                                       num_kv_heads=spec.num_kv_heads // m)
+        return spec
 
     def _block(self, lp: Group, x: torch.Tensor, positions: torch.Tensor,
                capacity_factor: float) -> tuple:
-        """One block over a whole sequence; returns (x, k, v, aux)."""
-        cfg = self.cfg
-        spec = _attn_spec(cfg)
+        """One block over a whole sequence; returns (x, k, v, aux), k and v
+        as this rank's cache holds their heads."""
+        cfg, plan = self.cfg, self.tp
         h = L.rms_norm(lp.attn_norm, x, cfg.norm_eps)
-        q, k, v = L.qkv_proj(lp.attn, h, spec)
+        whole = plan is not None and plan.attn == "whole"
+        if whole:
+            spec = _attn_spec(cfg)
+            q, k, v = _qkv_whole(lp.attn, h, spec, plan.tp)
+        else:
+            spec = self._local_spec()
+            q, k, v = L.qkv_proj(lp.attn, h, spec)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         attn = L.attention(q, k, v, spec, positions[0], positions[0])
-        x = x + L.attention_out(lp.attn, attn)
+        if whole:
+            x = x + _out_whole(lp.attn, attn, plan.tp)
+        else:
+            x = x + L.attention_out(lp.attn, attn, self._heads_tp())
         h = L.rms_norm(lp.mlp_norm, x, cfg.norm_eps)
         y, aux = self._ffn(lp, h, capacity_factor)
         return x + y, k, v, aux
@@ -239,13 +417,27 @@ class Transformer(Model):
         pad = max_len - s
         if pad < 0:
             raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
+        seq = self._cache_seq(max_len)
+        lo, s_loc = (seq[0], max_len // self.tp.model_size) if seq else (0, max_len)
         ks, vs = [], []
         for lp in self.layers:
             x, k, v, _ = self._block(lp, x, positions, float(cfg.num_experts))
-            ks.append(torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)))
-            vs.append(torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)))
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))[:, lo : lo + s_loc]
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))[:, lo : lo + s_loc]
+            ks.append(k.contiguous())
+            vs.append(v.contiguous())
         x = L.rms_norm(self.final_norm, x, cfg.norm_eps)
-        return unembed(self, x), KVCache(k=ks, v=vs, length=s)
+        return unembed(self, x), KVCache(k=ks, v=vs, length=s, seq=seq)
+
+    def _cache_seq(self, max_len: int) -> Optional[tuple]:
+        """(first position, S_max) of this rank's sequence range when the
+        cache's sequence dim is split over "model" (flash-decoding, where
+        S_max divides; `sharding.cache_pspecs`), else None."""
+        plan = self.tp
+        if (plan is None or plan.attn != "whole" or not self.cfg.decode_seq_shard
+                or plan.model_size == 1 or max_len % plan.model_size):
+            return None
+        return (plan.tp.rank * (max_len // plan.model_size), max_len)
 
     @torch.no_grad()
     def decode_step(self, cache: KVCache, token: torch.Tensor) -> tuple:
@@ -254,12 +446,18 @@ class Transformer(Model):
         b = token.shape[0]
         x = embed_tokens(self, token[:, None])
         pos = torch.full((b,), cache.length, dtype=torch.int32, device=self.device)
-        spec = _attn_spec(cfg)
+        plan = self.tp
+        spec = self._local_spec()
         for li, lp in enumerate(self.layers):
             h = L.rms_norm(lp.attn_norm, x, cfg.norm_eps)
-            attn_out, _, _ = L.decode_attention(
-                lp.attn, h, cache.k[li], cache.v[li], pos, spec, cfg.rope_theta
-            )
+            if plan is not None and plan.attn == "whole":
+                attn_out = _decode_whole(lp.attn, h, cache.k[li], cache.v[li], cache.length,
+                                         cache.seq, spec, cfg.rope_theta, plan.tp)
+            else:
+                attn_out, _, _ = L.decode_attention(
+                    lp.attn, h, cache.k[li], cache.v[li], pos, spec, cfg.rope_theta,
+                    self._heads_tp(),
+                )
             x = x + attn_out
             h = L.rms_norm(lp.mlp_norm, x, cfg.norm_eps)
             x = x + self._ffn(lp, h, float(cfg.num_experts))[0]  # dropless at decode
@@ -268,7 +466,34 @@ class Transformer(Model):
         return logits, cache._replace(length=cache.length + 1)
 
     def init_cache(self, batch: int, max_len: int) -> KVCache:
-        return init_cache(self.cfg, batch, max_len, device=self.device)
+        if self.tp is None:
+            return init_cache(self.cfg, batch, max_len, device=self.device)
+        seq = self._cache_seq(max_len)
+        s_loc = max_len // self.tp.model_size if seq else max_len
+        spec = self._local_spec()
+        shape = (batch, s_loc, spec.num_kv_heads, self.cfg.head_dim)
+        dt = model_dtype(self.cfg)
+        return KVCache(
+            k=[torch.zeros(shape, dtype=dt, device=self.device) for _ in self.layers],
+            v=[torch.zeros(shape, dtype=dt, device=self.device) for _ in self.layers],
+            length=0, seq=seq,
+        )
+
+    def greedy_pick(self, logits: torch.Tensor) -> np.ndarray:
+        """The first index of the largest logit a row, as int32 numpy. On
+        vocab-sharded logits: the rank's own first maximum, the MAX of the
+        values over the model group, then the MIN of the global indices
+        holding it (``argmax``'s first-index rule)."""
+        plan = self.tp
+        if plan is None or plan.logits is None:
+            return super().greedy_pick(logits)
+        idx = torch.argmax(logits, dim=-1, keepdim=True)
+        val = torch.gather(logits, -1, idx)[..., 0].to(torch.float32)
+        best = val.clone()
+        L.all_reduce(best, plan.tp, op="max")
+        cand = torch.where(val == best, idx[..., 0] + plan.logits[0], self.cfg.vocab_size)
+        L.all_reduce(cand, plan.tp, op="min")
+        return cand.cpu().numpy().astype(np.int32)
 
 
 def init_params(cfg: ModelConfig, *, device, generator=None) -> Transformer:

@@ -10,7 +10,9 @@ released, and the next batch is taken from the queue.
 
 The model owns its weights, so the engine takes no ``params``. Decoding
 is always greedy: it takes the first index of the largest logit, as
-``argmax`` does in both frameworks. ``greedy`` and ``seed`` are accepted
+``argmax`` does in both frameworks (`Model.greedy_pick`, which a
+rank-local model reduces over its vocab shards, so the engine serves a
+tensor-parallel model unchanged). ``greedy`` and ``seed`` are accepted
 and ignored, as in the reference, which samples nowhere.
 """
 
@@ -36,10 +38,6 @@ class Request:
     # filled by the engine:
     output: Optional[list] = None
     done: bool = False
-
-
-def _argmax(logits: torch.Tensor) -> np.ndarray:
-    return torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
 
 
 class ServeEngine:
@@ -79,7 +77,7 @@ class ServeEngine:
                 toks[i, plen - len(r.prompt) :] = r.prompt  # left-pad
             logits, cache = self.model.prefill(torch.from_numpy(toks).to(device), self.max_len)
             self.metrics["prefills"] += 1
-            last = _argmax(logits[:, -1])
+            last = self.model.greedy_pick(logits[:, -1])
             live = np.ones(len(batch), bool)
             # the prefill's last logits produce the FIRST new token
             for i, r in enumerate(batch):
@@ -95,7 +93,7 @@ class ServeEngine:
                 logits_t, cache = self.model.decode_step(cache, torch.from_numpy(last).to(device))
                 self.metrics["decode_ticks"] += 1
                 budget_ticks -= 1
-                nxt = _argmax(logits_t)
+                nxt = self.model.greedy_pick(logits_t)
                 for i, r in enumerate(batch):
                     if not live[i]:
                         continue

@@ -1120,3 +1120,72 @@ def test_moe_routing_and_combine_on_card_equal_cpu(cuda, top_k, cf):
     assert torch.equal(got.cpu(), want)
     if cf < e:
         assert not bool(host["keep"].all())  # the case drops pairs
+
+
+# ---------------------------------------------------------------------------
+# LM sharding on the card
+# ---------------------------------------------------------------------------
+
+
+def _tp_cfg(dtype: str, seq: bool):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config("llama3_405b"), d_model=128, num_heads=8,
+                               num_kv_heads=2, d_ff=256, dtype=dtype, decode_seq_shard=seq)
+
+
+def _tp_decode(model, toks):
+    logits, cache = model.prefill(toks[:, :16], 32)
+    steps = [logits[:, -1]]
+    for i in range(16, 20):
+        step, cache = model.decode_step(cache, toks[:, i])
+        steps.append(step)
+    return steps
+
+
+def _card_tp_rank(rank, world, toks):
+    """A 1 x 2 mesh of gloo ranks on the card: the widened llama smoke with
+    local heads and under flash-decoding, bf16 and f32."""
+    from repro_torch.core import distributed
+    from repro_torch.distributed import shard_model
+
+    mesh = distributed.init_mesh((1, 2), device_type="cuda")
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        for seq in (False, True):
+            model = shard_model(_tp_cfg(dtype, seq), mesh,
+                                generator=torch.Generator(device="cuda").manual_seed(0))
+            steps = _tp_decode(model, torch.from_numpy(toks).cuda())
+            out[(dtype, seq)] = dict(
+                logits=[s.float().cpu().numpy() for s in steps], cols=model.tp.logits,
+                attn=model.tp.attn, on_card=model.embed["table"].is_cuda,
+                pick=model.greedy_pick(steps[-1]))
+    return out
+
+
+def test_tp_decode_on_card_equals_one_process(cuda):
+    """Two gloo ranks sharing the card, tensor-parallel prefill and decode
+    (local heads, then flash-decoding with the cache's sequence split):
+    every rank's logit columns within 0.05 (bf16) and 1e-4 (f32) of one
+    process's model on the card with the same seed, and the reduced greedy
+    pick the one process's argmax."""
+    from repro_torch.core import distributed
+    from repro_torch.models import model_zoo
+
+    toks = np.random.default_rng(1).integers(0, 512, (4, 32)).astype(np.int32)
+    ranks = distributed.run_ranks(_card_tp_rank, 2, toks, backend="gloo", device_type="cuda",
+                                  timeout=600)
+    for dtype, atol in (("bfloat16", 0.05), ("float32", 1e-4)):
+        for seq in (False, True):
+            model = model_zoo.get_model(_tp_cfg(dtype, seq), device=cuda,
+                                        generator=torch.Generator(device="cuda").manual_seed(0))
+            want = [s.float().cpu().numpy() for s in _tp_decode(model, _t(toks, cuda))]
+            for res in ranks:
+                got = res[(dtype, seq)]
+                assert got["on_card"] and got["attn"] == ("whole" if seq else "heads")
+                lo, hi = got["cols"]
+                for g, w in zip(got["logits"], want):
+                    np.testing.assert_allclose(g, w[:, lo:hi], atol=atol, rtol=0)
+                assert got["pick"].tolist() == np.argmax(want[-1], -1).tolist()

@@ -45,6 +45,8 @@ def test_every_module_is_covered():
         "repro_torch.train.train_state", "repro_torch.launch", "repro_torch.launch.train",
         "repro_torch.models.base", "repro_torch.models.moe", "repro_torch.models.rglru",
         "repro_torch.models.xlstm", "repro_torch.models.whisper",
+        "repro_torch.distributed", "repro_torch.distributed.sharding",
+        "repro_torch.distributed.pipeline", "repro_torch.launch.mesh",
     ):
         assert expected in names
 

@@ -1,0 +1,120 @@
+"""`moe_ffn_local`'s mesh form (shard-local MoE dispatch) on 4 gloo CPU
+ranks, a 2 x 2 ("data", "model") mesh, against the JAX reference on one
+device.
+
+The mixtral smoke (4 experts, top-2, capacity factor 4.0: dropless, as
+tests/test_serving_sharded.py runs it) with the reference's weights,
+``moe_impl="local"``: `forward`'s logits on each data shard's rows within
+0.05 of the reference's one-device forward (the reference test's bar);
+the aux terms the mean over the data shards of the reference's forward
+on each shard's rows alone (the reference's ``pmean``: each shard routes
+its own tokens), within the same bar, ``drop_frac`` 0. Then
+`moe_ffn_local` alone on layer 1's experts (each rank's ff block) at
+capacity factor 1.0, where tokens drop: each data shard's output against
+the reference's `moe_ffn` on that shard's tokens alone (what capacity
+per shard means), ``drop_frac`` and the other aux terms their mean over
+the shards. The layer's output is bf16 and reaches |y| ~ 258 (the smoke
+experts' weights have std 1/2: their fan-in is read from the expert
+dim): the port sums the ranks' f32 partial outputs and casts once, where
+the one-device reference casts its own f32 sum, so the two may round
+apart by one bf16 ulp of |y|; under ``set_tp_reduce_dtype(bf16)`` in
+both packages each partial is rounded to bf16 before the reduce (the
+reference's ``psum`` of the bf16 output), and XLA's bf16 ``silu(g) * u``
+rounds otherwise than PyTorch's on some elements (ROADMAP A12e). So this
+check's bar is one bf16 ulp at the layer's activation scale, the larger
+of its largest |silu(g) * u| and its largest |y|, not the logits' 0.05.
+"""
+
+import concurrent.futures
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import base as jbase
+from repro.models import layers as jL
+from repro.models.model_zoo import get_model as jget_model
+from repro.models.moe import moe_ffn as jmoe_ffn
+from repro_torch.core import distributed
+
+import torch_shard_ranks
+
+ATOL = 0.05
+LAYER = 1
+
+
+def _ulp_bf16(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    cfg = dataclasses.replace(jbase.get_smoke_config("mixtral_8x7b"), moe_impl="gather")
+    jm = jget_model(cfg)
+    params = jm.init(jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, params)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    x = np.random.default_rng(2).standard_normal((4, 16, cfg.d_model)).astype(np.float32)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    pending = pool.submit(distributed.run_ranks, torch_shard_ranks.moe_rank, 4, tree, toks, x,
+                          LAYER, timeout=300)
+    want = {}
+    want["logits"], _ = jm.forward(params, jnp.asarray(toks))
+    shard_aux = [jm.forward(params, jnp.asarray(toks[r : r + 2]))[1] for r in (0, 2)]
+    want["aux"] = {k: np.mean([float(a[k]) for a in shard_aux]) for k in shard_aux[0]}
+    moe = params["layers"][LAYER]["moe"]
+    xs = jnp.asarray(x).astype(jnp.bfloat16)
+    for name, reduce in (("drop_f32", None), ("drop_bf16", jnp.bfloat16)):
+        try:
+            jL.set_tp_reduce_dtype(reduce)
+            outs = [jmoe_ffn(moe, xs[r : r + 2], num_experts=cfg.num_experts,
+                             top_k=cfg.experts_per_token, capacity_factor=1.0)
+                    for r in (0, 2)]
+        finally:
+            jL.set_tp_reduce_dtype(None)
+        want[name] = dict(y=[np.asarray(o[0], np.float32) for o in outs],
+                          aux={k: np.mean([float(o[1][k]) for o in outs]) for k in outs[0][1]})
+    # the layer's largest |silu(g) * u| (f32, every token, every expert)
+    xf = np.asarray(xs, np.float32)
+    g = np.einsum("btd,edf->btef", xf, np.asarray(moe["w_gate"], np.float32))
+    u = np.einsum("btd,edf->btef", xf, np.asarray(moe["w_up"], np.float32))
+    want["h_max"] = float(np.abs(g / (1 + np.exp(-g)) * u).max())
+    want["y_max"] = max(float(np.abs(y).max()) for n in ("drop_f32", "drop_bf16")
+                        for y in want[n]["y"])
+    ranks = pending.result()
+    pool.shutdown()
+    return ranks, want
+
+
+def test_forward_logits_match_one_device(runs):
+    ranks, want = runs
+    for r in ranks:
+        lo, hi = r["cols"]
+        w = np.asarray(want["logits"], np.float32)[r["rows"][0] : r["rows"][1], :, lo:hi]
+        assert r["attn"] == "heads" and r["w_gate"] == (4, 64, 64)  # ff 128 over 2
+        np.testing.assert_allclose(r["logits"], w, atol=ATOL, rtol=0)
+
+
+def test_forward_aux_is_the_shards_mean(runs):
+    ranks, want = runs
+    for r in ranks:
+        assert set(r["aux"]) == set(want["aux"])
+        assert r["aux"]["drop_frac"] == want["aux"]["drop_frac"] == 0.0
+        for k in ("load_balance_loss", "router_z_loss"):
+            assert abs(r["aux"][k] - want["aux"][k]) <= ATOL, k
+
+
+@pytest.mark.parametrize("name", ("drop_f32", "drop_bf16"))
+def test_capacity_is_per_shard(runs, name):
+    ranks, want = runs
+    bar = _ulp_bf16(max(want["h_max"], want["y_max"]))
+    assert want[name]["aux"]["drop_frac"] > 0  # the capacity drops tokens
+    for r in ranks:
+        shard = r["rows"][0] // 2
+        np.testing.assert_allclose(r[name]["y"], want[name]["y"][shard], atol=bar, rtol=0)
+        assert r[name]["aux"]["drop_frac"] == pytest.approx(want[name]["aux"]["drop_frac"],
+                                                            abs=1e-7)
+        for k in ("load_balance_loss", "router_z_loss"):
+            assert abs(r[name]["aux"][k] - want[name]["aux"][k]) <= 1e-4, k

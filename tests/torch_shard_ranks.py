@@ -1,0 +1,173 @@
+"""The port's side of the sharded-LM twins, in gloo ranks
+(`distributed.run_ranks`): a spawned rank imports this module, which
+loads neither JAX nor the reference, so the ranks start fast. Not a
+test file; tests/test_torch_tp.py and tests/test_torch_moe_local.py
+hold what these return against the reference."""
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import distributed
+
+B, CTX, PREFILL, STEPS = 4, 32, 16, 4
+# the reference test's widened llama3-405b smoke (tests/test_serving_sharded.py)
+WIDEN = dict(d_model=128, num_heads=8, num_kv_heads=2, d_ff=256)
+
+# (case, mesh shape, dtype, decode_seq_shard)
+DECODE_CASES = (
+    ("heads_bf16", (2, 2), "bfloat16", False),
+    ("heads_f32", (2, 2), "float32", False),
+    ("seq_bf16", (1, 4), "bfloat16", True),
+    ("seq_f32", (1, 4), "float32", True),
+)
+
+
+def llama_cfg(dtype: str, **kw):
+    return dataclasses.replace(get_smoke_config("llama3_405b"), dtype=dtype, **WIDEN, **kw)
+
+
+def tp_rank(rank, world, trees, toks, prompts, qwen_toks):
+    from repro_torch.distributed import batch_pspec, shard_model
+    from repro_torch.models import layers as L
+    from repro_torch.serve import Request, ServeEngine
+
+    out = {}
+    meshes = {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = distributed.init_mesh(shape, device_type="cpu")
+        return meshes[shape]
+
+    def place(mesh):
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        assert batch_pspec(mesh, B)[0] == "data"
+        return coord["data"], mesh.mesh.shape[0]
+
+    for case, shape, dtype, seq in DECODE_CASES:
+        mesh = mesh_of(shape)
+        cfg = llama_cfg(dtype, decode_seq_shard=seq)
+        model = shard_model(cfg, mesh, params=trees[dtype])
+        d, nd = place(mesh)
+        rows = slice(d * B // nd, (d + 1) * B // nd)
+        t = torch.from_numpy(toks[rows])
+        logits, cache = model.prefill(t[:, :PREFILL], CTX)
+        steps = [logits[:, -1]]
+        for i in range(PREFILL, PREFILL + STEPS):
+            step, cache = model.decode_step(cache, t[:, i])
+            steps.append(step)
+        out[case] = dict(attn=model.tp.attn, cols=model.tp.logits, rows=(rows.start, rows.stop),
+                         seq=cache.seq, cache_shape=tuple(cache.k[0].shape),
+                         logits=[s.float().numpy() for s in steps],
+                         pick=model.greedy_pick(steps[-1]),
+                         params=sum(p.numel() for p in model.parameters()))
+
+    # ServeEngine on 2 x 2 in f32: each data replica serves its half
+    mesh = mesh_of((2, 2))
+    cfg = llama_cfg("float32")
+    model = shard_model(cfg, mesh, params=trees["float32"])
+    d, nd = place(mesh)
+    engine = ServeEngine(model, slots=2, max_len=16)
+    half = len(prompts) // nd
+    for i in range(d * half, (d + 1) * half):
+        engine.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=4))
+    done = engine.run()
+    out["engine"] = dict(outputs={r.rid: r.output for r in done}, metrics=engine.metrics)
+
+    # the dense qwen smoke under bf16 TP reductions
+    cfg = dataclasses.replace(get_smoke_config("qwen2_5_3b"), dtype="bfloat16")
+    model = shard_model(cfg, mesh, params=trees["qwen"])
+    rows = slice(d * 2 // nd, (d + 1) * 2 // nd)
+    try:
+        L.set_tp_reduce_dtype(torch.bfloat16)
+        logits, _ = model.forward(torch.from_numpy(qwen_toks[rows]))
+    finally:
+        L.set_tp_reduce_dtype(None)
+    out["tp_reduce_bf16"] = dict(attn=model.tp.attn, cols=model.tp.logits,
+                                 rows=(rows.start, rows.stop), logits=logits.float().numpy())
+    return out
+
+
+def moe_rank(rank, world, tree, toks, x, layer):
+    """The mixtral smoke on a 2 x 2 mesh: `forward` with ``moe_impl="local"``
+    on this data shard's rows (dropless), and `moe_ffn_local` alone on the
+    layer's experts (this rank's ff block) and the shard's activations at
+    a capacity that drops, with f32 and with bf16 TP reductions."""
+    from repro_torch.convert import _tensor
+    from repro_torch.distributed import shard_model
+    from repro_torch.distributed.sharding import param_shardings, serving_param_pspecs
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe import moe_ffn_local
+
+    mesh = distributed.init_mesh((2, 2), device_type="cpu")
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    d = coord["data"]
+    cfg = dataclasses.replace(get_smoke_config("mixtral_8x7b"), moe_impl="local")
+    model = shard_model(cfg, mesh, params=tree)
+    rows = slice(d * toks.shape[0] // 2, (d + 1) * toks.shape[0] // 2)
+    logits, aux = model.forward(torch.from_numpy(toks[rows]))
+    out = dict(rows=(rows.start, rows.stop), cols=model.tp.logits, logits=logits.float().numpy(),
+               aux={k: float(v) for k, v in aux.items()}, attn=model.tp.attn,
+               w_gate=tuple(model.layers[0].moe["w_gate"].shape))
+    moe = {k: _tensor(v) for k, v in tree["layers"][layer]["moe"].items()}
+    specs = serving_param_pspecs({"moe": moe}, mesh)
+    blocks = param_shardings({"moe": moe}, mesh, pspecs=specs)["moe"]
+    local = {k: moe[k][blocks[k].index].clone() for k in moe}
+    xs = torch.from_numpy(x[rows]).to(torch.bfloat16)
+    for name, reduce in (("drop_f32", None), ("drop_bf16", torch.bfloat16)):
+        try:
+            L.set_tp_reduce_dtype(reduce)
+            y, aux = moe_ffn_local(local, xs, num_experts=cfg.num_experts,
+                                   top_k=cfg.experts_per_token, capacity_factor=1.0, mesh=mesh)
+        finally:
+            L.set_tp_reduce_dtype(None)
+        out[name] = dict(y=y.float().numpy(), aux={k: float(v) for k, v in aux.items()})
+    return out
+
+
+def pipeline_rank(rank, world, stages, x, toks):
+    """GPipe over "pod" (4 stages): the reference test's tanh stack, each
+    stage holding its block of the stacked params; then a float32 qwen
+    smoke of 4 layers as 4 stages (`stage_model`)."""
+    from repro_torch.distributed.pipeline import (
+        make_pipeline_forward, stack_stage_params, stage_model, transformer_stage_fn,
+    )
+    from repro_torch.models.transformer import embed_tokens
+
+    from repro_torch.launch import mesh as launch_mesh
+
+    mesh = launch_mesh.make_mesh_for((4, 1, 1), ("pod", "data", "model"), device_type="cpu")
+    refused = []
+    for multi_pod in (False, True):
+        try:
+            launch_mesh.make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        except RuntimeError as e:
+            refused.append(str(e))
+    stacked = stack_stage_params([{k: torch.from_numpy(v) for k, v in s.items()} for s in stages])
+    pod = distributed.DimSplit(("pod",))
+    local = {k: distributed.place_leaf(v, pod, mesh) for k, v in stacked.items()}
+
+    def layer_fn(lp, h):
+        return torch.tanh(h @ lp["w"] + lp["b"])
+
+    fwd = make_pipeline_forward(transformer_stage_fn(layer_fn, 2), mesh, n_stages=4,
+                                n_microbatches=4)
+    out = dict(tanh=fwd(local, torch.from_numpy(x)).numpy(), stage_rows=tuple(local["w"].shape),
+               refused=refused)
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2_5_3b"), dtype="float32", num_layers=4)
+    model, layers = stage_model(cfg, mesh, n_stages=4, generator=torch.Generator().manual_seed(0))
+    t = torch.from_numpy(toks)
+    positions = torch.arange(t.shape[1], dtype=torch.int32).expand(t.shape[0] // 4, t.shape[1])
+
+    def block(lp, h):
+        return model._block(lp, h, positions, cfg.expert_capacity_factor)[0]
+
+    fwd = make_pipeline_forward(transformer_stage_fn(block, 1), mesh, n_stages=4,
+                                n_microbatches=4)
+    with torch.no_grad():
+        out["hidden"] = fwd([layers], embed_tokens(model, t)).numpy()
+    out["held"] = sum(p.numel() for p in model.parameters())
+    return out
