@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FastMatch on one NVIDIA GPU and check it.
 
-Run from the root of a checkout (one card; about 11 to 14 minutes at the
+Run from the root of a checkout (one card; about 13 to 16 minutes at the
 default size, most of it generating the two datasets on the host):
 
     python3 chip_smoke.py [--tuples N] [--seed S]
@@ -286,7 +286,31 @@ Phases, each of which raises (non-zero exit) when a check fails:
    logits within 1e-4. 14f: qwen2.5-3b's 36 blocks as 4 stages of 9
    (`pipeline.stage_model`, a (4, 1, 1) ("pod", "data", "model") mesh), 4
    microbatches of 2 x 256: every stage returns the same hidden states,
-   within 0.05 of one process on the same microbatches. No rank holds the
+   within 0.05 of one process on the same microbatches. 14g-14i, the
+   recurrent and audio families at full width and depth from seed 0,
+   each served by `shard_model` on its mesh: recurrentgemma-2b on 1 x 4
+   in bf16 (LRU channels split, the conv output assembled for the gates;
+   10 heads and 1 kv head assembled whole), xlstm-125m on 2 x 2 in
+   float32 (mLSTM and sLSTM heads split, ``w_up`` and ``w_gates``
+   assembled; in bf16 one process is itself 1.0-1.5 from float32 and two
+   bf16 evaluations land 0.65 apart, `tools/torch_bf16_spread.py`, as the
+   reference's own bf16 does, tests/test_torch_xlstm_bf16.py),
+   whisper-medium on 2 x 2 in bf16 (heads split, its 1,500 encoder
+   frames from seed 0, the 51,865-token vocabulary whole): 14a's prompts
+   (ids modulo the vocabulary; whisper's last 224), a prefill and 8 new
+   tokens. The prefill's and 7 ticks' logits (teacher-forced on one
+   process's tokens) under 14b's bars (xlstm-125m's float32 under
+   SHARD_FAM_F32_ATOL, 1e-3), each data replica's
+   `ServeEngine` picking one process's tokens up to the first top-two
+   margin under 0.05, the plan's layout; prefill ms, ms a tick,
+   all-reduces a tick, peak a rank against one process. 14j, the
+   pipeline's backward: qwen2.5-3b at 8 of its 36 layers in float32
+   (TF32 off) as 4 stages of 2, 4 microbatches of 14a's prompts, the
+   gradient of sum(hidden * c) (c from seed 1) on every leaf a stage
+   holds (its 2 blocks and the embedding table) within 1e-4 of the
+   leaf's largest |grad| from one process's autograd on the card
+   (saved to a temporary directory for the ranks to compare); ms a
+   forward and a backward, collectives, peak a rank. No rank holds the
    whole model, and each rank's peak is under the one-process serving
    peak. ``{"check": "sharded", ...}``.
 
@@ -313,9 +337,11 @@ import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3413,6 +3439,31 @@ SHARD_ATOL, SHARD_F32_ATOL, SHARD_MARGIN = 0.05, 1e-4, 0.05
 SHARD_SMOKE = False  # a CPU rehearsal sets it (smoke configs), SHARD_LAYERS and SHARD_DEVICE
 SHARD_LAYERS = None
 SHARD_DEVICE = "cuda"
+# 14g-14i: the recurrent and audio families served tensor-parallel at full
+# width and depth from seed 0, each on its mesh and in its dtype: 14a's
+# prompts (ids modulo the family's vocabulary; whisper's last FAM_PROMPT
+# tokens, its 1,500 encoder frames N(0, 0.02^2) from seed 0), a prefill and
+# SHARD_FAM_NEW new tokens. xlstm-125m runs in float32: in bf16 the one
+# process is itself 1.0-1.5 from the float32 evaluation of its weights,
+# and two bf16 evaluations that differ only in the products' f32 rounding
+# land 0.65 apart and pick different tokens (H100, 700 W); the reference's
+# own bf16 scatters as far (tests/test_torch_xlstm_bf16.py)
+SHARD_FAMILIES = (("recurrentgemma_2b", (1, 4), "bfloat16"), ("xlstm_125m", (2, 2), "float32"),
+                  ("whisper_medium", (2, 2), "bfloat16"))
+# a float32 family's bar in place of SHARD_ATOL: its 12 recurrent layers
+# read 2.47e-4 from one process (H100, 700 W); 14e's SHARD_F32_ATOL holds
+# 4 transformer layers
+SHARD_FAM_F32_ATOL = 1e-3
+SHARD_FAM_NEW = 8
+SHARD_FAM_LAYOUT = {  # each family's plan on its mesh (full width)
+    "recurrentgemma_2b": dict(attn="whole", mlp=True, layout={"lru": "channels"}),
+    "xlstm_125m": dict(attn="replicated", mlp=False,
+                       layout={"mlstm": "heads", "slstm": "heads", "slstm_ffn": "replicated"}),
+    "whisper_medium": dict(attn="heads", mlp=True, layout={}),
+}
+# 14j: the pipeline's backward, qwen2.5-3b at 8 of its 36 layers in float32
+# (TF32 off) as 4 stages of 2, SHARD_MICRO microbatches of 14a's prompts
+SHARD_GRAD_LAYERS, SHARD_GRAD_RTOL = 8, 1e-4
 
 
 def _shard_cfg(meta: dict, arch: str, **kw):
@@ -3425,6 +3476,41 @@ def _shard_cfg(meta: dict, arch: str, **kw):
     if arch == SHARD_ARCH and meta.get("layers"):
         cfg = dataclasses.replace(cfg, num_layers=meta["layers"])
     return dataclasses.replace(cfg, **kw)
+
+
+def _fam_cfg(meta: dict, arch: str):
+    """``arch``'s config for 14g-14i, in its SHARD_FAMILIES dtype."""
+    return _shard_cfg(meta, arch, dtype=dict((a, dt) for a, _, dt in SHARD_FAMILIES)[arch])
+
+
+def _fam_prompts(meta: dict, arch: str):
+    """14a's prompts as ``arch``'s (14g-14i): ids modulo its vocabulary,
+    whisper's last FAM_PROMPT tokens."""
+    import numpy as np
+
+    cfg = _shard_cfg(meta, arch)
+    rows = meta["prompts"][:, -FAM_PROMPT.get(arch, meta["prompts"].shape[1]):]
+    return np.ascontiguousarray(rows % cfg.vocab_size).astype(np.int32)
+
+
+def _fam_frames(torch, meta: dict, arch: str, dtype):
+    """Whisper's encoder frames for 14a's prompts, N(0, 0.02^2) drawn on the
+    device from seed 0 (the same values in every process); None for the
+    other families."""
+    cfg = _shard_cfg(meta, arch)
+    if cfg.frontend != "audio_stub":
+        return None
+    dev = meta["device"]
+    g = torch.Generator(device=dev).manual_seed(0)
+    shape = (meta["prompts"].shape[0], cfg.encoder_seq, cfg.d_model)
+    return (torch.randn(shape, generator=g, device=dev) * 0.02).to(dtype)
+
+
+def _grad_cotangent(torch, meta: dict, d_model: int):
+    """14j's loss is sum(hidden * c): c N(0, 1) from seed 1 on the device."""
+    dev = meta["device"]
+    g = torch.Generator(device=dev).manual_seed(1)
+    return torch.randn((*meta["prompts"].shape, d_model), generator=g, device=dev)
 
 
 def _sync(torch, device: str) -> None:
@@ -3442,14 +3528,16 @@ def _peak_gb(torch, device: str) -> float:
     return torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else 0.0
 
 
-def _shard_ref_loop(torch, model, rows, steps: int, device: str) -> dict:
+def _shard_ref_loop(torch, model, rows, steps: int, device: str, keep: int = SHARD_TICKS,
+                    extra=None) -> dict:
     """The one-process greedy loop on one data replica's rows: the
-    prefill's last logits, the first ``SHARD_TICKS`` ticks' logits, every
-    token and every step's top-two margin."""
+    prefill's last logits, the first ``keep`` ticks' logits, every
+    token and every step's top-two margin (``extra``: `prefill`'s stub
+    inputs)."""
     import numpy as np
 
     toks = torch.from_numpy(rows).to(device)
-    logits, cache = model.prefill(toks, LM_MAX_LEN)
+    logits, cache = model.prefill(toks, LM_MAX_LEN, **(extra or {}))
     logits = logits[:, -1]
     kept, tokens, margins = [logits.float().cpu().numpy()], [], []
     for i in range(steps):
@@ -3460,9 +3548,106 @@ def _shard_ref_loop(torch, model, rows, steps: int, device: str) -> dict:
         if i == steps - 1:
             break
         logits, cache = model.decode_step(cache, tok)
-        if i < SHARD_TICKS:
+        if i < keep:
             kept.append(logits.float().cpu().numpy())
     return dict(logits=kept, tokens=np.stack(tokens, 1), margins=np.stack(margins, 1))
+
+
+def _fam_references(torch, meta: dict) -> dict:
+    """The one-process side of 14g-14i: per family, the greedy loop on each
+    data replica's rows (every step's logits, tokens, margins) and the
+    float32 evaluation of the same bf16 weights teacher-forced on its
+    tokens; its peak. Sets ``meta["fam_forced"]``, the tokens each rank's
+    teacher-forced decode feeds."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.models.model_zoo import get_model
+
+    dev = meta["device"]
+    out, meta["fam_forced"] = {}, {}
+    for arch, (nd, _), _ in SHARD_FAMILIES:
+        cfg = _fam_cfg(meta, arch)
+        prompts = _fam_prompts(meta, arch)
+        frames = _fam_frames(torch, meta, arch, getattr(torch, cfg.dtype))
+        n = prompts.shape[0] // nd
+        _peak_reset(torch, dev)
+        model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        with torch.no_grad():
+            loops = [_shard_ref_loop(
+                torch, model, prompts[r : r + n], SHARD_FAM_NEW, dev, keep=SHARD_FAM_NEW,
+                extra=None if frames is None else {"encoder_frames": frames[r : r + n]})
+                for r in range(0, prompts.shape[0], n)]
+            ref = dict(logits=[np.concatenate([lp["logits"][i] for lp in loops])
+                               for i in range(SHARD_FAM_NEW)],
+                       tokens=np.concatenate([lp["tokens"] for lp in loops]),
+                       margins=np.concatenate([lp["margins"] for lp in loops]),
+                       peak_gb=_peak_gb(torch, dev))
+            forced = np.ascontiguousarray(ref["tokens"][:, : SHARD_FAM_NEW - 1])
+            meta["fam_forced"][arch] = forced
+            if cfg.dtype == "float32":  # its own float32 evaluation
+                ref["exact"] = ref["logits"]
+                out[arch] = ref
+                del model
+                continue
+            exact = copy.deepcopy(model).float()
+            exact.cfg = dataclasses.replace(cfg, dtype="float32")  # its caches' dtype too
+            del model
+            extra = {} if frames is None else {"encoder_frames": frames.float()}
+            logits, cache = exact.prefill(torch.from_numpy(prompts).to(dev), LM_MAX_LEN, **extra)
+            steps = [logits[:, -1].cpu().numpy()]
+            for i in range(SHARD_FAM_NEW - 1):
+                tick, cache = exact.decode_step(cache, torch.from_numpy(forced[:, i]).to(dev))
+                steps.append(tick.cpu().numpy())
+            ref["exact"] = steps
+        out[arch] = ref
+        del exact, cache, logits, tick, frames
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _grad_references(torch, meta: dict, where: str) -> dict:
+    """The one-process side of 14j on the card: autograd of sum(hidden * c)
+    through the same SHARD_GRAD_LAYERS blocks in float32 (TF32 off) on
+    14a's prompts, each layer leaf's gradient saved to ``where`` (the
+    ranks compare their stages' there), the table's on the prompts' ids
+    (its only nonzero rows). Returns the one process's ms and peak."""
+    import numpy as np
+
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.models.transformer import embed_tokens
+
+    dev = meta["device"]
+    cfg = _shard_cfg(meta, SHARD_ARCH, dtype="float32", num_layers=meta["grad_layers"])
+    _peak_reset(torch, dev)
+    model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    for name, p in model.named_parameters():
+        p.requires_grad_(name.startswith(("layers.", "embed.")))
+    toks = torch.from_numpy(meta["prompts"]).to(dev)
+    cot = _grad_cotangent(torch, meta, cfg.d_model)
+    _sync(torch, dev)
+    t = time.perf_counter()
+    h = embed_tokens(model, toks)
+    pos = torch.arange(toks.shape[1], dtype=torch.int32, device=dev).expand(toks.shape)
+    for lp in model.layers:
+        h = model._block(lp, h, pos, cfg.expert_capacity_factor)[0]
+    (h * cot).sum().backward()
+    _sync(torch, dev)
+    wall_ms = (time.perf_counter() - t) * 1e3
+    ids = np.unique(meta["prompts"])
+    np.save(f"{where}/table_ids.npy", ids)
+    for name, p in model.named_parameters():
+        if name.startswith("layers."):
+            np.save(f"{where}/{name}.npy", p.grad.cpu().numpy())
+    np.save(f"{where}/embed.table.npy",
+            model.embed["table"].grad[torch.from_numpy(ids).to(dev)].cpu().numpy())
+    out = dict(wall_ms=wall_ms, peak_gb=_peak_gb(torch, dev))
+    del model, h, cot
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def _shard_references(torch, meta: dict) -> dict:
@@ -3589,11 +3774,7 @@ def _shard_rank(rank, world, meta):
     def collectives():
         return dict(distributed.COLLECTIVES)
 
-    def delta(c0, ticks=1):
-        c = distributed.COLLECTIVES
-        return dict(calls=(c["calls"] - c0["calls"]) / ticks,
-                    bytes=(c["bytes"] - c0["bytes"]) / ticks,
-                    host_s=(c["seconds"] - c0["seconds"]) / ticks)
+    delta = _collective_delta
 
     def decode(model, toks, ticks):
         """prefill + ``ticks`` ticks fed ``forced``: logits, ms, collectives."""
@@ -3698,8 +3879,154 @@ def _shard_rank(rank, world, meta):
     if rank == 0:
         out["pipeline"]["hidden"] = hidden
     del model, layers
+
+    # -- 14g-14i: the recurrent and audio families, each on its mesh
+    meshes = {(2, 2): mesh22, (1, 4): mesh14}
+    for arch, shape, _ in SHARD_FAMILIES:
+        out[f"fam_{arch}"] = _fam_rank(torch, meta, arch, meshes[shape])
+    # -- 14j: the pipeline's backward
+    out["grad"] = _grad_rank(torch, meta, mesh_pipe)
     out["total_s"] = time.perf_counter() - t_start
     out["done_at"] = time.time()
+    return out
+
+
+def _collective_delta(c0: dict, ticks: int = 1) -> dict:
+    """The all-reduces since the `COLLECTIVES` snapshot ``c0``: calls,
+    bytes and host seconds, per tick over ``ticks``."""
+    from repro_torch.core import distributed
+
+    c = distributed.COLLECTIVES
+    return dict(calls=(c["calls"] - c0["calls"]) / ticks, bytes=(c["bytes"] - c0["bytes"]) / ticks,
+                host_s=(c["seconds"] - c0["seconds"]) / ticks)
+
+
+def _fam_rank(torch, meta: dict, arch: str, mesh) -> dict:
+    """14g-14i on one rank: ``arch`` placed by `shard_model` on ``mesh``
+    from seed 0; the prefill and SHARD_FAM_NEW - 1 ticks teacher-forced on
+    the one-process tokens (every step's logit columns of the replica's
+    rows, ms, collectives a tick), then each data replica's
+    `ServeEngine` serving its rows (whisper's with their frames)."""
+    from repro_torch.core import distributed
+    from repro_torch.distributed import shard_model
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = meta["device"]
+    cfg = _fam_cfg(meta, arch)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    prompts = _fam_prompts(meta, arch)
+    n = prompts.shape[0] // mesh.mesh.shape[0]
+    mine = slice(coord["data"] * n, (coord["data"] + 1) * n)
+    forced = meta["fam_forced"][arch][mine]
+    _peak_reset(torch, dev)
+    t = time.perf_counter()
+    model = shard_model(cfg, mesh, generator=torch.Generator(device=dev).manual_seed(0))
+    _sync(torch, dev)
+    build_s = time.perf_counter() - t
+    frames = _fam_frames(torch, meta, arch, model.dtype)
+    extra = {} if frames is None else {"encoder_frames": frames[mine]}
+    c0, t = dict(distributed.COLLECTIVES), time.perf_counter()
+    with torch.no_grad():
+        logits, cache = model.prefill(torch.from_numpy(prompts[mine]).to(dev), LM_MAX_LEN, **extra)
+        kept = [logits[:, -1].float().cpu().numpy()]
+        prefill_ms, pre = (time.perf_counter() - t) * 1e3, _collective_delta(c0)
+        walls = []
+        for i in range(SHARD_FAM_NEW - 1):
+            c0, t = dict(distributed.COLLECTIVES), time.perf_counter()
+            step, cache = model.decode_step(cache, torch.from_numpy(forced[:, i]).to(dev))
+            kept.append(step.float().cpu().numpy())
+            walls.append((time.perf_counter() - t) * 1e3)
+        tick = _collective_delta(c0)
+    del logits, cache, step
+    engine = ServeEngine(model, slots=n, max_len=LM_MAX_LEN)
+    for i in range(mine.start, mine.stop):
+        engine.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=SHARD_FAM_NEW,
+                              extras=None if frames is None
+                              else {"encoder_frames": frames[i]}))
+    _sync(torch, dev)
+    c0, t = dict(distributed.COLLECTIVES), time.perf_counter()
+    done = engine.run()
+    _sync(torch, dev)
+    out = dict(logits=kept, cols=model.tp.logits, rows=(mine.start, mine.stop), coord=coord,
+               attn=model.tp.attn, mlp=model.tp.mlp, layout=model.tp.layout,
+               vocab=model.tp.vocab, prefill_ms=prefill_ms, tick_ms=walls,
+               prefill_collectives=pre, tick_collectives=tick, build_s=build_s,
+               engine_s=time.perf_counter() - t, engine_collectives=_collective_delta(c0),
+               outputs={r.rid: r.output for r in done}, metrics=engine.metrics,
+               params_held=sum(p.numel() for p in model.parameters()),
+               peak_gb=_peak_gb(torch, dev))
+    del model, engine, done, frames
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _grad_rank(torch, meta: dict, mesh) -> dict:
+    """14j on one rank: its stage of SHARD_GRAD_LAYERS float32 blocks
+    (`stage_model`, seed 0), the GPipe forward and backward of
+    sum(hidden * c), and each gradient the stage holds against the one
+    process's (saved in ``meta["grad_dir"]``): the max |difference| and
+    the leaf's largest |grad| a leaf; the table's gradient on the
+    prompts' ids, and zero on every other row."""
+    import numpy as np
+
+    from repro_torch.core import distributed
+    from repro_torch.distributed.pipeline import (
+        make_pipeline_forward, stage_model, transformer_stage_fn,
+    )
+    from repro_torch.models.transformer import embed_tokens
+
+    dev = meta["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _shard_cfg(meta, SHARD_ARCH, dtype="float32", num_layers=meta["grad_layers"])
+    _peak_reset(torch, dev)
+    model, layers = stage_model(cfg, mesh, n_stages=SHARD_STAGES,
+                                generator=torch.Generator(device=dev).manual_seed(0))
+    held = [model.embed["table"], *(p for lp in layers for p in lp.parameters())]
+    for p in held:
+        p.requires_grad_()
+    toks = torch.from_numpy(meta["prompts"]).to(dev)
+    cot = _grad_cotangent(torch, meta, cfg.d_model)
+
+    def block(lp, h):
+        pos = torch.arange(h.shape[1], dtype=torch.int32, device=dev).expand(h.shape[:2])
+        return model._block(lp, h, pos, cfg.expert_capacity_factor)[0]
+
+    fwd = make_pipeline_forward(transformer_stage_fn(block, len(layers)), mesh,
+                                n_stages=SHARD_STAGES, n_microbatches=SHARD_MICRO)
+    _sync(torch, dev)
+    c0, t = dict(distributed.COLLECTIVES), time.perf_counter()
+    y = fwd([layers], embed_tokens(model, toks))
+    _sync(torch, dev)
+    forward_ms, c_fwd = (time.perf_counter() - t) * 1e3, _collective_delta(c0)
+    c0, t = dict(distributed.COLLECTIVES), time.perf_counter()
+    (y * cot).sum().backward()
+    _sync(torch, dev)
+    backward_ms, c_bwd = (time.perf_counter() - t) * 1e3, _collective_delta(c0)
+    where = meta["grad_dir"]
+    leaves = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not name.startswith("layers.") or p.numel() == 0:
+                continue
+            ref = torch.from_numpy(np.load(f"{where}/{name}.npy")).to(dev)
+            leaves[name] = (float((p.grad - ref).abs().max()), float(ref.abs().max()))
+        ids = torch.from_numpy(np.load(f"{where}/table_ids.npy")).to(dev)
+        ref = torch.from_numpy(np.load(f"{where}/embed.table.npy")).to(dev)
+        g = model.embed["table"].grad
+        leaves["embed.table"] = (float((g[ids] - ref).abs().max()), float(ref.abs().max()))
+        others = torch.ones(g.shape[0], dtype=torch.bool, device=dev)
+        others[ids] = False
+        table_zero = not bool(g[others].any())
+    stage = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["pod"]
+    out = dict(stage=stage, leaves=leaves, table_zero_elsewhere=table_zero, forward_ms=forward_ms,
+               backward_ms=backward_ms, forward_collectives=c_fwd, backward_collectives=c_bwd,
+               params_held=sum(p.numel() for p in model.parameters()),
+               peak_gb=_peak_gb(torch, dev))
+    del model, layers, held, y, cot, g
+    if dev == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3711,7 +4038,7 @@ def _assemble(ranks, key: str, rows_of, index=None) -> "np.ndarray":
     for rk in ranks:
         got = rk[key]
         arr = got["logits"] if index is None else got["logits"][index]
-        lo, hi = got["cols"]
+        lo, hi = got["cols"] or (0, arr.shape[-1])
         r0, r1 = rows_of(rk)
         parts[(r0, lo)] = (r1, hi, arr)
     n_rows = max(v[0] for v in parts.values())
@@ -3742,18 +4069,25 @@ def phase_sharded(torch, card: str) -> dict:
     prompts = np.ascontiguousarray(batch[:, -LM_PROMPT:]).astype(np.int32)
     meta = dict(device=dev, smoke=SHARD_SMOKE, layers=SHARD_LAYERS, prompts=prompts,
                 moe_layers=SHARD_MOE_LAYERS, f32_layers=SHARD_F32_LAYERS,
+                grad_layers=SHARD_GRAD_LAYERS,
                 moe_tokens=np.random.default_rng(0).integers(
                     0, _shard_cfg(dict(smoke=SHARD_SMOKE), SHARD_MOE_ARCH).vocab_size,
                     (prompts.shape[0], SHARD_MOE_SEQ)).astype(np.int32))
     # -- the one-process references, freed before the spawn
     t = time.perf_counter()
     ref = _shard_references(torch, meta)
-    out["reference_s"] = time.perf_counter() - t
-    allocated = torch.cuda.memory_allocated() / 1e9 if dev == "cuda" else 0.0
-    # -- the ranks: one spawn runs 14b-14f
-    t, spawned_at = time.perf_counter(), time.time()
-    ranks = distributed.run_ranks(_shard_rank, SHARD_RANKS, meta, backend="gloo",
-                                  device_type=dev, timeout=900)
+    ref["fam"] = _fam_references(torch, meta)
+    meta["grad_dir"] = tempfile.mkdtemp(prefix="chip_smoke_14j_")
+    try:
+        ref["grad"] = _grad_references(torch, meta, meta["grad_dir"])
+        out["reference_s"] = time.perf_counter() - t
+        allocated = torch.cuda.memory_allocated() / 1e9 if dev == "cuda" else 0.0
+        # -- the ranks: one spawn runs 14b-14j
+        t, spawned_at = time.perf_counter(), time.time()
+        ranks = distributed.run_ranks(_shard_rank, SHARD_RANKS, meta, backend="gloo",
+                                      device_type=dev, timeout=900)
+    finally:
+        shutil.rmtree(meta["grad_dir"], ignore_errors=True)
     out["ranks_s"] = time.perf_counter() - t
     out["allocated_before_spawn_gb"] = allocated
     out["rank_startup_s"] = [rk["entered_at"] - spawned_at for rk in ranks]
@@ -3858,6 +4192,31 @@ def phase_sharded(torch, card: str) -> dict:
           "14f: the stages returned different hidden states")
     err_f = float(np.abs(r0["hidden"] - ref["pipeline"]).max())
     gate(err_f <= SHARD_ATOL, f"14f: hidden states {err_f:.3g} from one process")
+    # -- 14g-14i: each family's logits, tokens, metrics and layout
+    fam_out = {}
+    for (arch, shape, _), sub in zip(SHARD_FAMILIES, "ghi"):
+        fam_out[arch] = _check_family(torch, ranks, ref["fam"][arch], meta, arch, shape,
+                                      f"14{sub}", gate, max_err)
+    # -- 14j: every gradient a stage holds against the one process's
+    per = meta["grad_layers"] // SHARD_STAGES
+    layer_leaves = sum(1 for n, _ in _meta_model(torch, meta).named_parameters()
+                       if n.startswith("layers.0."))
+    grad_rel = 0.0
+    for rk in ranks:
+        g = rk["grad"]
+        s0 = g["stage"] * per
+        want = {f"layers.{i}" for i in range(s0, s0 + per)}
+        got_layers = {".".join(n.split(".")[:2]) for n in g["leaves"] if n != "embed.table"}
+        gate(got_layers == want and len(g["leaves"]) == per * layer_leaves + 1,
+             f"14j stage {g['stage']}: gradients of {sorted(got_layers)} "
+             f"({len(g['leaves'])} leaves), not of {sorted(want)}")
+        for name, (err, big) in g["leaves"].items():
+            grad_rel = max(grad_rel, err / big if big else err)
+            gate(err <= SHARD_GRAD_RTOL * big,
+                 f"14j stage {g['stage']} {name}: |dgrad| {err:.3g} over {SHARD_GRAD_RTOL} x "
+                 f"its largest |grad| {big:.3g}")
+        gate(g["table_zero_elsewhere"],
+             f"14j stage {g['stage']}: the table's gradient is nonzero off the prompts' ids")
     # no rank holds the whole model; each rank's peak under one process's
     whole = sum(p.numel() for p in _meta_model(torch, meta).parameters())
     peaks = [max(rk[k]["peak_gb"] for k in ("serve", "seq", "pipeline")) for rk in ranks]
@@ -3908,10 +4267,29 @@ def phase_sharded(torch, card: str) -> dict:
                       collectives=[rk["pipeline"]["collectives"] for rk in ranks],
                       params_held=[rk["pipeline"]["params_held"] for rk in ranks],
                       peak_gb=[rk["pipeline"]["peak_gb"] for rk in ranks]),
-        rank_peak_gb=peaks, reduced={SHARD_MOE_ARCH: dict(
-            layers=SHARD_MOE_LAYERS, of=_shard_cfg(dict(smoke=False), SHARD_MOE_ARCH).num_layers,
-            why="14d's float32 one-process reference must fit the card alone before the "
-                "spawn")},
+        families=fam_out,
+        grad=dict(mesh=[SHARD_STAGES, 1, 1], layers=meta["grad_layers"],
+                  microbatches=SHARD_MICRO, tokens=list(prompts.shape), dtype="float32",
+                  max_rel_err=grad_rel, bar=SHARD_GRAD_RTOL,
+                  leaves=[len(rk["grad"]["leaves"]) for rk in ranks],
+                  forward_ms=[rk["grad"]["forward_ms"] for rk in ranks],
+                  backward_ms=[rk["grad"]["backward_ms"] for rk in ranks],
+                  forward_collectives=[rk["grad"]["forward_collectives"] for rk in ranks],
+                  backward_collectives=[rk["grad"]["backward_collectives"] for rk in ranks],
+                  params_held=[rk["grad"]["params_held"] for rk in ranks],
+                  peak_gb=[rk["grad"]["peak_gb"] for rk in ranks],
+                  one_process_ms=ref["grad"]["wall_ms"],
+                  one_process_peak_gb=ref["grad"]["peak_gb"]),
+        rank_peak_gb=peaks, reduced={
+            SHARD_MOE_ARCH: dict(
+                layers=SHARD_MOE_LAYERS,
+                of=_shard_cfg(dict(smoke=False), SHARD_MOE_ARCH).num_layers,
+                why="14d's float32 one-process reference must fit the card alone before the "
+                    "spawn"),
+            "14j": dict(layers=meta["grad_layers"],
+                        of=_shard_cfg(dict(smoke=False), SHARD_ARCH).num_layers,
+                        why="the float32 one-process gradients are saved for the ranks to "
+                            "compare, and 2 blocks a stage exercise the backward's handoffs")},
     )
     out["phase_s"] = time.perf_counter() - t_phase
     p0 = out["serve"]["per_rank"][0]
@@ -3926,10 +4304,101 @@ def phase_sharded(torch, card: str) -> dict:
         f"{max(errs_e):.3g}; 14f {err_f:.3g}; rank peaks {[round(p, 2) for p in peaks]} GB "
         f"(one process {rs['peak_gb']:.2f}); ranks {out['ranks_s']:.1f}s of "
         f"{out['phase_s']:.1f}s")
+    for (arch, shape, dtype), sub in zip(SHARD_FAMILIES, "ghi"):
+        f = fam_out[arch]
+        log(f"14{sub} {arch} {shape[0]} x {shape[1]}, {dtype} ({card}): max |dlogits| "
+            f"{max(f['max_abs_dlogits']):.3g} (bars {min(f['bars']):.3g}-{max(f['bars']):.3g}), "
+            f"{f['tokens_compared']} tokens equal ({f['rows_with_near_tie']} rows with a near "
+            f"tie), prefill {f['prefill_ms'][0]:.1f} ms, tick {f['tick_ms_median'][0]:.1f} ms, "
+            f"{f['tick_collectives'][0]['calls']:.0f} all-reduces a tick "
+            f"({f['tick_collectives'][0]['bytes'] / 1e3:.1f} KB, "
+            f"{f['tick_collectives'][0]['host_s'] * 1e3:.1f} ms host), "
+            f"{f['tokens_per_s']:.1f} tokens/s, rank peak {max(f['peak_gb']):.2f} GB (one "
+            f"process {f['one_process_peak_gb']:.2f})")
+    gr = out["grad"]
+    log(f"14j GPipe backward ({card}): {gr['layers']} float32 blocks as {SHARD_STAGES} stages, "
+        f"max |dgrad| / largest |grad| {gr['max_rel_err']:.3g} (bar {SHARD_GRAD_RTOL}); "
+        f"forward {max(gr['forward_ms']):.1f} ms, backward {max(gr['backward_ms']):.1f} ms "
+        f"({gr['backward_collectives'][0]['calls']:.0f} all-reduces, "
+        f"{gr['backward_collectives'][0]['bytes'] / 1e6:.1f} MB); one process "
+        f"{gr['one_process_ms']:.1f} ms; rank peaks {[round(p, 2) for p in gr['peak_gb']]} GB "
+        f"(one process {gr['one_process_peak_gb']:.2f})")
     out["failed"] = failed
     emit({"check": "sharded", **out})
     check(not failed, f"phase 14: {len(failed)} checks failed: {failed}")
     return out
+
+
+def _check_family(torch, ranks, rf: dict, meta: dict, arch: str, shape, label: str, gate,
+                  max_err) -> dict:
+    """14g-14i's checks for one family (phase 14's ``gate``): every step's
+    logits within max(atol, 2 delta) of one process and delta + atol of
+    float32 (atol 0.05 in bf16, SHARD_FAM_F32_ATOL in float32), tokens to
+    the first near tie, the engines' metrics, the plan, no rank holding
+    the whole model. Returns the family's report."""
+    import numpy as np
+
+    from repro_torch.models import model_zoo
+
+    key = f"fam_{arch}"
+    got = [_assemble(ranks, key, lambda rk: rk[key]["rows"], i) for i in range(SHARD_FAM_NEW)]
+    errs = [max_err(g, w) for g, w in zip(got, rf["logits"])]
+    delta = [float(np.abs(w - e).max()) for w, e in zip(rf["logits"], rf["exact"])]
+    from32 = [float(np.abs(g - e).max()) for g, e in zip(got, rf["exact"])]
+    atol = SHARD_FAM_F32_ATOL if _fam_cfg(meta, arch).dtype == "float32" else SHARD_ATOL
+    bars = [max(atol, 2 * d) for d in delta]
+    gate(all(e <= b for e, b in zip(errs, bars)),
+         f"{label} {arch}: logits {errs} from one process (bars {bars})")
+    gate(all(f <= d + atol for f, d in zip(from32, delta)),
+         f"{label} {arch}: {from32} from float32, one process {delta}")
+    tokens = {}
+    for rk in ranks:
+        for rid, output in rk[key]["outputs"].items():
+            gate(tokens.setdefault(rid, output) == output,
+                 f"{label} {arch}: the model ranks of request {rid}'s replica picked different "
+                 "tokens")
+    compared, ties = 0, 0
+    for rid in range(rf["tokens"].shape[0]):
+        low = np.flatnonzero(rf["margins"][rid] < SHARD_MARGIN)
+        upto = int(low[0]) if low.size else SHARD_FAM_NEW
+        ties += int(low.size > 0)
+        gate(tokens.get(rid, [])[:upto] == rf["tokens"][rid][:upto].tolist(),
+             f"{label} {arch} request {rid}: tokens {tokens.get(rid)} differ from one "
+             f"process's {rf['tokens'][rid].tolist()} before its first near tie (step {upto})")
+        compared += upto
+    n = rf["tokens"].shape[0] // shape[0]
+    want_metrics = {"prefills": 1, "decode_ticks": SHARD_FAM_NEW - 1,
+                    "tokens_out": n * SHARD_FAM_NEW}
+    whole = sum(p.numel() for p in model_zoo.build(_fam_cfg(meta, arch),
+                                                   torch.device("meta")).parameters())
+    for rk in ranks:
+        f = rk[key]
+        gate(f["metrics"] == want_metrics,
+             f"{label} {arch} rank {rk['rank']}: metrics {f['metrics']}, not {want_metrics}")
+        plan = {k: f[k] for k in ("attn", "mlp", "layout")}
+        gate(meta["smoke"] or plan == SHARD_FAM_LAYOUT[arch],
+             f"{label} {arch} rank {rk['rank']}: plan {plan}, not {SHARD_FAM_LAYOUT[arch]}")
+        gate(f["params_held"] < whole,
+             f"{label} {arch} rank {rk['rank']}: holds {f['params_held']} of {whole} parameters")
+    fams = [rk[key] for rk in ranks]
+    engine_s = max(f["engine_s"] for f in fams)
+    return dict(mesh=list(shape), layers=_fam_cfg(meta, arch).num_layers,
+                dtype=_fam_cfg(meta, arch).dtype,
+                max_abs_dlogits=errs, bars=bars,
+                from_float32=dict(one_process=delta, sharded=from32),
+                tokens_compared=compared, rows_with_near_tie=ties, metrics=fams[0]["metrics"],
+                plan={k: fams[0][k] for k in ("attn", "mlp", "layout", "vocab")},
+                tokens_per_s=rf["tokens"].shape[0] * SHARD_FAM_NEW / engine_s,
+                engine_s=[f["engine_s"] for f in fams],
+                engine_collectives=[f["engine_collectives"] for f in fams],
+                build_s=[f["build_s"] for f in fams],
+                prefill_ms=[f["prefill_ms"] for f in fams],
+                tick_ms=[f["tick_ms"] for f in fams],
+                tick_ms_median=[float(np.median(f["tick_ms"])) for f in fams],
+                prefill_collectives=[f["prefill_collectives"] for f in fams],
+                tick_collectives=[f["tick_collectives"] for f in fams],
+                params_held=[f["params_held"] for f in fams], params_whole=whole,
+                peak_gb=[f["peak_gb"] for f in fams], one_process_peak_gb=rf["peak_gb"])
 
 
 def _meta_model(torch, meta: dict):

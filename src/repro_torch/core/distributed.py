@@ -589,12 +589,14 @@ def _rank_main(fn, rank, world, port, backend, device_type, args, results) -> No
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_ranks(fn, world: int, *args, backend: str = "gloo", device_type: str = "cpu",
+def run_ranks(fn, world: int, *args, backend: str = "gloo", device_type: str = "cuda",
               timeout: float = 600.0) -> list:
     """Run ``fn(rank, world, *args)`` in ``world`` spawned processes, each
     with the default process group initialised (``backend`` over
-    ``tcp://localhost``; on "cuda" each rank's current device set, all on
-    device 0 when the host has one), and return their results in rank
+    ``tcp://localhost``; on "cuda", the default, each rank's current
+    device set, all on device 0 when the host has one; the CPU only when
+    ``device_type="cpu"`` asks for it: with no GPU present "cuda" raises
+    here rather than fall back), and return their results in rank
     order. ``fn`` and ``args`` must pickle (a CPU tensor in shared memory
     passes by handle, not by value); return numpy arrays and plain
     values, not tensors, whose handles die with their rank. A rank that raises, dies or outlives
@@ -603,6 +605,9 @@ def run_ranks(fn, world: int, *args, backend: str = "gloo", device_type: str = "
 
     import torch.multiprocessing as mp
 
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device_type='cpu' to run the "
+                           "ranks on the CPU")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()

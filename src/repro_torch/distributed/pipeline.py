@@ -12,8 +12,26 @@ Every rank runs the same loop on local tensors. The reference's
 zero-filled (S, ...) buffer: each stage writes its output into its own
 slot and reads slot s - 1 (x + 0 = x, so it is exact), the one form
 gloo takes on CUDA tensors (it has no CUDA send or recv). The final
-broadcast is the reference's ``psum`` of ``outs * is_last``. The
-forward only: its backward belongs with sharded training (ROADMAP).
+broadcast is the reference's ``psum`` of ``outs * is_last``.
+
+The backward (the reference's ``jax.grad`` through the loop) is one
+`torch.autograd.Function` over the whole schedule, so every rank issues
+the same collectives in the same order: the forward keeps each tick's
+autograd graph where the stage holds a real microbatch, and the
+backward runs the ticks in reverse, each one all-reduce of a
+zero-filled ring that sends the cotangent of a stage's input back to
+the stage before it (the reverse shift, the transpose of ``ppermute``),
+then the stage's own VJP. The final broadcast transposes to the last
+stage's own cotangent: every rank takes the same loss of the replicated
+output, and summing the S copies, as a plain all-reduce would, would
+multiply every gradient by S. The input is replicated over the pod
+axis, so its cotangent (stage 0's) is summed over the pod group, as the
+reference sums a replicated input's; the parameters are replicated over
+the data axes, so their gradients (each replica's from its own batch
+slice) are summed over the data groups. A stage function's own
+collectives over the model axis have no backward here: under autograd a
+model axis larger than 1 is refused (TP inside a training stage belongs
+with the FSDP training layout, ROADMAP A12e-3).
 """
 
 from __future__ import annotations
@@ -42,6 +60,20 @@ def _index(tree, i: int):
     return _tree_map(lambda a: a[i], tree)
 
 
+def _tensors(tree) -> list:
+    """The tensors of a stage-params tree: a module's parameters, the
+    leaves of a dict / list / tuple."""
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, Mapping):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
 def stack_stage_params(per_stage_params: list):
     """Stack a list of per-stage param trees along a new leading axis."""
     return _tree_map(lambda *xs: torch.stack(xs), *per_stage_params)
@@ -65,7 +97,11 @@ def make_pipeline_forward(
     each stage holds only its own weights); ``x_local`` this rank's
     slice of the batch over ``data_axes`` (every stage gets the same
     one); its batch must divide by ``n_microbatches``. Every stage
-    returns the last stage's output.
+    returns the last stage's output. Under autograd (grad mode on and a
+    parameter or ``x_local`` requiring grad) the result is
+    differentiable, on meshes whose ``model_axis`` is 1: each stage's
+    parameters get their gradients (summed over the data replicas), and
+    ``x_local`` its cotangent on every stage (see the module docstring).
     """
     names = tuple(mesh.mesh_dim_names or ())
     size = dict(zip(names, mesh.mesh.shape))
@@ -73,21 +109,45 @@ def make_pipeline_forward(
         raise ValueError(f"n_stages={n_stages} != pod axis size {size.get(pod_axis)}")
     stage_idx = dict(zip(names, mesh.get_coordinate()))[pod_axis]
     group = mesh.get_group(pod_axis) if n_stages > 1 else None
+    data_groups = [mesh.get_group(a) for a in data_axes if size.get(a, 1) > 1]
+    n_ticks = n_microbatches + n_stages - 1
 
-    def pipelined(stage_params_local, x_local):
+    def ring_shift(y, step: int = 1):
+        """Every stage's ``y`` in its own slot of one reduced ring; this
+        stage reads slot ``stage_idx - step``: the previous stage's tensor
+        (the ``ppermute``) at ``step`` 1, the next stage's (its reverse
+        shift, the backward) at -1."""
         from repro_torch.core.distributed import all_reduce
 
-        sp = _index(stage_params_local, 0)
+        ring = torch.zeros((n_stages, *y.shape), dtype=y.dtype, device=y.device)
+        ring[stage_idx] = y
+        if group is not None:
+            all_reduce(ring, group)
+        return ring[(stage_idx - step) % n_stages]
+
+    def schedule(stage_params_local, x_local, ticks=None):
+        """The forward loop; with ``ticks`` (a list) it records each real
+        microbatch's (input, output) with its autograd graph there."""
+        from repro_torch.core.distributed import all_reduce
+
+        with torch.enable_grad() if ticks is not None else torch.no_grad():
+            sp = _index(stage_params_local, 0)
         b = x_local.shape[0]
         mb = b // n_microbatches
         micro = x_local.reshape(n_microbatches, mb, *x_local.shape[1:])
-        n_ticks = n_microbatches + n_stages - 1
         buf = torch.zeros_like(micro[0])
         outs = None
         for t in range(n_ticks):
             # stage 0 injects microbatch t (when in range)
             x_in = micro[t if t < n_microbatches else 0] if stage_idx == 0 else buf
-            y = stage_fn(sp, x_in, stage_idx)
+            if ticks is not None and 0 <= t - stage_idx < n_microbatches:
+                with torch.enable_grad():
+                    x_in = x_in.detach().requires_grad_()
+                    y = stage_fn(sp, x_in, stage_idx)
+                ticks.append((t, x_in, y))
+                y = y.detach()
+            else:
+                y = stage_fn(sp, x_in, stage_idx)
             if outs is None:
                 outs = torch.zeros((n_microbatches, *y.shape), dtype=y.dtype, device=y.device)
             # last stage collects its finished microbatch (t - (S-1))
@@ -95,17 +155,82 @@ def make_pipeline_forward(
             if stage_idx == n_stages - 1 and out_slot >= 0:
                 outs[out_slot] = y
             # hand off to the next stage: slot s - 1 of the reduced ring
-            ring = torch.zeros((n_stages, *y.shape), dtype=y.dtype, device=y.device)
-            ring[stage_idx] = y
-            if group is not None:
-                all_reduce(ring, group)
-            buf = ring[(stage_idx - 1) % n_stages]
+            buf = ring_shift(y)
         # every stage gets the last stage's outputs (one sum of activations)
         if stage_idx != n_stages - 1:
             outs.zero_()
         if group is not None:
             all_reduce(outs, group)
         return outs.reshape(b, *outs.shape[2:])
+
+    class _GPipe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, stage_params_local, x_local, *leaves):
+            ctx.ticks = []
+            with torch.no_grad():
+                y = schedule(stage_params_local, x_local, ctx.ticks)
+            ctx.leaves = leaves
+            ctx.x_shape = x_local.shape
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            from repro_torch.core.distributed import all_reduce
+
+            leaves, ticks = ctx.leaves, ctx.ticks
+            mb_shape = ticks[0][2].shape
+            # the broadcast's transpose: the last stage's own cotangent
+            g = g.reshape(n_microbatches, *mb_shape)
+            g_leaves = [None] * len(leaves)
+            g_x = torch.zeros((n_microbatches, *ticks[0][1].shape), dtype=ticks[0][1].dtype,
+                              device=g.device)
+            g_buf = torch.zeros(mb_shape, dtype=ticks[0][2].dtype, device=g.device)
+            by_tick = {t: (x_in, y) for t, x_in, y in ticks}
+            ticks.clear()
+            for t in reversed(range(n_ticks)):
+                # the reverse shift: the next stage's input cotangent (tick t + 1)
+                # comes back as this stage's output cotangent at tick t
+                g_y = ring_shift(g_buf, -1)
+                out_slot = t - (n_stages - 1)
+                if stage_idx == n_stages - 1 and out_slot >= 0:
+                    g_y = g_y + g[out_slot]
+                g_buf = torch.zeros_like(g_buf)
+                if t not in by_tick:
+                    continue
+                x_in, y = by_tick.pop(t)
+                got = torch.autograd.grad(y, (x_in, *leaves), g_y.to(y.dtype),
+                                          retain_graph=bool(by_tick), allow_unused=True)
+                for i, gl in enumerate(got[1:]):
+                    if gl is not None:
+                        g_leaves[i] = gl if g_leaves[i] is None else g_leaves[i] + gl
+                if stage_idx == 0:
+                    g_x[t] = got[0]
+                else:
+                    g_buf = got[0].to(g_buf.dtype)
+            # the parameters are replicated over the data axes: their gradients summed
+            for gl in g_leaves:
+                if gl is not None:
+                    for dg in data_groups:
+                        all_reduce(gl, dg)
+            if ctx.needs_input_grad[1]:
+                # the input is replicated over the pod axis: its cotangent summed
+                if group is not None:
+                    all_reduce(g_x, group)
+                g_x = g_x.reshape(ctx.x_shape)
+            else:
+                g_x = None
+            return (None, g_x, *g_leaves)
+
+    def pipelined(stage_params_local, x_local):
+        leaves = [t for t in _tensors(stage_params_local) if t.requires_grad]
+        if torch.is_grad_enabled() and (leaves or x_local.requires_grad):
+            if size.get(model_axis, 1) > 1:
+                raise NotImplementedError(
+                    f"the pipeline's backward runs stages on a {model_axis!r} axis of 1, not "
+                    f"{size[model_axis]}: a stage's own collectives have no backward here "
+                    "(TP inside a training stage: ROADMAP A12e-3)")
+            return _GPipe.apply(stage_params_local, x_local, *leaves)
+        return schedule(stage_params_local, x_local)
 
     return pipelined
 
@@ -126,15 +251,19 @@ def transformer_stage_fn(layer_fn: Callable, layers_per_stage: int):
     return fn
 
 
-def stage_model(cfg, mesh, *, n_stages: int, generator=None, pod_axis: str = "pod"):
+def stage_model(cfg, mesh, *, n_stages: int, generator=None, params=None,
+                pod_axis: str = "pod"):
     """(the model holding this rank's stage, the stage's layers): the
     transformer's layers split into ``n_stages`` contiguous groups over
     ``pod_axis`` of ``mesh`` (a `DeviceMesh`). Every leaf is drawn whole
     from ``generator`` in the reference's order (so each stage holds the
-    one-process model's values) and kept only where this stage needs it:
-    its own layers and the embedding table (every stage embeds, stage 0
-    injects); every other leaf is an empty tensor."""
+    one-process model's values), or taken from ``params`` (the
+    reference's tree with numpy leaves, as `shard_model` takes it), and
+    kept only where this stage needs it: its own layers and the
+    embedding table (every stage embeds, stage 0 injects); every other
+    leaf is an empty tensor."""
     from repro_torch.core.distributed import mesh_device
+    from repro_torch.distributed.sharding import load_blocks
     from repro_torch.models.transformer import Transformer
 
     if cfg.num_layers % n_stages:
@@ -144,11 +273,15 @@ def stage_model(cfg, mesh, *, n_stages: int, generator=None, pod_axis: str = "po
     per = cfg.num_layers // n_stages
     mine = range(stage * per, (stage + 1) * per)
 
-    def keep(name, t):
+    def held(name: str) -> bool:
         parts = name.split(".")
-        if parts[0] == "embed" or (parts[0] == "layers" and int(parts[1]) in mine):
-            return t
-        return t.new_empty(0)
+        return parts[0] == "embed" or (parts[0] == "layers" and int(parts[1]) in mine)
 
-    model = Transformer(cfg, device=mesh_device(mesh), generator=generator, place=keep)
+    device = mesh_device(mesh)
+    if params is not None:
+        model = load_blocks(Transformer, cfg, device, params,
+                            lambda name: (slice(None),) if held(name) else None)
+    else:
+        model = Transformer(cfg, device=device, generator=generator,
+                            place=lambda name, t: t if held(name) else t.new_empty(0))
     return model, [model.layers[i] for i in mine]

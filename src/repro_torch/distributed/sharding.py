@@ -28,10 +28,10 @@ tree of the same structure).
 
 PyTorch has no SPMD partitioner here: `param_shardings` gives each
 leaf this rank's block (a `Sharding`), and `shard_model` builds a model
-that holds only those blocks and issues the collectives the layout
-implies (`repro_torch.models.transformer`). Serving shards over "model"
-only (`serving_param_pspecs`); executing the FSDP training layout is
-not ported (ROADMAP).
+of any family that holds only those blocks and issues the collectives
+the layout implies (`repro_torch.models.transformer`, `rglru`, `xlstm`,
+`whisper`). Serving shards over "model" only (`serving_param_pspecs`);
+executing the FSDP training layout is not ported (ROADMAP A12e-3).
 """
 
 from __future__ import annotations
@@ -425,7 +425,7 @@ def shard_leaf(t, sharding: Sharding):
 
 @dataclasses.dataclass
 class ShardPlan:
-    """How a rank-local transformer computes (set by `shard_model`).
+    """How a rank-local model computes (set by `shard_model`).
 
     ``axes`` is its `MeshAxes` (the model group issues the TP reductions,
     the data groups average the MoE aux terms); ``tp`` the model group,
@@ -434,9 +434,13 @@ class ShardPlan:
     Hkv divides by |model| and no flash-decoding), "whole" (q, k and v
     assembled whole after their column products; the cache's sequence
     split over "model" under ``decode_seq_shard``, else whole) or
-    "replicated" (no attention leaf split). ``vocab`` and ``logits`` are
-    this rank's (lo, hi) rows of the embedding table and columns of the
-    logits, None where whole.
+    "replicated" (no attention leaf split). ``mlp``: the MLPs are
+    ff-split. ``vocab`` and ``logits`` are this rank's (lo, hi) rows of
+    the embedding table and columns of the logits, None where whole.
+    ``layout`` holds the recurrent families' blocks: "lru" ("channels"
+    or "replicated") for the RG-LRU; "mlstm" and "slstm" ("heads",
+    "whole" or "replicated") and "slstm_ffn" ("ff" or "replicated") for
+    xLSTM (the models' docstrings say what each computes).
     """
 
     mesh: object
@@ -447,6 +451,7 @@ class ShardPlan:
     mlp: bool
     vocab: Optional[tuple]
     logits: Optional[tuple]
+    layout: dict = dataclasses.field(default_factory=dict)
 
     @property
     def model_size(self) -> int:
@@ -461,44 +466,72 @@ def _split_range(sharding: Sharding, dim: int) -> Optional[tuple]:
     return (s.start, s.stop)
 
 
+def _leaves(shardings: dict, part: str, names) -> list:
+    """The names of the leaves ``names`` under a ``part`` group."""
+    return [n for n in shardings if f".{part}." in f".{n}" and n.split(".")[-1] in names]
+
+
+def _split_all(shardings: dict, leaves: list, what: str) -> bool:
+    """Whether ``leaves`` are split over "model": all or none of them."""
+    split = [n for n in leaves if shardings[n].split]
+    if split and len(split) != len(leaves):
+        bad = sorted(set(leaves) - set(split))[0]
+        raise ValueError(f"{bad} is whole while other {what} leaves are split over 'model'")
+    return bool(split)
+
+
+def _attn_layout(shardings: dict, num_kv_heads: int, m: int, *, seq_shard: bool = False,
+                 parts=("attn", "self_attn", "cross_attn")) -> str:
+    leaves = [n for part in parts for n in _leaves(shardings, part, ("wq", "wk", "wv", "wo"))]
+    split = [n for n in leaves if shardings[n].split]
+    if not split:
+        return "replicated"
+    if not seq_shard and num_kv_heads % m == 0 and len(split) == len(leaves):
+        return "heads"
+    return "whole"
+
+
 def _plan(cfg, mesh, axes, shardings: dict) -> ShardPlan:
     from repro_torch.models.layers import TP
 
     m = axes.model_size
     tp = TP(axes.model_group, axes.model_rank, m) if axes.model_group is not None else None
     specs = {name: s.spec for name, s in shardings.items()}
-    attn_leaves = [n for n in specs if n.split(".")[-1] in ("wq", "wk", "wv", "wo")]
-    split = [n for n in attn_leaves if shardings[n].split]
-    if not split:
-        attn = "replicated"
-    elif (not cfg.decode_seq_shard and cfg.num_kv_heads % m == 0
-          and len(split) == len(attn_leaves)):
-        attn = "heads"
-    else:
-        attn = "whole"
-    mlp_leaves = [n for n in specs if ".mlp." in n and n.split(".")[-1] in
-                  ("w_gate", "w_up", "w_down")]
-    mlp_split = [n for n in mlp_leaves if shardings[n].split]
-    if mlp_split and len(mlp_split) != len(mlp_leaves):
-        bad = sorted(set(mlp_leaves) - set(mlp_split))[0]
-        raise ValueError(f"{bad} is whole while other MLP leaves are split over 'model'")
-    moe_leaves = [n for n in specs if ".moe." in n and n.split(".")[-1] != "router"]
-    for n in moe_leaves:
-        if m > 1 and not shardings[n].split:
-            raise ValueError(f"{n}: its ff dim does not split over 'model' ({m} ranks)")
+    attn, mlp, layout = "replicated", False, {}
+    if cfg.family in ("dense", "moe", "vlm", "hybrid", "audio"):
+        attn = _attn_layout(shardings, cfg.num_kv_heads, m, seq_shard=cfg.decode_seq_shard)
+        mlp = _split_all(shardings, _leaves(shardings, "mlp", ("w_gate", "w_up", "w_down")),
+                         "MLP")
+    if cfg.family in ("dense", "moe", "vlm"):
+        for n in _leaves(shardings, "moe", ("w_gate", "w_up", "w_down")):
+            if m > 1 and not shardings[n].split:
+                raise ValueError(f"{n}: its ff dim does not split over 'model' ({m} ranks)")
+    elif cfg.family == "hybrid":
+        lru = _leaves(shardings, "rglru", ("w_in", "w_gate_branch", "conv_w", "conv_b", "w_a",
+                                           "w_x", "b_a", "b_x", "lam", "w_out"))
+        layout["lru"] = "channels" if _split_all(shardings, lru, "RG-LRU") else "replicated"
+    elif cfg.family == "ssm":
+        mq = _leaves(shardings, "mlstm", ("conv_w", "conv_b", "wq", "wk", "wv", "w_down"))
+        if not _split_all(shardings, mq, "mLSTM"):
+            layout["mlstm"] = "replicated"
+        else:
+            layout["mlstm"] = "heads" if cfg.num_heads % m == 0 else "whole"
+        r = _leaves(shardings, "slstm", ("r_gates",))
+        layout["slstm"] = ("heads" if _split_all(shardings, r, "sLSTM") else
+                           "whole" if m > 1 else "replicated")
+        ffn = _leaves(shardings, "slstm", ("w_ff_gate", "w_ff_up", "w_ff_down"))
+        layout["slstm_ffn"] = "ff" if _split_all(shardings, ffn, "sLSTM FFN") else "replicated"
     vocab = _split_range(shardings["embed.table"], 0)
-    if cfg.tie_embeddings:
-        logits = vocab
-    else:
-        logits = _split_range(shardings["lm_head.w"], 1)
-    return ShardPlan(mesh=mesh, axes=axes, tp=tp, specs=specs, attn=attn, mlp=bool(mlp_split),
-                     vocab=vocab, logits=logits)
+    logits = _split_range(shardings["lm_head.w"], 1) if "lm_head.w" in shardings else vocab
+    return ShardPlan(mesh=mesh, axes=axes, tp=tp, specs=specs, attn=attn, mlp=mlp,
+                     vocab=vocab, logits=logits, layout=layout)
 
 
 def shard_model(cfg, mesh, *, serving: bool = True, generator=None, params=None):
     """The rank-local model for ``cfg`` on ``mesh`` (a `DeviceMesh`; every
-    rank calls it): each rank holds only its blocks of each parameter
-    under `serving_param_pspecs`, on the mesh's device.
+    rank calls it), of any family (`model_zoo.FAMILIES`): each rank holds
+    only its blocks of each parameter under `serving_param_pspecs`, on
+    the mesh's device, and a `ShardPlan` in ``model.tp``.
 
     With ``generator`` (a `torch.Generator` on that device, the same seed
     on every rank), each leaf is drawn whole in the reference's order,
@@ -510,19 +543,16 @@ def shard_model(cfg, mesh, *, serving: bool = True, generator=None, params=None)
     host. Batches are split over the data axes by the caller
     (`batch_pspec`); each data replica runs its own model.
     """
-    from repro_torch.convert import _flatten, _tensor
     from repro_torch.core.distributed import mesh_axes, mesh_device
     from repro_torch.models import model_zoo
-    from repro_torch.models.transformer import Transformer
 
     if not serving:
         raise NotImplementedError(
-            "executing the FSDP training layout (param_pspecs over 'data') is not ported; "
-            "shard_model places the serving layout (serving_param_pspecs)")
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"sharded execution of the {cfg.family!r} family is not ported; its placement "
-            "rules are (param_pspecs)")
+            "executing the FSDP training layout (param_pspecs over 'data') is not ported "
+            "(ROADMAP A12e-3); shard_model places the serving layout (serving_param_pspecs)")
+    family = model_zoo.FAMILIES.get(cfg.family)
+    if family is None:
+        raise ValueError(f"unknown family {cfg.family!r}")
     device = mesh_device(mesh)
     axes = mesh_axes(mesh, data_axes(mesh), "model")
     skeleton = model_zoo.build(cfg, torch.device("meta"))
@@ -530,28 +560,46 @@ def shard_model(cfg, mesh, *, serving: bool = True, generator=None, params=None)
     shardings = param_shardings(skeleton, mesh, pspecs=pspecs)
     del skeleton
     if params is not None:
-        leaves = _flatten(params)
-
-        def place(name, t):
-            return t.new_empty(tuple(s.stop - s.start for s in shardings[name].index))
-
-        model = Transformer(cfg, device=torch.device("meta"), place=place)
-        names = {name for name, _ in model.named_parameters()}
-        if set(leaves) != names:
-            raise ValueError(
-                f"parameter trees differ: missing {sorted(names - set(leaves))}, "
-                f"unexpected {sorted(set(leaves) - names)}")
-        model = model.to_empty(device=device)
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                whole = np.asarray(leaves[name])
-                block = _tensor(whole[shardings[name].index])
-                if block.shape != p.shape or block.dtype != p.dtype:
-                    raise ValueError(f"{name}: got {tuple(whole.shape)} {block.dtype}, the model "
-                                     f"holds a block {tuple(p.shape)} {p.dtype}")
-                p.copy_(block)
+        model = load_blocks(family, cfg, device, params, lambda name: shardings[name].index)
     else:
-        model = Transformer(cfg, device=device, generator=generator,
-                            place=lambda name, t: shard_leaf(t, shardings[name]))
+        model = family(cfg, device=device, generator=generator,
+                       place=lambda name, t: shard_leaf(t, shardings[name]))
     model.tp = _plan(cfg, mesh, axes, shardings)
+    return model
+
+
+def load_blocks(family, cfg, device, params, block):
+    """``family``'s model for ``cfg`` on ``device`` holding this rank's
+    blocks of ``params`` (the reference's tree with numpy leaves, as
+    `convert.lm_params_from_numpy` takes it), sliced on the host:
+    ``block(name)`` is the index (one slice a dim) of the rank's block of
+    that leaf, or None for a leaf the rank does not hold (an empty
+    tensor). Every leaf must match a parameter by name, and each block
+    its shape and dtype."""
+    from repro_torch.convert import _flatten, _tensor
+
+    leaves = _flatten(params)
+
+    def place(name, t):
+        index = block(name)
+        return t.new_empty(0) if index is None else t.new_empty(t[index].shape)
+
+    model = family(cfg, device=torch.device("meta"), place=place)
+    names = {name for name, _ in model.named_parameters()}
+    if set(leaves) != names:
+        raise ValueError(
+            f"parameter trees differ: missing {sorted(names - set(leaves))}, "
+            f"unexpected {sorted(set(leaves) - names)}")
+    model = model.to_empty(device=device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            index = block(name)
+            if index is None:
+                continue
+            whole = np.asarray(leaves[name])
+            got = _tensor(whole[index])
+            if got.shape != p.shape or got.dtype != p.dtype:
+                raise ValueError(f"{name}: got {tuple(whole.shape)} {got.dtype}, the model "
+                                 f"holds a block {tuple(p.shape)} {p.dtype}")
+            p.copy_(got)
     return model

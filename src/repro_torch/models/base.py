@@ -78,9 +78,22 @@ class Model(nn.Module):
 
     def greedy_pick(self, logits: torch.Tensor) -> np.ndarray:
         """The first index of the largest logit a row (``argmax``'s rule in
-        both frameworks), as int32 numpy; a rank-local model reduces it
-        over its vocab shards."""
-        return torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
+        both frameworks), as int32 numpy. A rank-local model's logits may
+        be vocab-sharded (its `ShardPlan`'s ``logits``, this rank's
+        columns): the rank's own first maximum, the MAX of the values over
+        the model group, then the MIN of the global indices holding it."""
+        plan = getattr(self, "tp", None)
+        if plan is None or plan.logits is None:
+            return torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
+        from repro_torch.models.layers import all_reduce
+
+        idx = torch.argmax(logits, dim=-1, keepdim=True)
+        val = torch.gather(logits, -1, idx)[..., 0].to(torch.float32)
+        best = val.clone()
+        all_reduce(best, plan.tp, op="max")
+        cand = torch.where(val == best, idx[..., 0] + plan.logits[0], self.cfg.vocab_size)
+        all_reduce(cand, plan.tp, op="min")
+        return cand.cpu().numpy().astype(np.int32)
 
     def extra_input_shapes(self, batch: int, seq: int) -> dict:
         """The modality-frontend stub inputs `forward` takes (vlm, audio)."""

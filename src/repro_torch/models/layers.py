@@ -17,7 +17,11 @@ group, this rank, the group's size) to the row-parallel products
 (`attention_out`, the MLPs' ``w_down``), which produce the local
 partial product in ``_out_proj_dtype()``, sum it with one all-reduce
 over the model group and then cast, where the reference's partitioner
-puts its reduction. The logical-axis helpers (`set_sharding_rules`,
+puts its reduction. Where a product's input is split over channels but
+its weight reads every channel (`gather_columns`, `column_parallel`)
+the activation is assembled whole first, and a norm over a
+channel-split activation reduces its statistics over the group
+(`norm_split`). The logical-axis helpers (`set_sharding_rules`,
 `logical_to_pspec`, `manual_mode`, `shard`) resolve the reference's
 rules; `shard` on a local tensor changes nothing.
 """
@@ -41,9 +45,11 @@ __all__ = [
     "attention_out",
     "boundary_cast",
     "clear_sharding_rules",
+    "column_parallel",
     "decode_attention",
     "dense_init",
     "embed_init",
+    "gather_columns",
     "init_attention",
     "init_layernorm",
     "init_mlp",
@@ -55,6 +61,7 @@ __all__ = [
     "mlp_geglu",
     "mlp_gelu",
     "mlp_swiglu",
+    "norm_split",
     "qkv_proj",
     "rms_norm",
     "rope_freqs",
@@ -172,6 +179,68 @@ def all_reduce(t: torch.Tensor, tp, op: str = "sum") -> torch.Tensor:
     from repro_torch.core.distributed import all_reduce as _all_reduce
 
     return _all_reduce(t, tp.group, op=op)
+
+
+def gather_columns(parts, widths, tp) -> list:
+    """Whole tensors from column blocks: each of ``parts`` is this rank's
+    contiguous block of the last dim of a tensor ``widths[i]`` wide (the
+    block at ``tp.rank * block``), or already whole. The split ones are
+    written at their offsets into one zero-filled buffer, summed by one
+    all-reduce over ``tp``'s group (x + 0 = x, so it is exact: a gather)
+    and cut apart again; the whole ones pass as they are. The split
+    parts share one dtype."""
+    split = [c.shape[-1] != w for c, w in zip(parts, widths)]
+    if not any(split):
+        return list(parts)
+    lead = next(c for c, sp in zip(parts, split) if sp)
+    total = sum(w for w, sp in zip(widths, split) if sp)
+    buf = torch.zeros((*lead.shape[:-1], total), dtype=lead.dtype, device=lead.device)
+    off, spans = 0, []
+    for c, w, sp in zip(parts, widths, split):
+        if sp:
+            lo = off + tp.rank * c.shape[-1]
+            buf[..., lo : lo + c.shape[-1]] = c
+            spans.append((off, off + w))
+            off += w
+        else:
+            spans.append(None)
+    all_reduce(buf, tp)
+    return [c if span is None else buf[..., span[0] : span[1]]
+            for c, span in zip(parts, spans)]
+
+
+def column_parallel(x: torch.Tensor, width: int, weights, tp) -> list:
+    """``x @ w`` (f32) for each of ``weights``, column blocks reading
+    every input channel, when ``x`` is this rank's channel block of a
+    ``width``-wide activation (or whole): ``x`` is assembled whole first
+    (`gather_columns`), then each product is the rank's own columns."""
+    (x,) = gather_columns([x], [width], tp)
+    return [_dot(x, w) for w in weights]
+
+
+def norm_split(params, x: torch.Tensor, eps: float, tp, *, kind: str = "rms") -> torch.Tensor:
+    """`rms_norm` (``kind="rms"``) or `layer_norm` (``"layer"``) over the
+    whole last dim when ``x`` holds this rank's contiguous block of it
+    (``params`` whole): the statistics' f32 sums are all-reduced over
+    ``tp``'s group, then the rank's block is normalised and scaled by its
+    block of the scale (and bias). One all-reduce for RMS, two for a
+    layer norm (its mean, then its centred second moment, as the
+    one-device norm computes them)."""
+    xf = x.to(torch.float32)
+    n = x.shape[-1]
+    lo = tp.rank * n
+    width = n * tp.size
+    scale = params["scale"][lo : lo + n].to(torch.float32)
+    if kind == "rms":
+        var = all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True), tp) / width
+        return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+    if kind != "layer":
+        raise ValueError(f"unknown norm {kind!r}")
+    mu = all_reduce(torch.sum(xf, dim=-1, keepdim=True), tp) / width
+    var = all_reduce(torch.sum((xf - mu) ** 2, dim=-1, keepdim=True), tp) / width
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale
+    return (y + params["bias"][lo : lo + n].to(torch.float32)).to(x.dtype)
+
 
 # dtype of the TP output projections' (wo / w_down) products: None is
 # f32 accumulation, as in the reference's baseline
@@ -525,8 +594,14 @@ def init_mlp_gelu(d_model: int, d_ff: int, dtype, *, generator=None, device=None
     }
 
 
-def mlp_gelu(params, x: torch.Tensor) -> torch.Tensor:
+def mlp_gelu(params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The GELU MLP. Under ``tp`` ``w_up`` and ``b_up`` are the rank's ff
+    block, ``w_down`` its row block: one all-reduce of the partial
+    product, then ``b_down`` (whole) added once."""
     h = _dot(x, params["w_up"]) + params["b_up"].to(torch.float32)
     h = F.gelu(h, approximate="tanh").to(x.dtype)
-    out = _dot(h, params["w_down"]) + params["b_down"].to(torch.float32)
-    return out.to(x.dtype)
+    if tp is None:
+        out = _dot(h, params["w_down"])
+    else:
+        out = row_parallel(shard(h, "batch", None, "ff"), params["w_down"], tp)
+    return (out + params["b_down"].to(torch.float32)).to(x.dtype)

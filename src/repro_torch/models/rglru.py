@@ -22,6 +22,25 @@ Attention layers cache only the trailing window (O(window) memory).
 ``slot = pos % window``, as the reference does; the two agree when the
 prompt is at most the window or a multiple of it (the reference's
 behaviour past that is kept; ROADMAP Queue C).
+
+A rank-local model (`repro_torch.distributed.shard_model`) holds its
+blocks of each parameter and a `ShardPlan` in ``tp``:
+
+  * recurrent blocks ("lru" layout "channels"): ``w_in``,
+    ``w_gate_branch``, the conv and the LRU's biases and ``lam`` are the
+    rank's channel block, so the branch, its conv, the gate and the scan
+    run on the rank's channels; ``w_a`` and ``w_x`` are column blocks
+    reading every channel of the conv output ``u``, which is assembled
+    whole first (one all-reduce); ``w_out`` is row-parallel (one
+    all-reduce). The cache holds the rank's channels of the LRU state
+    and the conv tail;
+  * attention blocks: 10 heads and 1 kv head do not split over the
+    group, so q, k and v are assembled whole from their column blocks
+    (the "whole" layout of `transformer`), every head attends, and the
+    ring cache is whole on every rank;
+  * GeGLU MLP: ff-split, one all-reduce after ``w_down``;
+  * vocab-parallel embedding and tied logits (`transformer.embed_tokens`,
+    `Model.greedy_pick`).
 """
 
 from __future__ import annotations
@@ -37,7 +56,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.base import Group, Model, model_dtype
 from repro_torch.models.layers import AttnSpec
-from repro_torch.models.transformer import embed_tokens
+from repro_torch.models.transformer import (
+    _placed, _whole, attn_output, attn_project, embed_tokens, heads_spec,
+)
 
 __all__ = [
     "HybridCache", "HybridLM", "block_kind", "init_cache", "init_params", "rg_lru_block",
@@ -145,11 +166,13 @@ def _rg_lru_scan(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def rg_lru_block(p, x: torch.Tensor, *, decode_state=None) -> tuple:
+def rg_lru_block(p, x: torch.Tensor, *, decode_state=None, tp=None) -> tuple:
     """The full recurrent temporal-mixing block.
 
     train/prefill: decode_state=None -> returns (y, (h_last, conv_state)).
     decode: decode_state=(h, conv_state), x is (B,1,D) -> (y, new_state).
+    With ``tp`` the block's leaves are this rank's channel blocks (see
+    the module docstring) and the state its channels.
     """
     dt = x.dtype
     branch = L._dot(x, p["w_in"]).to(dt)
@@ -163,8 +186,10 @@ def rg_lru_block(p, x: torch.Tensor, *, decode_state=None) -> tuple:
         h_prev, conv_state = decode_state
         u, conv_tail = _causal_conv(branch, p["conv_w"], p["conv_b"], conv_state)
 
-    r = torch.sigmoid(L._dot(u, p["w_a"]) + p["b_a"].to(torch.float32))
-    i = torch.sigmoid(L._dot(u, p["w_x"]) + p["b_x"].to(torch.float32))
+    # the gates' columns read every channel of u
+    ga, gx = L.column_parallel(u, p["w_a"].shape[0], (p["w_a"], p["w_x"]), tp)
+    r = torch.sigmoid(ga + p["b_a"].to(torch.float32))
+    i = torch.sigmoid(gx + p["b_x"].to(torch.float32))
     lam = p["lam"]
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))  # jax.nn.softplus
     log_a = -_C * softplus * r  # (B,S,W) f32, <= 0
@@ -178,6 +203,8 @@ def rg_lru_block(p, x: torch.Tensor, *, decode_state=None) -> tuple:
     new_state = (h[:, -1, :], conv_tail)
 
     y = h.to(dt) * gate
+    if tp is not None:  # w_out row-parallel
+        return L.row_parallel(y, p["w_out"], tp).to(dt), new_state
     return L._dot(y, p["w_out"]).to(dt), new_state
 
 
@@ -196,16 +223,20 @@ class HybridCache(NamedTuple):
     length: int
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> HybridCache:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None, lru_width=None,
+               kv_heads=None) -> HybridCache:
+    """Zero state; ``lru_width`` and ``kv_heads`` are a rank-local
+    model's (its LRU channels, its cached kv heads), the config's by
+    default."""
     dt = model_dtype(cfg)
-    w = _lru_width(cfg)
+    w = lru_width or _lru_width(cfg)
     # attention layers only cache the local window (sub-quadratic memory)
     window = min(cfg.local_window, max_len)
 
     def zeros(shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    kv = (cfg.num_kv_heads, cfg.head_dim)
+    kv = (kv_heads or cfg.num_kv_heads, cfg.head_dim)
     attn_k, attn_v, lru_h, conv = [], [], [], []
     for li in range(cfg.num_layers):
         attn = block_kind(cfg, li) == "attention"
@@ -228,28 +259,50 @@ class HybridLM(Model):
     embeddings; weights drawn as the reference draws them, from
     ``generator``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+    def __init__(self, cfg: ModelConfig, *, device, generator=None, place=None):
         super().__init__()
         self.cfg = cfg
         dt = model_dtype(cfg)
         kw = dict(generator=generator, device=device)
-        self.embed = Group({"table": L.embed_init((cfg.vocab_size, cfg.d_model), dt, **kw)})
-        self.final_norm = Group(L.init_rmsnorm(cfg.d_model, dt, device=device))
-        self.layers = nn.ModuleList(
-            [Group(init_layer(cfg, i, **kw)) for i in range(cfg.num_layers)]
+        # ``place(name, leaf)`` keeps a rank's block of each leaf as it is
+        # drawn (`distributed.shard_model`)
+        place = place or _whole
+        self.embed = Group(
+            {"table": place("embed.table", L.embed_init((cfg.vocab_size, cfg.d_model), dt, **kw))}
         )
+        self.final_norm = Group(_placed(place, "final_norm",
+                                        L.init_rmsnorm(cfg.d_model, dt, device=device)))
+        self.layers = nn.ModuleList(
+            [Group(_placed(place, f"layers.{i}", init_layer(cfg, i, **kw)))
+             for i in range(cfg.num_layers)]
+        )
+        self.tp = None  # a ShardPlan on a rank-local model
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = L.rms_norm(self.final_norm, x, self.cfg.norm_eps)
-        return L._dot(x, self.embed["table"].T)  # tied embeddings
+        return L._dot(x, self.embed["table"].T)  # tied embeddings (vocab-sharded on a rank)
+
+    def _tp(self, part: str):
+        """The model group ``part`` ("lru" or "mlp") reduces over, None
+        where it is whole."""
+        plan = self.tp
+        if plan is None:
+            return None
+        split = plan.layout["lru"] == "channels" if part == "lru" else plan.mlp
+        return plan.tp if split else None
+
+    def _mlp(self, lp, h: torch.Tensor) -> torch.Tensor:
+        return L.mlp_geglu(lp.mlp, h, self._tp("mlp"))
 
     def _attend(self, lp, h: torch.Tensor, positions: torch.Tensor) -> tuple:
         cfg = self.cfg
         spec = _attn_spec(cfg)
-        q, k, v = L.qkv_proj(lp.attn, h, spec)
+        q, k, v = attn_project(lp.attn, h, spec, self.tp)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-        y = L.attention_out(lp.attn, L.attention(q, k, v, spec, positions[0], positions[0]))
+        local = heads_spec(spec, self.tp)
+        y = attn_output(lp.attn, L.attention(q, k, v, local, positions[0], positions[0]),
+                        self.tp)
         return y, k, v
 
     def _positions(self, b: int, s: int) -> torch.Tensor:
@@ -265,10 +318,10 @@ class HybridLM(Model):
             if block_kind(cfg, li) == "attention":
                 y = self._attend(lp, h, positions)[0]
             else:
-                y, _ = rg_lru_block(lp.rglru, h)
+                y, _ = rg_lru_block(lp.rglru, h, tp=self._tp("lru"))
             x = x + y
             h = L.rms_norm(lp.mlp_norm, x, cfg.norm_eps)
-            x = x + L.mlp_geglu(lp.mlp, h)
+            x = x + self._mlp(lp, h)
         return self._logits(x), {}
 
     @torch.no_grad()
@@ -291,14 +344,14 @@ class HybridLM(Model):
                 attn_k[li][:, :tail] = k[:, -tail:]
                 attn_v[li][:, :tail] = v[:, -tail:]
             else:
-                y, (h_last, conv_tail) = rg_lru_block(lp.rglru, h)
+                y, (h_last, conv_tail) = rg_lru_block(lp.rglru, h, tp=self._tp("lru"))
                 lru_h[li] = h_last
                 kw = cfg.conv_width - 1
                 conv[li] = conv_tail[:, -kw:, :] if s >= kw else F.pad(
                     conv_tail, (0, 0, kw - s, 0))
             x = x + y
             h = L.rms_norm(lp.mlp_norm, x, cfg.norm_eps)
-            x = x + L.mlp_geglu(lp.mlp, h)
+            x = x + self._mlp(lp, h)
         return self._logits(x), HybridCache(attn_k, attn_v, lru_h, conv, s)
 
     @torch.no_grad()
@@ -309,6 +362,7 @@ class HybridLM(Model):
         x = embed_tokens(self, token[:, None])
         pos = torch.full((b,), cache.length, dtype=torch.int32, device=self.device)
         spec = _attn_spec(cfg)
+        local = heads_spec(spec, self.tp)
         first = _first_attn_idx(cfg)
         window = cache.attn_k[first].shape[1] if first >= 0 else 0
 
@@ -318,13 +372,13 @@ class HybridLM(Model):
             h = L.rms_norm(lp.temporal_norm, x, cfg.norm_eps)
             if block_kind(cfg, li) == "attention":
                 # ring-buffer local window: slot = pos % window, written in place
-                q, k, v = L.qkv_proj(lp.attn, h, spec)
+                q, k, v = attn_project(lp.attn, h, spec, self.tp)
                 q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
                 k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
                 slot = (pos[:1] % window).to(torch.int64)
                 attn_k[li].index_copy_(1, slot, k)
                 attn_v[li].index_copy_(1, slot, v)
-                groups = spec.num_heads // spec.num_kv_heads
+                groups = local.num_heads // local.num_kv_heads
                 kk = torch.repeat_interleave(attn_k[li], groups, dim=2)
                 vv = torch.repeat_interleave(attn_v[li], groups, dim=2)
                 s = L._einsum("bqhd,bkhd->bhqk", q, kk) * (spec.head_dim ** -0.5)
@@ -336,19 +390,24 @@ class HybridLM(Model):
                 s = torch.where(valid[:, None, None, :], s, -math.inf)
                 p_ = torch.softmax(s, dim=-1).to(dt)
                 o = L._einsum("bhqk,bkhd->bqhd", p_, vv)
-                y = L.attention_out(lp.attn, o.to(dt))
+                y = attn_output(lp.attn, o.to(dt), self.tp)
             else:
                 y, (h_new, conv_new) = rg_lru_block(
-                    lp.rglru, h, decode_state=(lru_h[li], conv[li]))
+                    lp.rglru, h, decode_state=(lru_h[li], conv[li]), tp=self._tp("lru"))
                 lru_h[li], conv[li] = h_new, conv_new
             x = x + y
             h = L.rms_norm(lp.mlp_norm, x, cfg.norm_eps)
-            x = x + L.mlp_geglu(lp.mlp, h)
+            x = x + self._mlp(lp, h)
         logits = self._logits(x)[:, 0]
         return logits, HybridCache(attn_k, attn_v, lru_h, conv, cache.length + 1)
 
     def init_cache(self, batch: int, max_len: int) -> HybridCache:
-        return init_cache(self.cfg, batch, max_len, device=self.device)
+        if self.tp is None:
+            return init_cache(self.cfg, batch, max_len, device=self.device)
+        rec = [lp.rglru for lp in self.layers if "rglru" in lp]
+        return init_cache(self.cfg, batch, max_len, device=self.device,
+                          lru_width=rec[0]["lam"].shape[0] if rec else None,
+                          kv_heads=heads_spec(_attn_spec(self.cfg), self.tp).num_kv_heads)
 
 
 def init_params(cfg: ModelConfig, *, device, generator=None) -> HybridLM:

@@ -65,7 +65,6 @@ import functools
 import math
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
@@ -77,7 +76,8 @@ from repro_torch.models.layers import AttnSpec
 from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_local
 
 __all__ = [
-    "KVCache", "TensorSpec", "Transformer", "embed_tokens", "init_cache", "init_layer",
+    "KVCache", "TensorSpec", "Transformer", "attn_output", "attn_project", "embed_tokens",
+    "heads_spec", "init_cache", "init_layer", "project_heads",
     "init_params", "unembed",
 ]
 
@@ -135,7 +135,11 @@ class KVCache(NamedTuple):
     seq: Optional[tuple] = None
 
 
-def embed_tokens(model: Model, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(model: Model, tokens: torch.Tensor, *, scale: bool = True) -> torch.Tensor:
+    """The embedding rows of ``tokens``, times sqrt(d_model) unless
+    ``scale`` is False (xLSTM and whisper look rows up unscaled). On a
+    vocab-sharded table each rank looks up its own rows, zeros elsewhere,
+    and one all-reduce sums them."""
     plan = getattr(model, "tp", None)
     table = model.embed["table"]
     if plan is None or plan.vocab is None:
@@ -145,8 +149,9 @@ def embed_tokens(model: Model, tokens: torch.Tensor) -> torch.Tensor:
         local = tokens.to(torch.int64) - lo
         ok = (local >= 0) & (local < hi - lo)
         x = torch.where(ok[..., None], table[torch.where(ok, local, 0)], 0)
-    # the scale is cast to the dtype first, as in the reference
-    x = x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    if scale:
+        # the scale is cast to the dtype first, as in the reference
+        x = x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     if plan is not None and plan.vocab is not None:
         L.all_reduce(x, plan.tp)
     return x
@@ -181,37 +186,54 @@ def _whole(name: str, t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _qkv_whole(p, x: torch.Tensor, spec: AttnSpec, tp) -> tuple:
-    """q (B,S,H,hd), k and v (B,S,Hkv,hd) whole from column blocks of
-    wq / wk / wv: each product (and bias) on the rank's columns, then
-    one all-reduce of a zero-filled buffer holding every split one."""
+_BIAS = {"wq": "bq", "wk": "bk", "wv": "bv"}
+
+
+def project_heads(p, x: torch.Tensor, spec: AttnSpec, names=("wq", "wk", "wv"), tp=None, *,
+                  whole: bool = False) -> list:
+    """``x @ p[w]`` (plus its bias) for each ``w`` of ``names``, cast to
+    ``x``'s dtype and split into heads: (B,S,H,hd) for ``wq``,
+    (B,S,Hkv,hd) for ``wk`` / ``wv``, the head counts ``spec``'s. With
+    ``whole`` each product is the rank's column block, assembled whole by
+    one all-reduce (`layers.gather_columns`); otherwise ``spec`` gives
+    the heads the blocks hold."""
     b, s, _ = x.shape
-    hd = spec.head_dim
-    widths = (spec.num_heads * hd, spec.num_kv_heads * hd, spec.num_kv_heads * hd)
+    heads = {"wq": spec.num_heads, "wk": spec.num_kv_heads, "wv": spec.num_kv_heads}
     parts = []
-    for w, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
+    for w in names:
         c = L._dot(x, p[w])
-        if bias in p:
-            c = c + p[bias].to(c.dtype)
+        if _BIAS[w] in p:
+            c = c + p[_BIAS[w]].to(c.dtype)
         parts.append(c.to(x.dtype))
-    split = [c.shape[-1] != width for c, width in zip(parts, widths)]
-    if any(split):
-        buf = torch.zeros((b, s, sum(widths)), dtype=x.dtype, device=x.device)
-        off = 0
-        for c, width, sp in zip(parts, widths, split):
-            if sp:
-                lo = off + tp.rank * c.shape[-1]
-                buf[..., lo : lo + c.shape[-1]] = c
-            off += width
-        L.all_reduce(buf, tp)
-        whole, off = [], 0
-        for c, width, sp in zip(parts, widths, split):
-            whole.append(buf[..., off : off + width] if sp else c)
-            off += width
-        parts = whole
-    q, k, v = parts
-    return (q.reshape(b, s, spec.num_heads, hd), k.reshape(b, s, spec.num_kv_heads, hd),
-            v.reshape(b, s, spec.num_kv_heads, hd))
+    if whole:
+        parts = L.gather_columns(parts, [heads[w] * spec.head_dim for w in names], tp)
+    return [c.reshape(b, s, heads[w], spec.head_dim) for c, w in zip(parts, names)]
+
+
+def heads_spec(spec: AttnSpec, plan) -> AttnSpec:
+    """``spec`` with this rank's heads under the "heads" layout."""
+    if plan is None or plan.attn != "heads":
+        return spec
+    m = plan.model_size
+    return dataclasses.replace(spec, num_heads=spec.num_heads // m,
+                               num_kv_heads=spec.num_kv_heads // m)
+
+
+def attn_project(p, x: torch.Tensor, spec: AttnSpec, plan, names=("wq", "wk", "wv")) -> list:
+    """`project_heads` under ``plan``'s attention layout (None: one
+    device): assembled whole for "whole", this rank's heads otherwise."""
+    whole = plan is not None and plan.attn == "whole"
+    return project_heads(p, x, spec if whole else heads_spec(spec, plan), names,
+                         plan.tp if whole else None, whole=whole)
+
+
+def attn_output(p, attn: torch.Tensor, plan) -> torch.Tensor:
+    """The attention output (local heads, or every head under "whole")
+    through ``wo`` under ``plan``'s layout, reduced over the model group
+    where ``wo`` is split."""
+    if plan is not None and plan.attn == "whole":
+        return _out_whole(p, attn, plan.tp)
+    return L.attention_out(p, attn, plan.tp if plan is not None and plan.attn == "heads" else None)
 
 
 def _out_whole(p, attn: torch.Tensor, tp) -> torch.Tensor:
@@ -235,7 +257,7 @@ def _decode_whole(p, x, cache_k, cache_v, position: int, seq, spec: AttnSpec,
     in place into the rank whose range holds the position (clamped to
     S_max - 1, as the one-device write is)."""
     b = x.shape[0]
-    q, k, v = _qkv_whole(p, x, spec, tp)
+    q, k, v = project_heads(p, x, spec, tp=tp, whole=True)
     pos = torch.full((b,), position, dtype=torch.int32, device=x.device)
     if rope_theta:
         q = L.apply_rope(q, pos[:, None], rope_theta)
@@ -333,12 +355,7 @@ class Transformer(Model):
 
     def _local_spec(self) -> AttnSpec:
         """The attention spec of this rank's heads."""
-        spec = _attn_spec(self.cfg)
-        if self.tp is not None and self.tp.attn == "heads":
-            m = self.tp.model_size
-            spec = dataclasses.replace(spec, num_heads=spec.num_heads // m,
-                                       num_kv_heads=spec.num_kv_heads // m)
-        return spec
+        return heads_spec(_attn_spec(self.cfg), self.tp)
 
     def _block(self, lp: Group, x: torch.Tensor, positions: torch.Tensor,
                capacity_factor: float) -> tuple:
@@ -346,20 +363,11 @@ class Transformer(Model):
         as this rank's cache holds their heads."""
         cfg, plan = self.cfg, self.tp
         h = L.rms_norm(lp.attn_norm, x, cfg.norm_eps)
-        whole = plan is not None and plan.attn == "whole"
-        if whole:
-            spec = _attn_spec(cfg)
-            q, k, v = _qkv_whole(lp.attn, h, spec, plan.tp)
-        else:
-            spec = self._local_spec()
-            q, k, v = L.qkv_proj(lp.attn, h, spec)
+        q, k, v = attn_project(lp.attn, h, _attn_spec(cfg), plan)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-        attn = L.attention(q, k, v, spec, positions[0], positions[0])
-        if whole:
-            x = x + _out_whole(lp.attn, attn, plan.tp)
-        else:
-            x = x + L.attention_out(lp.attn, attn, self._heads_tp())
+        attn = L.attention(q, k, v, self._local_spec(), positions[0], positions[0])
+        x = x + attn_output(lp.attn, attn, plan)
         h = L.rms_norm(lp.mlp_norm, x, cfg.norm_eps)
         y, aux = self._ffn(lp, h, capacity_factor)
         return x + y, k, v, aux
@@ -478,22 +486,6 @@ class Transformer(Model):
             v=[torch.zeros(shape, dtype=dt, device=self.device) for _ in self.layers],
             length=0, seq=seq,
         )
-
-    def greedy_pick(self, logits: torch.Tensor) -> np.ndarray:
-        """The first index of the largest logit a row, as int32 numpy. On
-        vocab-sharded logits: the rank's own first maximum, the MAX of the
-        values over the model group, then the MIN of the global indices
-        holding it (``argmax``'s first-index rule)."""
-        plan = self.tp
-        if plan is None or plan.logits is None:
-            return super().greedy_pick(logits)
-        idx = torch.argmax(logits, dim=-1, keepdim=True)
-        val = torch.gather(logits, -1, idx)[..., 0].to(torch.float32)
-        best = val.clone()
-        L.all_reduce(best, plan.tp, op="max")
-        cand = torch.where(val == best, idx[..., 0] + plan.logits[0], self.cfg.vocab_size)
-        L.all_reduce(cand, plan.tp, op="min")
-        return cand.cpu().numpy().astype(np.int32)
 
 
 def init_params(cfg: ModelConfig, *, device, generator=None) -> Transformer:

@@ -10,6 +10,17 @@ Structure (Radford et al. 2022): pre-LN transformer, sinusoidal encoder
 positions and a learned 448-entry decoder table (wrapped past 448),
 bidirectional encoder self-attention, decoder causal self-attention +
 cross-attention, GELU MLPs, LayerNorm, tied unembedding.
+
+A rank-local model (`repro_torch.distributed.shard_model`) holds its
+blocks of each parameter and a `ShardPlan` in ``tp``: every attention
+(encoder, decoder self and cross) runs on the rank's heads ("heads",
+``bq`` / ``bk`` / ``bv`` its blocks, one all-reduce after ``wo``; the
+self and cross K/V cached per local head, the cross K/V computed once
+at prefill), or on every head from assembled q / k / v where a column
+block ends inside a head ("whole"); the GELU MLPs are ff-split with
+``b_down`` added once after the all-reduce; the embedding and the tied
+logits are vocab-sharded where the vocabulary divides (51,865 does not,
+so at full size they stay whole); ``dec_pos`` is replicated.
 """
 
 from __future__ import annotations
@@ -23,6 +34,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.base import Group, Model, model_dtype
 from repro_torch.models.layers import AttnSpec
+from repro_torch.models.transformer import (
+    _decode_whole, _placed, _whole, attn_output, attn_project, embed_tokens, heads_spec,
+)
 
 __all__ = ["Whisper", "WhisperCache", "init_cache", "init_params"]
 
@@ -78,10 +92,14 @@ class WhisperCache(NamedTuple):
     length: int
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> WhisperCache:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
+               kv_heads=None) -> WhisperCache:
+    """Zero caches; ``kv_heads`` a rank-local model's (its heads), the
+    config's by default."""
     dt = model_dtype(cfg)
-    kshape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    xshape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+    kv_heads = kv_heads or cfg.num_kv_heads
+    kshape = (batch, max_len, kv_heads, cfg.head_dim)
+    xshape = (batch, cfg.encoder_seq, kv_heads, cfg.head_dim)
     n = cfg.num_layers
 
     def zeros(shape):
@@ -94,20 +112,34 @@ class Whisper(Model):
     """The encoder-decoder with its weights, on one device (weights drawn
     as the reference draws them, from ``generator``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+    def __init__(self, cfg: ModelConfig, *, device, generator=None, place=None):
         super().__init__()
         self.cfg = cfg
         dt = model_dtype(cfg)
         kw = dict(generator=generator, device=device)
-        self.embed = Group({"table": L.embed_init((cfg.vocab_size, cfg.d_model), dt, **kw)})
+        # ``place(name, leaf)`` keeps a rank's block of each leaf as it is
+        # drawn (`distributed.shard_model`)
+        place = place or _whole
+        self.embed = Group(
+            {"table": place("embed.table", L.embed_init((cfg.vocab_size, cfg.d_model), dt, **kw))}
+        )
         self.enc_layers = nn.ModuleList(
-            [Group(init_enc_layer(cfg, dt, **kw)) for _ in range(cfg.encoder_layers)])
-        self.enc_norm = Group(L.init_layernorm(cfg.d_model, dt, device=device))
+            [Group(_placed(place, f"enc_layers.{i}", init_enc_layer(cfg, dt, **kw)))
+             for i in range(cfg.encoder_layers)])
+        self.enc_norm = Group(_placed(place, "enc_norm",
+                                      L.init_layernorm(cfg.d_model, dt, device=device)))
         self.dec_layers = nn.ModuleList(
-            [Group(init_dec_layer(cfg, dt, **kw)) for _ in range(cfg.num_layers)])
-        self.dec_norm = Group(L.init_layernorm(cfg.d_model, dt, device=device))
-        self.dec_pos = nn.Parameter(L.embed_init((DEC_POS, cfg.d_model), dt, **kw),
-                                    requires_grad=False)
+            [Group(_placed(place, f"dec_layers.{i}", init_dec_layer(cfg, dt, **kw)))
+             for i in range(cfg.num_layers)])
+        self.dec_norm = Group(_placed(place, "dec_norm",
+                                      L.init_layernorm(cfg.d_model, dt, device=device)))
+        self.dec_pos = nn.Parameter(
+            place("dec_pos", L.embed_init((DEC_POS, cfg.d_model), dt, **kw)), requires_grad=False)
+        self.tp = None  # a ShardPlan on a rank-local model
+
+    def _mlp(self, lp, h: torch.Tensor) -> torch.Tensor:
+        plan = self.tp
+        return L.mlp_gelu(lp.mlp, h, plan.tp if plan is not None and plan.mlp else None)
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, S_enc, D) stub conv-frontend output -> encoder states."""
@@ -116,12 +148,13 @@ class Whisper(Model):
         x = frames + _sinusoids(s, d, frames.device).to(frames.dtype)[None]
         spec = _spec(cfg, causal=False)
         pos = torch.arange(s, dtype=torch.int32, device=frames.device)
+        local = heads_spec(spec, self.tp)
         for lp in self.enc_layers:
             h = L.layer_norm(lp.attn_norm, x, cfg.norm_eps)
-            q, k, v = L.qkv_proj(lp.attn, h, spec)
-            x = x + L.attention_out(lp.attn, L.attention(q, k, v, spec, pos, pos))
+            q, k, v = attn_project(lp.attn, h, spec, self.tp)
+            x = x + attn_output(lp.attn, L.attention(q, k, v, local, pos, pos), self.tp)
             h = L.layer_norm(lp.mlp_norm, x, cfg.norm_eps)
-            x = x + L.mlp_gelu(lp.mlp, h)
+            x = x + self._mlp(lp, h)
         return L.layer_norm(self.enc_norm, x, cfg.norm_eps)
 
     def _encoded(self, b: int, encoder_frames: Optional[torch.Tensor]) -> torch.Tensor:
@@ -133,9 +166,12 @@ class Whisper(Model):
     def _dec_pos_embed(self, pos: torch.Tensor) -> torch.Tensor:
         return self.dec_pos[pos % self.dec_pos.shape[0]]  # wrap beyond 448
 
+    def _embed(self, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        return embed_tokens(self, tokens, scale=False) + self._dec_pos_embed(pos)
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = L.layer_norm(self.dec_norm, x, self.cfg.norm_eps)
-        return L._dot(x, self.embed["table"].T)  # tied
+        return L._dot(x, self.embed["table"].T)  # tied (vocab-sharded on a rank)
 
     def _decoder(self, tokens: torch.Tensor, enc: torch.Tensor, max_len: int = 0) -> tuple:
         """The teacher-forced decoder from position 0; with ``max_len``
@@ -144,20 +180,22 @@ class Whisper(Model):
         s = tokens.shape[1]
         enc_pos = torch.arange(enc.shape[1], dtype=torch.int32, device=enc.device)
         pos = torch.arange(s, dtype=torch.int32, device=tokens.device)
-        x = self.embed["table"][tokens] + self._dec_pos_embed(pos)[None]
+        x = self._embed(tokens, pos[None])
         self_spec, cross_spec = _spec(cfg, causal=True), _spec(cfg, causal=False)
+        self_local, cross_local = heads_spec(self_spec, self.tp), heads_spec(cross_spec, self.tp)
         sk, sv, xk, xv = [], [], [], []
         for lp in self.dec_layers:
             h = L.layer_norm(lp.self_norm, x, cfg.norm_eps)
-            q, k, v = L.qkv_proj(lp.self_attn, h, self_spec)
-            x = x + L.attention_out(lp.self_attn, L.attention(q, k, v, self_spec, pos, pos))
+            q, k, v = attn_project(lp.self_attn, h, self_spec, self.tp)
+            x = x + attn_output(lp.self_attn, L.attention(q, k, v, self_local, pos, pos),
+                                self.tp)
             h = L.layer_norm(lp.cross_norm, x, cfg.norm_eps)
-            q, _, _ = L.qkv_proj(lp.cross_attn, h, cross_spec)
-            _, ck, cv = L.qkv_proj(lp.cross_attn, enc, cross_spec)
-            x = x + L.attention_out(lp.cross_attn,
-                                    L.attention(q, ck, cv, cross_spec, pos, enc_pos))
+            (q,) = attn_project(lp.cross_attn, h, cross_spec, self.tp, ("wq",))
+            ck, cv = attn_project(lp.cross_attn, enc, cross_spec, self.tp, ("wk", "wv"))
+            x = x + attn_output(lp.cross_attn,
+                                L.attention(q, ck, cv, cross_local, pos, enc_pos), self.tp)
             h = L.layer_norm(lp.mlp_norm, x, cfg.norm_eps)
-            x = x + L.mlp_gelu(lp.mlp, h)
+            x = x + self._mlp(lp, h)
             if max_len:
                 pad = (0, 0, 0, 0, 0, max_len - s)
                 sk.append(torch.nn.functional.pad(k, pad))
@@ -184,35 +222,43 @@ class Whisper(Model):
 
     @torch.no_grad()
     def decode_step(self, cache: WhisperCache, token: torch.Tensor) -> tuple:
-        cfg = self.cfg
+        cfg, plan = self.cfg, self.tp
         b = token.shape[0]
         pos = torch.full((b,), cache.length, dtype=torch.int32, device=self.device)
-        x = self.embed["table"][token[:, None]] + self._dec_pos_embed(pos[:, None])
+        x = self._embed(token[:, None], pos[:, None])
         self_spec, cross_spec = _spec(cfg, causal=True), _spec(cfg, causal=False)
-        groups = cross_spec.num_heads // cross_spec.num_kv_heads
+        self_local, cross_local = heads_spec(self_spec, plan), heads_spec(cross_spec, plan)
+        whole = plan is not None and plan.attn == "whole"
+        groups = cross_local.num_heads // cross_local.num_kv_heads
         for li, lp in enumerate(self.dec_layers):
             h = L.layer_norm(lp.self_norm, x, cfg.norm_eps)
-            attn_out, _, _ = L.decode_attention(
-                lp.self_attn, h, cache.self_k[li], cache.self_v[li], pos, self_spec,
-                rope_theta=0.0)
+            if whole:
+                attn_out = _decode_whole(lp.self_attn, h, cache.self_k[li], cache.self_v[li],
+                                         cache.length, None, self_spec, 0.0, plan.tp)
+            else:
+                attn_out, _, _ = L.decode_attention(
+                    lp.self_attn, h, cache.self_k[li], cache.self_v[li], pos, self_local,
+                    rope_theta=0.0, tp=plan.tp if plan is not None and plan.attn == "heads"
+                    else None)
             x = x + attn_out
 
             h = L.layer_norm(lp.cross_norm, x, cfg.norm_eps)
-            q, _, _ = L.qkv_proj(lp.cross_attn, h, cross_spec)
+            (q,) = attn_project(lp.cross_attn, h, cross_spec, plan, ("wq",))
             kk = torch.repeat_interleave(cache.cross_k[li], groups, dim=2)
             vv = torch.repeat_interleave(cache.cross_v[li], groups, dim=2)
             s = L._einsum("bqhd,bkhd->bhqk", q, kk) * (cross_spec.head_dim ** -0.5)
             p = torch.softmax(s, dim=-1).to(x.dtype)
             o = L._einsum("bhqk,bkhd->bqhd", p, vv)
-            x = x + L.attention_out(lp.cross_attn, o.to(x.dtype))
+            x = x + attn_output(lp.cross_attn, o.to(x.dtype), plan)
 
             h = L.layer_norm(lp.mlp_norm, x, cfg.norm_eps)
-            x = x + L.mlp_gelu(lp.mlp, h)
+            x = x + self._mlp(lp, h)
         logits = self._logits(x)[:, 0]
         return logits, cache._replace(length=cache.length + 1)
 
     def init_cache(self, batch: int, max_len: int) -> WhisperCache:
-        return init_cache(self.cfg, batch, max_len, device=self.device)
+        return init_cache(self.cfg, batch, max_len, device=self.device,
+                          kv_heads=heads_spec(_spec(self.cfg, True), self.tp).num_kv_heads)
 
 
 def init_params(cfg: ModelConfig, *, device, generator=None) -> Whisper:

@@ -13,6 +13,32 @@ Port of `repro.models.xlstm` (Beck et al. 2024, at block granularity):
 
 One sLSTM block every ``cfg.slstm_every`` blocks, mLSTM elsewhere. Every
 dtype cast is the reference's; the recurrences run in f32.
+
+A rank-local model (`repro_torch.distributed.shard_model`) holds its
+blocks of each parameter and a `ShardPlan` in ``tp``; its layout says
+how each block computes:
+
+  * mLSTM: ``w_up``'s column blocks cut across the [x | z] halves (at 2
+    ranks one rank holds the x branch, the other the z gate), so the
+    up-projection is assembled whole (one all-reduce); the conv runs on
+    the rank's channels and its output is assembled whole too, since
+    ``wq`` and ``wk`` read every channel; ``w_if`` (replicated) reads the
+    whole x branch. "heads" (the heads divide over the group): the
+    rank's q / k / v columns are its own heads, the cell and its state
+    run on them, ``mix_norm`` reduces its statistics over the group and
+    ``w_down`` is row-parallel. "whole" (they do not: a column block
+    ends inside a head): q, k and v are assembled whole, every rank runs
+    every head, and only ``w_down`` is split;
+  * sLSTM: ``w_gates``' column blocks are whole gates [z, i, f, o]
+    while ``r_gates`` splits over heads, so the gate inputs are
+    assembled whole (one all-reduce) and each rank runs the recurrence
+    on its heads' channels of every gate ("heads"), or every channel
+    when ``r_gates`` is whole ("whole"); the hidden states are then
+    assembled for ``group_norm`` and the feed-forward, which stays whole
+    on every rank where its width does not divide (1,023 of
+    xlstm-125m);
+  * vocab-parallel embedding (unscaled) and an ``lm_head`` whose column
+    blocks give vocab-sharded logits (`Model.greedy_pick`).
 """
 
 from __future__ import annotations
@@ -26,6 +52,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.base import Group, Model, model_dtype
+from repro_torch.models.transformer import _placed, _whole, embed_tokens
 
 __all__ = [
     "MLSTMState", "SLSTMState", "XLSTM", "XLSTMCache", "init_cache", "init_params", "is_slstm",
@@ -191,52 +218,67 @@ def _mlstm_step(q, k, v, log_i, log_f, state: MLSTMState) -> tuple:
     return num / denom[..., None], MLSTMState(c, n, m_new, state.conv)
 
 
-def _zero_mlstm_state(cfg: ModelConfig, b: int, dt, device) -> MLSTMState:
+def _zero_mlstm_state(cfg: ModelConfig, b: int, dt, device, *, heads=None,
+                      conv_width=None) -> MLSTMState:
+    """Zero state; ``heads`` and ``conv_width`` are a rank's (its heads,
+    its conv channels), the config's by default."""
     _, d_inner, h, dh = _dims(cfg)
+    h = heads or h
     f32 = dict(dtype=torch.float32, device=device)
     return MLSTMState(
         c=torch.zeros((b, h, dh, dh), **f32),
         n=torch.zeros((b, h, dh), **f32),
         m=torch.zeros((b, h), **f32),
-        conv=torch.zeros((b, 3, d_inner), dtype=dt, device=device),
+        conv=torch.zeros((b, 3, conv_width or d_inner), dtype=dt, device=device),
     )
 
 
 def mlstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
-                single_step: bool = False) -> tuple:
-    """x: (B,S,D). Returns (y (B,S,D), MLSTMState)."""
+                single_step: bool = False, tp=None, layout: str = "replicated") -> tuple:
+    """x: (B,S,D). Returns (y (B,S,D), MLSTMState). On a rank-local
+    model ``tp`` is the model group and ``layout`` "heads" or "whole"
+    (see the module docstring); the state is then the rank's heads and
+    conv channels, or every head."""
     d, d_inner, h, dh = _dims(cfg)
     dt = x.dtype
     b, s, _ = x.shape
     f32 = torch.float32
-    up = L._dot(x, p["w_up"]).to(dt)
+    (up,) = L.gather_columns([L._dot(x, p["w_up"]).to(dt)], [2 * d_inner], tp)
     inner, z = up[..., :d_inner], up[..., d_inner:]
+    # this rank's conv channels of the x branch (every channel when replicated)
+    c_n = p["conv_b"].shape[0]
+    c_lo = 0 if layout == "replicated" else tp.rank * c_n
+    inner_c = inner[..., c_lo : c_lo + c_n]
 
     # short causal conv on the q/k path (streaming form carries K-1 taps)
     kw = p["conv_w"].shape[0]
     if single_step:
-        xs_cat = torch.cat([state.conv.to(dt), inner], dim=1)  # (B,K,d)
+        xs_cat = torch.cat([state.conv.to(dt), inner_c], dim=1)  # (B,K,d)
         conv = sum(
             xs_cat[:, i : i + 1, :] * p["conv_w"][i][None, None, :].to(dt) for i in range(kw)
         ) + p["conv_b"].to(dt)
         new_conv_state = xs_cat[:, 1:, :]
     else:
-        xp = F.pad(inner, (0, 0, kw - 1, 0))
+        xp = F.pad(inner_c, (0, 0, kw - 1, 0))
         conv = sum(
             xp[:, i : i + s, :] * p["conv_w"][i][None, None, :].to(dt) for i in range(kw)
         ) + p["conv_b"].to(dt)
         new_conv_state = xp[:, s : s + kw - 1, :]  # last K-1 inputs
     conv = F.silu(conv.to(f32)).to(dt)
+    (conv,) = L.gather_columns([conv], [d_inner], tp)  # wq / wk read every channel
 
-    q = L._dot(conv, p["wq"]).to(dt).reshape(b, s, h, dh)
-    k = L._dot(conv, p["wk"]).to(dt).reshape(b, s, h, dh)
-    v = L._dot(inner, p["wv"]).to(dt).reshape(b, s, h, dh)
+    qkv = [L._dot(conv, p["wq"]).to(dt), L._dot(conv, p["wk"]).to(dt),
+           L._dot(inner, p["wv"]).to(dt)]
+    if layout == "whole":
+        qkv = L.gather_columns(qkv, [d_inner] * 3, tp)
+    h_lo, h_n = (tp.rank * (h // tp.size), h // tp.size) if layout == "heads" else (0, h)
+    q, k, v = (t.reshape(b, s, h_n, dh) for t in qkv)
     gates = torch.matmul(inner.to(f32), p["w_if"])  # (B,S,2H)
-    log_i = gates[..., :h] + p["b_i"]
-    log_f = F.logsigmoid(gates[..., h:] + p["b_f"])
+    log_i = (gates[..., :h] + p["b_i"])[..., h_lo : h_lo + h_n]
+    log_f = F.logsigmoid(gates[..., h:] + p["b_f"])[..., h_lo : h_lo + h_n]
 
     if state is None:
-        state = _zero_mlstm_state(cfg, b, dt, x.device)
+        state = _zero_mlstm_state(cfg, b, dt, x.device, heads=h_n, conv_width=c_n)
     if single_step:
         h_out, state = _mlstm_step(
             q[:, 0].to(f32), k[:, 0].to(f32), v[:, 0].to(f32), log_i[:, 0], log_f[:, 0], state)
@@ -245,9 +287,18 @@ def mlstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
         h_out, state = _mlstm_chunk_scan(
             q.to(f32), k.to(f32), v.to(f32), log_i, log_f, cfg.mlstm_chunk, state)
     state = state._replace(conv=new_conv_state)
-    h_mixed = L.rms_norm(p["mix_norm"], h_out.reshape(b, s, d_inner).to(dt), cfg.norm_eps)
+    h_out = h_out.reshape(b, s, h_n * dh).to(dt)
+    if layout == "heads":  # the rank's heads: its channels of h, z and w_down's rows
+        h_mixed = L.norm_split(p["mix_norm"], h_out, cfg.norm_eps, tp)
+        z = z[..., h_lo * dh : (h_lo + h_n) * dh]
+    else:
+        h_mixed = L.rms_norm(p["mix_norm"], h_out, cfg.norm_eps)
     y = h_mixed * F.silu(z.to(f32)).to(dt)
-    return L._dot(y, p["w_down"]).to(dt), state
+    if layout == "replicated":
+        return L._dot(y, p["w_down"]).to(dt), state
+    rows = p["w_down"].shape[0]
+    lo = 0 if layout == "heads" else tp.rank * rows  # "whole": the rank's rows of every head
+    return L.row_parallel(y[..., lo : lo + rows], p["w_down"], tp).to(dt), state
 
 
 # ---------------------------------------------------------------------------
@@ -262,13 +313,14 @@ class SLSTMState(NamedTuple):
     m: torch.Tensor  # (B,D) f32
 
 
-def _slstm_scan(p, x_gates: torch.Tensor, cfg: ModelConfig, state: SLSTMState) -> tuple:
-    """x_gates: (B,S,4D) input contributions to z,i,f,o gates."""
+def _slstm_scan(r: torch.Tensor, x_gates: torch.Tensor, state: SLSTMState) -> tuple:
+    """x_gates: (B,S,4D) input contributions to z,i,f,o gates; r: (4,H,dh,dh)
+    the recurrent weights of the H heads whose D = H * dh channels these
+    are (a rank's heads, or all of them)."""
     b, s, _ = x_gates.shape
-    d = cfg.d_model
-    h_heads = cfg.num_heads
-    dh = d // h_heads
-    r = p["r_gates"].to(torch.float32)  # (4,H,dh,dh)
+    h_heads, dh = r.shape[1], r.shape[2]
+    d = h_heads * dh
+    r = r.to(torch.float32)
     st = state
     hs = []
     for t in range(s):
@@ -293,18 +345,33 @@ def _slstm_scan(p, x_gates: torch.Tensor, cfg: ModelConfig, state: SLSTMState) -
     return torch.stack(hs, dim=1), st  # (B,S,D)
 
 
-def slstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None) -> tuple:
+def slstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None, tp=None,
+                layout: str = "replicated", ffn: str = "replicated") -> tuple:
+    """x: (B,S,D). Returns (y (B,S,D), SLSTMState). On a rank-local model
+    ``tp`` is the model group, ``layout`` "heads" or "whole" and ``ffn``
+    "ff" or "replicated" (see the module docstring): with "heads" the
+    state holds the rank's heads' channels."""
     b, s, d = x.shape
     dt = x.dtype
-    xg = L._dot(x, p["w_gates"]) + p["b_gates"]
+    # w_gates' column blocks are whole gates: assemble the 4D gate inputs
+    (xg,) = L.gather_columns([L._dot(x, p["w_gates"])], [4 * d], tp)
+    xg = xg + p["b_gates"]
+    r = p["r_gates"]
+    n = r.shape[1] * r.shape[2]
+    if layout == "heads":  # this rank's heads: their channels of each gate
+        lo = tp.rank * n
+        xg = torch.cat([xg[..., g * d + lo : g * d + lo + n] for g in range(4)], dim=-1)
     if state is None:
-        z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        z = torch.zeros((b, n), dtype=torch.float32, device=x.device)
         state = SLSTMState(z, z, z, z)
-    h, state = _slstm_scan(p, xg, cfg, state)
-    h = L.rms_norm(p["group_norm"], h.to(dt), cfg.norm_eps)
+    h, state = _slstm_scan(r, xg, state)
+    (h,) = L.gather_columns([h.to(dt)], [d], tp)
+    h = L.rms_norm(p["group_norm"], h, cfg.norm_eps)
     g = L._dot(h, p["w_ff_gate"])
     u = L._dot(h, p["w_ff_up"])
     y = (F.gelu(g, approximate="tanh") * u).to(dt)
+    if ffn == "ff":
+        return L.row_parallel(y, p["w_ff_down"], tp).to(dt), state
     return L._dot(y, p["w_ff_down"]).to(dt), state
 
 
@@ -313,22 +380,32 @@ def slstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+# a one-process model's layout (`ShardPlan.layout` on a rank-local one)
+_REPLICATED = {"mlstm": "replicated", "slstm": "replicated", "slstm_ffn": "replicated"}
+
+
 class XLSTMCache(NamedTuple):
     mlstm: list  # MLSTMState or None per layer
     slstm: list  # SLSTMState or None per layer
     length: int
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None) -> XLSTMCache:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None, mlstm_heads=None,
+               conv_width=None, slstm_width=None) -> XLSTMCache:
+    """Zero state; the keyword widths are a rank-local model's (its mLSTM
+    heads and conv channels, its sLSTM channels), the config's by
+    default."""
     dt = model_dtype(cfg)
     ms, ss = [], []
     for li in range(cfg.num_layers):
         if is_slstm(cfg, li):
-            z = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device)
+            z = torch.zeros((batch, slstm_width or cfg.d_model), dtype=torch.float32,
+                            device=device)
             ss.append(SLSTMState(z, z, z, z))
             ms.append(None)
         else:
-            ms.append(_zero_mlstm_state(cfg, batch, dt, device))
+            ms.append(_zero_mlstm_state(cfg, batch, dt, device, heads=mlstm_heads,
+                                        conv_width=conv_width))
             ss.append(None)
     return XLSTMCache(ms, ss, 0)
 
@@ -337,38 +414,52 @@ class XLSTM(Model):
     """The xLSTM LM with its weights, on one device (an untied ``lm_head``;
     weights drawn as the reference draws them, from ``generator``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+    def __init__(self, cfg: ModelConfig, *, device, generator=None, place=None):
         super().__init__()
         self.cfg = cfg
         dt = model_dtype(cfg)
         kw = dict(generator=generator, device=device)
-        self.embed = Group({"table": L.embed_init((cfg.vocab_size, cfg.d_model), dt, **kw)})
-        self.final_norm = Group(L.init_rmsnorm(cfg.d_model, dt, device=device))
-        self.lm_head = Group({"w": L.dense_init((cfg.d_model, cfg.vocab_size), dt, **kw)})
-        self.layers = nn.ModuleList(
-            [Group(init_layer(cfg, i, **kw)) for i in range(cfg.num_layers)]
+        # ``place(name, leaf)`` keeps a rank's block of each leaf as it is
+        # drawn (`distributed.shard_model`)
+        place = place or _whole
+        self.embed = Group(
+            {"table": place("embed.table", L.embed_init((cfg.vocab_size, cfg.d_model), dt, **kw))}
         )
+        self.final_norm = Group(_placed(place, "final_norm",
+                                        L.init_rmsnorm(cfg.d_model, dt, device=device)))
+        self.lm_head = Group(
+            {"w": place("lm_head.w", L.dense_init((cfg.d_model, cfg.vocab_size), dt, **kw))}
+        )
+        self.layers = nn.ModuleList(
+            [Group(_placed(place, f"layers.{i}", init_layer(cfg, i, **kw)))
+             for i in range(cfg.num_layers)]
+        )
+        self.tp = None  # a ShardPlan on a rank-local model
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = L.rms_norm(self.final_norm, x, self.cfg.norm_eps)
-        return L._dot(x, self.lm_head["w"])
+        return L._dot(x, self.lm_head["w"])  # vocab-sharded on a rank
 
     def _layers(self, x: torch.Tensor, ms: list, ss: list, *, single_step: bool) -> torch.Tensor:
         """Every block over x; ``ms`` / ``ss`` hold each layer's state in
         and take its new state (None in, as `forward` passes, is zero)."""
-        cfg = self.cfg
+        cfg, plan = self.cfg, self.tp
+        tp, lay = (plan.tp, plan.layout) if plan is not None else (None, _REPLICATED)
         for li, lp in enumerate(self.layers):
             h = L.rms_norm(lp.norm, x, cfg.norm_eps)
             if is_slstm(cfg, li):
-                y, ss[li] = slstm_block(lp.slstm, h, cfg, state=ss[li])
+                y, ss[li] = slstm_block(lp.slstm, h, cfg, state=ss[li], tp=tp,
+                                        layout=lay["slstm"], ffn=lay["slstm_ffn"])
             else:
-                y, ms[li] = mlstm_block(lp.mlstm, h, cfg, state=ms[li], single_step=single_step)
+                y, ms[li] = mlstm_block(lp.mlstm, h, cfg, state=ms[li], single_step=single_step,
+                                        tp=tp, layout=lay["mlstm"])
             x = x + y
         return x
 
     def forward(self, tokens: torch.Tensor, **_) -> tuple:
         n = self.cfg.num_layers
-        x = self._layers(self.embed["table"][tokens], [None] * n, [None] * n, single_step=False)
+        x = self._layers(embed_tokens(self, tokens, scale=False), [None] * n, [None] * n,
+                         single_step=False)
         return self._logits(x), {}
 
     @torch.no_grad()
@@ -376,17 +467,26 @@ class XLSTM(Model):
         b, s = tokens.shape
         cache = self.init_cache(b, max_len)
         ms, ss = list(cache.mlstm), list(cache.slstm)
-        x = self._layers(self.embed["table"][tokens], ms, ss, single_step=False)
+        x = self._layers(embed_tokens(self, tokens, scale=False), ms, ss, single_step=False)
         return self._logits(x), XLSTMCache(ms, ss, s)
 
     @torch.no_grad()
     def decode_step(self, cache: XLSTMCache, token: torch.Tensor) -> tuple:
         ms, ss = list(cache.mlstm), list(cache.slstm)
-        x = self._layers(self.embed["table"][token[:, None]], ms, ss, single_step=True)
+        x = self._layers(embed_tokens(self, token[:, None], scale=False), ms, ss,
+                         single_step=True)
         return self._logits(x)[:, 0], XLSTMCache(ms, ss, cache.length + 1)
 
     def init_cache(self, batch: int, max_len: int) -> XLSTMCache:
-        return init_cache(self.cfg, batch, max_len, device=self.device)
+        if self.tp is None:
+            return init_cache(self.cfg, batch, max_len, device=self.device)
+        cfg, lay, size = self.cfg, self.tp.layout, self.tp.model_size
+        d_inner = _dims(cfg)[1]
+        return init_cache(
+            cfg, batch, max_len, device=self.device,
+            mlstm_heads=cfg.num_heads // size if lay["mlstm"] == "heads" else cfg.num_heads,
+            conv_width=d_inner if lay["mlstm"] == "replicated" else d_inner // size,
+            slstm_width=cfg.d_model // size if lay["slstm"] == "heads" else cfg.d_model)
 
 
 def init_params(cfg: ModelConfig, *, device, generator=None) -> XLSTM:

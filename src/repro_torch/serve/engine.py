@@ -14,6 +14,13 @@ is always greedy: it takes the first index of the largest logit, as
 rank-local model reduces over its vocab shards, so the engine serves a
 tensor-parallel model unchanged). ``greedy`` and ``seed`` are accepted
 and ignored, as in the reference, which samples nowhere.
+
+A request may carry its modality-frontend stub inputs in ``extras``
+(whisper's ``encoder_frames``, one (S_enc, D) array a request; the
+reference's engine passes none, so there the frames are zeros): the
+engine stacks a batch's in slot order, casts them to the model's dtype
+on its device and passes them to `prefill`. Every request of a batch
+carries the same keys.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ class Request:
     prompt: np.ndarray  # (S,) int32
     max_new_tokens: int = 32
     eos_id: int = -1  # -1 = never
+    extras: Optional[dict] = None  # per-request stub inputs, e.g. {"encoder_frames": (S_enc, D)}
     # filled by the engine:
     output: Optional[list] = None
     done: bool = False
@@ -75,7 +83,8 @@ class ServeEngine:
             toks = np.zeros((len(batch), plen), np.int32)
             for i, r in enumerate(batch):
                 toks[i, plen - len(r.prompt) :] = r.prompt  # left-pad
-            logits, cache = self.model.prefill(torch.from_numpy(toks).to(device), self.max_len)
+            logits, cache = self.model.prefill(torch.from_numpy(toks).to(device), self.max_len,
+                                               **self._extras(batch))
             self.metrics["prefills"] += 1
             last = self.model.greedy_pick(logits[:, -1])
             live = np.ones(len(batch), bool)
@@ -107,3 +116,15 @@ class ServeEngine:
                 r.done = True
                 done.append(r)
         return done
+
+    def _extras(self, batch: List[Request]) -> dict:
+        """The batch's stub inputs, stacked in slot order (see the module
+        docstring)."""
+        keys = {frozenset(r.extras or ()) for r in batch}
+        if len(keys) != 1:
+            raise ValueError("the requests of a batch carry different extras")
+        out = {}
+        for key in sorted(keys.pop()):
+            rows = [torch.as_tensor(r.extras[key]) for r in batch]
+            out[key] = torch.stack(rows).to(device=self.model.device, dtype=self.model.dtype)
+        return out

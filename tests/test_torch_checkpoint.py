@@ -247,7 +247,8 @@ class TestElasticReshard:
 
         s = _state()
         CheckpointManager(str(tmp_path)).save(s, 1)
-        ranks = distributed.run_ranks(_resharded_rank, 2, str(tmp_path), timeout=120)
+        ranks = distributed.run_ranks(_resharded_rank, 2, str(tmp_path), device_type="cpu",
+                                         timeout=120)
         names, leaves = _leaves_named(s)
         for rank, got in enumerate(ranks):
             assert list(got) == names

@@ -1189,3 +1189,87 @@ def test_tp_decode_on_card_equals_one_process(cuda):
                 for g, w in zip(got["logits"], want):
                     np.testing.assert_allclose(g, w[:, lo:hi], atol=atol, rtol=0)
                 assert got["pick"].tolist() == np.argmax(want[-1], -1).tolist()
+
+
+_FAMILY_ARCHS = ("recurrentgemma_2b", "xlstm_125m", "whisper_medium")
+
+
+def _family_decode(model, toks, frames):
+    extra = {} if frames is None else {"encoder_frames": frames}
+    logits, cache = model.prefill(toks[:, :8], 16, **extra)
+    steps = [logits[:, -1]]
+    for i in range(8, 12):
+        step, cache = model.decode_step(cache, toks[:, i])
+        steps.append(step)
+    return steps
+
+
+def _family_frames(arch, dtype, rows, device):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    if cfg.frontend != "audio_stub":
+        return None
+    f = np.random.default_rng(2).standard_normal((4, cfg.encoder_seq, cfg.d_model)) * 0.02
+    return torch.from_numpy(f[rows].astype(np.float32)).to(device, getattr(torch, dtype))
+
+
+def _card_family_rank(rank, world, toks):
+    """A 1 x 2 mesh of gloo ranks on the card: each recurrent / audio
+    family's smoke config sharded, bf16 and f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import distributed
+    from repro_torch.distributed import shard_model
+
+    mesh = distributed.init_mesh((1, 2), device_type="cuda")
+    out = {}
+    for arch in _FAMILY_ARCHS:
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+            model = shard_model(cfg, mesh,
+                                generator=torch.Generator(device="cuda").manual_seed(0))
+            with torch.no_grad():
+                steps = _family_decode(model, torch.from_numpy(toks[arch]).cuda(),
+                                       _family_frames(arch, dtype, slice(None), "cuda"))
+            out[(arch, dtype)] = dict(
+                logits=[s.float().cpu().numpy() for s in steps], cols=model.tp.logits,
+                layout=model.tp.layout, on_card=model.embed["table"].is_cuda,
+                pick=model.greedy_pick(steps[-1]))
+    return out
+
+
+def test_family_tp_decode_on_card_equals_one_process(cuda):
+    """Two gloo ranks sharing the card, the RG-LRU hybrid, xLSTM and whisper
+    smoke configs served tensor-parallel (LRU channels, mLSTM and sLSTM
+    heads, whisper heads): prefill and 4 decode steps, every rank's logit
+    columns within 0.06 (bf16) and 1e-4 (f32) of one process's model on
+    the card with the same seed, and the reduced greedy pick its argmax."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import distributed
+    from repro_torch.models import model_zoo
+
+    toks = {a: np.random.default_rng(1).integers(
+        0, get_smoke_config(a).vocab_size, (4, 12)).astype(np.int32) for a in _FAMILY_ARCHS}
+    ranks = distributed.run_ranks(_card_family_rank, 2, toks, backend="gloo",
+                                  device_type="cuda", timeout=600)
+    for arch in _FAMILY_ARCHS:
+        for dtype, atol in (("bfloat16", 0.06), ("float32", 1e-4)):
+            cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+            model = model_zoo.get_model(cfg, device=cuda,
+                                        generator=torch.Generator(device="cuda").manual_seed(0))
+            with torch.no_grad():
+                want = [s.float().cpu().numpy() for s in _family_decode(
+                    model, _t(toks[arch], cuda), _family_frames(arch, dtype, slice(None), cuda))]
+            for res in ranks:
+                got = res[(arch, dtype)]
+                assert got["on_card"] and got["cols"] is not None
+                lo, hi = got["cols"]
+                for g, w in zip(got["logits"], want):
+                    np.testing.assert_allclose(g, w[:, lo:hi], atol=atol, rtol=0)
+                assert got["pick"].tolist() == np.argmax(want[-1], -1).tolist()

@@ -211,8 +211,10 @@ def runs(tmp_path_factory):
     proc = subprocess.Popen([sys.executable, "-c", _REFERENCE, str(path)], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        port = distributed.run_ranks(_port_ranks, 4, (2, 2), "ABC", timeout=300)[0]
-        port.update(distributed.run_ranks(_port_ranks, 2, (2, 1), "B", timeout=300)[0])
+        port = distributed.run_ranks(_port_ranks, 4, (2, 2), "ABC", device_type="cpu",
+                                         timeout=300)[0]
+        port.update(distributed.run_ranks(_port_ranks, 2, (2, 1), "B", device_type="cpu",
+                                                   timeout=300)[0])
     finally:
         _, err = proc.communicate(timeout=600)
     assert proc.returncode == 0, err[-4000:]
@@ -306,3 +308,15 @@ def test_mesh_paths_need_a_process_group():
         mq.SharedCountsScheduler(blocked, spec, mesh=object(), device="cpu")
     with pytest.raises(RuntimeError, match="process group"):
         distributed.make_pump_round(object(), spec, blocks_per_worker=8)
+
+
+def test_run_ranks_runs_on_the_card_unless_asked():
+    """`run_ranks` spawns its ranks on the card by default, as every entry
+    point of the port runs there unless the caller asks for the CPU;
+    without a GPU it raises, naming the CPU option, rather than fall back."""
+    import inspect
+
+    assert inspect.signature(distributed.run_ranks).parameters["device_type"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device_type='cpu'"):
+            distributed.run_ranks(_port_ranks, 2, (2, 1), "B")

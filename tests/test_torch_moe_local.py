@@ -59,7 +59,7 @@ def runs():
     x = np.random.default_rng(2).standard_normal((4, 16, cfg.d_model)).astype(np.float32)
     pool = concurrent.futures.ThreadPoolExecutor(1)
     pending = pool.submit(distributed.run_ranks, torch_shard_ranks.moe_rank, 4, tree, toks, x,
-                          LAYER, timeout=300)
+                          LAYER, device_type="cpu", timeout=300)
     want = {}
     want["logits"], _ = jm.forward(params, jnp.asarray(toks))
     shard_aux = [jm.forward(params, jnp.asarray(toks[r : r + 2]))[1] for r in (0, 2)]

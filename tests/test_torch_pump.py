@@ -239,7 +239,7 @@ _EXTRA = {
 @pytest.fixture(scope="module")
 def runs():
     return {shape: distributed.run_ranks(_ranks, int(np.prod(shape)), shape, extra,
-                                         timeout=300)[0]
+                                         device_type="cpu", timeout=300)[0]
             for shape, extra in _EXTRA.items()}
 
 

@@ -79,7 +79,7 @@ def runs():
     # the ranks run while this process computes the reference's side
     pool = concurrent.futures.ThreadPoolExecutor(1)
     pending = pool.submit(distributed.run_ranks, torch_shard_ranks.tp_rank, 4, trees, toks,
-                          _prompts(vocab), qwen_toks, timeout=300)
+                          _prompts(vocab), qwen_toks, device_type="cpu", timeout=300)
     want = {}
     for dtype, (jm, params, _) in refs.items():
         logits, cache = jm.prefill(params, jnp.asarray(toks[:, :PREFILL]), CTX)

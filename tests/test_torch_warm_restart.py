@@ -450,10 +450,10 @@ def resharded(tmp_path_factory):
         a.save_cache()
         one = dict(cache=_cache_of(a.scheduler),
                    hard=_result_of(_answer(a, _hard(ds), eps=0.04, delta=0.01)))
-        four = distributed.run_ranks(_ranks_four, 4, dirs, timeout=300)[0]
+        four = distributed.run_ranks(_ranks_four, 4, dirs, device_type="cpu", timeout=300)[0]
         _, err = proc.communicate(timeout=600)
         assert proc.returncode == 0, err[-4000:]
-        two = distributed.run_ranks(_ranks_two, 2, dirs, timeout=300)
+        two = distributed.run_ranks(_ranks_two, 2, dirs, device_type="cpu", timeout=300)
     finally:
         if proc.poll() is None:
             proc.kill()

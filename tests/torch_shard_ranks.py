@@ -127,10 +127,14 @@ def moe_rank(rank, world, tree, toks, x, layer):
     return out
 
 
-def pipeline_rank(rank, world, stages, x, toks):
+def pipeline_rank(rank, world, stages, x, toks, tree, cot):
     """GPipe over "pod" (4 stages): the reference test's tanh stack, each
     stage holding its block of the stacked params; then a float32 qwen
-    smoke of 4 layers as 4 stages (`stage_model`)."""
+    smoke of 4 layers as 4 stages (`stage_model`). Then the gradients of
+    one loss, ``sum(y * cot[k])`` on the pipeline's output, on every
+    leaf a stage holds and on the input: the tanh stack's, and the qwen
+    smoke's on the reference's weights ``tree`` (each stage's layer and
+    the embedding table)."""
     from repro_torch.distributed.pipeline import (
         make_pipeline_forward, stack_stage_params, stage_model, transformer_stage_fn,
     )
@@ -170,4 +174,163 @@ def pipeline_rank(rank, world, stages, x, toks):
     with torch.no_grad():
         out["hidden"] = fwd([layers], embed_tokens(model, t)).numpy()
     out["held"] = sum(p.numel() for p in model.parameters())
+
+    # the backward: the tanh stack's leaves and input
+    local = {k: v.clone().requires_grad_() for k, v in local.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    fwd = make_pipeline_forward(transformer_stage_fn(layer_fn, 2), mesh, n_stages=4,
+                                n_microbatches=4)
+    (fwd(local, xt) * torch.from_numpy(cot["tanh"])).sum().backward()
+    out["grad_tanh"] = dict(w=local["w"].grad[0].numpy(), b=local["b"].grad[0].numpy(),
+                            x=xt.grad.numpy())
+    # the qwen smoke's stages on the reference's weights: a stage's layer, the table
+    model, layers = stage_model(cfg, mesh, n_stages=4, params=tree)
+    for p in [model.embed["table"], *layers[0].parameters()]:
+        p.requires_grad_()
+
+    def block_any(lp, h):
+        pos = torch.arange(h.shape[1], dtype=torch.int32).expand(h.shape[0], h.shape[1])
+        return model._block(lp, h, pos, cfg.expert_capacity_factor)[0]
+
+    fwd = make_pipeline_forward(transformer_stage_fn(block_any, 1), mesh, n_stages=4,
+                                n_microbatches=4)
+    (fwd([layers], embed_tokens(model, t)) * torch.from_numpy(cot["qwen"])).sum().backward()
+    stage = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["pod"]
+    out["grad_qwen"] = {f"layers.{stage}.{n}": p.grad.numpy()
+                        for n, p in layers[0].named_parameters()}
+    out["grad_qwen"]["embed.table"] = model.embed["table"].grad.numpy()
+    return out
+
+
+def pipeline_data_rank(rank, world, stages, x, cot):
+    """The tanh stack's backward on a (4, 2, 1) mesh, as the reference's
+    test shards it: each data replica runs its half of ``x`` (4 rows, 4
+    microbatches of 1) through the 4 stages, takes ``sum(y * cot)`` on
+    its rows, and its stage's gradients come out summed over "data".
+    Then a model axis of 2 under autograd is refused."""
+    from repro_torch.distributed.pipeline import (
+        make_pipeline_forward, stack_stage_params, transformer_stage_fn,
+    )
+    from repro_torch.launch import mesh as launch_mesh
+
+    mesh = launch_mesh.make_mesh_for((4, 2, 1), ("pod", "data", "model"), device_type="cpu")
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    stacked = stack_stage_params([{k: torch.from_numpy(v) for k, v in s.items()} for s in stages])
+    pod = distributed.DimSplit(("pod",))
+    local = {k: distributed.place_leaf(v, pod, mesh).clone().requires_grad_()
+             for k, v in stacked.items()}
+    rows = slice(4 * coord["data"], 4 * coord["data"] + 4)
+    xt = torch.from_numpy(x[rows]).requires_grad_()
+
+    def layer_fn(lp, h):
+        return torch.tanh(h @ lp["w"] + lp["b"])
+
+    fwd = make_pipeline_forward(transformer_stage_fn(layer_fn, 2), mesh, n_stages=4,
+                                n_microbatches=4)
+    (fwd(local, xt) * torch.from_numpy(cot[rows])).sum().backward()
+    out = dict(coord=coord, w=local["w"].grad[0].numpy(), b=local["b"].grad[0].numpy(),
+               x=xt.grad.numpy(), rows=(rows.start, rows.stop))
+    tp_mesh = launch_mesh.make_mesh_for((4, 1, 2), ("pod", "data", "model"), device_type="cpu")
+    fwd = make_pipeline_forward(transformer_stage_fn(layer_fn, 2), tp_mesh, n_stages=4,
+                                n_microbatches=4)
+    try:
+        fwd(local, xt)
+    except NotImplementedError as e:
+        out["refused"] = str(e)
+    return out
+
+
+# the recurrent and audio families' twins (tests/test_torch_shard_families.py)
+FAMILIES = ("recurrentgemma_2b", "xlstm_125m", "whisper_medium")
+FAM_MESHES = ((2, 2), (1, 4))
+FAM_B, FAM_FWD, FAM_PREFILL, FAM_STEPS, FAM_MAX_LEN = 4, 24, 8, 4, 16
+# whisper-medium's 51,865-token vocabulary does not divide over "model"; the
+# twin's smoke vocabulary is cut to a size that does not divide either
+FAM_KW = {"whisper_medium": dict(vocab_size=521)}
+FAM_LEAVES = {  # leaves whose blocks the twins check, by family
+    "xlstm_125m": ("layers.0.mlstm.w_up", "layers.0.mlstm.wq", "layers.2.slstm.w_gates",
+                   "layers.2.slstm.r_gates", "layers.2.slstm.w_ff_up"),
+    "recurrentgemma_2b": ("layers.0.rglru.w_a", "layers.0.rglru.w_out", "layers.2.attn.wk"),
+    "whisper_medium": ("embed.table", "dec_layers.0.cross_attn.wq", "dec_layers.0.mlp.b_up"),
+}
+
+
+def family_cfg(arch: str, dtype: str):
+    return dataclasses.replace(get_smoke_config(arch), dtype=dtype, **FAM_KW.get(arch, {}))
+
+
+def _family_case(model, toks, frames):
+    """forward, prefill and FAM_STEPS decode steps on this data shard's
+    rows; the logits as this rank's columns."""
+    extra = {} if frames is None else {"encoder_frames": frames}
+    with torch.no_grad():
+        fwd, _ = model.forward(toks, **extra)
+        logits, cache = model.prefill(toks[:, :FAM_PREFILL], FAM_MAX_LEN, **extra)
+        steps = [logits[:, -1]]
+        for i in range(FAM_PREFILL, FAM_PREFILL + FAM_STEPS):
+            step, cache = model.decode_step(cache, toks[:, i])
+            steps.append(step)
+    return dict(forward=fwd.float().numpy(), prefill=logits.float().numpy(),
+                steps=[s.float().numpy() for s in steps],
+                picks=[model.greedy_pick(s) for s in steps])
+
+
+def family_rank(rank, world, trees, toks, frames, prompts):
+    """Every family of `FAMILIES` sharded from the reference's weights on
+    each mesh of `FAM_MESHES`, in float32 and bfloat16: `_family_case` on
+    this rank's data shard, the plan's layout, the blocks of
+    `FAM_LEAVES`; then `ServeEngine` on the 2 x 2 mesh in float32, each
+    data replica serving its half of the prompts (whisper's with their
+    encoder frames)."""
+    from repro_torch.distributed import shard_model
+    from repro_torch.serve import Request, ServeEngine
+
+    torch.set_num_threads(1)  # 4 ranks share the host; smoke-sized products
+    out = {}
+    for shape in FAM_MESHES:
+        mesh = distributed.init_mesh(shape, device_type="cpu")
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        d, nd = coord["data"], shape[0]
+        rows = slice(d * FAM_B // nd, (d + 1) * FAM_B // nd)
+        for arch in FAMILIES:
+            for dtype in ("float32", "bfloat16"):
+                cfg = family_cfg(arch, dtype)
+                model = shard_model(cfg, mesh, params=trees[arch][dtype])
+                f = frames.get(arch)
+                f = None if f is None else torch.from_numpy(f[rows]).to(model.dtype)
+                res = _family_case(model, torch.from_numpy(toks[arch][rows]), f)
+                params = dict(model.named_parameters())
+                res.update(rows=(rows.start, rows.stop), cols=model.tp.logits, coord=coord,
+                           attn=model.tp.attn, mlp=model.tp.mlp, layout=model.tp.layout,
+                           vocab=model.tp.vocab,
+                           blocks={n: params[n].detach().float().numpy()
+                                   for n in FAM_LEAVES[arch]},
+                           held=sum(p.numel() for p in model.parameters()))
+                out[(arch, shape, dtype)] = res
+        if shape == (1, 4):  # a norm over a channel-split activation, both kinds
+            from repro_torch.models import layers as L
+
+            tp = L.TP(mesh.get_group("model"), coord["model"], 4)
+            g = torch.Generator().manual_seed(4)
+            x = torch.randn((2, 3, 64), generator=g) * 3 + 1
+            params = {"scale": torch.randn(64, generator=g), "bias": torch.randn(64, generator=g)}
+            block = slice(16 * coord["model"], 16 * (coord["model"] + 1))
+            out["norm_split"] = {
+                kind: float((L.norm_split(params, x[..., block], 1e-5, tp, kind=kind)
+                             - whole(params, x, 1e-5)[..., block]).abs().max())
+                for kind, whole in (("rms", L.rms_norm), ("layer", L.layer_norm))}
+        if shape == (2, 2):
+            for arch in FAMILIES:
+                model = shard_model(family_cfg(arch, "float32"), mesh,
+                                    params=trees[arch]["float32"])
+                engine = ServeEngine(model, slots=2, max_len=FAM_MAX_LEN)
+                half = len(prompts[arch]) // nd
+                for i in range(d * half, (d + 1) * half):
+                    f = frames.get(arch)
+                    engine.submit(Request(rid=i, prompt=prompts[arch][i], max_new_tokens=4,
+                                          extras=None if f is None
+                                          else {"encoder_frames": f[i % FAM_B]}))
+                done = engine.run()
+                out[(arch, "engine")] = dict(outputs={r.rid: r.output for r in done},
+                                             metrics=engine.metrics)
     return out

@@ -1,0 +1,36 @@
+#!/usr/bin/env python3
+"""Phase 14 of chip_smoke.py alone: the kernels' build (phase_setup),
+then sharded serving and the pipeline's backward on gloo ranks sharing
+one GPU (phase_sharded, 14a-14j), without the phases before it:
+
+    python3 tools/torch_phase14.py
+
+It prints what the phase prints, fails as the phase fails, and writes the
+phase's report to chiprun_out/phase14.json. It exits 2 without a CUDA
+device.
+"""
+
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+if __name__ == "__main__":  # the spawned ranks import this file again
+    import torch
+
+    import chip_smoke
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: phase 14 runs on a GPU", file=sys.stderr)
+        sys.exit(2)
+    smi = chip_smoke.phase_setup(torch)
+    t = time.perf_counter()
+    try:
+        out = chip_smoke.phase_sharded(torch, smi)
+    finally:
+        chip_smoke.log(f"phase 14 took {time.perf_counter() - t:.1f}s")
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "phase14.json").write_text(json.dumps(out, default=str))
