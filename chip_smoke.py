@@ -310,9 +310,24 @@ Phases, each of which raises (non-zero exit) when a check fails:
    holds (its 2 blocks and the embedding table) within 1e-4 of the
    leaf's largest |grad| from one process's autograd on the card
    (saved to a temporary directory for the ranks to compare); ms a
-   forward and a backward, collectives, peak a rank. No rank holds the
-   whole model, and each rank's peak is under the one-process serving
-   peak. ``{"check": "sharded", ...}``.
+   forward and a backward, collectives, peak a rank. 14k, training under
+   the FSDP x TP layout: qwen2.5-3b at full width and 4 of its 36 layers
+   in float32 (TF32 off, AdamW, ``remat="full"``, seed 0) placed by
+   `shard_model(serving=False)` on 2 x 2 (`param_pspecs`: the d_model-like
+   dims over "data" as well), two `make_train_step` steps on 14a's 8 x 256
+   batch (4 rows a data replica) against one process on the same weights,
+   batch and learning rate (run on the card before the spawn, its
+   post-step parameters saved for the ranks): loss within 1e-5,
+   grad_norm and param_norm within rtol 1e-5, every rank's blocks within
+   5 % of the learning rate of the one process's slice after each step
+   wherever the RMS gradient was at least 9 eps at every step so far,
+   within the update's range (2 lr a step) on the elements whose
+   gradient was near AdamW's eps = 1e-8, where f32 sums are rounding
+   noise and AdamW's step swings on it;
+   step_ok 1, the second loss below the first; ms a step, collectives a
+   step, parameters held and peak a rank against one process. No rank
+   holds the whole model, and each rank's peak is under the one-process
+   serving peak. ``{"check": "sharded", ...}``.
 
 Every kernel must have launched on some path, each path's counts set to
 0 just before it and read just after; a kernel's ``launches`` in the
@@ -1050,7 +1065,7 @@ def phase_engine_scale(torch, spec, seed: int, *, check_name: str, expect=None) 
     k, eps, delta = 10, 0.12, 0.01
     num_tuples = spec.num_tuples
     t = time.perf_counter()
-    ds = make_dataset(spec)
+    ds = make_dataset(spec, device="cuda")  # the stable sort on the card: the same table
     gen_s = time.perf_counter() - t
     log(f"generated {num_tuples} tuples in {gen_s:.1f}s")
     t = time.perf_counter()
@@ -3464,6 +3479,24 @@ SHARD_FAM_LAYOUT = {  # each family's plan on its mesh (full width)
 # 14j: the pipeline's backward, qwen2.5-3b at 8 of its 36 layers in float32
 # (TF32 off) as 4 stages of 2, SHARD_MICRO microbatches of 14a's prompts
 SHARD_GRAD_LAYERS, SHARD_GRAD_RTOL = 8, 1e-4
+# 14k: the FSDP x TP training layout, qwen2.5-3b at SHARD_F32_LAYERS (14e's
+# cut: every FSDP byte crosses gloo) in float32, two steps; the float32
+# train twins' bars (tests/torch_lm_twins.py BARS; params within 5 % of lr)
+SHARD_TRAIN_STEPS = 2
+SHARD_TRAIN_LOSS_ATOL, SHARD_TRAIN_NORM_RTOL, SHARD_TRAIN_PARAM_FRAC = 1e-5, 1e-5, 0.05
+# AdamW's step u = m / (sqrt(v) + eps) (eps 1e-8) follows the gradient
+# smoothly where its running RMS sqrt(v) is well over eps: at step 1, u =
+# g / (|g| + eps) moves by eps / (|g| + eps)^2 a unit of gradient, at most
+# 1e6 where |g| >= 9 eps, so 5 % of lr allows a gradient difference of
+# 5e-8. Where a gradient element is near eps its f32 sum is rounding noise
+# (~3e-9 apart between one process and the data and model splits, H100),
+# which moves u anywhere in -1..1: there the post-step blocks are held to
+# the update's range, 2 lr a step. The 5 % bar holds on every element
+# whose RMS gradient sqrt(v / (1 - b2^t)) was at least this at every step
+# so far (at half of it, |u| = 0.5 at step 1, the sensitivity allows 2e-9,
+# under that noise: 6.4 % of lr on an H100, PERF.md)
+SHARD_TRAIN_FULL_G = 9e-8
+TRAIN_B2 = 0.95  # AdamW's default second-moment decay (repro_torch.optimizer.adamw)
 
 
 def _shard_cfg(meta: dict, arch: str, **kw):
@@ -3645,6 +3678,58 @@ def _grad_references(torch, meta: dict, where: str) -> dict:
             model.embed["table"].grad[torch.from_numpy(ids).to(dev)].cpu().numpy())
     out = dict(wall_ms=wall_ms, peak_gb=_peak_gb(torch, dev))
     del model, h, cot
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fp32_matmuls(torch) -> None:
+    """TF32 off: the float32 comparisons of 14j and 14k."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _train_cfg(meta: dict):
+    """14k's config: qwen2.5-3b in float32 at SHARD_F32_LAYERS layers,
+    its own optimizer (AdamW) and remat ("full")."""
+    return _shard_cfg(meta, SHARD_ARCH, dtype="float32", num_layers=meta["f32_layers"])
+
+
+def _train_references(torch, meta: dict, where: str) -> dict:
+    """The one-process side of 14k on the card: the same cut model, seed,
+    batch and learning rate through SHARD_TRAIN_STEPS `make_train_step`
+    steps, each step's metrics, and its parameters after each step saved
+    to ``where`` (``step<i>/<name>.npy``) for the ranks to compare their
+    blocks. Returns the metrics, ms a step, the peak."""
+    import numpy as np
+
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.train import TrainState, make_train_step
+
+    dev = meta["device"]
+    _fp32_matmuls(torch)
+    cfg = _train_cfg(meta)
+    _peak_reset(torch, dev)
+    model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    opt = get_optimizer(cfg.optimizer, TRAIN_LR)
+    state = TrainState.create(model, opt)
+    step = make_train_step(model, opt)
+    batch = {"tokens": torch.from_numpy(meta["prompts"]).to(dev)}
+    steps, walls = [], []
+    for i in range(SHARD_TRAIN_STEPS):
+        _sync(torch, dev)
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        _sync(torch, dev)
+        walls.append((time.perf_counter() - t) * 1e3)
+        steps.append({k: float(v) for k, v in metrics.items()})
+        Path(f"{where}/step{i}").mkdir()
+        for name, p in model.named_parameters():
+            np.save(f"{where}/step{i}/{name}.npy", p.detach().cpu().numpy())
+    out = dict(steps=steps, step_ms=walls, peak_gb=_peak_gb(torch, dev),
+               params=sum(p.numel() for p in model.parameters()))
+    del model, state, step, batch
     if dev == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -3886,6 +3971,8 @@ def _shard_rank(rank, world, meta):
         out[f"fam_{arch}"] = _fam_rank(torch, meta, arch, meshes[shape])
     # -- 14j: the pipeline's backward
     out["grad"] = _grad_rank(torch, meta, mesh_pipe)
+    # -- 14k: training under the FSDP x TP layout on 2 x 2
+    out["train"] = _train_rank(torch, meta, mesh22)
     out["total_s"] = time.perf_counter() - t_start
     out["done_at"] = time.time()
     return out
@@ -3977,8 +4064,7 @@ def _grad_rank(torch, meta: dict, mesh) -> dict:
     from repro_torch.models.transformer import embed_tokens
 
     dev = meta["device"]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _fp32_matmuls(torch)
     cfg = _shard_cfg(meta, SHARD_ARCH, dtype="float32", num_layers=meta["grad_layers"])
     _peak_reset(torch, dev)
     model, layers = stage_model(cfg, mesh, n_stages=SHARD_STAGES,
@@ -4025,6 +4111,71 @@ def _grad_rank(torch, meta: dict, mesh) -> dict:
                params_held=sum(p.numel() for p in model.parameters()),
                peak_gb=_peak_gb(torch, dev))
     del model, layers, held, y, cot, g
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_rank(torch, meta: dict, mesh) -> dict:
+    """14k on one rank: the cut qwen2.5-3b placed by
+    `shard_model(serving=False)` (seed 0) on the 2 x 2 ``mesh``, its
+    AdamW state on its blocks, SHARD_TRAIN_STEPS steps on its data
+    replica's rows of 14a's batch: each step's metrics, ms, collectives
+    (`COLLECTIVES`) and, after it, each block's max |difference| from
+    its slice of the one process's parameters (saved in
+    ``meta["train_dir"]``); parameters held, peak."""
+    import numpy as np
+
+    from repro_torch.core import distributed
+    from repro_torch.distributed import shard_model
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.optimizer.base import tree_leaves
+    from repro_torch.train import TrainState, make_train_step
+
+    dev = meta["device"]
+    _fp32_matmuls(torch)
+    cfg = _train_cfg(meta)
+    _peak_reset(torch, dev)
+    model = shard_model(cfg, mesh, serving=False,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    opt = get_optimizer(cfg.optimizer, TRAIN_LR)
+    state = TrainState.create(model, opt)
+    step = make_train_step(model, opt)
+    d = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["data"]
+    half = meta["prompts"].shape[0] // 2
+    batch = {"tokens": torch.from_numpy(meta["prompts"][d * half:(d + 1) * half]).to(dev)}
+    steps, walls, coll, errs = [], [], [], []
+    names = {id(p): name for name, p in model.named_parameters()}
+    nu = {names[id(p)]: v for p, v in zip(tree_leaves(state.params),
+                                          tree_leaves(state.opt_state["nu"]))}
+    full = {name: torch.ones_like(p, dtype=torch.bool) for name, p in model.named_parameters()}
+    for i in range(SHARD_TRAIN_STEPS):
+        _sync(torch, dev)
+        c0, t = dict(distributed.COLLECTIVES), time.perf_counter()
+        state, metrics = step(state, batch)
+        _sync(torch, dev)
+        walls.append((time.perf_counter() - t) * 1e3)
+        coll.append(_collective_delta(c0))
+        steps.append({k: float(v) for k, v in metrics.items()})
+        errs.append({})
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                whole = np.load(f"{meta['train_dir']}/step{i}/{name}.npy", mmap_mode="r")
+                ref = torch.from_numpy(np.array(whole[model.tp.block(name)])).to(dev)
+                # an element stays in ``full`` while its RMS gradient (the rank's
+                # AdamW second moment, bias-corrected) was over the bar every step
+                f = full[name]
+                f &= torch.sqrt(nu[name] / (1 - TRAIN_B2 ** (i + 1))) >= SHARD_TRAIN_FULL_G
+                diff = (p - ref).abs()
+                errs[i][name] = (float(diff[f].max()) if f.any() else 0.0,
+                                 float(diff[~f].max()) if not f.all() else 0.0,
+                                 int((~f).sum()))
+    out = dict(steps=steps, step_ms=walls, collectives=coll, param_err=errs,
+               fsdp_leaves=len(model.tp.fsdp), attn=model.tp.attn,
+               params_held=sum(p.numel() for p in model.parameters()),
+               state_held=sum(t.numel() for t in tree_leaves(state.opt_state)),
+               peak_gb=_peak_gb(torch, dev))
+    del model, state, step, batch
     if dev == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -4078,8 +4229,10 @@ def phase_sharded(torch, card: str) -> dict:
     ref = _shard_references(torch, meta)
     ref["fam"] = _fam_references(torch, meta)
     meta["grad_dir"] = tempfile.mkdtemp(prefix="chip_smoke_14j_")
+    meta["train_dir"] = tempfile.mkdtemp(prefix="chip_smoke_14k_")
     try:
         ref["grad"] = _grad_references(torch, meta, meta["grad_dir"])
+        ref["train"] = _train_references(torch, meta, meta["train_dir"])
         out["reference_s"] = time.perf_counter() - t
         allocated = torch.cuda.memory_allocated() / 1e9 if dev == "cuda" else 0.0
         # -- the ranks: one spawn runs 14b-14j
@@ -4088,6 +4241,7 @@ def phase_sharded(torch, card: str) -> dict:
                                       device_type=dev, timeout=900)
     finally:
         shutil.rmtree(meta["grad_dir"], ignore_errors=True)
+        shutil.rmtree(meta["train_dir"], ignore_errors=True)
     out["ranks_s"] = time.perf_counter() - t
     out["allocated_before_spawn_gb"] = allocated
     out["rank_startup_s"] = [rk["entered_at"] - spawned_at for rk in ranks]
@@ -4217,6 +4371,44 @@ def phase_sharded(torch, card: str) -> dict:
                  f"its largest |grad| {big:.3g}")
         gate(g["table_zero_elsewhere"],
              f"14j stage {g['stage']}: the table's gradient is nonzero off the prompts' ids")
+    # -- 14k: every rank's step against one process's, after each step
+    rt = ref["train"]
+    train_err = dict(loss=0.0, grad_norm=0.0, param_norm=0.0, params=0.0, params_small_g=0.0)
+    small = [0] * SHARD_TRAIN_STEPS
+    for rk in ranks:
+        g = rk["train"]
+        gate(g["attn"] == "heads" and g["fsdp_leaves"] > 0,
+             f"14k rank {rk['rank']}: layout {g['attn']}, {g['fsdp_leaves']} leaves over 'data'")
+        for i, (got, want) in enumerate(zip(g["steps"], rt["steps"])):
+            gate(got == ranks[0]["train"]["steps"][i],
+                 f"14k step {i}: rank {rk['rank']}'s metrics differ from rank 0's")
+            gate(got["step_ok"] == 1.0, f"14k step {i} rank {rk['rank']}: step_ok {got['step_ok']}")
+            train_err["loss"] = max(train_err["loss"], abs(got["loss"] - want["loss"]))
+            for k in ("grad_norm", "param_norm"):
+                train_err[k] = max(train_err[k], abs(got[k] / want[k] - 1))
+            for leaf, (err, err_small, n_small) in g["param_err"][i].items():
+                train_err["params"] = max(train_err["params"], err)
+                train_err["params_small_g"] = max(train_err["params_small_g"], err_small)
+                small[i] += n_small
+                gate(err <= SHARD_TRAIN_PARAM_FRAC * TRAIN_LR,
+                     f"14k step {i} rank {rk['rank']}: {leaf} {err:.3g} from one process where "
+                     f"its RMS gradient is over 9 eps (bar {SHARD_TRAIN_PARAM_FRAC * TRAIN_LR:.3g})")
+                gate(err_small <= 2 * (i + 1) * TRAIN_LR,
+                     f"14k step {i} rank {rk['rank']}: {leaf} {err_small:.3g} from one process "
+                     f"where its gradient is near AdamW's eps (bar {2 * (i + 1)} x lr)")
+        gate(g["steps"][-1]["loss"] < g["steps"][0]["loss"],
+             f"14k rank {rk['rank']}: losses {[s['loss'] for s in g['steps']]} do not fall")
+        gate(g["params_held"] < rt["params"],
+             f"14k rank {rk['rank']}: holds {g['params_held']} of {rt['params']} parameters")
+        if dev == "cuda":
+            gate(g["peak_gb"] < rt["peak_gb"],
+                 f"14k rank {rk['rank']}: peak {g['peak_gb']:.2f} GB, one process "
+                 f"{rt['peak_gb']:.2f} GB")
+    gate(train_err["loss"] <= SHARD_TRAIN_LOSS_ATOL,
+         f"14k: loss {train_err['loss']:.3g} from one process (bar {SHARD_TRAIN_LOSS_ATOL})")
+    gate(max(train_err["grad_norm"], train_err["param_norm"]) <= SHARD_TRAIN_NORM_RTOL,
+         f"14k: grad_norm / param_norm {train_err['grad_norm']:.3g} / "
+         f"{train_err['param_norm']:.3g} relative (bar {SHARD_TRAIN_NORM_RTOL})")
     # no rank holds the whole model; each rank's peak under one process's
     whole = sum(p.numel() for p in _meta_model(torch, meta).parameters())
     peaks = [max(rk[k]["peak_gb"] for k in ("serve", "seq", "pipeline")) for rk in ranks]
@@ -4289,7 +4481,27 @@ def phase_sharded(torch, card: str) -> dict:
             "14j": dict(layers=meta["grad_layers"],
                         of=_shard_cfg(dict(smoke=False), SHARD_ARCH).num_layers,
                         why="the float32 one-process gradients are saved for the ranks to "
-                            "compare, and 2 blocks a stage exercise the backward's handoffs")},
+                            "compare, and 2 blocks a stage exercise the backward's handoffs"),
+            "14k": dict(layers=meta["f32_layers"],
+                        of=_shard_cfg(dict(smoke=False), SHARD_ARCH).num_layers,
+                        why="every FSDP byte crosses gloo (about 0.4 GB/s): 36 layers would "
+                            "move about 18 GB a step; the one process's float32 AdamW state "
+                            "must fit the card beside its post-step parameters")},
+        train=dict(mesh=[2, 2], layers=meta["f32_layers"], dtype="float32",
+                   optimizer=_train_cfg(meta).optimizer, remat=_train_cfg(meta).remat,
+                   lr=TRAIN_LR, tokens=list(prompts.shape), steps=SHARD_TRAIN_STEPS,
+                   loss=[s["loss"] for s in ranks[0]["train"]["steps"]],
+                   loss_reference=[s["loss"] for s in rt["steps"]], err=train_err,
+                   bars=dict(loss=SHARD_TRAIN_LOSS_ATOL, norms=SHARD_TRAIN_NORM_RTOL,
+                             params=SHARD_TRAIN_PARAM_FRAC * TRAIN_LR),
+                   small_g_elements=[n / len(ranks) for n in small],
+                   step_ms=[rk["train"]["step_ms"] for rk in ranks],
+                   collectives=[rk["train"]["collectives"] for rk in ranks],
+                   params_held=[rk["train"]["params_held"] for rk in ranks],
+                   state_held=[rk["train"]["state_held"] for rk in ranks],
+                   params_whole=rt["params"],
+                   peak_gb=[rk["train"]["peak_gb"] for rk in ranks],
+                   one_process_step_ms=rt["step_ms"], one_process_peak_gb=rt["peak_gb"]),
     )
     out["phase_s"] = time.perf_counter() - t_phase
     p0 = out["serve"]["per_rank"][0]
@@ -4323,6 +4535,20 @@ def phase_sharded(torch, card: str) -> dict:
         f"{gr['backward_collectives'][0]['bytes'] / 1e6:.1f} MB); one process "
         f"{gr['one_process_ms']:.1f} ms; rank peaks {[round(p, 2) for p in gr['peak_gb']]} GB "
         f"(one process {gr['one_process_peak_gb']:.2f})")
+    tr = out["train"]
+    c1 = tr["collectives"][0][-1]
+    log(f"14k FSDP x TP training ({card}): {tr['layers']} float32 layers on 2 x 2, "
+        f"{tr['optimizer']}, remat {tr['remat']}; losses {tr['loss']} (one process "
+        f"{tr['loss_reference']}), |dloss| {train_err['loss']:.3g}, grad_norm / param_norm "
+        f"{train_err['grad_norm']:.3g} / {train_err['param_norm']:.3g} relative, params "
+        f"{train_err['params']:.3g} where the RMS gradient is over 9 eps (bar "
+        f"{SHARD_TRAIN_PARAM_FRAC * TRAIN_LR:.3g}), {train_err['params_small_g']:.3g} on the "
+        f"{tr['small_g_elements']} elements a rank under it; step 2 "
+        f"{max(ms[-1] for ms in tr['step_ms']):.1f} ms a rank (one process "
+        f"{tr['one_process_step_ms'][-1]:.1f} ms), {c1['calls']:.0f} all-reduces "
+        f"({c1['bytes'] / 1e9:.2f} GB, {c1['host_s']:.2f} s host) a step; rank peaks "
+        f"{[round(p, 2) for p in tr['peak_gb']]} GB (one process {tr['one_process_peak_gb']:.2f})"
+        f", {tr['params_held'][0]} of {tr['params_whole']} parameters a rank")
     out["failed"] = failed
     emit({"check": "sharded", **out})
     check(not failed, f"phase 14: {len(failed)} checks failed: {failed}")

@@ -28,10 +28,12 @@ multiply every gradient by S. The input is replicated over the pod
 axis, so its cotangent (stage 0's) is summed over the pod group, as the
 reference sums a replicated input's; the parameters are replicated over
 the data axes, so their gradients (each replica's from its own batch
-slice) are summed over the data groups. A stage function's own
-collectives over the model axis have no backward here: under autograd a
-model axis larger than 1 is refused (TP inside a training stage belongs
-with the FSDP training layout, ROADMAP A12e-3).
+slice) are summed over the data groups. A stage function may run
+tensor-parallel over the model axis (`stage_model` on a mesh whose
+"model" axis is over 1 places each stage's layers as `shard_model`
+serves them): its collectives carry their own backward
+(`repro_torch.models.layers`), so each model rank of a stage gets its
+blocks' gradients and the whole cotangent of the stage's input.
 """
 
 from __future__ import annotations
@@ -87,7 +89,6 @@ def make_pipeline_forward(
     n_microbatches: int,
     pod_axis: str = "pod",
     data_axes: tuple = ("data",),
-    model_axis: str = "model",
 ):
     """Returns f(stage_params_local, x_local) -> y running the GPipe
     schedule on this rank of ``mesh`` (a `DeviceMesh`).
@@ -99,9 +100,9 @@ def make_pipeline_forward(
     one); its batch must divide by ``n_microbatches``. Every stage
     returns the last stage's output. Under autograd (grad mode on and a
     parameter or ``x_local`` requiring grad) the result is
-    differentiable, on meshes whose ``model_axis`` is 1: each stage's
-    parameters get their gradients (summed over the data replicas), and
-    ``x_local`` its cotangent on every stage (see the module docstring).
+    differentiable: each stage's parameters get their gradients (summed
+    over the data replicas), and ``x_local`` its cotangent on every
+    stage (see the module docstring).
     """
     names = tuple(mesh.mesh_dim_names or ())
     size = dict(zip(names, mesh.mesh.shape))
@@ -224,11 +225,6 @@ def make_pipeline_forward(
     def pipelined(stage_params_local, x_local):
         leaves = [t for t in _tensors(stage_params_local) if t.requires_grad]
         if torch.is_grad_enabled() and (leaves or x_local.requires_grad):
-            if size.get(model_axis, 1) > 1:
-                raise NotImplementedError(
-                    f"the pipeline's backward runs stages on a {model_axis!r} axis of 1, not "
-                    f"{size[model_axis]}: a stage's own collectives have no backward here "
-                    "(TP inside a training stage: ROADMAP A12e-3)")
             return _GPipe.apply(stage_params_local, x_local, *leaves)
         return schedule(stage_params_local, x_local)
 
@@ -261,27 +257,52 @@ def stage_model(cfg, mesh, *, n_stages: int, generator=None, params=None,
     reference's tree with numpy leaves, as `shard_model` takes it), and
     kept only where this stage needs it: its own layers and the
     embedding table (every stage embeds, stage 0 injects); every other
-    leaf is an empty tensor."""
-    from repro_torch.core.distributed import mesh_device
-    from repro_torch.distributed.sharding import load_blocks
+    leaf is an empty tensor. Where ``mesh`` has a "model" axis over 1,
+    each kept leaf is this rank's block under
+    `sharding.serving_param_pspecs` and the model carries its
+    `ShardPlan` in ``tp``, as `shard_model` places it: the stage's
+    layers run tensor-parallel."""
+    from repro_torch.core.distributed import mesh_axes, mesh_device
+    from repro_torch.distributed.sharding import (
+        _plan, load_blocks, param_shardings, serving_param_pspecs,
+    )
     from repro_torch.models.transformer import Transformer
 
     if cfg.num_layers % n_stages:
         raise ValueError(f"{cfg.num_layers} layers do not split into {n_stages} stages")
     names = tuple(mesh.mesh_dim_names or ())
+    size = dict(zip(names, mesh.mesh.shape))
     stage = dict(zip(names, mesh.get_coordinate()))[pod_axis]
     per = cfg.num_layers // n_stages
     mine = range(stage * per, (stage + 1) * per)
+    shardings = None
+    if size.get("model", 1) > 1:
+        skeleton = Transformer(cfg, device=torch.device("meta"))
+        shardings = param_shardings(skeleton, mesh,
+                                    pspecs=serving_param_pspecs(skeleton, mesh))
+        shapes = {name: tuple(p.shape) for name, p in skeleton.named_parameters()}
+        del skeleton
 
-    def held(name: str) -> bool:
+    def block(name: str):
+        """This rank's index of a leaf, None where the stage drops it."""
         parts = name.split(".")
-        return parts[0] == "embed" or (parts[0] == "layers" and int(parts[1]) in mine)
+        if not (parts[0] == "embed" or (parts[0] == "layers" and int(parts[1]) in mine)):
+            return None
+        return (slice(None),) if shardings is None else shardings[name].index
 
     device = mesh_device(mesh)
     if params is not None:
-        model = load_blocks(Transformer, cfg, device, params,
-                            lambda name: (slice(None),) if held(name) else None)
+        model = load_blocks(Transformer, cfg, device, params, block)
     else:
-        model = Transformer(cfg, device=device, generator=generator,
-                            place=lambda name, t: t if held(name) else t.new_empty(0))
+        def place(name, t):
+            index = block(name)
+            if index is None:
+                return t.new_empty(0)
+            return t if shardings is None else t[index].clone()
+
+        model = Transformer(cfg, device=device, generator=generator, place=place)
+    if shardings is not None:
+        data = ("data",) if "data" in names else ()
+        model.tp = _plan(cfg, mesh, mesh_axes(mesh, data, "model"), shardings)
+        model.tp.shapes = shapes
     return model, [model.layers[i] for i in mine]

@@ -30,8 +30,14 @@ PyTorch has no SPMD partitioner here: `param_shardings` gives each
 leaf this rank's block (a `Sharding`), and `shard_model` builds a model
 of any family that holds only those blocks and issues the collectives
 the layout implies (`repro_torch.models.transformer`, `rglru`, `xlstm`,
-`whisper`). Serving shards over "model" only (`serving_param_pspecs`);
-executing the FSDP training layout is not ported (ROADMAP A12e-3).
+`whisper`). Serving shards over "model" only (`serving_param_pspecs`).
+Training places the dense family under `param_pspecs` (FSDP over
+"data" × TP over "model", ``shard_model(serving=False)``): each
+data-split block is gathered whole over the data group where the model
+reads it, and its gradient summed back into the block
+(`ShardPlan.whole`); `repro_torch.train.make_train_step` runs the step
+on the mesh and `repro_torch.launch.specs.opt_state_pspecs` places the
+optimizer state. The other families' training layout is ROADMAP A12e-6.
 """
 
 from __future__ import annotations
@@ -441,6 +447,13 @@ class ShardPlan:
     or "replicated") for the RG-LRU; "mlstm" and "slstm" ("heads",
     "whole" or "replicated") and "slstm_ffn" ("ff" or "replicated") for
     xLSTM (the models' docstrings say what each computes).
+
+    Under the training layout (``shard_model(serving=False)``) ``specs``
+    are `param_pspecs`' and the layouts above are those of its "model"
+    entries (the serving layout's); ``fsdp`` maps each leaf split over
+    "data" to (the dim it splits, the dim's whole size) and ``data`` is
+    the "data" group, rank and size those leaves are gathered over.
+    ``shapes`` holds every leaf's whole shape.
     """
 
     mesh: object
@@ -452,10 +465,39 @@ class ShardPlan:
     vocab: Optional[tuple]
     logits: Optional[tuple]
     layout: dict = dataclasses.field(default_factory=dict)
+    fsdp: dict = dataclasses.field(default_factory=dict)
+    data: object = None
+    shapes: dict = dataclasses.field(default_factory=dict)
+    # id of each FSDP-split parameter -> (dim, whole size), set by `bind`
+    _by_id: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def model_size(self) -> int:
         return self.tp.size if self.tp is not None else 1
+
+    def block(self, name: str) -> tuple:
+        """This rank's index (one slice a dim) into leaf ``name``'s whole."""
+        coord = dict(zip(self.mesh.mesh_dim_names, self.mesh.get_coordinate()))
+        return _block_index(self.shapes[name], self.specs[name], mesh_spec(self.mesh), coord)
+
+    def bind(self, model) -> None:
+        """Find ``fsdp``'s leaves among ``model``'s parameters."""
+        self._by_id = {id(p): self.fsdp[name] for name, p in model.named_parameters()
+                       if name in self.fsdp}
+
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the model reads it: a leaf split over "data" gathered
+        whole over the data group (one all-reduce of a zero-filled buffer;
+        under autograd its backward sums the whole gradient over the
+        group and keeps this rank's block, the reduce-scatter that also
+        sums the data replicas' gradients), any other tensor as it is."""
+        info = self._by_id.get(id(t))
+        if info is None:
+            return t
+        from repro_torch.models.layers import gather_block
+
+        dim, size = info
+        return gather_block(t, size, dim, self.data)
 
 
 def _split_range(sharding: Sharding, dim: int) -> Optional[tuple]:
@@ -529,9 +571,14 @@ def _plan(cfg, mesh, axes, shardings: dict) -> ShardPlan:
 
 def shard_model(cfg, mesh, *, serving: bool = True, generator=None, params=None):
     """The rank-local model for ``cfg`` on ``mesh`` (a `DeviceMesh`; every
-    rank calls it), of any family (`model_zoo.FAMILIES`): each rank holds
-    only its blocks of each parameter under `serving_param_pspecs`, on
-    the mesh's device, and a `ShardPlan` in ``model.tp``.
+    rank calls it): each rank holds only its blocks of each parameter,
+    on the mesh's device, and a `ShardPlan` in ``model.tp``. Serving
+    (the default) places any family (`model_zoo.FAMILIES`) under
+    `serving_param_pspecs`; ``serving=False`` places the dense family
+    under `param_pspecs`, the FSDP × TP training layout (each leaf's
+    d_model-like dim split over "data" as well), which
+    `repro_torch.train.make_train_step` trains (the other families:
+    ROADMAP A12e-6).
 
     With ``generator`` (a `torch.Generator` on that device, the same seed
     on every rank), each leaf is drawn whole in the reference's order,
@@ -541,31 +588,55 @@ def shard_model(cfg, mesh, *, serving: bool = True, generator=None, params=None)
     reference's parameter tree with numpy leaves (as
     `convert.lm_params_from_numpy` takes it), each block is sliced on the
     host. Batches are split over the data axes by the caller
-    (`batch_pspec`); each data replica runs its own model.
+    (`batch_pspec`); each data replica runs its own rows.
     """
     from repro_torch.core.distributed import mesh_axes, mesh_device
     from repro_torch.models import model_zoo
 
-    if not serving:
-        raise NotImplementedError(
-            "executing the FSDP training layout (param_pspecs over 'data') is not ported "
-            "(ROADMAP A12e-3); shard_model places the serving layout (serving_param_pspecs)")
     family = model_zoo.FAMILIES.get(cfg.family)
     if family is None:
         raise ValueError(f"unknown family {cfg.family!r}")
+    if not serving and cfg.family != "dense":
+        raise NotImplementedError(
+            f"the FSDP training layout (param_pspecs over 'data') of the {cfg.family} family "
+            "is not ported (ROADMAP A12e-6); shard_model(serving=False) places the dense family")
     device = mesh_device(mesh)
     axes = mesh_axes(mesh, data_axes(mesh), "model")
     skeleton = model_zoo.build(cfg, torch.device("meta"))
-    pspecs = serving_param_pspecs(skeleton, mesh)
-    shardings = param_shardings(skeleton, mesh, pspecs=pspecs)
+    # the model-axis blocks, which set the plan's layouts on either path
+    layout = param_shardings(skeleton, mesh, pspecs=serving_param_pspecs(skeleton, mesh))
+    shardings = layout if serving else param_shardings(skeleton, mesh)
+    shapes = {name: tuple(p.shape) for name, p in skeleton.named_parameters()}
     del skeleton
     if params is not None:
         model = load_blocks(family, cfg, device, params, lambda name: shardings[name].index)
     else:
         model = family(cfg, device=device, generator=generator,
                        place=lambda name, t: shard_leaf(t, shardings[name]))
-    model.tp = _plan(cfg, mesh, axes, shardings)
+    plan = _plan(cfg, mesh, axes, layout)
+    plan.shapes = shapes
+    if not serving:
+        _fsdp_plan(plan, mesh, shardings)
+        plan.bind(model)
+    model.tp = plan
     return model
+
+
+def _fsdp_plan(plan: ShardPlan, mesh, shardings: dict) -> None:
+    """The training layout's additions to ``plan`` (see `ShardPlan`)."""
+    from repro_torch.models.layers import TP
+
+    ms = mesh_spec(mesh)
+    plan.specs = {name: s.spec for name, s in shardings.items()}
+    size = ms.shape.get("data", 1)
+    if size == 1:
+        return
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    plan.data = TP(mesh.get_group("data"), coord["data"], size)
+    for name, s in shardings.items():
+        dims = [i for i, ax in enumerate(s.spec) if ax == "data"]
+        if dims:
+            plan.fsdp[name] = (dims[0], plan.shapes[name][dims[0]])
 
 
 def load_blocks(family, cfg, device, params, block):

@@ -24,7 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["Group", "Model", "TensorSpec", "model_dtype"]
+__all__ = ["Group", "Model", "TensorSpec", "Whole", "model_dtype"]
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -55,6 +55,30 @@ class Group(nn.Module):
         return name in self._parameters or name in self._modules
 
 
+class Whole:
+    """A parameter group read through a `ShardPlan`: each leaf the plan
+    splits over "data" (the FSDP training layout) comes out gathered
+    whole over the data group (`ShardPlan.whole`), every other leaf as
+    it is, a child group as a `Whole` of it. Indexed as a `Group` is."""
+
+    __slots__ = ("_group", "_plan")
+
+    def __init__(self, group: nn.Module, plan):
+        self._group, self._plan = group, plan
+
+    def __getitem__(self, name: str):
+        value = self._group[name]
+        if isinstance(value, nn.Module):
+            return Whole(value, self._plan)
+        return self._plan.whole(value)
+
+    def __getattr__(self, name: str):
+        return self[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._group
+
+
 class TensorSpec(NamedTuple):
     """Shape and dtype of a stub input (the reference's ShapeDtypeStruct)."""
 
@@ -75,6 +99,12 @@ class Model(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.embed["table"].dtype
+
+    def weights(self, group: nn.Module):
+        """``group`` as the layers read it: a `Whole` view where this
+        rank-local model holds leaves split over "data", else itself."""
+        plan = getattr(self, "tp", None)
+        return Whole(group, plan) if plan is not None and plan.fsdp else group
 
     def greedy_pick(self, logits: torch.Tensor) -> np.ndarray:
         """The first index of the largest logit a row (``argmax``'s rule in

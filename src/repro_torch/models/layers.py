@@ -24,6 +24,19 @@ channel-split activation reduces its statistics over the group
 (`norm_split`). The logical-axis helpers (`set_sharding_rules`,
 `logical_to_pspec`, `manual_mode`, `shard`) resolve the reference's
 rules; `shard` on a local tensor changes nothing.
+
+Under autograd (grad mode on and the input requiring grad) each of
+those collectives is a `torch.autograd.Function` with the backward its
+forward implies, Megatron's convention: a tensor every rank of the group
+holds whole carries the whole cotangent on every rank. `sum_replicated`
+(the row-parallel products' and the vocab-parallel embedding's sum, read
+whole by every rank) passes the cotangent through; `sum_partial` (a
+norm's statistics, a zero-filled gather: each rank reads its own part of
+the sum) sums the ranks' cotangents; `enter` (where a whole activation
+or a whole leaf meets a rank's own block of a product or a norm: the
+column-parallel products, ``norm_split``'s scale) is the identity and
+sums the cotangent in the backward. Without autograd every collective is
+the in-place all-reduce it was, so serving issues the same collectives.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ __all__ = [
     "decode_attention",
     "dense_init",
     "embed_init",
+    "enter",
     "gather_columns",
     "init_attention",
     "init_layernorm",
@@ -69,6 +83,8 @@ __all__ = [
     "set_sharding_rules",
     "set_tp_reduce_dtype",
     "shard",
+    "sum_partial",
+    "sum_replicated",
 ]
 
 # ---------------------------------------------------------------------------
@@ -173,12 +189,123 @@ class TP:
 def all_reduce(t: torch.Tensor, tp, op: str = "sum") -> torch.Tensor:
     """Reduce ``t`` in place over ``tp``'s group ("sum", "max" or
     "min"), timed into `core.distributed.COLLECTIVES`; nothing without a
-    group."""
+    group. No autograd node: `sum_replicated` and `sum_partial` are the
+    differentiable sums."""
     if tp is None or tp.group is None:
         return t
     from repro_torch.core.distributed import all_reduce as _all_reduce
 
     return _all_reduce(t, tp.group, op=op)
+
+
+def _recorded(t: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``t``."""
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` to reduce into."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+class _Sum(torch.autograd.Function):
+    """The sum over a group, into a new tensor (a selective checkpoint may
+    hold ``t`` as a product it saved, which a sum in place would change);
+    the backward passes the cotangent through (``partial`` False) or
+    sums it over the group (True)."""
+
+    @staticmethod
+    def forward(ctx, t, tp, partial):
+        ctx.tp, ctx.partial = tp, partial
+        return all_reduce(_copy(t), tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = all_reduce(_copy(g), ctx.tp)
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity; the backward sums the cotangent over the group."""
+
+    @staticmethod
+    def forward(ctx, t, tp):
+        ctx.tp = tp
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(_copy(g), ctx.tp), None
+
+
+def sum_replicated(t: torch.Tensor, tp) -> torch.Tensor:
+    """``t`` summed over ``tp``'s group (in place), the sum read whole by
+    every rank: a row-parallel product, the vocab-parallel embedding.
+    Under autograd the cotangent passes through (Megatron's exit op)."""
+    if tp is None or tp.group is None:
+        return t
+    if _recorded(t):
+        return _Sum.apply(t, tp, False)
+    return all_reduce(t, tp)
+
+
+def sum_partial(t: torch.Tensor, tp) -> torch.Tensor:
+    """``t`` summed over ``tp``'s group (in place), each rank reading its
+    own part of the sum (a norm's statistics over a channel-split
+    activation, a zero-filled gather): under autograd the backward sums
+    the ranks' cotangents."""
+    if tp is None or tp.group is None:
+        return t
+    if _recorded(t):
+        return _Sum.apply(t, tp, True)
+    return all_reduce(t, tp)
+
+
+def enter(t: torch.Tensor, tp) -> torch.Tensor:
+    """``t`` (whole on every rank of ``tp``'s group) where it meets this
+    rank's own block of a product or a norm: the identity, and under
+    autograd the backward sums the cotangent over the group (Megatron's
+    entry op). No collective in the forward."""
+    if tp is None or tp.group is None or not _recorded(t):
+        return t
+    return _Enter.apply(t, tp)
+
+
+class _Gather(torch.autograd.Function):
+    """`gather_block` with its backward: the cotangent summed over the
+    group, this rank's block kept (the reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, whole, dim, tp):
+        ctx.tp, ctx.dim, ctx.n = tp, dim, t.shape[dim]
+        return _gathered(t, whole, dim, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(_copy(g), ctx.tp)
+        return g.narrow(ctx.dim, ctx.tp.rank * ctx.n, ctx.n), None, None, None
+
+
+def _gathered(t: torch.Tensor, whole: int, dim: int, tp) -> torch.Tensor:
+    shape = list(t.shape)
+    n = shape[dim]
+    shape[dim] = whole
+    buf = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    buf.narrow(dim, tp.rank * n, n).copy_(t)
+    return all_reduce(buf, tp)
+
+
+def gather_block(t: torch.Tensor, whole: int, dim: int, tp) -> torch.Tensor:
+    """The whole of a tensor split along ``dim`` over ``tp``'s group into
+    contiguous blocks, ``t`` this rank's (the block at ``tp.rank``), on
+    every rank: ``t`` written at its offset into a zero-filled buffer
+    ``whole`` long there and summed by one all-reduce (x + 0 = x, so it
+    is exact). Under autograd the backward sums the cotangent over the
+    group and keeps the rank's block: the reduce-scatter."""
+    if _recorded(t):
+        return _Gather.apply(t, whole, dim, tp)
+    return _gathered(t, whole, dim, tp)
 
 
 def gather_columns(parts, widths, tp) -> list:
@@ -188,7 +315,10 @@ def gather_columns(parts, widths, tp) -> list:
     written at their offsets into one zero-filled buffer, summed by one
     all-reduce over ``tp``'s group (x + 0 = x, so it is exact: a gather)
     and cut apart again; the whole ones pass as they are. The split
-    parts share one dtype."""
+    parts share one dtype. Under autograd the backward sums the
+    cotangent over the group and keeps each part's block (`sum_partial`:
+    each rank uses its own part of the whole downstream, as the "whole"
+    attention layout's ``wo`` and `column_parallel`'s products do)."""
     split = [c.shape[-1] != w for c, w in zip(parts, widths)]
     if not any(split):
         return list(parts)
@@ -204,7 +334,7 @@ def gather_columns(parts, widths, tp) -> list:
             off += w
         else:
             spans.append(None)
-    all_reduce(buf, tp)
+    buf = sum_partial(buf, tp)
     return [c if span is None else buf[..., span[0] : span[1]]
             for c, span in zip(parts, spans)]
 
@@ -230,16 +360,18 @@ def norm_split(params, x: torch.Tensor, eps: float, tp, *, kind: str = "rms") ->
     n = x.shape[-1]
     lo = tp.rank * n
     width = n * tp.size
-    scale = params["scale"][lo : lo + n].to(torch.float32)
+    # the whole scale (and bias) meets the rank's block: under autograd the
+    # ranks' block gradients are summed into the whole leaf's
+    scale = enter(params["scale"], tp)[lo : lo + n].to(torch.float32)
     if kind == "rms":
-        var = all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True), tp) / width
+        var = sum_partial(torch.sum(xf * xf, dim=-1, keepdim=True), tp) / width
         return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
     if kind != "layer":
         raise ValueError(f"unknown norm {kind!r}")
-    mu = all_reduce(torch.sum(xf, dim=-1, keepdim=True), tp) / width
-    var = all_reduce(torch.sum((xf - mu) ** 2, dim=-1, keepdim=True), tp) / width
+    mu = sum_partial(torch.sum(xf, dim=-1, keepdim=True), tp) / width
+    var = sum_partial(torch.sum((xf - mu) ** 2, dim=-1, keepdim=True), tp) / width
     y = (xf - mu) * torch.rsqrt(var + eps) * scale
-    return (y + params["bias"][lo : lo + n].to(torch.float32)).to(x.dtype)
+    return (y + enter(params["bias"], tp)[lo : lo + n].to(torch.float32)).to(x.dtype)
 
 
 # dtype of the TP output projections' (wo / w_down) products: None is
@@ -500,8 +632,9 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
     """``x @ w`` with ``w``'s rows (and ``x``'s columns) this rank's block
     over ``tp``'s group: the local partial product in
     ``_out_proj_dtype()`` and one all-reduce over the group (bf16 under
-    ``set_tp_reduce_dtype(bf16)``). Not cast."""
-    return all_reduce(_dot(x, w, _out_proj_dtype()), tp)
+    ``set_tp_reduce_dtype(bf16)``). Not cast. Under autograd the sum's
+    cotangent passes through (`sum_replicated`)."""
+    return sum_replicated(_dot(x, w, _out_proj_dtype()), tp)
 
 
 def attention_out(params, attn: torch.Tensor, tp=None) -> torch.Tensor:
@@ -570,6 +703,7 @@ def init_mlp(d_model: int, d_ff: int, dtype, *, generator=None, device=None) -> 
 
 
 def mlp_swiglu(params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    x = enter(x, tp)  # the whole activation meets the ff-split gate and up blocks
     g = boundary_cast(_dot(x, params["w_gate"]), x.dtype)
     u = boundary_cast(_dot(x, params["w_up"]), x.dtype)
     h = shard((F.silu(g) * u).to(x.dtype), "batch", None, "ff")
@@ -577,6 +711,7 @@ def mlp_swiglu(params, x: torch.Tensor, tp=None) -> torch.Tensor:
 
 
 def mlp_geglu(params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    x = enter(x, tp)
     g = boundary_cast(_dot(x, params["w_gate"]), x.dtype)
     u = boundary_cast(_dot(x, params["w_up"]), x.dtype)
     # jax.nn.gelu's default is the tanh approximation
@@ -598,6 +733,7 @@ def mlp_gelu(params, x: torch.Tensor, tp=None) -> torch.Tensor:
     """The GELU MLP. Under ``tp`` ``w_up`` and ``b_up`` are the rank's ff
     block, ``w_down`` its row block: one all-reduce of the partial
     product, then ``b_down`` (whole) added once."""
+    x = enter(x, tp)
     h = _dot(x, params["w_up"]) + params["b_up"].to(torch.float32)
     h = F.gelu(h, approximate="tanh").to(x.dtype)
     if tp is None:

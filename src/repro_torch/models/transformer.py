@@ -141,7 +141,7 @@ def embed_tokens(model: Model, tokens: torch.Tensor, *, scale: bool = True) -> t
     vocab-sharded table each rank looks up its own rows, zeros elsewhere,
     and one all-reduce sums them."""
     plan = getattr(model, "tp", None)
-    table = model.embed["table"]
+    table = model.weights(model.embed)["table"]
     if plan is None or plan.vocab is None:
         x = table[tokens]
     else:
@@ -153,16 +153,20 @@ def embed_tokens(model: Model, tokens: torch.Tensor, *, scale: bool = True) -> t
         # the scale is cast to the dtype first, as in the reference
         x = x * torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     if plan is not None and plan.vocab is not None:
-        L.all_reduce(x, plan.tp)
+        x = L.sum_replicated(x, plan.tp)
     return x
 
 
 def unembed(model: Model, x: torch.Tensor) -> torch.Tensor:
-    """(..., D) -> (..., V) f32 logits."""
+    """(..., D) -> (..., V) f32 logits; this rank's vocabulary columns
+    (`ShardPlan.logits`) where the unembedding is split."""
     if model.cfg.tie_embeddings:
-        w = model.embed["table"].T
+        w = model.weights(model.embed)["table"].T
     else:
-        w = model.lm_head["w"]
+        w = model.weights(model.lm_head)["w"]
+    plan = getattr(model, "tp", None)
+    if plan is not None and plan.logits is not None:
+        x = L.enter(x, plan.tp)  # the whole activation meets the vocab-split columns
     return L._dot(x, w)
 
 
@@ -196,8 +200,11 @@ def project_heads(p, x: torch.Tensor, spec: AttnSpec, names=("wq", "wk", "wv"), 
     (B,S,Hkv,hd) for ``wk`` / ``wv``, the head counts ``spec``'s. With
     ``whole`` each product is the rank's column block, assembled whole by
     one all-reduce (`layers.gather_columns`); otherwise ``spec`` gives
-    the heads the blocks hold."""
+    the heads the blocks hold. ``tp`` is the group whose column blocks
+    ``p`` holds (None: whole columns): ``x``, whole on every rank, enters
+    them (`layers.enter`)."""
     b, s, _ = x.shape
+    x = L.enter(x, tp)
     heads = {"wq": spec.num_heads, "wk": spec.num_kv_heads, "wv": spec.num_kv_heads}
     parts = []
     for w in names:
@@ -223,8 +230,9 @@ def attn_project(p, x: torch.Tensor, spec: AttnSpec, plan, names=("wq", "wk", "w
     """`project_heads` under ``plan``'s attention layout (None: one
     device): assembled whole for "whole", this rank's heads otherwise."""
     whole = plan is not None and plan.attn == "whole"
-    return project_heads(p, x, spec if whole else heads_spec(spec, plan), names,
-                         plan.tp if whole else None, whole=whole)
+    tp = plan.tp if plan is not None and plan.attn != "replicated" else None
+    return project_heads(p, x, spec if whole else heads_spec(spec, plan), names, tp,
+                         whole=whole)
 
 
 def attn_output(p, attn: torch.Tensor, plan) -> torch.Tensor:
@@ -362,6 +370,7 @@ class Transformer(Model):
         """One block over a whole sequence; returns (x, k, v, aux), k and v
         as this rank's cache holds their heads."""
         cfg, plan = self.cfg, self.tp
+        lp = self.weights(lp)
         h = L.rms_norm(lp.attn_norm, x, cfg.norm_eps)
         q, k, v = attn_project(lp.attn, h, _attn_spec(cfg), plan)
         q = L.apply_rope(q, positions, cfg.rope_theta)
@@ -457,6 +466,7 @@ class Transformer(Model):
         plan = self.tp
         spec = self._local_spec()
         for li, lp in enumerate(self.layers):
+            lp = self.weights(lp)
             h = L.rms_norm(lp.attn_norm, x, cfg.norm_eps)
             if plan is not None and plan.attn == "whole":
                 attn_out = _decode_whole(lp.attn, h, cache.k[li], cache.v[li], cache.length,

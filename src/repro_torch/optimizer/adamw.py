@@ -67,7 +67,7 @@ def adamw(
         return (-lr_t * u).to(p.dtype), mu, nu
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, splits=None):  # elementwise: splits change nothing
         s = scalars(step)
         out = tree_map(lambda g, mu, nu, p: upd(g, mu, nu, p, *s),
                        grads, state["mu"], state["nu"], params)
@@ -75,7 +75,7 @@ def adamw(
         return updates, {"mu": mu, "nu": nu}
 
     @torch.no_grad()
-    def update_(grads, state, params, step):
+    def update_(grads, state, params, step, splits=None):
         s = scalars(step)
 
         def one(g, mu, nu, p):

@@ -7,8 +7,8 @@ in sorted order, as ``jax.tree_util`` walks them.
 An `Optimizer` has the reference's two functions and one more:
 
   init(params) -> opt_state
-  update(grads, opt_state, params, step) -> (updates, new_opt_state)
-  update_(grads, opt_state, params, step) -> None
+  update(grads, opt_state, params, step, splits=None) -> (updates, new_opt_state)
+  update_(grads, opt_state, params, step, splits=None) -> None
 
 ``update`` is the reference's functional form: new tensors, inputs
 untouched. ``update_`` computes the same values leaf by leaf and writes
@@ -17,6 +17,13 @@ parameter's dtype), so a step holds one leaf's temporaries at a time
 instead of a second copy of the moments and the updates: what lets a
 3B-parameter model's AdamW step fit beside its weights on one card.
 Fed the same inputs, both forms give the same bits.
+
+On a mesh each leaf is this rank's block of a parameter (and its state
+the block of the state: `repro_torch.launch.specs.opt_state_pspecs`):
+``splits``, a tree of the params' structure, gives each leaf's split
+dims as ``{dim: TP}`` (the group, this rank's place in it, its size),
+and an optimizer that reduces over a dim reduces over that group too
+(Adafactor's means; AdamW is elementwise and reads none).
 
 Scalar math that the reference does on f32 arrays (``b1 ** step``, the
 learning rate) is done on f32 tensors here too; `global_norm` and
@@ -108,10 +115,12 @@ def clip_by_global_norm(grads, max_norm: float) -> tuple:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float, *, norm=None) -> torch.Tensor:
     """`clip_by_global_norm` written into ``grads`` leaf by leaf; returns
-    the norm before clipping."""
-    norm = global_norm(grads)
+    the norm before clipping (``norm``, where the caller has it: a
+    sharded tree's norm over the whole mesh)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = _clip_scale(norm, max_norm)
     tree_map_(lambda g: g.copy_((g.to(torch.float32) * scale).to(g.dtype)), grads)
     return norm

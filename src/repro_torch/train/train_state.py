@@ -32,8 +32,34 @@ def param_tree(model) -> dict:
     """The model's parameters as the reference's tree: dotted names split
     into nested dicts, with the per-layer groups (``layers``, whisper's
     ``enc_layers`` and ``dec_layers``) lists."""
+    return _nest(model.named_parameters())
+
+
+def _check_blocks(plan, optimizer, opt_state) -> None:
+    """On a rank-local model the optimizer's state is built on the
+    parameters' blocks: each state leaf must be the block
+    `launch.specs.opt_state_pspecs` gives it on the plan's mesh (the
+    state of the whole parameters, as ``plan.shapes`` and ``plan.specs``
+    describe them)."""
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.launch.specs import opt_state_pspecs
+
+    whole = _nest((n, torch.empty(s, device="meta")) for n, s in plan.shapes.items())
+    shapes = optimizer.init(whole)
+    specs = opt_state_pspecs(shapes, _nest(plan.specs.items()), plan.mesh)
+    blocks = param_shardings(shapes, plan.mesh, pspecs=specs)
+    for leaf, full, block in zip(tree_leaves(opt_state), tree_leaves(shapes),
+                                 tree_leaves(blocks)):
+        want = tuple(full[block.index].shape)
+        if tuple(leaf.shape) != want:
+            raise ValueError(f"an optimizer state block {tuple(leaf.shape)} is not the "
+                             f"{want} block opt_state_pspecs places")
+
+
+def _nest(items) -> dict:
+    """(dotted name, value) pairs as the reference's nested tree."""
     tree: dict = {}
-    for name, param in model.named_parameters():
+    for name, param in items:
         *groups, leaf = name.split(".")
         node = tree
         for g in groups:
@@ -67,7 +93,10 @@ class TrainState(NamedTuple):
         params = param_tree(model)
         tree_map_(lambda p: p.requires_grad_(True), params)
         step = torch.zeros((), dtype=torch.int64, device=model.device)
-        return cls(params=params, opt_state=optimizer.init(params), step=step)
+        opt_state = optimizer.init(params)
+        if getattr(model, "tp", None) is not None:
+            _check_blocks(model.tp, optimizer, opt_state)
+        return cls(params=params, opt_state=opt_state, step=step)
 
     def to_disk(self) -> "TrainState":
         """The state as a snapshot holds it: the step as int32 (the

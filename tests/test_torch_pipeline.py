@@ -23,7 +23,10 @@ embedding table, whose cotangent every stage holds). A gradient scaled
 by the stage count (a plain all-reduce in the broadcast's backward)
 fails by 3 x the largest |grad|. On 8 ranks, a (4, 2, 1) mesh, each
 data replica runs half the tanh stack's batch: its stage's gradients,
-summed over "data", are jax.grad's of the whole batch.
+summed over "data", are jax.grad's of the whole batch. On the same 8
+ranks, a (4, 1, 2) mesh, the qwen smoke's stages run tensor-parallel
+(each rank holding its "model" block of its stage's layer and of the
+table): every block's gradient is its slice of jax.grad's.
 """
 
 import concurrent.futures
@@ -172,15 +175,17 @@ def runs(tmp_path_factory):
     assert proc.returncode == 0, err[-4000:]
     return ranks, dict(tanh=np.asarray(ref), hidden=h.numpy(), logits=logits.numpy(),
                        model=model, params=sum(p.numel() for p in model.parameters()),
-                       grads=dict(np.load(path)), tanh_inputs=(stages, x, cot["tanh"]))
+                       grads=dict(np.load(path)), tanh_inputs=(stages, x, cot["tanh"]),
+                       qwen_inputs=(toks, tree, cot["qwen"]))
 
 
 @pytest.fixture(scope="module")
 def data_runs(runs):
-    """The tanh stack's backward on 8 gloo ranks, a (4, 2, 1) mesh."""
+    """The tanh stack's backward on 8 gloo ranks, a (4, 2, 1) mesh, then the
+    qwen smoke's tensor-parallel stages on (4, 1, 2)."""
     stages, x, cot = runs[1]["tanh_inputs"]
     return distributed.run_ranks(torch_shard_ranks.pipeline_data_rank, 8, stages, x, cot,
-                                 device_type="cpu", timeout=300)
+                                 *runs[1]["qwen_inputs"], device_type="cpu", timeout=300)
 
 
 def test_gpipe_matches_sequential(runs):
@@ -265,7 +270,7 @@ def test_data_replica_gradients_match_jax_grad(runs, data_runs, against):
     """On a (4, 2, 1) mesh each data replica runs half the batch; its
     stage's w and b gradients, summed over "data", are jax.grad's of the
     whole batch's loss, and its rows of the input's cotangent are its
-    own; a model axis of 2 under autograd is refused."""
+    own."""
     g = runs[1]["grads"]
     assert sorted((r["coord"]["pod"], r["coord"]["data"]) for r in data_runs) == [
         (s, d) for s in range(N_STAGES) for d in range(2)]
@@ -274,4 +279,29 @@ def test_data_replica_gradients_match_jax_grad(runs, data_runs, against):
         _close(r["w"], g[f"{against}_tanh_w"][s], f"stage {s} w")
         _close(r["b"], g[f"{against}_tanh_b"][s], f"stage {s} b")
         _close(r["x"], g[f"{against}_tanh_x"][lo:hi], f"rows {lo}-{hi} x")
-        assert "A12e-3" in r["refused"]
+
+
+@pytest.mark.parametrize("against", ("pipe", "seq"))
+def test_tensor_parallel_stage_gradients_match_jax_grad(runs, data_runs, against):
+    """On a (4, 1, 2) mesh each stage's layer runs tensor-parallel over
+    "model" (the "heads" layout, its MLP ff-split, the table
+    vocab-split): every leaf's block gradient on both model ranks of
+    every stage, and the table's on every stage, is its slice of
+    jax.grad's whole gradient."""
+    g = runs[1]["grads"]
+    assert sorted((r["tp"]["coord"]["pod"], r["tp"]["coord"]["model"]) for r in data_runs) == [
+        (s, m) for s in range(N_STAGES) for m in range(2)]
+    for r in data_runs:
+        tp = r["tp"]
+        s = tp["coord"]["pod"]
+        assert tp["attn"] == "heads"
+        prefix = f"{against}_qwen_"
+        mine = {k[len(prefix):] for k in g if k.startswith(f"{prefix}layers.{s}.")}
+        assert set(tp["grads"]) == mine | {"embed.table"}
+        split = 0
+        for name, (got, index) in tp["grads"].items():
+            want = g[f"{prefix}{name}"]
+            block = want[tuple(slice(lo, hi) for lo, hi in index)]
+            split += block.shape != want.shape
+            _close(got, block, f"stage {s} model {tp['coord']['model']} {name}")
+        assert split >= 5  # wq, wk, wv, wo, the MLP's three and the table are blocks

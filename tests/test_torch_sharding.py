@@ -264,7 +264,16 @@ def test_meshes_need_a_process_group():
 
 
 def test_shard_model_refuses_what_is_not_ported():
-    """The FSDP training layout is queued, not silently run unsharded
-    (every family's serving layout runs: tests/test_torch_shard_families.py)."""
-    with pytest.raises(NotImplementedError, match="FSDP.*A12e-3"):
-        tsh.shard_model(tbase.get_smoke_config("qwen2_5_3b"), None, serving=False)
+    """The FSDP training layout of every family but the dense one is
+    queued, not silently run another way (the dense family trains:
+    tests/test_torch_fsdp.py; every family's serving layout runs:
+    tests/test_torch_shard_families.py)."""
+    refused = set()
+    for arch in jbase.ARCH_IDS:
+        cfg = tbase.get_smoke_config(arch)
+        if cfg.family == "dense":
+            continue
+        with pytest.raises(NotImplementedError, match=f"FSDP.*{cfg.family}.*A12e-6"):
+            tsh.shard_model(cfg, None, serving=False)
+        refused.add(cfg.family)
+    assert refused == {"moe", "vlm", "hybrid", "ssm", "audio"}

@@ -202,16 +202,21 @@ def pipeline_rank(rank, world, stages, x, toks, tree, cot):
     return out
 
 
-def pipeline_data_rank(rank, world, stages, x, cot):
+def pipeline_data_rank(rank, world, stages, x, cot, toks, tree, cot_qwen):
     """The tanh stack's backward on a (4, 2, 1) mesh, as the reference's
     test shards it: each data replica runs its half of ``x`` (4 rows, 4
     microbatches of 1) through the 4 stages, takes ``sum(y * cot)`` on
     its rows, and its stage's gradients come out summed over "data".
-    Then a model axis of 2 under autograd is refused."""
+    Then the float32 qwen smoke's stages tensor-parallel on a (4, 1, 2)
+    mesh (`stage_model` on the reference's weights ``tree``: each rank
+    holds its model block of its stage's layer and of the table), the
+    backward of ``sum(y * cot_qwen)``: each block's gradient and its
+    index into the whole leaf."""
     from repro_torch.distributed.pipeline import (
-        make_pipeline_forward, stack_stage_params, transformer_stage_fn,
+        make_pipeline_forward, stack_stage_params, stage_model, transformer_stage_fn,
     )
     from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models.transformer import embed_tokens
 
     mesh = launch_mesh.make_mesh_for((4, 2, 1), ("pod", "data", "model"), device_type="cpu")
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
@@ -230,14 +235,106 @@ def pipeline_data_rank(rank, world, stages, x, cot):
     (fwd(local, xt) * torch.from_numpy(cot[rows])).sum().backward()
     out = dict(coord=coord, w=local["w"].grad[0].numpy(), b=local["b"].grad[0].numpy(),
                x=xt.grad.numpy(), rows=(rows.start, rows.stop))
+
     tp_mesh = launch_mesh.make_mesh_for((4, 1, 2), ("pod", "data", "model"), device_type="cpu")
-    fwd = make_pipeline_forward(transformer_stage_fn(layer_fn, 2), tp_mesh, n_stages=4,
+    cfg = dataclasses.replace(get_smoke_config("qwen2_5_3b"), dtype="float32", num_layers=4)
+    tp_coord = dict(zip(tp_mesh.mesh_dim_names, tp_mesh.get_coordinate()))
+    model, layers = stage_model(cfg, tp_mesh, n_stages=4, params=tree)
+    held = {f"layers.{tp_coord['pod']}.{n}": p for n, p in layers[0].named_parameters()}
+    held["embed.table"] = model.embed["table"]
+    for p in held.values():
+        p.requires_grad_()
+
+    def block_any(lp, h):
+        pos = torch.arange(h.shape[1], dtype=torch.int32).expand(h.shape[0], h.shape[1])
+        return model._block(lp, h, pos, cfg.expert_capacity_factor)[0]
+
+    fwd = make_pipeline_forward(transformer_stage_fn(block_any, 1), tp_mesh, n_stages=4,
                                 n_microbatches=4)
-    try:
-        fwd(local, xt)
-    except NotImplementedError as e:
-        out["refused"] = str(e)
+    t = torch.from_numpy(toks)
+    (fwd([layers], embed_tokens(model, t)) * torch.from_numpy(cot_qwen)).sum().backward()
+    out["tp"] = dict(coord=tp_coord, attn=model.tp.attn,
+                     grads={n: (p.grad.numpy(), [(sl.start, sl.stop) for sl in model.tp.block(n)])
+                            for n, p in held.items()})
     return out
+
+
+# the FSDP × TP training twins (tests/test_torch_fsdp.py): (arch, dtype), each
+# config's own optimizer (qwen2.5-3b AdamW, llama3-405b Adafactor)
+FSDP_CASES = (("qwen2_5_3b", "float32"), ("qwen2_5_3b", "bfloat16"),
+              ("llama3_405b", "float32"), ("llama3_405b", "bfloat16"))
+FSDP_LR = 1e-3
+FSDP_REMATS = ("full", "dots")  # the first case's gradients again under each
+
+
+def fsdp_cfg(arch: str, dtype: str):
+    return dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+
+
+def fsdp_rank(rank, world, shape, trees, toks):
+    """Every `FSDP_CASES` case placed by `shard_model(serving=False)` on a
+    ``shape`` ("data", "model") mesh from the reference's weights
+    ``trees[case]``, on this data replica's rows of ``toks``: the
+    gradient (`make_grad_fn`), then one `make_train_step` step. Returns
+    the metrics, each leaf's gradient block and post-step block with its
+    index into the whole leaf, the optimizer state's leaf shapes by path,
+    and the plan."""
+    from repro_torch.distributed import shard_model
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.optimizer.base import tree_leaves
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.train.step import make_grad_fn
+
+    torch.set_num_threads(1)  # 4 ranks share the host; smoke-sized products
+    mesh = distributed.init_mesh(shape, device_type="cpu")
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    nd = shape[0]
+    rows = slice(coord["data"] * toks.shape[0] // nd, (coord["data"] + 1) * toks.shape[0] // nd)
+    batch = {"tokens": torch.from_numpy(toks[rows])}
+    out = dict(coord=coord, rows=(rows.start, rows.stop))
+    for case in FSDP_CASES:
+        cfg = fsdp_cfg(*case)
+        model = shard_model(cfg, mesh, serving=False, params=trees[case])
+        opt = get_optimizer(cfg.optimizer, FSDP_LR)
+        state = TrainState.create(model, opt)
+        loss, ce, _, grads = make_grad_fn(model)(state, batch)
+        names = [n for n, _ in model.named_parameters()]
+        by_id = {id(p): n for n, p in model.named_parameters()}
+        grad_blocks = {by_id[id(p)]: g.detach().float().numpy().copy()
+                       for p, g in zip(tree_leaves(state.params), tree_leaves(grads))}
+        state, metrics = make_train_step(model, opt)(state, batch)
+        params = dict(model.named_parameters())
+        out[case] = dict(
+            loss=float(loss), ce=float(ce),
+            metrics={k: float(v) for k, v in metrics.items()},
+            index={n: [(sl.start, sl.stop) for sl in model.tp.block(n)] for n in names},
+            grads=grad_blocks,
+            params={n: params[n].detach().float().numpy() for n in names},
+            opt_shapes=_leaf_shapes(state.opt_state),
+            fsdp=dict(model.tp.fsdp), attn=model.tp.attn, mlp=model.tp.mlp,
+            held=sum(p.numel() for p in model.parameters()))
+    # activation checkpointing re-runs each block's gathers and sums in the
+    # backward: the same gradients as without it
+    case = FSDP_CASES[0]
+    for remat in FSDP_REMATS:
+        cfg = dataclasses.replace(fsdp_cfg(*case), remat=remat)
+        model = shard_model(cfg, mesh, serving=False, params=trees[case])
+        state = TrainState.create(model, get_optimizer(cfg.optimizer, FSDP_LR))
+        grads = make_grad_fn(model)(state, batch)[3]
+        by_id = {id(p): n for n, p in model.named_parameters()}
+        out[("remat", remat)] = {by_id[id(p)]: g.float().numpy().copy()
+                                 for p, g in zip(tree_leaves(state.params), tree_leaves(grads))}
+    return out
+
+
+def _leaf_shapes(tree, path=()) -> dict:
+    """{dotted path: shape} of a nested dict / list tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _leaf_shapes(tree[key], path + (key,)).items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _leaf_shapes(sub, path + (str(i),)).items()}
+    return {".".join(path): tuple(tree.shape)}
 
 
 # the recurrent and audio families' twins (tests/test_torch_shard_families.py)
