@@ -325,9 +325,27 @@ Phases, each of which raises (non-zero exit) when a check fails:
    gradient was near AdamW's eps = 1e-8, where f32 sums are rounding
    noise and AdamW's step swings on it;
    step_ok 1, the second loss below the first; ms a step, collectives a
-   step, parameters held and peak a rank against one process. No rank
-   holds the whole model, and each rank's peak is under the one-process
-   serving peak. ``{"check": "sharded", ...}``.
+   step, parameters held and peak a rank against one process. 14l, the
+   same for every other family, each at full width in float32 with its
+   own optimizer and remat, cut only in depth (SHARD_FAM_TRAIN, each cut
+   printed): mixtral-8x7b at 1 of 32 layers (``moe_impl="gather"`` at
+   its capacity factor 1.25: the global batch's slotting, the kept-pair
+   count one process's exactly), internvl2-76b at 1 of 80 (Adafactor;
+   14a's tokens behind its 256 vision-stub positions), recurrentgemma-2b
+   at 3 of 26 (one "rra" period), xlstm-125m uncut, whisper-medium at
+   4 + 4 layers (14g-14i's encoder frames); two steps against one process
+   on the card, every step's metrics under 14k's bars, step 2 started on
+   both sides from one process's parameters after step 1; after step 1
+   every AdamW gradient block (the first moment over 1 - b1) within 1e-4
+   of the leaf's largest |grad| (1e-3 for xlstm-125m, whose f32
+   gradient one process's own rounding moves by 1.9e-4) and the post-step
+   blocks within 5 % of lr
+   where the gradient is well over both AdamW's eps and that bar (an
+   Adafactor leaf's update within 5 % of its largest); ms a step,
+   all-reduces, GB and host seconds a step, peak a rank against one
+   process's. No rank holds the whole
+   model, and each rank's peak is under the one-process serving peak.
+   ``{"check": "sharded", ...}``.
 
 Every kernel must have launched on some path, each path's counts set to
 0 just before it and read just after; a kernel's ``launches`` in the
@@ -3497,6 +3515,48 @@ SHARD_TRAIN_LOSS_ATOL, SHARD_TRAIN_NORM_RTOL, SHARD_TRAIN_PARAM_FRAC = 1e-5, 1e-
 # under that noise: 6.4 % of lr on an H100, PERF.md)
 SHARD_TRAIN_FULL_G = 9e-8
 TRAIN_B2 = 0.95  # AdamW's default second-moment decay (repro_torch.optimizer.adamw)
+# 14l: every other family trained under the FSDP x TP layout on 2 x 2: full
+# width, float32 (TF32 off), each config's own optimizer, remat and (MoE)
+# moe_impl "gather" at its capacity factor, cut only in depth (the one
+# process and its float32 optimizer state must fit the card beside the
+# ranks' references, and every FSDP byte crosses gloo), SHARD_TRAIN_STEPS
+# steps on 14a's 8 x 256 batch (internvl2's behind its 256 vision-stub
+# positions, whisper's with 14g-14i's encoder frames), held to 14k's bars.
+# The ranks start step 2 from one process's parameters after step 1:
+# AdamW's first step turns f32 noise on a gradient element near zero into
+# a move of up to 2 lr, which xlstm-125m's exponential gates carry into
+# step 2's loss (1.8e-4 apart without the restart, H100, 700 W), so step 2
+# would hold step 1's noise and not step 2's computation. After step 1,
+# an AdamW rank's gradient (its first moment over 1 - b1, unclipped) is
+# held to one process's within SHARD_FAM_GRAD_RTOL of the leaf's largest
+# |grad|, floored at SHARD_FAM_GRAD_FLOOR of the model's largest (a leaf
+# whose gradient is zero in exact arithmetic, as whisper's key biases,
+# holds f32 noise on both sides). The bar is about five times one
+# process's own rounding: its gradient of the whole batch against the
+# mean of its two halves' (what the data replicas sum), equal in exact
+# arithmetic, lands up to 1.9e-4 of a leaf's largest apart for
+# xlstm-125m (its mLSTM gates' and embedding's gradients sum terms that
+# cancel), 1.8e-5 for whisper-medium and 3.2e-6 for recurrentgemma-2b
+# (tools/torch_grad_noise.py, H100, 700 W; 14l's ranks land 2.9e-4,
+# 1.8e-5 and 3.3e-6 from one process, mixtral-8x7b's 8.8e-6), so 1e-3
+# for xLSTM and 1e-4 for the rest; a lost, repeated or unscaled part of
+# a sharded gradient moves it by a share of its largest element, orders
+# of magnitude more. Its post-step blocks within
+# SHARD_TRAIN_PARAM_FRAC of lr on the elements whose clipped gradient is
+# at least SHARD_TRAIN_FULL_G and whose gradient is at least
+# SHARD_FAM_GRAD_MARGIN times that bar (a gradient within the bar then
+# moves u = g / (|g| + eps) by at most eps / (3 |g|) <= 1/27, 3.7 % of
+# lr); on the rest the update follows rounding noise and the gradient
+# check holds them. Adafactor's step scales with the parameter's RMS, not
+# with lr, and follows the gradient smoothly: its post-step blocks are
+# held to SHARD_TRAIN_PARAM_FRAC of the leaf's largest update
+SHARD_FAM_GRAD_RTOL = dict(mixtral_8x7b=1e-4, recurrentgemma_2b=1e-4, xlstm_125m=1e-3,
+                           whisper_medium=1e-4)  # the AdamW families
+SHARD_FAM_GRAD_FLOOR, SHARD_FAM_GRAD_MARGIN = 1e-3, 4
+TRAIN_B1 = 0.9  # AdamW's default first-moment decay (repro_torch.optimizer.adamw)
+SHARD_FAM_TRAIN = (("mixtral_8x7b", dict(num_layers=1)), ("internvl2_76b", dict(num_layers=1)),
+                   ("recurrentgemma_2b", dict(num_layers=3)), ("xlstm_125m", {}),
+                   ("whisper_medium", dict(num_layers=4, encoder_layers=4)))
 
 
 def _shard_cfg(meta: dict, arch: str, **kw):
@@ -3733,6 +3793,124 @@ def _train_references(torch, meta: dict, where: str) -> dict:
     if dev == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def _fam_train_cfg(meta: dict, arch: str):
+    """14l's config for ``arch``: float32, cut in depth as SHARD_FAM_TRAIN
+    says (a CPU rehearsal's smoke config keeps its own depth where the
+    cut is deeper)."""
+    cut = dict(dict(SHARD_FAM_TRAIN)[arch])
+    cfg = _shard_cfg(meta, arch, dtype="float32")
+    cut = {k: min(v, getattr(cfg, k)) for k, v in cut.items()}
+    return dataclasses.replace(cfg, **cut)
+
+
+def _fam_train_batch(torch, meta: dict, arch: str, rows=slice(None)) -> dict:
+    """14l's batch for ``arch`` on the device, ``rows`` of it: 14a's
+    prompts (ids modulo the vocabulary); internvl2's behind its
+    ``vision_tokens`` positions of vision embeddings, N(0, 0.02^2) from
+    seed 0 (the loss mask zeroes them, as the reference's step does);
+    whisper's with 14g-14i's encoder frames."""
+    import numpy as np
+
+    cfg = _fam_train_cfg(meta, arch)
+    dev = meta["device"]
+    toks = meta["prompts"] % cfg.vocab_size
+    batch = {}
+    if cfg.frontend == "vision_stub":
+        n = cfg.vision_tokens
+        toks = np.concatenate([np.zeros((toks.shape[0], n), toks.dtype), toks], axis=1)
+        g = torch.Generator(device=dev).manual_seed(0)
+        batch["vision_embeds"] = torch.randn((toks.shape[0], n, cfg.d_model), generator=g,
+                                             device=dev) * 0.02
+    elif cfg.frontend == "audio_stub":
+        batch["encoder_frames"] = _fam_frames(torch, meta, arch, torch.float32)
+    batch["tokens"] = torch.from_numpy(np.ascontiguousarray(toks).astype(np.int32)).to(dev)
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def _fam_train_references(torch, meta: dict, where: str) -> dict:
+    """The one-process side of 14l on the card, a family at a time: the
+    same cut model, seed, batch and learning rate through
+    SHARD_TRAIN_STEPS `make_train_step` steps, each step's metrics and
+    ms, the peak; after step 1 its parameters, gradient and scales saved
+    to ``where/<arch>`` (`_fam_train_save`) for the ranks to check their
+    blocks against and to start step 2 from."""
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.train import TrainState, make_train_step
+
+    dev = meta["device"]
+    _fp32_matmuls(torch)
+    out = {}
+    for arch, _ in SHARD_FAM_TRAIN:
+        cfg = _fam_train_cfg(meta, arch)
+        _peak_reset(torch, dev)
+        model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        # Adafactor's post-step bar scales with the leaf's largest update
+        p0 = ({} if cfg.optimizer == "adamw" else
+              {name: p.detach().to("cpu", copy=True) for name, p in model.named_parameters()})
+        opt = get_optimizer(cfg.optimizer, TRAIN_LR)
+        state = TrainState.create(model, opt)
+        step = make_train_step(model, opt)
+        batch = _fam_train_batch(torch, meta, arch)
+        steps, walls = [], []
+        for i in range(SHARD_TRAIN_STEPS):
+            _sync(torch, dev)
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            _sync(torch, dev)
+            walls.append((time.perf_counter() - t) * 1e3)
+            steps.append({k: float(v) for k, v in metrics.items()})
+            if i == 0:
+                _fam_train_save(torch, model, state, p0, steps[0]["grad_norm"],
+                                f"{where}/{arch}")
+        out[arch] = dict(steps=steps, step_ms=walls, peak_gb=_peak_gb(torch, dev),
+                         optimizer=cfg.optimizer, layers=cfg.num_layers,
+                         encoder_layers=cfg.encoder_layers, tokens=list(batch["tokens"].shape),
+                         params=sum(p.numel() for p in model.parameters()))
+        del model, p0, state, step, batch
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _first_moments(state, model) -> dict:
+    """{parameter name: its AdamW first moment}."""
+    from repro_torch.optimizer.base import tree_leaves
+
+    names = {id(p): name for name, p in model.named_parameters()}
+    return {names[id(p)]: mu for p, mu in zip(tree_leaves(state.params),
+                                               tree_leaves(state.opt_state["mu"]))}
+
+
+def _fam_train_save(torch, model, state, p0: dict, grad_norm: float, where: str) -> None:
+    """One process after step 1, into ``where``: each leaf's parameters
+    (``p1/<name>.npy``) and, for AdamW, its gradient recovered from the
+    first moment (``grad1/<name>.npy``: mu / (1 - b1), unclipped), float32;
+    ``scale.json``: each gradient's largest |value| and the model's, and
+    each leaf's largest |update| since ``p0`` where that holds it."""
+    import numpy as np
+
+    adamw = "mu" in state.opt_state
+    for sub in ("p1", "grad1") if adamw else ("p1",):
+        Path(f"{where}/{sub}").mkdir(parents=True)
+    mus = _first_moments(state, model) if adamw else {}
+    clip = max(1.0, grad_norm)
+    scale = dict(grad_max={}, update_max={})
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p1 = p.detach().cpu()
+            np.save(f"{where}/p1/{name}.npy", p1.numpy())
+            if name in p0:
+                scale["update_max"][name] = float((p1 - p0.pop(name)).abs().max())
+            if adamw:
+                g = mus[name].cpu() * (clip / (1 - TRAIN_B1))
+                np.save(f"{where}/grad1/{name}.npy", g.numpy())
+                scale["grad_max"][name] = float(g.abs().max())
+    scale["tree_max"] = max(scale["grad_max"].values(), default=0.0)
+    scale["clip"] = clip
+    Path(f"{where}/scale.json").write_text(json.dumps(scale))
 
 
 def _shard_references(torch, meta: dict) -> dict:
@@ -3973,6 +4151,11 @@ def _shard_rank(rank, world, meta):
     out["grad"] = _grad_rank(torch, meta, mesh_pipe)
     # -- 14k: training under the FSDP x TP layout on 2 x 2
     out["train"] = _train_rank(torch, meta, mesh22)
+    # -- 14l: every other family's training under the same layout
+    t = time.perf_counter()
+    out["fam_train"] = {arch: _fam_train_rank(torch, meta, arch, mesh22)
+                        for arch, _ in SHARD_FAM_TRAIN}
+    out["fam_train_s"] = time.perf_counter() - t
     out["total_s"] = time.perf_counter() - t_start
     out["done_at"] = time.time()
     return out
@@ -4181,6 +4364,191 @@ def _train_rank(torch, meta: dict, mesh) -> dict:
     return out
 
 
+def _fam_train_rank(torch, meta: dict, arch: str, mesh) -> dict:
+    """14l on one rank for ``arch``: the cut model placed by
+    `shard_model(serving=False)` (seed 0) on the 2 x 2 ``mesh``, its
+    optimizer state on its blocks, SHARD_TRAIN_STEPS steps on its data
+    replica's rows of the batch: each step's metrics, ms and collectives;
+    after step 1 each block against one process's (`_fam_train_errors`),
+    then one process's parameters after step 1 in place of the rank's for
+    step 2; parameters held, peak."""
+    from repro_torch.core import distributed
+    from repro_torch.distributed import shard_model
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.optimizer.base import tree_leaves
+    from repro_torch.train import TrainState, make_train_step
+
+    dev = meta["device"]
+    _fp32_matmuls(torch)
+    cfg = _fam_train_cfg(meta, arch)
+    _peak_reset(torch, dev)
+    model = shard_model(cfg, mesh, serving=False,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    opt = get_optimizer(cfg.optimizer, TRAIN_LR)
+    state = TrainState.create(model, opt)
+    step = make_train_step(model, opt)
+    d = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["data"]
+    half = meta["prompts"].shape[0] // 2
+    batch = _fam_train_batch(torch, meta, arch, slice(d * half, (d + 1) * half))
+    steps, walls, coll, errs = [], [], [], {}
+    for i in range(SHARD_TRAIN_STEPS):
+        _sync(torch, dev)
+        c0, t = dict(distributed.COLLECTIVES), time.perf_counter()
+        state, metrics = step(state, batch)
+        _sync(torch, dev)
+        walls.append((time.perf_counter() - t) * 1e3)
+        coll.append(_collective_delta(c0))
+        steps.append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            errs = _fam_train_errors(torch, model, state, steps[0]["grad_norm"],
+                                     SHARD_FAM_GRAD_RTOL.get(arch),
+                                     f"{meta['fam_train_dir']}/{arch}", dev)
+    peak = _peak_gb(torch, dev)
+    out = dict(steps=steps, step_ms=walls, collectives=coll, errs=errs,
+               fsdp_leaves=len(model.tp.fsdp), attn=model.tp.attn, layout=dict(model.tp.layout),
+               logits=model.tp.logits, optimizer=cfg.optimizer,
+               params_held=sum(p.numel() for p in model.parameters()),
+               state_held=sum(t.numel() for t in tree_leaves(state.opt_state)), peak_gb=peak)
+    del model, state, step, batch
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fam_train_errors(torch, model, state, grad_norm: float, rtol, where: str,
+                      dev: str) -> dict:
+    """Each block after step 1 against its slice of one process's in
+    ``where`` (`_fam_train_save`), which then replaces it. AdamW: (the
+    largest |gradient difference|, its bar (``rtol`` of the leaf's largest
+    |grad|, floored), the largest |parameter difference| on the elements
+    the post-step bar holds, their count, the block's size); Adafactor:
+    (the largest |parameter difference|, its bar). The gradients are the
+    first moments over 1 - b1, unclipped."""
+    import numpy as np
+
+    scale = json.loads(Path(f"{where}/scale.json").read_text())
+    adamw = "mu" in state.opt_state
+    mus = _first_moments(state, model) if adamw else {}
+    clip = max(1.0, grad_norm)
+    errs = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            index = model.tp.block(name)
+
+            def block(sub):
+                whole = np.load(f"{where}/{sub}/{name}.npy", mmap_mode="r")
+                return torch.from_numpy(np.array(whole[index])).to(dev)
+
+            p1 = block("p1")
+            diff = (p - p1).abs()
+            if adamw:
+                want = block("grad1")
+                bar = rtol * max(scale["grad_max"][name],
+                                 SHARD_FAM_GRAD_FLOOR * scale["tree_max"])
+                g_err = float((mus[name] * (clip / (1 - TRAIN_B1)) - want).abs().max())
+                # the clipped gradient over 9 eps and the gradient well over its bar
+                held = ((want.abs() >= SHARD_TRAIN_FULL_G * scale["clip"])
+                        & (want.abs() >= SHARD_FAM_GRAD_MARGIN * bar))
+                errs[name] = (g_err, bar, float(diff[held].max()) if held.any() else 0.0,
+                              int(held.sum()), diff.numel())
+            else:
+                errs[name] = (float(diff.max()),
+                              SHARD_TRAIN_PARAM_FRAC * scale["update_max"][name])
+            p.copy_(p1)  # step 2 starts from one process's parameters
+    return errs
+
+
+def _check_fam_train(ranks, rf: dict, gate, dev: str) -> dict:
+    """14l's checks (phase 14's ``gate``) for every family: each rank's
+    metrics the same bits as rank 0's at every step, step_ok 1, the
+    second loss below the first, ``drop_frac`` one process's (the kept
+    pairs), no rank holding the whole model, each rank's peak under one
+    process's; against one process, 14k's bars at every step (loss and
+    every aux term within SHARD_TRAIN_LOSS_ATOL, grad_norm and param_norm
+    within SHARD_TRAIN_NORM_RTOL relative); after step 1 every AdamW
+    gradient block within its bar and the post-step blocks within
+    SHARD_TRAIN_PARAM_FRAC of lr where that bar holds them (the
+    SHARD_FAM_TRAIN comment), on some elements of every family; an
+    Adafactor leaf's within SHARD_TRAIN_PARAM_FRAC of its largest update.
+    Returns each family's errors and what it ran."""
+    out = {}
+    for arch, _ in SHARD_FAM_TRAIN:
+        want = rf[arch]
+        err = dict(loss=[], grad_norm=[], param_norm=[], grad=0.0, params=0.0,
+                   held_elements=0, elements=0)
+        label = f"14l {arch}"
+        adamw = want["optimizer"] == "adamw"
+        for i, w in enumerate(want["steps"]):
+            losses = [k for k in w if k in ("loss", "ce") or k.startswith("aux/")]
+            got = ranks[0]["fam_train"][arch]["steps"][i]
+            if set(got) != set(w):
+                gate(False, f"{label} step {i}: metrics {sorted(got)}, one process {sorted(w)}")
+                continue
+            err["loss"].append(max(abs(got[k] - w[k]) for k in losses))
+            for k in ("grad_norm", "param_norm"):
+                err[k].append(abs(got[k] / w[k] - 1))
+            if "aux/drop_frac" in w:
+                gate(got["aux/drop_frac"] == w["aux/drop_frac"],
+                     f"{label} step {i}: drop_frac {got['aux/drop_frac']}, one process "
+                     f"{w['aux/drop_frac']} (the kept pairs differ)")
+            gate(err["loss"][i] <= SHARD_TRAIN_LOSS_ATOL, f"{label} step {i}: loss / aux "
+                 f"{err['loss'][i]:.3g} from one process (bar {SHARD_TRAIN_LOSS_ATOL})")
+            for k in ("grad_norm", "param_norm"):
+                gate(err[k][i] <= SHARD_TRAIN_NORM_RTOL, f"{label} step {i}: {k} "
+                     f"{err[k][i]:.3g} relative from one process (bar {SHARD_TRAIN_NORM_RTOL})")
+        for rk in ranks:
+            g = rk["fam_train"][arch]
+            gate(g["fsdp_leaves"] > 0, f"{label} rank {rk['rank']}: no leaf split over 'data'")
+            for i, got in enumerate(g["steps"]):
+                gate(got == ranks[0]["fam_train"][arch]["steps"][i],
+                     f"{label} step {i}: rank {rk['rank']}'s metrics differ from rank 0's")
+                gate(got["step_ok"] == 1.0, f"{label} step {i} rank {rk['rank']}: step_ok "
+                     f"{got['step_ok']}")
+            for leaf, e in g["errs"].items():
+                if adamw:
+                    g_err, bar, p_err, held, n = e
+                    err["grad"] = max(err["grad"], g_err / bar)
+                    err["params"] = max(err["params"], p_err)
+                    err["held_elements"] += held
+                    err["elements"] += n
+                    gate(g_err <= bar, f"{label} rank {rk['rank']}: {leaf}'s gradient "
+                         f"{g_err:.3g} from one process's after step 1 (bar {bar:.3g})")
+                    gate(p_err <= SHARD_TRAIN_PARAM_FRAC * TRAIN_LR,
+                         f"{label} rank {rk['rank']}: {leaf} {p_err:.3g} from one process after "
+                         f"step 1 where its gradient holds the update (bar "
+                         f"{SHARD_TRAIN_PARAM_FRAC * TRAIN_LR:.3g})")
+                else:
+                    p_err, bar = e
+                    err["params"] = max(err["params"], p_err / bar if bar else p_err)
+                    gate(p_err <= bar, f"{label} rank {rk['rank']}: {leaf} {p_err:.3g} from "
+                         f"one process after step 1 (bar {bar:.3g})")
+            gate(g["steps"][-1]["loss"] < g["steps"][0]["loss"],
+                 f"{label} rank {rk['rank']}: losses {[s['loss'] for s in g['steps']]} do not fall")
+            gate(g["params_held"] < want["params"],
+                 f"{label} rank {rk['rank']}: holds {g['params_held']} of {want['params']} "
+                 "parameters")
+            if dev == "cuda":
+                gate(g["peak_gb"] < want["peak_gb"],
+                     f"{label} rank {rk['rank']}: peak {g['peak_gb']:.2f} GB, one process "
+                     f"{want['peak_gb']:.2f} GB")
+        if adamw:
+            gate(err["held_elements"] > 0, f"{label}: the post-step bar holds no element")
+        r0 = ranks[0]["fam_train"][arch]
+        out[arch] = dict(
+            err=err, optimizer=r0["optimizer"], attn=r0["attn"], layout=r0["layout"],
+            logits=r0["logits"], layers=want["layers"], encoder_layers=want["encoder_layers"],
+            tokens=want["tokens"], loss=[s["loss"] for s in r0["steps"]],
+            loss_reference=[s["loss"] for s in want["steps"]],
+            aux={k: v for k, v in r0["steps"][-1].items() if k.startswith("aux/")},
+            step_ms=[rk["fam_train"][arch]["step_ms"] for rk in ranks],
+            collectives=[rk["fam_train"][arch]["collectives"] for rk in ranks],
+            params_held=[rk["fam_train"][arch]["params_held"] for rk in ranks],
+            state_held=[rk["fam_train"][arch]["state_held"] for rk in ranks],
+            params_whole=want["params"], peak_gb=[rk["fam_train"][arch]["peak_gb"] for rk in ranks],
+            one_process_step_ms=want["step_ms"], one_process_peak_gb=want["peak_gb"])
+    return out
+
+
 def _assemble(ranks, key: str, rows_of, index=None) -> "np.ndarray":
     """The whole logits from the ranks' (rows, column blocks)."""
     import numpy as np
@@ -4230,9 +4598,13 @@ def phase_sharded(torch, card: str) -> dict:
     ref["fam"] = _fam_references(torch, meta)
     meta["grad_dir"] = tempfile.mkdtemp(prefix="chip_smoke_14j_")
     meta["train_dir"] = tempfile.mkdtemp(prefix="chip_smoke_14k_")
+    meta["fam_train_dir"] = tempfile.mkdtemp(prefix="chip_smoke_14l_")
     try:
         ref["grad"] = _grad_references(torch, meta, meta["grad_dir"])
         ref["train"] = _train_references(torch, meta, meta["train_dir"])
+        t_fam = time.perf_counter()
+        ref["fam_train"] = _fam_train_references(torch, meta, meta["fam_train_dir"])
+        out["fam_train_reference_s"] = time.perf_counter() - t_fam
         out["reference_s"] = time.perf_counter() - t
         allocated = torch.cuda.memory_allocated() / 1e9 if dev == "cuda" else 0.0
         # -- the ranks: one spawn runs 14b-14j
@@ -4242,6 +4614,7 @@ def phase_sharded(torch, card: str) -> dict:
     finally:
         shutil.rmtree(meta["grad_dir"], ignore_errors=True)
         shutil.rmtree(meta["train_dir"], ignore_errors=True)
+        shutil.rmtree(meta["fam_train_dir"], ignore_errors=True)
     out["ranks_s"] = time.perf_counter() - t
     out["allocated_before_spawn_gb"] = allocated
     out["rank_startup_s"] = [rk["entered_at"] - spawned_at for rk in ranks]
@@ -4409,6 +4782,8 @@ def phase_sharded(torch, card: str) -> dict:
     gate(max(train_err["grad_norm"], train_err["param_norm"]) <= SHARD_TRAIN_NORM_RTOL,
          f"14k: grad_norm / param_norm {train_err['grad_norm']:.3g} / "
          f"{train_err['param_norm']:.3g} relative (bar {SHARD_TRAIN_NORM_RTOL})")
+    # -- 14l: every other family's steps against one process's
+    fam_train = _check_fam_train(ranks, ref["fam_train"], gate, dev)
     # no rank holds the whole model; each rank's peak under one process's
     whole = sum(p.numel() for p in _meta_model(torch, meta).parameters())
     peaks = [max(rk[k]["peak_gb"] for k in ("serve", "seq", "pipeline")) for rk in ranks]
@@ -4502,7 +4877,16 @@ def phase_sharded(torch, card: str) -> dict:
                    params_whole=rt["params"],
                    peak_gb=[rk["train"]["peak_gb"] for rk in ranks],
                    one_process_step_ms=rt["step_ms"], one_process_peak_gb=rt["peak_gb"]),
+        fam_train=dict(mesh=[2, 2], dtype="float32", lr=TRAIN_LR, steps=SHARD_TRAIN_STEPS,
+                       families=fam_train, reference_s=out["fam_train_reference_s"],
+                       ranks_s=[rk["fam_train_s"] for rk in ranks]),
     )
+    for arch, cut in SHARD_FAM_TRAIN:
+        full = _shard_cfg(dict(smoke=False), arch)
+        out["reduced"][f"14l {arch}"] = dict(
+            cut={k: [v, getattr(full, k)] for k, v in cut.items()},
+            why="the one process's float32 model, gradients and optimizer state must fit the "
+                "card before the spawn, and every FSDP byte crosses gloo" if cut else "uncut")
     out["phase_s"] = time.perf_counter() - t_phase
     p0 = out["serve"]["per_rank"][0]
     log(f"14 sharded serving ({card}): 14a {out['select']['ids']} in "
@@ -4549,6 +4933,24 @@ def phase_sharded(torch, card: str) -> dict:
         f"({c1['bytes'] / 1e9:.2f} GB, {c1['host_s']:.2f} s host) a step; rank peaks "
         f"{[round(p, 2) for p in tr['peak_gb']]} GB (one process {tr['one_process_peak_gb']:.2f})"
         f", {tr['params_held'][0]} of {tr['params_whole']} parameters a rank")
+    for arch, f in fam_train.items():
+        c = f["collectives"][0][-1]
+        cut = dict(dict(SHARD_FAM_TRAIN)[arch])
+        log(f"14l {arch} FSDP x TP training ({card}): {f['layers']} layers"
+            f"{' + %d encoder layers' % f['encoder_layers'] if f['encoder_layers'] else ''}, "
+            f"cut {cut or 'none'}, float32, {f['optimizer']}, {f['tokens']} tokens on 2 x 2, "
+            f"layout {f['attn']} {f['layout']}, logits {'split' if f['logits'] else 'whole'}; "
+            f"losses {f['loss']} (one process {f['loss_reference']}), aux {f['aux']}; errors "
+            f"{f['err']} (gradient: the largest error over its bar; params: AdamW's largest "
+            f"error on the elements held, Adafactor's over its bar); step 2 "
+            f"{max(ms[-1] for ms in f['step_ms']):.1f} ms a rank (one "
+            f"process {f['one_process_step_ms'][-1]:.1f} ms), {c['calls']:.0f} all-reduces "
+            f"({c['bytes'] / 1e9:.2f} GB, {c['host_s']:.2f} s host) a step; rank peaks "
+            f"{[round(p, 2) for p in f['peak_gb']]} GB (one process "
+            f"{f['one_process_peak_gb']:.2f}), {f['params_held'][0]} of {f['params_whole']} "
+            f"parameters a rank")
+    log(f"14l took {max(rk['fam_train_s'] for rk in ranks):.1f}s in the ranks, "
+        f"{out['fam_train_reference_s']:.1f}s for the one-process references")
     out["failed"] = failed
     emit({"check": "sharded", **out})
     check(not failed, f"phase 14: {len(failed)} checks failed: {failed}")

@@ -31,13 +31,12 @@ leaf this rank's block (a `Sharding`), and `shard_model` builds a model
 of any family that holds only those blocks and issues the collectives
 the layout implies (`repro_torch.models.transformer`, `rglru`, `xlstm`,
 `whisper`). Serving shards over "model" only (`serving_param_pspecs`).
-Training places the dense family under `param_pspecs` (FSDP over
-"data" × TP over "model", ``shard_model(serving=False)``): each
-data-split block is gathered whole over the data group where the model
-reads it, and its gradient summed back into the block
-(`ShardPlan.whole`); `repro_torch.train.make_train_step` runs the step
-on the mesh and `repro_torch.launch.specs.opt_state_pspecs` places the
-optimizer state. The other families' training layout is ROADMAP A12e-6.
+Training places every family under `param_pspecs` (FSDP over "data" ×
+TP over "model", ``shard_model(serving=False)``): each data-split block
+is gathered whole over the data group where the model reads it, and its
+gradient summed back into the block (`ShardPlan.whole`);
+`repro_torch.train.make_train_step` runs the step on the mesh and
+`repro_torch.launch.specs.opt_state_pspecs` places the optimizer state.
 """
 
 from __future__ import annotations
@@ -434,7 +433,7 @@ class ShardPlan:
     """How a rank-local model computes (set by `shard_model`).
 
     ``axes`` is its `MeshAxes` (the model group issues the TP reductions,
-    the data groups average the MoE aux terms); ``tp`` the model group,
+    the data groups sum the MoE expert counts and aux terms); ``tp`` the model group,
     rank and size the layers take; ``specs`` every parameter's spec.
     ``attn`` is "heads" (local q/k/v heads and a head-sharded cache:
     Hkv divides by |model| and no flash-decoding), "whole" (q, k and v
@@ -448,11 +447,12 @@ class ShardPlan:
     "whole" or "replicated") and "slstm_ffn" ("ff" or "replicated") for
     xLSTM (the models' docstrings say what each computes).
 
-    Under the training layout (``shard_model(serving=False)``) ``specs``
-    are `param_pspecs`' and the layouts above are those of its "model"
-    entries (the serving layout's); ``fsdp`` maps each leaf split over
-    "data" to (the dim it splits, the dim's whole size) and ``data`` is
-    the "data" group, rank and size those leaves are gathered over.
+    Under the training layout (``shard_model(serving=False)``, every
+    family) ``specs`` are `param_pspecs`' and the layouts above are
+    those of its "model" entries (the serving layout's); ``fsdp`` maps
+    each leaf split over "data" to (the dim it splits, the dim's whole
+    size) and ``data`` is the "data" group, rank and size those leaves
+    are gathered over.
     ``shapes`` holds every leaf's whole shape.
     """
 
@@ -548,6 +548,11 @@ def _plan(cfg, mesh, axes, shardings: dict) -> ShardPlan:
         for n in _leaves(shardings, "moe", ("w_gate", "w_up", "w_down")):
             if m > 1 and not shardings[n].split:
                 raise ValueError(f"{n}: its ff dim does not split over 'model' ({m} ranks)")
+    elif m == 1:  # one model rank: a "model" entry splits nothing
+        if cfg.family == "hybrid":
+            layout["lru"] = "replicated"
+        elif cfg.family == "ssm":
+            layout.update(mlstm="replicated", slstm="replicated", slstm_ffn="replicated")
     elif cfg.family == "hybrid":
         lru = _leaves(shardings, "rglru", ("w_in", "w_gate_branch", "conv_w", "conv_b", "w_a",
                                            "w_x", "b_a", "b_x", "lam", "w_out"))
@@ -574,11 +579,12 @@ def shard_model(cfg, mesh, *, serving: bool = True, generator=None, params=None)
     rank calls it): each rank holds only its blocks of each parameter,
     on the mesh's device, and a `ShardPlan` in ``model.tp``. Serving
     (the default) places any family (`model_zoo.FAMILIES`) under
-    `serving_param_pspecs`; ``serving=False`` places the dense family
-    under `param_pspecs`, the FSDP × TP training layout (each leaf's
-    d_model-like dim split over "data" as well), which
-    `repro_torch.train.make_train_step` trains (the other families:
-    ROADMAP A12e-6).
+    `serving_param_pspecs`; ``serving=False`` places it under
+    `param_pspecs`, the FSDP × TP training layout (each leaf's
+    d_model-like dim split over "data" as well, where it divides), which
+    `repro_torch.train.make_train_step` trains. Either way the plan's
+    layouts follow the "model" entries of the specs, which the two
+    layouts share.
 
     With ``generator`` (a `torch.Generator` on that device, the same seed
     on every rank), each leaf is drawn whole in the reference's order,
@@ -596,10 +602,6 @@ def shard_model(cfg, mesh, *, serving: bool = True, generator=None, params=None)
     family = model_zoo.FAMILIES.get(cfg.family)
     if family is None:
         raise ValueError(f"unknown family {cfg.family!r}")
-    if not serving and cfg.family != "dense":
-        raise NotImplementedError(
-            f"the FSDP training layout (param_pspecs over 'data') of the {cfg.family} family "
-            "is not ported (ROADMAP A12e-6); shard_model(serving=False) places the dense family")
     device = mesh_device(mesh)
     axes = mesh_axes(mesh, data_axes(mesh), "model")
     skeleton = model_zoo.build(cfg, torch.device("meta"))

@@ -35,7 +35,11 @@ norm's statistics, a zero-filled gather: each rank reads its own part of
 the sum) sums the ranks' cotangents; `enter` (where a whole activation
 or a whole leaf meets a rank's own block of a product or a norm: the
 column-parallel products, ``norm_split``'s scale) is the identity and
-sums the cotangent in the backward. Without autograd every collective is
+sums the cotangent in the backward. `gather_columns` assembles an
+activation from its column blocks and, by its call site, either sums
+the cotangent (each rank then reads only its own part of the whole) or
+keeps the rank's own (each rank runs the whole in a computation whose
+result every rank reads whole). Without autograd every collective is
 the in-place all-reduce it was, so serving issues the same collectives.
 """
 
@@ -284,7 +288,8 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = all_reduce(_copy(g), ctx.tp)
-        return g.narrow(ctx.dim, ctx.tp.rank * ctx.n, ctx.n), None, None, None
+        # a copy of the block, so the whole buffer is freed at once
+        return _copy(g.narrow(ctx.dim, ctx.tp.rank * ctx.n, ctx.n)), None, None, None
 
 
 def _gathered(t: torch.Tensor, whole: int, dim: int, tp) -> torch.Tensor:
@@ -308,17 +313,29 @@ def gather_block(t: torch.Tensor, whole: int, dim: int, tp) -> torch.Tensor:
     return _gathered(t, whole, dim, tp)
 
 
-def gather_columns(parts, widths, tp) -> list:
+def gather_columns(parts, widths, tp, *, backward: str = "sum") -> list:
     """Whole tensors from column blocks: each of ``parts`` is this rank's
     contiguous block of the last dim of a tensor ``widths[i]`` wide (the
     block at ``tp.rank * block``), or already whole. The split ones are
     written at their offsets into one zero-filled buffer, summed by one
     all-reduce over ``tp``'s group (x + 0 = x, so it is exact: a gather)
     and cut apart again; the whole ones pass as they are. The split
-    parts share one dtype. Under autograd the backward sums the
-    cotangent over the group and keeps each part's block (`sum_partial`:
-    each rank uses its own part of the whole downstream, as the "whole"
-    attention layout's ``wo`` and `column_parallel`'s products do)."""
+    parts share one dtype.
+
+    Under autograd each part's block takes, by ``backward``:
+
+      * "sum": the cotangent summed over the group (`sum_partial`), where
+        each rank then reads only its own part of the whole: the "whole"
+        attention layout's ``wo`` (its rows of every head's output),
+        `column_parallel`'s products (its columns), a recurrence on its
+        own heads;
+      * "keep": the rank's own cotangent (`sum_replicated`), where every
+        rank reads the whole in a replicated computation whose result
+        every rank uses whole, so each already holds the whole cotangent
+        (a block a replicated feed-forward reads; summing would count it
+        once a rank)."""
+    if backward not in ("sum", "keep"):
+        raise ValueError(f"unknown backward {backward!r}")
     split = [c.shape[-1] != w for c, w in zip(parts, widths)]
     if not any(split):
         return list(parts)
@@ -334,7 +351,7 @@ def gather_columns(parts, widths, tp) -> list:
             off += w
         else:
             spans.append(None)
-    buf = sum_partial(buf, tp)
+    buf = sum_partial(buf, tp) if backward == "sum" else sum_replicated(buf, tp)
     return [c if span is None else buf[..., span[0] : span[1]]
             for c, span in zip(parts, spans)]
 

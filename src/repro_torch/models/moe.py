@@ -13,9 +13,12 @@ loss, the router z-loss and the share of pairs dropped.
 
 The combine is a (T, K, D) product summed over K in k order, not an
 atomic scatter-add, so it is deterministic on the card for any top-k.
-`moe_ffn_local` without a mesh is `moe_ffn`, as in the reference; on a
-mesh it is the shard-local dispatch (each data shard slots its own
-tokens, the experts' ff dim split over "model", one all-reduce).
+`moe_ffn_local` without a mesh is `moe_ffn`, as in the reference. On a
+mesh, `moe_ffn_mesh` runs a rank's rows against its ff blocks of the
+experts with either slotting: the global batch's (``moe_impl="gather"``,
+what the reference's jitted `moe_ffn` computes, by one small exchange of
+the workers' expert counts) or each data shard's own
+(``moe_impl="local"``, `moe_ffn_local`).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 
-__all__ = ["combine", "init_moe", "moe_ffn", "moe_ffn_local", "route"]
+__all__ = ["combine", "init_moe", "moe_ffn", "moe_ffn_local", "moe_ffn_mesh", "route"]
 
 
 def init_moe(d_model: int, d_ff: int, num_experts: int, dtype, *, generator=None,
@@ -49,33 +52,52 @@ def route(router: torch.Tensor, xt: torch.Tensor, *, num_experts: int, top_k: in
     (``experts`` (T, K), ``weights`` (T, K), ``keep`` / ``slot`` (T*K,),
     ``slot_token`` / ``slot_used`` (E*C + 1,), ``capacity``, ``probs``,
     ``logits``)."""
-    t = xt.shape[0]
-    e = num_experts
+    r = _router(router, xt, top_k)
+    # Python's round (halves to even), as the reference computes it
+    capacity = int(max(1, round(xt.shape[0] * top_k / num_experts * capacity_factor)))
+    r.update(_slots(r["experts"], num_experts, capacity))
+    return r
+
+
+def _router(router: torch.Tensor, xt: torch.Tensor, top_k: int) -> dict:
+    """The f32 router on ``xt`` (T, D): logits and probabilities (T, E),
+    each token's top-k experts in descending order of probability (the
+    lower expert first on a tie) and their renormalised weights."""
     logits = torch.matmul(xt.to(torch.float32), router.to(torch.float32))  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     weights, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, experts = weights[:, :top_k], experts[:, :top_k]
     weights = weights / torch.clamp_min(torch.sum(weights, dim=-1, keepdim=True), 1e-9)
+    return dict(logits=logits, probs=probs, weights=weights, experts=experts)
 
-    # Python's round (halves to even), as the reference computes it
-    capacity = int(max(1, round(t * top_k / e * capacity_factor)))
+
+def _slots(experts: torch.Tensor, e: int, capacity: int, *, offset=None, rows=None) -> dict:
+    """The capacity slotting of the (T, K) ``experts``: each (token, k)
+    pair's position among its expert's pairs by an exclusive cumulative
+    sum in token-major order, plus ``offset`` (E,) (the pairs routed to
+    that expert ahead of these tokens, on a mesh), kept below
+    ``capacity``; a kept pair takes slot ``expert * rows + position``
+    (its position among these tokens' pairs) of an (E * rows + 1,) table,
+    ``rows`` (by default ``capacity``) the buffer's depth an expert. The
+    last slot swallows the drops."""
+    t, top_k = experts.shape
+    rows = capacity if rows is None else rows
     flat_expert = experts.reshape(-1)  # (T*K,)
     onehot = F.one_hot(flat_expert, e).to(torch.int32)  # (T*K, E)
     pos_in_expert = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot  # exclusive
     pos = torch.sum(pos_in_expert * onehot, dim=1)  # (T*K,)
-    keep = pos < capacity
-    slot = flat_expert * capacity + pos
-    slot = torch.where(keep, slot, e * capacity)  # the overflow slot, dropped below
+    keep = (pos if offset is None else pos + offset[flat_expert]) < capacity
+    slot = flat_expert * rows + pos
+    slot = torch.where(keep, slot, e * rows)  # the overflow slot, dropped below
 
-    token_of_pair = torch.arange(t, device=xt.device).repeat_interleave(top_k)
+    token_of_pair = torch.arange(t, device=experts.device).repeat_interleave(top_k)
     # kept slots are unique; the overflow slot's token is masked by slot_used
-    slot_token = torch.zeros((e * capacity + 1,), dtype=torch.int64, device=xt.device)
+    slot_token = torch.zeros((e * rows + 1,), dtype=torch.int64, device=experts.device)
     slot_token.index_put_((slot,), token_of_pair)
-    slot_used = torch.zeros((e * capacity + 1,), dtype=torch.bool, device=xt.device)
+    slot_used = torch.zeros((e * rows + 1,), dtype=torch.bool, device=experts.device)
     slot_used.index_put_((slot,), keep)
     slot_token = torch.where(slot_used, slot_token, 0)
-    return dict(logits=logits, probs=probs, weights=weights, experts=experts,
-                capacity=capacity, keep=keep, slot=slot, slot_token=slot_token,
+    return dict(capacity=rows, keep=keep, slot=slot, slot_token=slot_token,
                 slot_used=slot_used)
 
 
@@ -96,34 +118,41 @@ def _moe_core(params, x: torch.Tensor, *, num_experts: int, top_k: int,
     xt = x.reshape(t, d)
     r = route(params["router"], xt, num_experts=e, top_k=top_k,
               capacity_factor=capacity_factor)
-    capacity, keep, slot = r["capacity"], r["keep"], r["slot"]
 
-    # --- aux losses ---
-    # load balance (Switch): E * sum_e f_e * p_e
+    out = combine(_expert_ffn(params, xt, r, e, x.dtype), r["slot"], r["keep"], r["weights"])
+    return out.reshape(b, s, d), _aux(r, e)
+
+
+def _aux(r: dict, e: int) -> dict:
+    """The aux terms of one shard's routing ``r``: the Switch load-balance
+    loss E * sum_e f_e * p_e, the router z-loss, the share of pairs
+    dropped."""
     me = torch.mean(r["probs"], dim=0)
     fe = torch.mean(F.one_hot(r["experts"][:, 0], e).to(torch.float32), dim=0)
-    load_balance = e * torch.sum(fe * me)
     z = torch.logsumexp(r["logits"], dim=-1)
-    z_loss = torch.mean(z * z)
+    return {"load_balance_loss": e * torch.sum(fe * me), "router_z_loss": torch.mean(z * z),
+            "drop_frac": 1.0 - torch.mean(r["keep"].to(torch.float32))}
 
+
+def _expert_ffn(params, xt: torch.Tensor, r: dict, e: int, dtype) -> torch.Tensor:
+    """(E*C, D) in ``_out_proj_dtype()``: each slot's token (``r``'s
+    ``slot_token`` where ``slot_used``, else zeros) through its expert's
+    SwiGLU, batched over the expert dim (``params``' ff blocks, when
+    split, give the partial product over ff)."""
+    d = xt.shape[-1]
+    capacity = r["capacity"]
     # --- dispatch: gather each slot's token ---
     slot_used = r["slot_used"][:-1]
-    xe = xt[r["slot_token"][:-1]] * slot_used[:, None].to(x.dtype)
+    xe = xt[r["slot_token"][:-1]] * slot_used[:, None].to(dtype)
     xe = xe.reshape(e, capacity, d)
 
     # --- expert FFN (batched over E) ---
-    g = L.boundary_cast(L._einsum("ecd,edf->ecf", xe, params["w_gate"]), x.dtype)
-    u = L.boundary_cast(L._einsum("ecd,edf->ecf", xe, params["w_up"]), x.dtype)
-    h = (F.silu(g) * u).to(x.dtype)
+    g = L.boundary_cast(L._einsum("ecd,edf->ecf", xe, params["w_gate"]), dtype)
+    u = L.boundary_cast(L._einsum("ecd,edf->ecf", xe, params["w_up"]), dtype)
+    h = (F.silu(g) * u).to(dtype)
     out_dt = L._out_proj_dtype()
     ye = torch.einsum("ecf,efd->ecd", h.to(out_dt), params["w_down"].to(out_dt))
-    ye = ye.reshape(e * capacity, d)
-
-    out = combine(ye, slot, keep, r["weights"])
-
-    drop_frac = 1.0 - torch.mean(keep.to(torch.float32))
-    aux = {"load_balance_loss": load_balance, "router_z_loss": z_loss, "drop_frac": drop_frac}
-    return out.reshape(b, s, d), aux
+    return ye.reshape(e * capacity, d)
 
 
 def combine(ye: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
@@ -152,36 +181,113 @@ def moe_ffn_local(params, x: torch.Tensor, *, num_experts: int, top_k: int,
     ``mesh`` (a `DeviceMesh`; by default the one `L.set_sharding_rules`
     installed): ``x`` is this rank's data shard of the tokens, routed and
     slotted on the shard alone, so capacity is enforced per shard (drops
-    depend on the shard's own token mix) and no token crosses ranks. The
-    experts arrive with their ff dim this rank's block over "model"
-    (``w_gate`` / ``w_up`` (E, D, F/m), ``w_down`` (E, F/m, D)) and the
-    router whole; the dispatch, expert products and combine on them leave
-    the output partial over ff, and one all-reduce over the model group
-    completes it, in ``_out_proj_dtype()`` as the dense row-parallel
-    products reduce (f32, or bf16 under ``set_tp_reduce_dtype(bf16)``,
-    the reference's ``psum`` of the bf16 output), before the cast to
-    ``x``'s dtype. The aux terms
-    are averaged over the data axes (a SUM, then a divide: the
-    reference's ``pmean``). Without a mesh: `moe_ffn` (one shard).
+    depend on the shard's own token mix) and no token crosses ranks; the
+    aux terms are averaged over the data axes (the reference's ``pmean``).
+    The experts arrive with their ff dim this rank's block over "model"
+    (`moe_ffn_mesh`). Without a mesh: `moe_ffn` (one shard).
     """
     mesh = mesh if mesh is not None else L._ACTIVE_MESH
     kw = dict(num_experts=num_experts, top_k=top_k, capacity_factor=capacity_factor)
     if mesh is None:  # no mesh -> identical math, one shard
         return moe_ffn(params, x, **kw)
-    from repro_torch.core.distributed import all_reduce, mesh_axes
+    from repro_torch.core.distributed import mesh_axes
     from repro_torch.distributed.sharding import data_axes
 
     axes = mesh_axes(mesh, data_axes(mesh), "model")
-    with L.manual_mode():
-        out, aux = _moe_core(params, x, **kw)
-    out = out.to(L._out_proj_dtype())
-    if axes.model_group is not None:
-        all_reduce(out, axes.model_group)  # complete the ff contraction
-    out = out.to(x.dtype)
-    if axes.data_groups:
-        buf = torch.stack([aux[k].to(torch.float32) for k in _AUX])
-        for group in axes.data_groups:
-            all_reduce(buf, group)
-        buf = buf / axes.num_workers
-        aux = dict(zip(_AUX, buf.unbind()))
-    return out, aux
+    tp = L.TP(axes.model_group, axes.model_rank, axes.model_size)
+    return moe_ffn_mesh(params, x, axes=axes, tp=tp, global_slots=False, **kw)
+
+
+def moe_ffn_mesh(params, x: torch.Tensor, *, num_experts: int, top_k: int,
+                 capacity_factor: float, axes, tp, global_slots: bool = True
+                 ) -> Tuple[torch.Tensor, dict]:
+    """The MoE FFN on a rank of a mesh: ``x`` (B, S, D) this data
+    replica's rows (whole over "model"), ``params``' router whole and its
+    experts' ff dim this rank's block over ``tp`` (the model group:
+    ``w_gate`` / ``w_up`` (E, D, F/m), ``w_down`` (E, F/m, D)); ``axes``
+    the rank's `MeshAxes` (its data groups and its worker index over the
+    data axes, the order `sharding.batch_pspec` splits rows in).
+
+    ``global_slots`` (``moe_impl="gather"``) computes what the reference's
+    jitted `moe_ffn` computes over the global batch: the capacity is
+    ``round(T K / E cf)`` of the global T, and a pair's position is its
+    exclusive position among its expert's pairs in the global token
+    order. A replica's rows are a contiguous block of that order, so the
+    position is the pair's local position plus the pairs routed to its
+    expert on the workers before this one: each worker's (E,) top-k
+    counts are exchanged by one all-reduce of a zero-filled (workers, E)
+    buffer over the data axes (none where the capacity holds every pair
+    of the global batch). An expert's output for a token does not depend
+    on its slot, so each rank runs its own kept pairs in an (E, C, D)
+    buffer, C the capacity or the rank's pair count if smaller, and no
+    token crosses ranks. The aux terms are the global batch's: the sums
+    over data of the routing probabilities, the top-1 counts and the
+    squared router log-normalisers, over the global T (the load-balance
+    loss a product of global means), ``drop_frac`` from the global kept
+    count, the same bits on every rank. With ``global_slots`` False
+    (``moe_impl="local"``) each replica slots its own rows at its own
+    capacity and the aux terms are the mean over the data axes of each
+    replica's.
+
+    The expert products on the rank's ff block leave the output partial
+    over ff: it is summed over ``tp`` in ``_out_proj_dtype()``, as the
+    dense row-parallel products reduce, before the cast to ``x``'s dtype.
+    Under autograd the tokens and the routing weights enter the ff-split
+    experts (`layers.enter`: their cotangents summed over the model
+    group), the output's sum passes its cotangent through
+    (`layers.sum_replicated`), and the aux sums over data pass theirs
+    through: every rank holds the whole aux terms with their whole
+    cotangent, so each replica's router gradient is its share of the
+    global one (the train step sums them over data and counts the aux
+    terms once in the reported loss)."""
+    b, s, d = x.shape
+    t = b * s
+    e = num_experts
+    xt = x.reshape(t, d)
+    n = axes.num_workers if axes.data_groups else 1
+    data = [L.TP(group, 0, 0) for group in axes.data_groups]  # the sums read only the group
+    r = _router(params["router"], xt, top_k)
+    if global_slots:
+        capacity = int(max(1, round(t * n * top_k / e * capacity_factor)))
+        # every pair kept where the capacity is at least the global pair count
+        counts, offset = None, None
+        if capacity < t * n * top_k:
+            counts = torch.bincount(r["experts"].reshape(-1), minlength=e).to(torch.float32)
+            if n > 1:
+                buf = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+                buf[axes.worker] = counts
+                for tp_d in data:
+                    L.all_reduce(buf, tp_d)
+                offset = torch.sum(buf[: axes.worker], dim=0).to(torch.int32)
+                counts = torch.sum(buf, dim=0)
+        r.update(_slots(r["experts"], e, capacity, offset=offset, rows=min(capacity, t * top_k)))
+    else:
+        capacity = int(max(1, round(t * top_k / e * capacity_factor)))
+        r.update(_slots(r["experts"], e, capacity))
+
+    xd = L.enter(xt, tp)  # the tokens meet the ff-split experts
+    ye = _expert_ffn(params, xd, r, e, x.dtype)
+    out = combine(ye, r["slot"], r["keep"], L.enter(r["weights"], tp))
+    out = L.sum_replicated(out.to(L._out_proj_dtype()), tp)  # complete the ff contraction
+    out = out.to(x.dtype).reshape(b, s, d)
+
+    if not global_slots:
+        local = torch.stack([v.to(torch.float32) for v in _aux(r, e).values()])
+        for tp_d in data:
+            local = L.sum_replicated(local, tp_d)
+        aux = local / n if n > 1 else local
+        return out, dict(zip(_AUX, aux.unbind()))
+    # (E,) probability sums, the squared log-normalisers' sum, (E,) top-1 counts
+    z = torch.logsumexp(r["logits"], dim=-1)
+    top1 = torch.sum(F.one_hot(r["experts"][:, 0], e).to(torch.float32), dim=0)
+    sums = torch.cat([torch.sum(r["probs"], dim=0), torch.sum(z * z)[None], top1])
+    for tp_d in data:
+        sums = L.sum_replicated(sums, tp_d)
+    t_all = t * n
+    kept = (float(t_all * top_k) if counts is None
+            else torch.sum(torch.clamp_max(counts, float(capacity))))
+    load_balance = e * torch.sum((sums[e + 1 :] / t_all) * (sums[:e] / t_all))
+    z_loss = sums[e] / t_all
+    drop_frac = 1.0 - torch.as_tensor(kept, dtype=torch.float32, device=x.device) / (t_all * top_k)
+    return out, {"load_balance_loss": load_balance, "router_z_loss": z_loss,
+                 "drop_frac": drop_frac}

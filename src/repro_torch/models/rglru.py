@@ -41,6 +41,12 @@ blocks of each parameter and a `ShardPlan` in ``tp``:
   * GeGLU MLP: ff-split, one all-reduce after ``w_down``;
   * vocab-parallel embedding and tied logits (`transformer.embed_tokens`,
     `Model.greedy_pick`).
+
+Under the training layout (``shard_model(serving=False)``) every layer's
+leaves are read through `Model.weights`, so a block split over "data"
+is gathered whole where it is read; under autograd the whole activation
+enters the channel blocks (`layers.enter`) and the assembled ``u``, read
+only through the rank's gate columns, sums its cotangent.
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.base import Group, Model, model_dtype
 from repro_torch.models.layers import AttnSpec
 from repro_torch.models.transformer import (
-    _placed, _whole, attn_output, attn_project, embed_tokens, heads_spec,
+    _placed, _whole, attn_output, attn_project, embed_tokens, heads_spec, unembed,
 )
 
 __all__ = [
@@ -175,6 +181,7 @@ def rg_lru_block(p, x: torch.Tensor, *, decode_state=None, tp=None) -> tuple:
     the module docstring) and the state its channels.
     """
     dt = x.dtype
+    x = L.enter(x, tp)  # the whole activation meets the channel blocks
     branch = L._dot(x, p["w_in"]).to(dt)
     gate = F.gelu(L._dot(x, p["w_gate_branch"]), approximate="tanh").to(dt)
 
@@ -279,8 +286,8 @@ class HybridLM(Model):
         self.tp = None  # a ShardPlan on a rank-local model
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = L.rms_norm(self.final_norm, x, self.cfg.norm_eps)
-        return L._dot(x, self.embed["table"].T)  # tied embeddings (vocab-sharded on a rank)
+        x = L.rms_norm(self.weights(self.final_norm), x, self.cfg.norm_eps)
+        return unembed(self, x, tied=True)  # tied embeddings (vocab-sharded on a rank)
 
     def _tp(self, part: str):
         """The model group ``part`` ("lru" or "mlp") reduces over, None
@@ -314,6 +321,7 @@ class HybridLM(Model):
         x = embed_tokens(self, tokens)
         positions = self._positions(b, s)
         for li, lp in enumerate(self.layers):
+            lp = self.weights(lp)
             h = L.rms_norm(lp.temporal_norm, x, cfg.norm_eps)
             if block_kind(cfg, li) == "attention":
                 y = self._attend(lp, h, positions)[0]
@@ -336,6 +344,7 @@ class HybridLM(Model):
         attn_k, attn_v = list(cache.attn_k), list(cache.attn_v)
         lru_h, conv = list(cache.lru_h), list(cache.conv)
         for li, lp in enumerate(self.layers):
+            lp = self.weights(lp)
             h = L.rms_norm(lp.temporal_norm, x, cfg.norm_eps)
             if block_kind(cfg, li) == "attention":
                 y, k, v = self._attend(lp, h, positions)
@@ -369,6 +378,7 @@ class HybridLM(Model):
         attn_k, attn_v = list(cache.attn_k), list(cache.attn_v)
         lru_h, conv = list(cache.lru_h), list(cache.conv)
         for li, lp in enumerate(self.layers):
+            lp = self.weights(lp)
             h = L.rms_norm(lp.temporal_norm, x, cfg.norm_eps)
             if block_kind(cfg, li) == "attention":
                 # ring-buffer local window: slot = pos % window, written in place

@@ -52,7 +52,9 @@ over the model group:
     of the exp sums, the probabilities cast as the one-device softmax
     casts them, a SUM of the p.V partials; the new key written by the
     rank whose range holds the position);
-  * MLP: one all-reduce after ``w_down``; MoE: `moe_ffn_local`'s mesh form;
+  * MLP: one all-reduce after ``w_down``; MoE: `moe.moe_ffn_mesh`, the
+    global batch's slotting (``moe_impl="gather"``) or each data shard's
+    (``"local"``), the experts' ff blocks and one all-reduce;
   * column-parallel unembedding: the logits stay vocab-sharded (no
     gather of (B, S, V)); `greedy_pick` reduces the argmax over the group
     (MAX of the values, then MIN of the indices holding it).
@@ -73,7 +75,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.base import Group, Model, TensorSpec, model_dtype
 from repro_torch.models.layers import AttnSpec
-from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_local
+from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_local, moe_ffn_mesh
 
 __all__ = [
     "KVCache", "TensorSpec", "Transformer", "attn_output", "attn_project", "embed_tokens",
@@ -157,10 +159,13 @@ def embed_tokens(model: Model, tokens: torch.Tensor, *, scale: bool = True) -> t
     return x
 
 
-def unembed(model: Model, x: torch.Tensor) -> torch.Tensor:
+def unembed(model: Model, x: torch.Tensor, *, tied: Optional[bool] = None) -> torch.Tensor:
     """(..., D) -> (..., V) f32 logits; this rank's vocabulary columns
-    (`ShardPlan.logits`) where the unembedding is split."""
-    if model.cfg.tie_embeddings:
+    (`ShardPlan.logits`) where the unembedding is split. ``tied`` (by
+    default the config's ``tie_embeddings``; the RG-LRU hybrid ties its
+    table although its config leaves that False): the embedding table's
+    transpose, else ``lm_head.w``."""
+    if model.cfg.tie_embeddings if tied is None else tied:
         w = model.weights(model.embed)["table"].T
     else:
         w = model.weights(model.lm_head)["w"]
@@ -348,12 +353,10 @@ class Transformer(Model):
         kw = dict(num_experts=cfg.num_experts, top_k=cfg.experts_per_token,
                   capacity_factor=capacity_factor)
         if plan is not None:
-            if (cfg.moe_impl != "local" and plan.axes.num_workers > 1
-                    and capacity_factor < cfg.num_experts):
-                raise ValueError(
-                    "moe_impl='gather' slots tokens across the data shards; a rank-local "
-                    "model routes each shard's own tokens (moe_impl='local')")
-            return moe_ffn_local(lp.moe, h, mesh=plan.mesh, **kw)
+            if cfg.moe_impl not in ("gather", "local"):
+                raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
+            return moe_ffn_mesh(lp.moe, h, axes=plan.axes, tp=plan.tp,
+                                global_slots=cfg.moe_impl == "gather", **kw)
         ffn = moe_ffn_local if cfg.moe_impl == "local" else moe_ffn
         return ffn(lp.moe, h, **kw)
 

@@ -21,6 +21,11 @@ block ends inside a head ("whole"); the GELU MLPs are ff-split with
 ``b_down`` added once after the all-reduce; the embedding and the tied
 logits are vocab-sharded where the vocabulary divides (51,865 does not,
 so at full size they stay whole); ``dec_pos`` is replicated.
+
+Under the training layout (``shard_model(serving=False)``) every
+layer's leaves are read through `Model.weights`, so a block split over
+"data" is gathered whole where it is read; ``encoder_frames`` are the
+data replica's rows.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.base import Group, Model, model_dtype
 from repro_torch.models.layers import AttnSpec
 from repro_torch.models.transformer import (
-    _decode_whole, _placed, _whole, attn_output, attn_project, embed_tokens, heads_spec,
+    _decode_whole, _placed, _whole, attn_output, attn_project, embed_tokens, heads_spec, unembed,
 )
 
 __all__ = ["Whisper", "WhisperCache", "init_cache", "init_params"]
@@ -150,12 +155,13 @@ class Whisper(Model):
         pos = torch.arange(s, dtype=torch.int32, device=frames.device)
         local = heads_spec(spec, self.tp)
         for lp in self.enc_layers:
+            lp = self.weights(lp)
             h = L.layer_norm(lp.attn_norm, x, cfg.norm_eps)
             q, k, v = attn_project(lp.attn, h, spec, self.tp)
             x = x + attn_output(lp.attn, L.attention(q, k, v, local, pos, pos), self.tp)
             h = L.layer_norm(lp.mlp_norm, x, cfg.norm_eps)
             x = x + self._mlp(lp, h)
-        return L.layer_norm(self.enc_norm, x, cfg.norm_eps)
+        return L.layer_norm(self.weights(self.enc_norm), x, cfg.norm_eps)
 
     def _encoded(self, b: int, encoder_frames: Optional[torch.Tensor]) -> torch.Tensor:
         if encoder_frames is None:
@@ -170,8 +176,8 @@ class Whisper(Model):
         return embed_tokens(self, tokens, scale=False) + self._dec_pos_embed(pos)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = L.layer_norm(self.dec_norm, x, self.cfg.norm_eps)
-        return L._dot(x, self.embed["table"].T)  # tied (vocab-sharded on a rank)
+        x = L.layer_norm(self.weights(self.dec_norm), x, self.cfg.norm_eps)
+        return unembed(self, x)  # tied; vocab-sharded on a rank where it divides
 
     def _decoder(self, tokens: torch.Tensor, enc: torch.Tensor, max_len: int = 0) -> tuple:
         """The teacher-forced decoder from position 0; with ``max_len``
@@ -185,6 +191,7 @@ class Whisper(Model):
         self_local, cross_local = heads_spec(self_spec, self.tp), heads_spec(cross_spec, self.tp)
         sk, sv, xk, xv = [], [], [], []
         for lp in self.dec_layers:
+            lp = self.weights(lp)
             h = L.layer_norm(lp.self_norm, x, cfg.norm_eps)
             q, k, v = attn_project(lp.self_attn, h, self_spec, self.tp)
             x = x + attn_output(lp.self_attn, L.attention(q, k, v, self_local, pos, pos),
@@ -231,6 +238,7 @@ class Whisper(Model):
         whole = plan is not None and plan.attn == "whole"
         groups = cross_local.num_heads // cross_local.num_kv_heads
         for li, lp in enumerate(self.dec_layers):
+            lp = self.weights(lp)
             h = L.layer_norm(lp.self_norm, x, cfg.norm_eps)
             if whole:
                 attn_out = _decode_whole(lp.self_attn, h, cache.self_k[li], cache.self_v[li],

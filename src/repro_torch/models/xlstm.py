@@ -39,6 +39,19 @@ how each block computes:
     xlstm-125m);
   * vocab-parallel embedding (unscaled) and an ``lm_head`` whose column
     blocks give vocab-sharded logits (`Model.greedy_pick`).
+
+Under the training layout (``shard_model(serving=False)``) every layer's
+leaves are read through `Model.weights`, so a block split over "data"
+(``w_if``'s rows, the gates' and the feed-forward's d_model dim) is
+gathered whole where it is read. Under autograd each assembled tensor
+takes the backward its readers imply (`layers.gather_columns`): summed
+where each rank reads its own part (the mLSTM's up-projection, conv
+and q / k / v under "heads" and "whole", which end in ``w_down``'s row
+blocks; the sLSTM's gate inputs under "heads"), the rank's own where
+every rank runs the rest whole (the sLSTM's hidden states before a
+replicated feed-forward); a whole leaf or activation read in part
+enters it (`layers.enter`: ``w_if``, ``b_i``, ``b_f``, ``b_gates``,
+the block's input).
 """
 
 from __future__ import annotations
@@ -52,7 +65,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.base import Group, Model, model_dtype
-from repro_torch.models.transformer import _placed, _whole, embed_tokens
+from repro_torch.models.transformer import _placed, _whole, embed_tokens, unembed
 
 __all__ = [
     "MLSTMState", "SLSTMState", "XLSTM", "XLSTMCache", "init_cache", "init_params", "is_slstm",
@@ -243,7 +256,16 @@ def mlstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
     dt = x.dtype
     b, s, _ = x.shape
     f32 = torch.float32
-    (up,) = L.gather_columns([L._dot(x, p["w_up"]).to(dt)], [2 * d_inner], tp)
+    # Under autograd: "heads" and "whole" end in w_down's row blocks, so
+    # every tensor assembled below feeds only the rank's part of the output
+    # (its cotangent summed over the group, `gather_columns`' "sum"), and a
+    # whole leaf read there meets that part (`layers.enter`); "replicated"
+    # runs the block whole on every rank ("keep")
+    split = layout != "replicated"
+    if p["w_up"].shape[-1] != 2 * d_inner:
+        x = L.enter(x, tp)  # the whole activation meets w_up's column block
+    (up,) = L.gather_columns([L._dot(x, p["w_up"]).to(dt)], [2 * d_inner], tp,
+                             backward="sum" if split else "keep")
     inner, z = up[..., :d_inner], up[..., d_inner:]
     # this rank's conv channels of the x branch (every channel when replicated)
     c_n = p["conv_b"].shape[0]
@@ -273,9 +295,10 @@ def mlstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
         qkv = L.gather_columns(qkv, [d_inner] * 3, tp)
     h_lo, h_n = (tp.rank * (h // tp.size), h // tp.size) if layout == "heads" else (0, h)
     q, k, v = (t.reshape(b, s, h_n, dh) for t in qkv)
-    gates = torch.matmul(inner.to(f32), p["w_if"])  # (B,S,2H)
-    log_i = (gates[..., :h] + p["b_i"])[..., h_lo : h_lo + h_n]
-    log_f = F.logsigmoid(gates[..., h:] + p["b_f"])[..., h_lo : h_lo + h_n]
+    w_if, b_i, b_f = (L.enter(p[n], tp) if split else p[n] for n in ("w_if", "b_i", "b_f"))
+    gates = torch.matmul(inner.to(f32), w_if)  # (B,S,2H)
+    log_i = (gates[..., :h] + b_i)[..., h_lo : h_lo + h_n]
+    log_f = F.logsigmoid(gates[..., h:] + b_f)[..., h_lo : h_lo + h_n]
 
     if state is None:
         state = _zero_mlstm_state(cfg, b, dt, x.device, heads=h_n, conv_width=c_n)
@@ -292,7 +315,8 @@ def mlstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
         h_mixed = L.norm_split(p["mix_norm"], h_out, cfg.norm_eps, tp)
         z = z[..., h_lo * dh : (h_lo + h_n) * dh]
     else:
-        h_mixed = L.rms_norm(p["mix_norm"], h_out, cfg.norm_eps)
+        norm = {"scale": L.enter(p["mix_norm"]["scale"], tp) if split else p["mix_norm"]["scale"]}
+        h_mixed = L.rms_norm(norm, h_out, cfg.norm_eps)
     y = h_mixed * F.silu(z.to(f32)).to(dt)
     if layout == "replicated":
         return L._dot(y, p["w_down"]).to(dt), state
@@ -353,10 +377,23 @@ def slstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None, tp=None,
     state holds the rank's heads' channels."""
     b, s, d = x.shape
     dt = x.dtype
-    # w_gates' column blocks are whole gates: assemble the 4D gate inputs
-    (xg,) = L.gather_columns([L._dot(x, p["w_gates"])], [4 * d], tp)
-    xg = xg + p["b_gates"]
+    # Under autograd the feed-forward decides the cotangents: a replicated
+    # one ("replicated") gives every rank the whole cotangent of the block's
+    # output, so the assembled hidden states and, under "whole", the
+    # assembled gate inputs keep the rank's own (`gather_columns`' "keep");
+    # an ff-split one gives each rank its part, summed where assembled, and
+    # every whole leaf read on the way meets that part (`layers.enter`).
+    # Under "heads" the recurrence runs on the rank's heads, whose gate
+    # inputs and bias slice each rank reads alone
+    part = ffn == "ff"
+    if p["w_gates"].shape[-1] != 4 * d:
+        x = L.enter(x, tp)  # the whole activation meets w_gates' column block
+    (xg,) = L.gather_columns([L._dot(x, p["w_gates"])], [4 * d], tp,
+                             backward="sum" if part or layout == "heads" else "keep")
+    xg = xg + (L.enter(p["b_gates"], tp) if part or layout == "heads" else p["b_gates"])
     r = p["r_gates"]
+    if layout == "whole" and part:
+        r = L.enter(r, tp)
     n = r.shape[1] * r.shape[2]
     if layout == "heads":  # this rank's heads: their channels of each gate
         lo = tp.rank * n
@@ -365,8 +402,9 @@ def slstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None, tp=None,
         z = torch.zeros((b, n), dtype=torch.float32, device=x.device)
         state = SLSTMState(z, z, z, z)
     h, state = _slstm_scan(r, xg, state)
-    (h,) = L.gather_columns([h.to(dt)], [d], tp)
-    h = L.rms_norm(p["group_norm"], h, cfg.norm_eps)
+    (h,) = L.gather_columns([h.to(dt)], [d], tp, backward="sum" if part else "keep")
+    scale = p["group_norm"]["scale"]
+    h = L.rms_norm({"scale": L.enter(scale, tp) if part else scale}, h, cfg.norm_eps)
     g = L._dot(h, p["w_ff_gate"])
     u = L._dot(h, p["w_ff_up"])
     y = (F.gelu(g, approximate="tanh") * u).to(dt)
@@ -437,8 +475,8 @@ class XLSTM(Model):
         self.tp = None  # a ShardPlan on a rank-local model
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = L.rms_norm(self.final_norm, x, self.cfg.norm_eps)
-        return L._dot(x, self.lm_head["w"])  # vocab-sharded on a rank
+        x = L.rms_norm(self.weights(self.final_norm), x, self.cfg.norm_eps)
+        return unembed(self, x)  # lm_head, vocab-sharded on a rank
 
     def _layers(self, x: torch.Tensor, ms: list, ss: list, *, single_step: bool) -> torch.Tensor:
         """Every block over x; ``ms`` / ``ss`` hold each layer's state in
@@ -446,6 +484,7 @@ class XLSTM(Model):
         cfg, plan = self.cfg, self.tp
         tp, lay = (plan.tp, plan.layout) if plan is not None else (None, _REPLICATED)
         for li, lp in enumerate(self.layers):
+            lp = self.weights(lp)
             h = L.rms_norm(lp.norm, x, cfg.norm_eps)
             if is_slstm(cfg, li):
                 y, ss[li] = slstm_block(lp.slstm, h, cfg, state=ss[li], tp=tp,

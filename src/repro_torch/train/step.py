@@ -24,7 +24,11 @@ computes over the whole batch:
 
   * the loss is the global batch's masked mean: each data replica's
     numerator over the denominator summed over the data axes, so the
-    replicas' gradients sum to the global one; the logits are split over
+    replicas' gradients sum to the global one; the MoE aux terms are the
+    global batch's on every rank (`models.moe.moe_ffn_mesh`: their sums
+    over data pass the cotangent through), so each rank differentiates
+    its share of the loss plus the whole aux term, and the reported loss
+    is the shares' sum plus the aux term once; the logits are split over
     the vocabulary on the model axis, and the cross-entropy is taken
     vocab-parallel (the max, then the sum of the exps and the target's
     logit, reduced over "model"), so no rank gathers (B, S, V) logits;
@@ -136,13 +140,28 @@ def _extras(batch: dict) -> dict:
 def make_loss_fn(model, *, aux_weight: float = 1e-2, z_loss: float = 1e-4) -> Callable:
     """The train step's ``loss_fn(batch) -> (loss, ce, aux)`` over the
     model's own parameters (the reference's inner ``loss_fn``). On a
-    mesh ``batch`` is this data replica's rows, and loss and ce are its
-    share of the global means (see the module docstring)."""
+    mesh ``batch`` is this data replica's rows, ce its share of the
+    global mean and loss the objective the rank differentiates: its share
+    of the global loss plus the whole aux term (see the module
+    docstring)."""
+    parts = _loss_parts(model, aux_weight=aux_weight, z_loss=z_loss)
+
+    def loss_fn(batch):
+        share, ce, aux, aux_term = parts(batch)
+        return share + aux_term, ce, aux
+
+    return loss_fn
+
+
+def _loss_parts(model, *, aux_weight: float, z_loss: float) -> Callable:
+    """``parts(batch) -> (loss, ce, aux, aux_term)``: the CE loss with
+    z-loss and the ce (the replica's shares of the global means on a
+    mesh), the aux terms and their weighted sum (0.0 without them)."""
     cfg = model.cfg
     plan = getattr(model, "tp", None)
     data_groups = list(_data_groups(plan.mesh).values()) if plan is not None else []
 
-    def loss_fn(batch):
+    def parts(batch):
         tokens = batch["tokens"]
         logits, aux = model(tokens, **_extras(batch))
         targets, mask = _targets_and_mask(tokens, batch.get("loss_mask"), cfg.vision_tokens)
@@ -150,13 +169,14 @@ def make_loss_fn(model, *, aux_weight: float = 1e-2, z_loss: float = 1e-4) -> Ca
             loss, ce = cross_entropy_loss(logits, targets, mask, z_loss)
         else:
             loss, ce = _sharded_cross_entropy(logits, targets, mask, z_loss, plan, data_groups)
+        aux_term = 0.0
         if aux:
-            loss = loss + aux_weight * (
+            aux_term = aux_weight * (
                 aux.get("load_balance_loss", 0.0) + cfg.router_z_loss * aux.get("router_z_loss", 0.0)
             )
-        return loss, ce, aux
+        return loss, ce, aux, aux_term
 
-    return loss_fn
+    return parts
 
 
 def make_grad_fn(model, *, aux_weight: float = 1e-2, z_loss: float = 1e-4) -> Callable:
@@ -165,28 +185,23 @@ def make_grad_fn(model, *, aux_weight: float = 1e-2, z_loss: float = 1e-4) -> Ca
     mesh), the aux terms, and every leaf's gradient before clipping (the
     parameters' ``.grad`` tensors; on a mesh each rank's blocks of the
     global gradient, see the module docstring)."""
-    mesh = None
-    if getattr(model, "tp", None) is not None:
-        if model.cfg.family != "dense":
-            raise NotImplementedError(
-                f"training the {model.cfg.family} family on a mesh is not ported (ROADMAP "
-                "A12e-6); the dense family trains under shard_model's layouts")
-        mesh = _MeshStep(model)
-    loss_fn = make_loss_fn(model, aux_weight=aux_weight, z_loss=z_loss)
+    mesh = _MeshStep(model) if getattr(model, "tp", None) is not None else None
+    parts = _loss_parts(model, aux_weight=aux_weight, z_loss=z_loss)
 
     def grad_fn(state: TrainState, batch) -> tuple:
         for p in tree_leaves(state.params):
             p.grad = None
         with torch.enable_grad():
-            loss, ce, aux = loss_fn(batch)
-            loss.backward()
+            loss, ce, aux, aux_term = parts(batch)
+            (loss + aux_term).backward()
         loss, ce = loss.detach(), ce.detach()
+        aux_term = aux_term.detach() if torch.is_tensor(aux_term) else aux_term
         grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
                          state.params)
         if mesh is not None:
             loss, ce = mesh.sum_data(loss, ce)
             mesh.reduce_grads(state.params, grads)
-        return loss, ce, aux, grads
+        return loss + aux_term, ce, aux, grads
 
     grad_fn.mesh = mesh
     return grad_fn

@@ -23,6 +23,12 @@ reference's ``psum`` of the bf16 output), and XLA's bf16 ``silu(g) * u``
 rounds otherwise than PyTorch's on some elements (ROADMAP A12e). So this
 check's bar is one bf16 ulp at the layer's activation scale, the larger
 of its largest |silu(g) * u| and its largest |y|, not the logits' 0.05.
+
+Then ``moe_impl="gather"`` on the same mesh in float32 at capacity
+factor 0.5, where pairs drop: `forward` on each data shard's rows
+against the reference's one-device forward of the whole batch (the
+global batch's capacity and slotting, `models.moe.moe_ffn_mesh`), and
+each data replica's `ServeEngine` against the reference engine.
 """
 
 import concurrent.futures
@@ -37,6 +43,8 @@ from repro.configs import base as jbase
 from repro.models import layers as jL
 from repro.models.model_zoo import get_model as jget_model
 from repro.models.moe import moe_ffn as jmoe_ffn
+from repro.serve import Request as JRequest
+from repro.serve import ServeEngine as JServeEngine
 from repro_torch.core import distributed
 
 import torch_shard_ranks
@@ -58,9 +66,23 @@ def runs():
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
     x = np.random.default_rng(2).standard_normal((4, 16, cfg.d_model)).astype(np.float32)
     pool = concurrent.futures.ThreadPoolExecutor(1)
+    # "gather" in float32 at a capacity that drops, on the same weights
+    gcfg = dataclasses.replace(cfg, expert_capacity_factor=torch_shard_ranks.GATHER_CF,
+                               dtype="float32")
+    gm = jget_model(gcfg)
+    params32 = gm.init(jax.random.PRNGKey(0))
+    tree32 = jax.tree.map(np.asarray, params32)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in (6, 8, 8, 7)]
     pending = pool.submit(distributed.run_ranks, torch_shard_ranks.moe_rank, 4, tree, toks, x,
-                          LAYER, device_type="cpu", timeout=300)
+                          LAYER, tree32, prompts, device_type="cpu", timeout=300)
     want = {}
+    logits, aux = jax.jit(gm.forward)(params32, jnp.asarray(toks))
+    want["gather"] = dict(logits=np.asarray(logits), aux={k: float(v) for k, v in aux.items()})
+    engine = JServeEngine(gm, params32, slots=2, max_len=16)
+    for i, p in enumerate(prompts):
+        engine.submit(JRequest(rid=i, prompt=p, max_new_tokens=torch_shard_ranks.GATHER_NEW))
+    want["gather_engine"] = {r.rid: r.output for r in engine.run()}
     want["logits"], _ = jm.forward(params, jnp.asarray(toks))
     shard_aux = [jm.forward(params, jnp.asarray(toks[r : r + 2]))[1] for r in (0, 2)]
     want["aux"] = {k: np.mean([float(a[k]) for a in shard_aux]) for k in shard_aux[0]}
@@ -118,3 +140,41 @@ def test_capacity_is_per_shard(runs, name):
                                                             abs=1e-7)
         for k in ("load_balance_loss", "router_z_loss"):
             assert abs(r[name]["aux"][k] - want[name]["aux"][k]) <= 1e-4, k
+
+
+def test_gather_on_data_mesh_slots_the_global_batch(runs):
+    """``moe_impl="gather"`` on the 2 x 2 mesh in float32 at capacity
+    factor 0.5: each data replica's `forward` logits within 1e-4 of the
+    reference's one-device forward of the whole batch (whose capacity and
+    cumulative sum span both replicas' rows), the aux terms the global
+    batch's on every rank, ``drop_frac`` (pairs dropped, summed over the
+    layers) equal and above 0."""
+    ranks, want = runs
+    w = want["gather"]
+    assert w["aux"]["drop_frac"] > 0
+    for r in ranks:
+        lo, hi = r["cols"]
+        np.testing.assert_allclose(r["gather"]["logits"],
+                                   w["logits"][r["rows"][0] : r["rows"][1], :, lo:hi],
+                                   atol=1e-4, rtol=0)
+        assert r["gather"]["aux"] == ranks[0]["gather"]["aux"]
+        assert r["gather"]["aux"]["drop_frac"] == w["aux"]["drop_frac"]
+        for k in ("load_balance_loss", "router_z_loss"):
+            assert abs(r["gather"]["aux"][k] - w["aux"][k]) <= 1e-5, k
+
+
+def test_gather_engine_on_data_mesh_matches_reference(runs):
+    """`ServeEngine` on the rank-local "gather" model, each data replica
+    serving its half of 4 prompts (a prefill and 4 decode ticks each,
+    routed at the dropless capacity): every output the reference
+    engine's on one device."""
+    ranks, want = runs
+    got = {}
+    for r in ranks:
+        for rid, output in r["gather_engine"]["outputs"].items():
+            assert got.setdefault(rid, output) == output
+    assert got == want["gather_engine"]
+    for r in ranks:
+        assert r["gather_engine"]["metrics"] == {
+            "prefills": 1, "decode_ticks": torch_shard_ranks.GATHER_NEW - 1,
+            "tokens_out": 2 * torch_shard_ranks.GATHER_NEW}

@@ -264,16 +264,16 @@ def test_meshes_need_a_process_group():
 
 
 def test_shard_model_refuses_what_is_not_ported():
-    """The FSDP training layout of every family but the dense one is
-    queued, not silently run another way (the dense family trains:
-    tests/test_torch_fsdp.py; every family's serving layout runs:
-    tests/test_torch_shard_families.py)."""
-    refused = set()
-    for arch in jbase.ARCH_IDS:
-        cfg = tbase.get_smoke_config(arch)
-        if cfg.family == "dense":
-            continue
-        with pytest.raises(NotImplementedError, match=f"FSDP.*{cfg.family}.*A12e-6"):
-            tsh.shard_model(cfg, None, serving=False)
-        refused.add(cfg.family)
-    assert refused == {"moe", "vlm", "hybrid", "ssm", "audio"}
+    """A family the port has no model for is refused in either layout,
+    before any placement, never placed some other way. Every family of
+    the ten configurations is placed in both (serving:
+    tests/test_torch_shard_families.py; training: tests/test_torch_fsdp.py
+    and tests/test_torch_fsdp_families.py)."""
+    import dataclasses
+
+    families = {tbase.get_smoke_config(arch).family for arch in jbase.ARCH_IDS}
+    assert families == {"dense", "moe", "vlm", "hybrid", "ssm", "audio"}
+    cfg = dataclasses.replace(tbase.get_smoke_config("qwen2_5_3b"), family="diffusion")
+    for serving in (True, False):
+        with pytest.raises(ValueError, match="unknown family 'diffusion'"):
+            tsh.shard_model(cfg, None, serving=serving)

@@ -90,11 +90,16 @@ def tp_rank(rank, world, trees, toks, prompts, qwen_toks):
     return out
 
 
-def moe_rank(rank, world, tree, toks, x, layer):
+def moe_rank(rank, world, tree, toks, x, layer, tree32, prompts):
     """The mixtral smoke on a 2 x 2 mesh: `forward` with ``moe_impl="local"``
     on this data shard's rows (dropless), and `moe_ffn_local` alone on the
     layer's experts (this rank's ff block) and the shard's activations at
-    a capacity that drops, with f32 and with bf16 TP reductions."""
+    a capacity that drops, with f32 and with bf16 TP reductions. Then
+    ``moe_impl="gather"`` in float32 at capacity factor `GATHER_CF`, where
+    pairs drop (``tree32``, the reference's float32 weights): `forward` on
+    the shard's rows (the global batch's slotting), and `ServeEngine`
+    serving the data replica's half of ``prompts`` (`GATHER_NEW` tokens
+    each: a prefill and the rest decode ticks, at the dropless capacity)."""
     from repro_torch.convert import _tensor
     from repro_torch.distributed import shard_model
     from repro_torch.distributed.sharding import param_shardings, serving_param_pspecs
@@ -124,7 +129,25 @@ def moe_rank(rank, world, tree, toks, x, layer):
         finally:
             L.set_tp_reduce_dtype(None)
         out[name] = dict(y=y.float().numpy(), aux={k: float(v) for k, v in aux.items()})
+    gcfg = dataclasses.replace(get_smoke_config("mixtral_8x7b"), moe_impl="gather",
+                               expert_capacity_factor=GATHER_CF, dtype="float32")
+    model = shard_model(gcfg, mesh, params=tree32)
+    with torch.no_grad():
+        logits, aux = model.forward(torch.from_numpy(toks[rows]))
+    out["gather"] = dict(logits=logits.numpy(), aux={k: float(v) for k, v in aux.items()})
+    from repro_torch.serve import Request, ServeEngine
+
+    engine = ServeEngine(model, slots=2, max_len=16)
+    half = len(prompts) // 2
+    for i in range(d * half, (d + 1) * half):
+        engine.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=GATHER_NEW))
+    done = engine.run()
+    out["gather_engine"] = dict(outputs={r.rid: r.output for r in done}, metrics=engine.metrics)
     return out
+
+
+# the MoE serving twin's "gather" case (tests/test_torch_moe_local.py)
+GATHER_CF, GATHER_NEW = 0.5, 5
 
 
 def pipeline_rank(rank, world, stages, x, toks, tree, cot):
@@ -274,15 +297,13 @@ def fsdp_cfg(arch: str, dtype: str):
 def fsdp_rank(rank, world, shape, trees, toks):
     """Every `FSDP_CASES` case placed by `shard_model(serving=False)` on a
     ``shape`` ("data", "model") mesh from the reference's weights
-    ``trees[case]``, on this data replica's rows of ``toks``: the
-    gradient (`make_grad_fn`), then one `make_train_step` step. Returns
-    the metrics, each leaf's gradient block and post-step block with its
-    index into the whole leaf, the optimizer state's leaf shapes by path,
-    and the plan."""
+    ``trees[case]``, on this data replica's rows of ``toks``:
+    `_train_case`'s results a case, then the first case's gradients under
+    each of `FSDP_REMATS`."""
     from repro_torch.distributed import shard_model
     from repro_torch.optimizer import get_optimizer
     from repro_torch.optimizer.base import tree_leaves
-    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.train import TrainState
     from repro_torch.train.step import make_grad_fn
 
     torch.set_num_threads(1)  # 4 ranks share the host; smoke-sized products
@@ -293,26 +314,8 @@ def fsdp_rank(rank, world, shape, trees, toks):
     batch = {"tokens": torch.from_numpy(toks[rows])}
     out = dict(coord=coord, rows=(rows.start, rows.stop))
     for case in FSDP_CASES:
-        cfg = fsdp_cfg(*case)
-        model = shard_model(cfg, mesh, serving=False, params=trees[case])
-        opt = get_optimizer(cfg.optimizer, FSDP_LR)
-        state = TrainState.create(model, opt)
-        loss, ce, _, grads = make_grad_fn(model)(state, batch)
-        names = [n for n, _ in model.named_parameters()]
-        by_id = {id(p): n for n, p in model.named_parameters()}
-        grad_blocks = {by_id[id(p)]: g.detach().float().numpy().copy()
-                       for p, g in zip(tree_leaves(state.params), tree_leaves(grads))}
-        state, metrics = make_train_step(model, opt)(state, batch)
-        params = dict(model.named_parameters())
-        out[case] = dict(
-            loss=float(loss), ce=float(ce),
-            metrics={k: float(v) for k, v in metrics.items()},
-            index={n: [(sl.start, sl.stop) for sl in model.tp.block(n)] for n in names},
-            grads=grad_blocks,
-            params={n: params[n].detach().float().numpy() for n in names},
-            opt_shapes=_leaf_shapes(state.opt_state),
-            fsdp=dict(model.tp.fsdp), attn=model.tp.attn, mlp=model.tp.mlp,
-            held=sum(p.numel() for p in model.parameters()))
+        model = shard_model(fsdp_cfg(*case), mesh, serving=False, params=trees[case])
+        out[case] = _train_case(model, batch)
     # activation checkpointing re-runs each block's gathers and sums in the
     # backward: the same gradients as without it
     case = FSDP_CASES[0]
@@ -325,6 +328,36 @@ def fsdp_rank(rank, world, shape, trees, toks):
         out[("remat", remat)] = {by_id[id(p)]: g.float().numpy().copy()
                                  for p, g in zip(tree_leaves(state.params), tree_leaves(grads))}
     return out
+
+
+def _train_case(model, batch) -> dict:
+    """A rank-local model's gradient (`make_grad_fn`) on ``batch``, then
+    one `make_train_step` step: the metrics, each leaf's gradient block
+    and post-step block with its index into the whole leaf, the optimizer
+    state's leaf shapes by path, and the plan."""
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.optimizer.base import tree_leaves
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.train.step import make_grad_fn
+
+    opt = get_optimizer(model.cfg.optimizer, FSDP_LR)
+    state = TrainState.create(model, opt)
+    loss, ce, _, grads = make_grad_fn(model)(state, batch)
+    by_id = {id(p): n for n, p in model.named_parameters()}
+    grad_blocks = {by_id[id(p)]: g.detach().float().numpy().copy()
+                   for p, g in zip(tree_leaves(state.params), tree_leaves(grads))}
+    state, metrics = make_train_step(model, opt)(state, batch)
+    params = dict(model.named_parameters())
+    plan = model.tp
+    return dict(
+        loss=float(loss), ce=float(ce),
+        metrics={k: float(v) for k, v in metrics.items()},
+        index={n: [(sl.start, sl.stop) for sl in plan.block(n)] for n in params},
+        grads=grad_blocks,
+        params={n: p.detach().float().numpy() for n, p in params.items()},
+        opt_shapes=_leaf_shapes(state.opt_state),
+        fsdp=dict(plan.fsdp), attn=plan.attn, mlp=plan.mlp, layout=dict(plan.layout),
+        logits=plan.logits, held=sum(p.numel() for p in model.parameters()))
 
 
 def _leaf_shapes(tree, path=()) -> dict:
@@ -430,4 +463,66 @@ def family_rank(rank, world, trees, toks, frames, prompts):
                 done = engine.run()
                 out[(arch, "engine")] = dict(outputs={r.rid: r.output for r in done},
                                              metrics=engine.metrics)
+    return out
+
+
+# the FSDP × TP training twins of every other family
+# (tests/test_torch_fsdp_families.py): (arch, dtype, moe_impl[, variant]),
+# each config's full config's optimizer (grok-1 and internvl2 Adafactor,
+# the rest AdamW; the smoke configs all take AdamW); the MoE configs at
+# capacity factor 0.5, where pairs drop (their smoke configs' 4.0 is
+# dropless), and whisper's vocabulary cut to 521, which does not divide
+# over "model" (as whisper-medium's 51,865 does not). The "ff" variant of
+# xlstm-125m widens its sLSTM feed-forward to 96 columns, which split over
+# "model" (the config's factor 1.3333 gives 85 here and 1023 at full
+# width, which do not), so its "ff" layout is trained as well
+FAMILY_TRAIN_CASES = (
+    ("mixtral_8x7b", "float32", "gather"), ("mixtral_8x7b", "float32", "local"),
+    ("mixtral_8x7b", "bfloat16", "gather"), ("grok_1_314b", "float32", "gather"),
+    ("internvl2_76b", "float32", None), ("recurrentgemma_2b", "float32", None),
+    ("recurrentgemma_2b", "bfloat16", None), ("xlstm_125m", "float32", None),
+    ("xlstm_125m", "float32", None, "ff"), ("whisper_medium", "float32", None),
+)
+FAMILY_TRAIN_CF = 0.5
+FAMILY_TRAIN_KW = {"whisper_medium": dict(vocab_size=521),
+                   "grok_1_314b": dict(optimizer="adafactor"),
+                   "internvl2_76b": dict(optimizer="adafactor")}
+FAMILY_TRAIN_VARIANTS = {"ff": dict(proj_factor_slstm=1.5)}
+
+
+def family_train_kw(arch: str, variant=None) -> dict:
+    """The fields a case changes in ``arch``'s smoke config."""
+    return {**FAMILY_TRAIN_KW.get(arch, {}), **FAMILY_TRAIN_VARIANTS.get(variant, {})}
+
+
+def family_train_cfg(arch: str, dtype: str, moe_impl=None, variant=None):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype,
+                              **family_train_kw(arch, variant))
+    if moe_impl is not None:
+        cfg = dataclasses.replace(cfg, moe_impl=moe_impl, expert_capacity_factor=FAMILY_TRAIN_CF)
+    return cfg
+
+
+def family_train_rank(rank, world, shape, cases, trees, toks, extras):
+    """Each of ``cases`` (`FAMILY_TRAIN_CASES`) placed by
+    `shard_model(serving=False)` on a ``shape`` ("data", "model") mesh
+    from the reference's weights ``trees[case]``, on this data replica's
+    rows of ``toks`` and of the case's stub inputs ``extras[arch]``
+    (vision embeddings, encoder frames): the gradient (`make_grad_fn`),
+    then one `make_train_step` step. Returns `_train_case`'s results a
+    case."""
+    from repro_torch.distributed import shard_model
+
+    torch.set_num_threads(1)  # 4 ranks share the host; smoke-sized products
+    mesh = distributed.init_mesh(shape, device_type="cpu")
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    nd = shape[0]
+    rows = slice(coord["data"] * toks.shape[0] // nd, (coord["data"] + 1) * toks.shape[0] // nd)
+    out = dict(coord=coord, rows=(rows.start, rows.stop))
+    for case in cases:
+        model = shard_model(family_train_cfg(*case), mesh, serving=False, params=trees[case])
+        batch = {"tokens": torch.from_numpy(toks[rows])}
+        batch.update({k: torch.from_numpy(v[rows]).to(model.dtype)
+                      for k, v in extras.get(case[0], {}).items()})
+        out[case] = _train_case(model, batch)
     return out

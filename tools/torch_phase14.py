@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Phase 14 of chip_smoke.py alone: the kernels' build (phase_setup),
-then sharded serving and the pipeline's backward on gloo ranks sharing
-one GPU (phase_sharded, 14a-14j), without the phases before it:
+then sharded serving, the pipeline's backward and sharded training on
+gloo ranks sharing one GPU (phase_sharded, 14a-14l), without the phases
+before it:
 
     python3 tools/torch_phase14.py
 
