@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FastMatch on one NVIDIA GPU and check it.
 
-Run from the root of a checkout (one card; about 13 to 16 minutes at the
-default size, most of it generating the two datasets on the host):
+Run from the root of a checkout (one card; about 15 to 18 minutes at the
+default size, most of it generating the two datasets on the host and
+phase 14's gloo ranks):
 
     python3 chip_smoke.py [--tuples N] [--seed S]
 
@@ -346,6 +347,28 @@ Phases, each of which raises (non-zero exit) when a check fails:
    process's. No rank holds the whole
    model, and each rank's peak is under the one-process serving peak.
    ``{"check": "sharded", ...}``.
+15. Training under ``scan_layers`` and the dry run, last (after phase 14).
+   15c's two processes start before phase 13, so their meta runs use host
+   cores while the card works: `python -m repro_torch.launch.dryrun` for
+   llama3-405b x train_4k (stacked, Adafactor) and for the FastMatch
+   round, each on the pod's rank (0, 0) on the meta device, the card
+   hidden from them; each JSON ``ok``, FLOPs above 0, a bottleneck named
+   (read after 15a). 15b: `train_loop` on qwen2.5-3b at full width and
+   depth with each per-layer leaf one (36, ...) parameter (bf16, AdamW,
+   remat "full", seed 0), phase 12's 4 steps of 8 x 256 behind the
+   launcher's corpus and FastMatch's selection (kernels A and B once a
+   round, C once a statistics step; path ``scan_train_select``): phase
+   12's selection, every step ``step_ok`` 1 and finite, step 1's loss
+   phase 12's within SCAN_LOSS_ATOL and its grad norm within
+   SCAN_GNORM_RTOL (the same weights and batch), three more steps on one
+   batch with the loss falling at each; ms a step beside phase 12's,
+   peak memory. 15a: 14k's cell and 14l's five, each one train step of
+   `launch.specs.make_case` on the meta device at rank (0, 0) of a
+   virtual 2 x 2 mesh: the recorded all-reduce calls and payload bytes
+   equal to what phase 14's rank 0 issued at each step, the parameter
+   and optimizer-state elements to what it held; the predicted argument
+   + temp bytes printed beside its measured peak.
+   ``{"check": "scan_dryrun", ...}``.
 
 Every kernel must have launched on some path, each path's counts set to
 0 just before it and read just after; a kernel's ``launches`` in the
@@ -354,8 +377,8 @@ with every path's count beside them; kernel B's row adds the registry
 read's launches and its registry-shape timing, and the monitor's
 launches and its (1, 64) timing (phase 11d) and phase 13d's launches; every
 row's ``launches_by_path`` includes ``train_select`` (phase 12a),
-``families_select`` (13a), ``families_monitor`` (13d) and
-``sharded_select`` (14a). The last lines are the
+``families_select`` (13a), ``families_monitor`` (13d),
+``sharded_select`` (14a) and ``scan_train_select`` (15b). The last lines are the
 ``kernels`` JSON line, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
 also go to ``chiprun_out/chip_smoke.json``. Exits 2 without a CUDA
@@ -5029,6 +5052,263 @@ def _check_family(torch, ranks, rf: dict, meta: dict, arch: str, shape, label: s
                 peak_gb=[f["peak_gb"] for f in fams], one_process_peak_gb=rf["peak_gb"])
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training under scan_layers, and the dry run on the meta device
+# ---------------------------------------------------------------------------
+
+# 15b's bars against phase 12's step 1 (the same weights and batch, each
+# per-layer leaf stacked): the forward reads the same values in the same
+# products, so the loss is phase 12's bit for bit; the gradient norm sums a
+# stacked leaf's squares in one reduction where phase 12 sums its layers'
+# apart, which may move it by a few f32 ulps (1e-6 is ~8). Readings, H100
+# 80GB HBM3 at 700 W: 0 and 0 (PERF.md, PR 28 call 15)
+SCAN_LOSS_ATOL = 0.0
+SCAN_GNORM_RTOL = 1e-6
+# 15c: production cells through the launcher's CLI, each in its own process
+DRYRUN_CELLS = (("--arch", "llama3-405b", "--shape", "train_4k", "--mesh", "pod"),
+                ("--arch", "fastmatch_round", "--mesh", "pod"))
+DRYRUN_TIMEOUT_S = 240
+
+
+def _dry_inputs(torch, cfg, tokens) -> dict:
+    """The global batch of a phase-14 train cell as `TensorSpec` s: its
+    (rows, seq) tokens (seq including a vlm's vision positions) and the
+    frontend stubs."""
+    from repro_torch.models.base import TensorSpec, extra_input_shapes
+
+    rows, seq = tokens
+    return {"tokens": TensorSpec((rows, seq), torch.int32),
+            **extra_input_shapes(cfg, rows, seq)}
+
+
+def _scan_predictions(torch, sharded) -> dict:
+    """15a: 14k's and 14l's cells, each one step of `launch.specs.make_case`
+    on the meta device at rank (0, 0) of a virtual 2 x 2 mesh
+    (`launch.dryrun.measure`): the recorded all-reduce calls and payload
+    bytes must be what phase 14's rank 0 issued at each step
+    (`COLLECTIVES`), the parameter and optimizer-state elements what it
+    held; the predicted argument + temp bytes beside its measured peak."""
+    from repro_torch.core.distributed import VirtualMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import make_case
+
+    meta = dict(smoke=SHARD_SMOKE, layers=SHARD_LAYERS, f32_layers=SHARD_F32_LAYERS)
+    fam = sharded["fam_train"]["families"]
+    cells = [("14k", SHARD_ARCH, _train_cfg(meta), sharded["train"])]
+    cells += [("14l", arch, _fam_train_cfg(meta, arch), fam[arch]) for arch, _ in SHARD_FAM_TRAIN]
+    out = {}
+    for label, arch, cfg, got in cells:
+        mesh = VirtualMesh((2, 2), ("data", "model"), (0, 0))
+        t = time.perf_counter()
+        case = make_case(cfg, mesh, "train", _dry_inputs(torch, cfg, got["tokens"]), lr=TRAIN_LR)
+        m = dryrun.measure(case.fn, case.args, mesh, params=list(case.model.parameters()),
+                           state=case.state.opt_state)
+        del case
+        predicted = m["totals"]
+        measured = [dict(calls=c["calls"], bytes=c["bytes"]) for c in got["collectives"][0]]
+        name = f"15a {label} {arch}"
+        check(all(c == predicted for c in measured),
+              f"{name}: predicted {predicted} all-reduce calls / bytes a step, rank 0 issued "
+              f"{measured}")
+        check((m["params_held"], m["state_held"]) == (got["params_held"][0],
+                                                       got["state_held"][0]),
+              f"{name}: predicted {m['params_held']} parameter and {m['state_held']} state "
+              f"elements, rank 0 held {got['params_held'][0]} and {got['state_held'][0]}")
+        mem = m["memory"]
+        out[f"{label} {arch}"] = dict(
+            predicted=predicted, measured=measured, by_axis=m["by_axis"],
+            params_held=m["params_held"], state_held=m["state_held"],
+            argument_gb=mem["argument_bytes"] / 1e9, temp_gb=mem["temp_bytes"] / 1e9,
+            predicted_gb=(mem["argument_bytes"] + mem["temp_bytes"]) / 1e9,
+            measured_peak_gb=got["peak_gb"][0], flops=m["flops"], bytes=m["bytes"],
+            meta_run_s=m["run_s"], cell_s=time.perf_counter() - t)
+    return out
+
+
+def _scan_train(torch, card: str, train: dict) -> dict:
+    """15b: `train_loop` on the full-width, full-depth qwen2.5-3b with its
+    layers stacked (``scan_layers``; bf16, AdamW, remat "full", seed 0),
+    phase 12's steps, batch and sequence behind FastMatch's selection
+    (counts at 0 just before the loop, read just after: path
+    ``scan_train_select``); phase 12's gates; step 1 against phase 12's;
+    three more steps on one batch, the loss falling at each."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import CorpusSpec, make_corpus
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import train as launch
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.train import make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), scan_layers=True)
+    spec = CorpusSpec(vocab_size=cfg.vocab_size, **TRAIN_CORPUS)
+    step_times = []
+
+    def log_fn(msg):
+        if msg.startswith("[train]"):
+            torch.cuda.synchronize()
+            step_times.append(time.perf_counter())
+        log(f"  {msg}")
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t = time.perf_counter()
+    run = launch.train_loop(cfg=cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                            lr=TRAIN_LR, seed=0, log_every=1, log_fn=log_fn, device=TRAIN_DEVICE)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model, state, sel = run["model"], run["state"], run["selection"]
+    res = sel.result
+    selected = np.sort(sel.selected_domains)
+    check(np.array_equal(selected, train["loop"]["select"]["ids"]),
+          f"15b: selected {selected.tolist()}, phase 12 {train['loop']['select']['ids']}")
+    c = sum(launches[name] for name in C_FORMS)
+    check(launches["anyactive"] == launches["histogram"] == res.rounds
+          and res.rounds <= c <= res.rounds + 1,
+          f"15b: launches {launches} for {res.rounds} rounds of the selection")
+    stacked = {name: tuple(p.shape) for name, p in model.named_parameters()
+               if name.startswith("layers.")}
+    check(stacked and all(s[0] == cfg.num_layers for s in stacked.values())
+          and not any(name.split(".")[1].isdigit() for name in stacked),
+          f"15b: the layer leaves are not ({cfg.num_layers}, ...) stacks: {stacked}")
+    hist = run["history"]
+    check(len(hist) == TRAIN_STEPS and int(state.step) == TRAIN_STEPS,
+          f"15b: {len(hist)} logged steps, state at step {int(state.step)}")
+    check(all(h["step_ok"] == 1.0 and math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), f"15b: a step was skipped or not finite: {hist}")
+    want_loss, want_gn = train["loop"]["losses"][0], train["loop"]["grad_norms"][0]
+    d_loss = abs(hist[0]["loss"] - want_loss)
+    d_gn = abs(hist[0]["grad_norm"] / want_gn - 1)
+    check(d_loss <= SCAN_LOSS_ATOL and d_gn <= SCAN_GNORM_RTOL,
+          f"15b: step 1 loss {hist[0]['loss']!r} / grad_norm {hist[0]['grad_norm']!r}, phase 12 "
+          f"{want_loss!r} / {want_gn!r} (|dloss| {d_loss:.3g}, bar {SCAN_LOSS_ATOL}; grad_norm "
+          f"{d_gn:.3g} relative, bar {SCAN_GNORM_RTOL})")
+    step_ms = [(b - a) * 1e3 for a, b in zip(step_times, step_times[1:])]
+    warm_ms = statistics.median(step_ms)
+    # one batch, three steps: the loss falls at each (phase 12b's gate)
+    corpus = make_corpus(spec)
+    batch = next(TokenStream(corpus, sel.selected_domains, batch_size=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ, seed=1))
+    batch = {"tokens": torch.from_numpy(batch["tokens"]).to(TRAIN_DEVICE)}
+    del corpus
+    train_step = make_train_step(model, get_optimizer(cfg.optimizer, TRAIN_LR))
+    losses = []
+    for i in range(3):
+        state, m = train_step(state, batch)
+        check(float(m["step_ok"]) == 1.0, f"15b: one-batch step {i} skipped")
+        losses.append(float(m["loss"]))
+    check(all(a > b for a, b in zip(losses, losses[1:])),
+          f"15b: the loss on one batch did not fall at every step: {losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = dict(
+        arch=TRAIN_ARCH, dtype=cfg.dtype, remat=cfg.remat, optimizer=cfg.optimizer,
+        scan_layers=True, params=sum(p.numel() for p in model.parameters()),
+        stacked_leaves=len(stacked), stacked_example=stacked.get("layers.attn.wq"),
+        steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, loop_s=loop_s,
+        step_ms_after_first=step_ms, ms_per_step=warm_ms, phase12_ms_per_step=train["loop"][
+            "ms_per_step"], tokens_per_s=tokens / warm_ms * 1e3, peak_gb=peak_gb,
+        phase12_peak_gb=train["loop"]["peak_gb"],
+        losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
+        step1=dict(loss=hist[0]["loss"], grad_norm=hist[0]["grad_norm"], phase12_loss=want_loss,
+                   phase12_grad_norm=want_gn, abs_dloss=d_loss, rel_dgrad_norm=d_gn,
+                   bars=dict(loss=SCAN_LOSS_ATOL, grad_norm=SCAN_GNORM_RTOL)),
+        learn=losses,
+        select=dict(ids=selected.tolist(), rounds=res.rounds, blocks_read=res.blocks_read,
+                    launches=launches))
+    log(f"15b train_loop {TRAIN_ARCH} stacked ({len(stacked)} leaves of {cfg.num_layers} "
+        f"layers, {out['params'] / 1e9:.3f}B params, bf16, AdamW, remat full), {TRAIN_STEPS} "
+        f"steps of {TRAIN_BATCH} x {TRAIN_SEQ}: selection in {res.rounds} rounds, launches "
+        f"{launches}; step 1 |dloss| {d_loss:.3g}, grad_norm {d_gn:.3g} relative from phase 12; "
+        f"ms a step after the first {[round(x, 1) for x in step_ms]} (median {warm_ms:.1f}, "
+        f"phase 12 {train['loop']['ms_per_step']:.1f}), peak {peak_gb:.2f} GB (phase 12 "
+        f"{train['loop']['peak_gb']:.2f}); one batch {[round(x, 5) for x in losses]}; {card}")
+    del model, state, run, train_step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dryrun_cells(procs, where: str) -> dict:
+    """15c: each production cell's JSON from its `dryrun.main` process:
+    ``ok``, FLOPs above 0, a bottleneck named."""
+    out = {}
+    for i, (cell, proc) in enumerate(procs):
+        proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        check(proc.returncode == 0, f"15c {' '.join(cell)}: exit {proc.returncode}: "
+              f"{Path(where, f'cell{i}.log').read_text()[-2000:]}")
+        arch = cell[1].replace("-", "_").replace(".", "_")
+        tag = arch if arch == "fastmatch_round" else f"{arch}_{cell[3]}"
+        d = json.loads(Path(where, f"{tag}_{cell[-1]}.json").read_text())
+        r = d.get("roofline", {})
+        check(d.get("ok") is True and d.get("flops_per_device", 0) > 0
+              and r.get("bottleneck") in ("compute", "memory", "collective"),
+              f"15c {tag}: {json.dumps(d)[:2000]}")
+        out[tag] = d
+        log(f"15c {tag} x {d['mesh']} ({d['chips']} ranks, rank {d['coordinate']}): flops/dev "
+            f"{d['flops_per_device']:.4g}, bytes/dev {d['bytes_per_device']:.4g}, collective "
+            f"bytes/dev {d['collective_bytes_per_device']:.4g}; roofline on {d['hardware']['card']}"
+            f": compute {r['t_compute_s'] * 1e3:.1f} ms, memory {r['t_memory_s'] * 1e3:.1f} ms, "
+            f"collective {r['t_collective_s'] * 1e3:.1f} ms -> {r['bottleneck']}; argument "
+            f"{d['memory']['argument_bytes'] / 1e9:.2f} GB, temp "
+            f"{d['memory']['temp_bytes'] / 1e9:.2f} GB; meta run {d['run_s']:.1f}s")
+    return out
+
+
+class DryRunCells:
+    """15c's `dryrun.main` processes, one a cell of DRYRUN_CELLS, started
+    ahead of phase 15 (their meta runs use host cores only, and the card
+    is hidden from them) so they run while the card works; a context
+    manager that stops whatever is still running and removes their
+    output directory on exit."""
+
+    def __enter__(self):
+        self.where = tempfile.mkdtemp(prefix="chip_smoke_15c_")
+        self.started = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+        self.procs = []
+        for i, cell in enumerate(DRYRUN_CELLS):
+            with open(Path(self.where, f"cell{i}.log"), "w") as log_file:  # the child's copy
+                self.procs.append((cell, subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", *cell, "--out",
+                     self.where], cwd=str(ROOT), env=env, stdout=log_file,
+                    stderr=subprocess.STDOUT)))
+        return self
+
+    def __exit__(self, *exc):
+        for _, proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.where, ignore_errors=True)
+
+
+def phase_scan_dryrun(torch, card: str, train: dict, sharded: dict, cells: DryRunCells) -> dict:
+    """Phase 15 (see the module docstring): 15b on the card, 15a in this
+    process, then the results of 15c's ``cells``."""
+    t_phase = time.perf_counter()
+    out = dict(train=_scan_train(torch, card, train))
+    t = time.perf_counter()
+    out["predictions"] = _scan_predictions(torch, sharded)
+    out["predictions_s"] = time.perf_counter() - t
+    for name, p in out["predictions"].items():
+        log(f"15a {name}: {p['predicted']['calls']} all-reduces, "
+            f"{p['predicted']['bytes'] / 1e9:.4f} GB a step predicted = rank 0's "
+            f"{p['measured']}; {p['params_held']} parameters, {p['state_held']} state "
+            f"elements held; argument + temp {p['predicted_gb']:.2f} GB predicted, peak "
+            f"{p['measured_peak_gb']:.2f} GB measured; meta run {p['meta_run_s']:.1f}s")
+    t = time.perf_counter()
+    out["production"] = _dryrun_cells(cells.procs, cells.where)
+    out["production_wait_s"] = time.perf_counter() - t
+    out["production_since_start_s"] = time.perf_counter() - cells.started
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15 took {out['phase_s']:.1f}s, {out['production_wait_s']:.1f}s of it waiting for "
+        f"15c's processes (started {out['production_since_start_s']:.1f}s ago) ({card})")
+    emit({"check": "scan_dryrun", **out})
+    return out
+
+
 def _meta_model(torch, meta: dict):
     from repro_torch.models import model_zoo
 
@@ -5113,10 +5393,14 @@ def main(argv=None) -> int:
     lm = phase_lm(torch, timer, smi)
     log(f"phase 12: training a full-width {TRAIN_ARCH} on the card")
     train = phase_train(torch, smi)
-    log(f"phase 13: every model family at full width on the card ({', '.join(FAM_ARCHS)})")
-    families = phase_families(torch, smi)
-    log(f"phase 14: sharded serving, {SHARD_RANKS} gloo ranks on the card")
-    sharded = phase_sharded(torch, smi)
+    with DryRunCells() as cells:  # 15c's processes, on host cores while the card works
+        log(f"phase 13: every model family at full width on the card ({', '.join(FAM_ARCHS)})")
+        families = phase_families(torch, smi)
+        log(f"phase 14: sharded serving, {SHARD_RANKS} gloo ranks on the card")
+        sharded = phase_sharded(torch, smi)
+        log(f"phase 15: {TRAIN_ARCH} trained with its layers stacked; the dry run on the meta "
+            "device")
+        scan = phase_scan_dryrun(torch, smi, train, sharded, cells)
 
     leaked = sorted(m for m in sys.modules if m.startswith("jax") or m == "repro"
                     or m.startswith("repro."))
@@ -5136,6 +5420,7 @@ def main(argv=None) -> int:
                  families_select=families["select_launches"],
                  families_monitor=families["monitor_launches"],
                  sharded_select=sharded["select"]["launches"],
+                 scan_train_select=scan["train"]["select"]["launches"],
                  fault_chaos=faults["chaos"]["launches"],
                  fault_quarantine=faults["quarantine"]["launches"],
                  fault_recovery=faults["recovery"]["launches"],
@@ -5175,7 +5460,7 @@ def main(argv=None) -> int:
         dict(card=smi, device=device, kernels=kernels, scale=scale, serving=serving,
              faults=faults, telemetry=telemetry, mesh=mesh, tuner=tuner["report"],
              wide_rows=wide, lm=lm, train=train, families=families,
-             sharded=sharded,
+             sharded=sharded, scan_dryrun=scan,
              wall_s=time.perf_counter() - T0), indent=1))
     log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
     emit({"kernels": kernels})

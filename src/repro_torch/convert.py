@@ -103,41 +103,21 @@ def plan_pair_from_fields(fields: Mapping) -> PlanPair:
 
 
 def _flatten(tree, prefix: str = "") -> dict:
-    """Dotted names -> leaves of a nested dict/list tree; a dict of
-    stacked per-layer arrays under ``layers`` (``scan_layers``) unstacks
-    into one entry per layer."""
+    """Dotted names -> leaves of a nested dict/list tree (a list's items
+    by index: ``layers.<i>.attn.wq``; the stacked layers of a
+    ``scan_layers`` tree are a dict: ``layers.attn.wq``, as the port's
+    stacked model names them)."""
     if isinstance(tree, Mapping):
-        if prefix == "layers.":
-            tree = _unstack(tree)
-        else:
-            out = {}
-            for key, sub in tree.items():
-                out.update(_flatten(sub, f"{prefix}{key}."))
-            return out
+        out = {}
+        for key, sub in tree.items():
+            out.update(_flatten(sub, f"{prefix}{key}."))
+        return out
     if isinstance(tree, (list, tuple)):
         out = {}
         for i, sub in enumerate(tree):
             out.update(_flatten(sub, f"{prefix}{i}."))
         return out
     return {prefix[:-1]: tree}
-
-
-def _unstack(stacked: Mapping) -> list:
-    leaves = _flatten(stacked)
-    depth = {np.shape(a)[0] for a in leaves.values()}
-    if len(depth) != 1:
-        raise ValueError(f"stacked layer leaves disagree on the layer count: {sorted(depth)}")
-    out = []
-    for i in range(depth.pop()):
-        layer: dict = {}
-        for name, arr in leaves.items():
-            *groups, leaf = name.split(".")
-            node = layer
-            for g in groups:
-                node = node.setdefault(g, {})
-            node[leaf] = arr[i]
-        out.append(layer)
-    return out
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -152,8 +132,9 @@ def lm_params_from_numpy(tree: Mapping, cfg, *, device=None):
     """The port's model for ``cfg`` on ``device`` holding the reference's
     parameters: ``tree`` is the reference's parameter tree with numpy
     leaves (``jax.tree.map(np.asarray, params)``), its layers a list or,
-    under ``scan_layers``, stacked. Every leaf must match a parameter
-    by name, shape and dtype."""
+    under ``scan_layers``, a dict of stacked leaves, which load as the
+    stacked model's own. Every leaf must match a parameter by name,
+    shape and dtype."""
     from repro_torch.models import model_zoo
 
     device = resolve_device(device)

@@ -39,6 +39,14 @@ collective is an ``all_reduce`` (SUM in the rounds; the sharded LM's
 greedy pick and flash-decoding also take MAX and MIN), the one form
 both gloo and NCCL take on CUDA and CPU tensors alike.
 
+A `VirtualMesh` is a mesh description plus one rank's coordinate, on
+the "meta" device, with no process group: its groups record each
+collective into a `Recorder` (calls and payload bytes per op and axis,
+what `COLLECTIVES` counts, and the reference's HLO wire bytes) and issue
+none. `repro_torch.launch.dryrun` runs one rank's real step under it;
+`MeshAxes`, `shard_model` and the train step take it as they take a
+`DeviceMesh`.
+
 The placement trees (`multi_state_pspecs`, `cache_pspecs`,
 `cursor_pspecs`, `window_pspecs`) replace the reference's
 PartitionSpecs: each leaf is `WHOLE` (every rank holds it) or a
@@ -76,6 +84,9 @@ __all__ = [
     "RANK_STARTUP",
     "DimSplit",
     "MeshAxes",
+    "Recorder",
+    "RecordingGroup",
+    "VirtualMesh",
     "WHOLE",
     "barrier",
     "cache_pspecs",
@@ -153,6 +164,89 @@ def window_pspecs(data_axes=("data",)) -> WindowData:
     return WindowData(indices=d, z=d, x=d, bitmap=d, valid=d)
 
 
+# An op's bytes on the wire, per payload byte, as the reference's HLO
+# parser charges a ring collective (`repro.launch.hlo_parse`): an
+# all-reduce is a reduce-scatter plus an all-gather
+WIRE_FACTOR = {"all-reduce": 2}
+
+
+class Recorder:
+    """The collectives a `VirtualMesh`'s groups were asked for: per
+    (op, axis) the calls and the payload bytes (``numel * element_size``
+    of the reduced tensor, what `COLLECTIVES` counts)."""
+
+    def __init__(self):
+        self.by_axis: dict = {}
+
+    def record(self, kind: str, axis: str, nbytes: int) -> None:
+        entry = self.by_axis.setdefault((kind, axis), {"calls": 0, "bytes": 0})
+        entry["calls"] += 1
+        entry["bytes"] += int(nbytes)
+
+    def reset(self) -> None:
+        self.by_axis.clear()
+
+    def totals(self) -> dict:
+        """{"calls", "bytes"} over every op and axis (`COLLECTIVES`' form)."""
+        return {k: sum(e[k] for e in self.by_axis.values()) for k in ("calls", "bytes")}
+
+    def hlo_form(self) -> dict:
+        """``{op: {"count", "bytes"}}`` with the reference's wire bytes
+        (`repro.launch.hlo_parse.parse_hlo_collectives`' output form)."""
+        out: dict = {}
+        for (kind, _), e in self.by_axis.items():
+            entry = out.setdefault(kind, {"count": 0, "bytes": 0})
+            entry["count"] += e["calls"]
+            entry["bytes"] += WIRE_FACTOR.get(kind, 1) * e["bytes"]
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class RecordingGroup:
+    """A virtual mesh's group over ``axis`` (mesh axes joined by "+" for
+    a group over several): `all_reduce` on it records and issues
+    nothing."""
+
+    axis: str
+    recorder: Recorder = dataclasses.field(compare=False, repr=False)
+
+
+class VirtualMesh:
+    """A mesh description and one rank's place on it, on the "meta"
+    device (shapes only), with no process group: ``mesh_dim_names``,
+    ``mesh`` (the ranks' grid), `get_coordinate` and `get_group` as a
+    `DeviceMesh` has them, each group a `RecordingGroup` writing into the
+    mesh's ``recorder``; ``world_group`` spans every axis (the default
+    group of a real mesh)."""
+
+    device_type = "meta"
+
+    def __init__(self, shape, names, coord):
+        shape, names, coord = tuple(int(n) for n in shape), tuple(names), tuple(coord)
+        if not (len(shape) == len(names) == len(coord)):
+            raise ValueError(f"shape {shape}, names {names} and coordinate {coord} differ in rank")
+        if any(not 0 <= c < n for c, n in zip(coord, shape)):
+            raise ValueError(f"coordinate {coord} lies outside the mesh {shape}")
+        self.mesh_dim_names = names
+        self.mesh = torch.arange(int(np.prod(shape)), dtype=torch.int64).reshape(shape)
+        self.recorder = Recorder()
+        self._coord = coord
+        self._groups = {a: RecordingGroup(a, self.recorder) for a in names}
+        self.world_group = RecordingGroup("+".join(names), self.recorder)
+
+    @property
+    def rank(self) -> int:
+        return int(self.mesh[self._coord])
+
+    def get_coordinate(self) -> list:
+        return list(self._coord)
+
+    def get_group(self, axis: str) -> RecordingGroup:
+        if axis not in self._groups:
+            raise ValueError(f"mesh has no axis {axis!r}; axes are {self.mesh_dim_names}")
+        return self._groups[axis]
+
+
 def init_mesh(shape, names=("data", "model"), *, device_type: str = "cuda"):
     """A `DeviceMesh` of ``shape`` with the reference's axis ``names``
     over the initialised default process group (every rank calls it)."""
@@ -172,7 +266,8 @@ class MeshAxes:
     issues no collective)."""
 
     def __init__(self, mesh, data_axes=("data",), model_axis: str = "model"):
-        if not dist.is_initialized():
+        virtual = isinstance(mesh, VirtualMesh)
+        if not virtual and not dist.is_initialized():
             raise RuntimeError(
                 "a mesh round needs an initialised torch.distributed process group "
                 "(init_process_group, then a DeviceMesh)"
@@ -185,7 +280,7 @@ class MeshAxes:
                 raise ValueError(f"mesh has no axis {ax!r}; axes are {dict(zip(names, shape))}")
         if model_axis in data_axes or len(set(data_axes)) != len(data_axes):
             raise ValueError(f"data axes {data_axes} and model axis {model_axis!r} must differ")
-        if mesh.mesh.numel() != dist.get_world_size():
+        if not virtual and mesh.mesh.numel() != dist.get_world_size():
             raise ValueError(
                 f"the mesh spans {mesh.mesh.numel()} ranks, the process group "
                 f"{dist.get_world_size()}"
@@ -195,8 +290,8 @@ class MeshAxes:
         self.data_axes, self.model_axis = data_axes, model_axis
         size = dict(zip(names, shape))
         coord = dict(zip(names, mesh.get_coordinate()))
-        self.rank = dist.get_rank()
-        self.world = dist.get_world_size()
+        self.rank = mesh.rank if virtual else dist.get_rank()
+        self.world = mesh.mesh.numel() if virtual else dist.get_world_size()
         self.num_workers = int(np.prod([size[a] for a in data_axes], dtype=np.int64))
         w = 0
         for ax in data_axes:
@@ -239,7 +334,12 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp
 
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """Reduce ``t`` in place over ``group`` (None: the default group) with
-    ``op`` ("sum", "max" or "min"), timed into `COLLECTIVES`."""
+    ``op`` ("sum", "max" or "min"), timed into `COLLECTIVES`. On a
+    `RecordingGroup` (a `VirtualMesh`'s) the call and its payload are
+    recorded, nothing is issued and ``t`` stays as it is."""
+    if isinstance(group, RecordingGroup):
+        group.recorder.record("all-reduce", group.axis, t.numel() * t.element_size())
+        return t
     t0 = time.perf_counter()
     dist.all_reduce(t, op=_OPS[op], group=group)
     COLLECTIVES["calls"] += 1

@@ -268,6 +268,8 @@ def stage_model(cfg, mesh, *, n_stages: int, generator=None, params=None,
     )
     from repro_torch.models.transformer import Transformer
 
+    if cfg.scan_layers:
+        raise ValueError("a stage holds unrolled layers; stacked (scan_layers) ones do not split")
     if cfg.num_layers % n_stages:
         raise ValueError(f"{cfg.num_layers} layers do not split into {n_stages} stages")
     names = tuple(mesh.mesh_dim_names or ())

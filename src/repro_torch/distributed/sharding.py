@@ -422,10 +422,17 @@ def param_shardings(params, mesh, *, pspecs=None, coord=None):
                     specs, shapes)
 
 
+def _trailing(index: tuple, t) -> tuple:
+    """``index`` for ``t``: a leaf with fewer dims than its index is one
+    layer of a stacked leaf (``scan_layers``), whose block is the
+    trailing dims' (the stack dim is never split)."""
+    return index[len(index) - t.ndim:]
+
+
 def shard_leaf(t, sharding: Sharding):
-    """This rank's block of the whole leaf ``t``, a copy (the whole can
-    be freed at once)."""
-    return t[sharding.index].clone()
+    """This rank's block of the whole leaf ``t`` (or of one layer of a
+    stacked leaf), a copy (the whole can be freed at once)."""
+    return t[_trailing(sharding.index, t)].clone()
 
 
 @dataclasses.dataclass
@@ -485,19 +492,23 @@ class ShardPlan:
         self._by_id = {id(p): self.fsdp[name] for name, p in model.named_parameters()
                        if name in self.fsdp}
 
-    def whole(self, t: torch.Tensor) -> torch.Tensor:
+    def whole(self, t: torch.Tensor, stack: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``t`` as the model reads it: a leaf split over "data" gathered
         whole over the data group (one all-reduce of a zero-filled buffer;
         under autograd its backward sums the whole gradient over the
         group and keeps this rank's block, the reduce-scatter that also
-        sums the data replicas' gradients), any other tensor as it is."""
-        info = self._by_id.get(id(t))
+        sums the data replicas' gradients), any other tensor as it is.
+        ``t`` may be one layer's view of ``stack``, a stacked leaf
+        (``scan_layers``): that layer alone is gathered, along the split
+        dim less the stack's, as the unrolled model gathers its layer's
+        leaf."""
+        info = self._by_id.get(id(t if stack is None else stack))
         if info is None:
             return t
         from repro_torch.models.layers import gather_block
 
         dim, size = info
-        return gather_block(t, size, dim, self.data)
+        return gather_block(t, size, dim if stack is None else dim - 1, self.data)
 
 
 def _split_range(sharding: Sharding, dim: int) -> Optional[tuple]:
@@ -590,7 +601,9 @@ def shard_model(cfg, mesh, *, serving: bool = True, generator=None, params=None)
     on every rank), each leaf is drawn whole in the reference's order,
     this rank's block kept and the rest freed at once, so the sharded
     model holds exactly the values `model_zoo.get_model` draws from that
-    seed and no rank ever holds the whole model. With ``params``, the
+    seed and no rank ever holds the whole model (a ``scan_layers`` stack
+    is placed a layer at a time: each layer's leaf keeps the block of the
+    stack's trailing dims, the stack dim whole). With ``params``, the
     reference's parameter tree with numpy leaves (as
     `convert.lm_params_from_numpy` takes it), each block is sliced on the
     host. Batches are split over the data axes by the caller
@@ -655,7 +668,7 @@ def load_blocks(family, cfg, device, params, block):
 
     def place(name, t):
         index = block(name)
-        return t.new_empty(0) if index is None else t.new_empty(t[index].shape)
+        return t.new_empty(0) if index is None else t.new_empty(t[_trailing(index, t)].shape)
 
     model = family(cfg, device=torch.device("meta"), place=place)
     names = {name for name, _ in model.named_parameters()}

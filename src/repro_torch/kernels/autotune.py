@@ -202,7 +202,10 @@ def tau_bytes(v_z: int, v_x: int, q: int, plan: TauPlan, metric: str = "l1") -> 
 
 
 def backend_of(t: torch.Tensor) -> str:
-    """"cuda" or "cpu", the backend of the device ``t`` lies on."""
+    """"cuda" or "cpu", the backend of the device ``t`` lies on; "meta"
+    (the dry run's shapes-only tensors) takes the CPU's plain executors."""
+    if t.device.type == "meta":
+        return "cpu"
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {t.device}; use 'cuda' or 'cpu'")
     return t.device.type

@@ -4,7 +4,8 @@ Port of `repro.kernels.ops`. A CUDA tensor launches the hand-written
 kernel, or raises: there is no fallback to the plain version. A CPU
 tensor runs the plain PyTorch version (`ref` / `metrics`), which is how
 the tests hold the port against the JAX reference on a machine without
-a GPU.
+a GPU; so does a "meta" tensor (the dry run's shapes-only round, which
+computes nothing and so hides no device).
 
 The ingest and tau entry points take a ``plan`` with the reference's
 meaning (`repro_torch.kernels.autotune`): "auto" (the default) looks up
@@ -67,7 +68,7 @@ KERNELS = {
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):  # meta: shapes only, the plain version's
         return False
     raise ValueError(f"unsupported device {t.device}; use 'cuda' or 'cpu'")
 

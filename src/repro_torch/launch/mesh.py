@@ -7,6 +7,10 @@ group. The production topology is a pod of 256 devices arranged
 ("pod", "data", "model"). Every rank calls these. Unlike the
 reference, which takes a prefix of a larger device list, a mesh here
 spans the whole world: a rank outside it would hold no coordinate.
+`make_virtual_mesh` is one rank's place on the production mesh with no
+world at all (`core.distributed.VirtualMesh`: the meta device, groups
+that record their collectives), what the dry run compiles against in
+place of the reference's 512 placeholder host devices.
 """
 
 from __future__ import annotations
@@ -14,9 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch.distributed as dist
 
-from repro_torch.core.distributed import init_mesh
+from repro_torch.core.distributed import VirtualMesh, init_mesh
 
-__all__ = ["make_production_mesh", "make_mesh_for"]
+__all__ = ["PRODUCTION", "make_mesh_for", "make_production_mesh", "make_virtual_mesh"]
+
+# (shape, axis names) of the pod and of the 2-pod job
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 def _mesh(shape: tuple, axes: tuple, device_type: str):
@@ -31,9 +39,14 @@ def _mesh(shape: tuple, axes: tuple, device_type: str):
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     """The production mesh over a world of exactly 256 (512) ranks."""
-    if multi_pod:
-        return _mesh((2, 16, 16), ("pod", "data", "model"), device_type)
-    return _mesh((16, 16), ("data", "model"), device_type)
+    return _mesh(*PRODUCTION[multi_pod], device_type)
+
+
+def make_virtual_mesh(*, multi_pod: bool = False) -> VirtualMesh:
+    """The production mesh as its first rank sees it, with no process
+    group: a `VirtualMesh` on "meta"."""
+    shape, names = PRODUCTION[multi_pod]
+    return VirtualMesh(shape, names, (0,) * len(shape))
 
 
 def make_mesh_for(shape: tuple, axes: tuple, *, device_type: str = "cuda"):

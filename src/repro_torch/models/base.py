@@ -24,7 +24,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["Group", "Model", "TensorSpec", "Whole", "model_dtype"]
+__all__ = ["Group", "LayerView", "Model", "TensorSpec", "Whole", "extra_input_shapes",
+           "layer_views", "model_dtype"]
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -55,21 +56,63 @@ class Group(nn.Module):
         return name in self._parameters or name in self._modules
 
 
-class Whole:
-    """A parameter group read through a `ShardPlan`: each leaf the plan
-    splits over "data" (the FSDP training layout) comes out gathered
-    whole over the data group (`ShardPlan.whole`), every other leaf as
-    it is, a child group as a `Whole` of it. Indexed as a `Group` is."""
+class LayerView:
+    """Layer ``index`` of a group of stacked parameters (``scan_layers``:
+    each leaf one (L, ...) parameter): each leaf comes out as the view
+    ``p[index]``, a child group as a `LayerView` of it. Indexed as a
+    `Group` is. `layer_views` makes the L views of a group."""
 
-    __slots__ = ("_group", "_plan")
+    __slots__ = ("_group", "_index", "_views")
 
-    def __init__(self, group: nn.Module, plan):
-        self._group, self._plan = group, plan
+    def __init__(self, group: nn.Module, index: int, views: dict):
+        self._group, self._index, self._views = group, index, views
 
     def __getitem__(self, name: str):
         value = self._group[name]
         if isinstance(value, nn.Module):
+            return LayerView(value, self._index, self._views)
+        return self._views[id(value)][self._index]
+
+    def __getattr__(self, name: str):
+        return self[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._group
+
+    def stacked(self, name: str) -> torch.Tensor:
+        """The (L, ...) parameter whose view leaf ``name`` is."""
+        return self._group[name]
+
+
+def layer_views(group: nn.Module, layers: int) -> list:
+    """The ``layers`` `LayerView` s of ``group``, a group of stacked
+    parameters: each parameter split by one ``unbind`` into its layers'
+    views, so the backward pass stacks the layers' gradients into the
+    parameter's once (reading ``p[i]`` layer by layer would give each
+    layer's gradient the whole stack's size)."""
+    views = {id(p): p.unbind(0) for p in group.parameters()}
+    return [LayerView(group, i, views) for i in range(layers)]
+
+
+class Whole:
+    """A parameter group (a `Group` or a `LayerView`) read through a
+    `ShardPlan`: each leaf the plan splits over "data" (the FSDP
+    training layout) comes out gathered whole over the data group
+    (`ShardPlan.whole`; a layer's view of a stacked leaf gathers only
+    that layer), every other leaf as it is, a child group as a `Whole`
+    of it. Indexed as a `Group` is."""
+
+    __slots__ = ("_group", "_plan")
+
+    def __init__(self, group, plan):
+        self._group, self._plan = group, plan
+
+    def __getitem__(self, name: str):
+        value = self._group[name]
+        if isinstance(value, (nn.Module, LayerView)):
             return Whole(value, self._plan)
+        if isinstance(self._group, LayerView):
+            return self._plan.whole(value, stack=self._group.stacked(name))
         return self._plan.whole(value)
 
     def __getattr__(self, name: str):
@@ -127,11 +170,16 @@ class Model(nn.Module):
 
     def extra_input_shapes(self, batch: int, seq: int) -> dict:
         """The modality-frontend stub inputs `forward` takes (vlm, audio)."""
-        cfg = self.cfg
-        if cfg.frontend == "vision_stub" and cfg.vision_tokens:
-            shape = (batch, cfg.vision_tokens, cfg.d_model)
-            return {"vision_embeds": TensorSpec(shape, self.dtype)}
-        if cfg.frontend == "audio_stub":
-            shape = (batch, cfg.encoder_seq, cfg.d_model)
-            return {"encoder_frames": TensorSpec(shape, self.dtype)}
-        return {}
+        return extra_input_shapes(self.cfg, batch, seq)
+
+
+def extra_input_shapes(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """`Model.extra_input_shapes` of ``cfg``'s model, with no model built
+    (the stubs are in the model's dtype)."""
+    if cfg.frontend == "vision_stub" and cfg.vision_tokens:
+        shape = (batch, cfg.vision_tokens, cfg.d_model)
+        return {"vision_embeds": TensorSpec(shape, model_dtype(cfg))}
+    if cfg.frontend == "audio_stub":
+        shape = (batch, cfg.encoder_seq, cfg.d_model)
+        return {"encoder_frames": TensorSpec(shape, model_dtype(cfg))}
+    return {}

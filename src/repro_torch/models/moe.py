@@ -252,7 +252,11 @@ def moe_ffn_mesh(params, x: torch.Tensor, *, num_experts: int, top_k: int,
         # every pair kept where the capacity is at least the global pair count
         counts, offset = None, None
         if capacity < t * n * top_k:
-            counts = torch.bincount(r["experts"].reshape(-1), minlength=e).to(torch.float32)
+            flat = r["experts"].reshape(-1)
+            # each expert's pair count (a scatter of ones, which the meta
+            # device also propagates; bincount has no meta kernel)
+            counts = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+                0, flat, torch.ones_like(flat)).to(torch.float32)
             if n > 1:
                 buf = torch.zeros((n, e), dtype=torch.float32, device=x.device)
                 buf[axes.worker] = counts

@@ -7,7 +7,8 @@ vision-stub prefix), mixtral-8x7b and grok-1-314b (MoE FFNs,
 
 `Transformer` is a `base.Model` that owns its weights, with the
 reference's parameter tree names (``embed.table``, ``layers.<i>.attn.wq``,
-``layers.<i>.moe.w_gate``, ...) and its ``(d_in, d_out)`` layout, so the
+``layers.<i>.moe.w_gate``, ...; stacked under ``scan_layers``, below) and
+its ``(d_in, d_out)`` layout, so the
 reference's parameters load by name with no transposes
 (`repro_torch.convert.lm_params_from_numpy`). Three entry points, as in
 the reference, without the ``params`` argument:
@@ -22,9 +23,19 @@ and `decode_step` at the dropless capacity ``num_experts``, as the
 reference serves, so at full width `forward` can drop tokens that
 serving keeps.
 
-Layers always run as a loop over a `ModuleList`: ``scan_layers`` (the
-reference's stacked parameters under ``lax.scan``) runs the same layers,
-and the converter unstacks its parameters. ``remat`` maps to activation
+Layers always run as a loop. Unrolled, each layer is a group of a
+`ModuleList` (``layers.<i>.attn.wq``); under ``scan_layers`` each
+per-layer leaf is one ``(L, ...)`` parameter under the reference's
+stacked name (``layers.attn.wq``, ``layers.attn_norm.scale``,
+``layers.moe.w_gate`` (L, E, D, F)), drawn layer by layer in the
+reference's order (so from one seed the stacked model holds exactly the
+unrolled one's values), and block i reads the views ``p[i]``
+(`base.layer_views`: one ``unbind`` a leaf a pass) where the reference
+scans (`forward`) or slices (`prefill`, `decode_step`) the stack. The
+forward and the gradients are the unrolled model's; what changes is what
+the optimizer sees: a stacked 1-D scale or bias is a matrix, which AdamW
+decays and Adafactor factors over the stack, as the reference's stacked
+leaves are. ``remat`` maps to activation
 checkpointing of each block in `forward` while autograd records:
 ``"full"`` keeps only each block's input and recomputes the block in the
 backward pass (``jax.checkpoint``), ``"dots"`` also keeps the block's
@@ -73,7 +84,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.base import Group, Model, TensorSpec, model_dtype
+from repro_torch.models.base import Group, Model, TensorSpec, layer_views, model_dtype
 from repro_torch.models.layers import AttnSpec
 from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_local, moe_ffn_mesh
 
@@ -193,6 +204,25 @@ def _placed(place, prefix: str, tree: dict) -> dict:
 
 def _whole(name: str, t: torch.Tensor) -> torch.Tensor:
     return t
+
+
+def _stacked_layers(cfg: ModelConfig, place, **kw) -> dict:
+    """The layers' parameters under ``scan_layers``: each leaf stacked on a
+    new first dim, drawn layer by layer in the reference's order, each
+    layer's leaf placed (``place(stacked name, leaf)``) as it is drawn,
+    so one layer is whole at a time."""
+    stacks: dict = {}
+
+    def stack(name: str, t: torch.Tensor) -> torch.Tensor:
+        t = place(name, t)
+        if name not in stacks:
+            stacks[name] = t.new_empty((cfg.num_layers,) + tuple(t.shape))
+        stacks[name][layer].copy_(t)
+        return stacks[name]
+
+    for layer in range(cfg.num_layers):
+        tree = _placed(stack, "layers", init_layer(cfg, **kw))
+    return tree
 
 
 _BIAS = {"wq": "bq", "wk": "bk", "wv": "bv"}
@@ -335,15 +365,25 @@ class Transformer(Model):
         )
         self.final_norm = Group(_placed(place, "final_norm",
                                         L.init_rmsnorm(cfg.d_model, dt, device=device)))
-        self.layers = nn.ModuleList(
-            [Group(_placed(place, f"layers.{i}", init_layer(cfg, **kw)))
-             for i in range(cfg.num_layers)]
-        )
+        if cfg.scan_layers:
+            self.layers = Group(_stacked_layers(cfg, place, **kw))
+        else:
+            self.layers = nn.ModuleList(
+                [Group(_placed(place, f"layers.{i}", init_layer(cfg, **kw)))
+                 for i in range(cfg.num_layers)]
+            )
         if not cfg.tie_embeddings:
             self.lm_head = Group(
                 {"w": place("lm_head.w", L.dense_init((cfg.d_model, cfg.vocab_size), dt, **kw))}
             )
         self.tp = None  # a ShardPlan on a rank-local model
+
+    def _layers(self) -> list:
+        """Each block's parameter group: the `ModuleList`'s, or under
+        ``scan_layers`` layer i's views of the stacked leaves."""
+        if self.cfg.scan_layers:
+            return layer_views(self.layers, self.cfg.num_layers)
+        return list(self.layers)
 
     def _ffn(self, lp: Group, h: torch.Tensor, capacity_factor: float) -> tuple:
         """The block's FFN: (y, aux), aux empty for a dense layer."""
@@ -402,7 +442,7 @@ class Transformer(Model):
             x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
         positions = self._positions(b, s)
         auxes = []
-        for lp in self.layers:
+        for lp in self._layers():
             x, aux = self._remat_block(lp, x, positions)
             if aux:
                 auxes.append(aux)
@@ -440,7 +480,7 @@ class Transformer(Model):
         seq = self._cache_seq(max_len)
         lo, s_loc = (seq[0], max_len // self.tp.model_size) if seq else (0, max_len)
         ks, vs = [], []
-        for lp in self.layers:
+        for lp in self._layers():
             x, k, v, _ = self._block(lp, x, positions, float(cfg.num_experts))
             k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))[:, lo : lo + s_loc]
             v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))[:, lo : lo + s_loc]
@@ -468,7 +508,7 @@ class Transformer(Model):
         pos = torch.full((b,), cache.length, dtype=torch.int32, device=self.device)
         plan = self.tp
         spec = self._local_spec()
-        for li, lp in enumerate(self.layers):
+        for li, lp in enumerate(self._layers()):
             lp = self.weights(lp)
             h = L.rms_norm(lp.attn_norm, x, cfg.norm_eps)
             if plan is not None and plan.attn == "whole":
@@ -495,8 +535,10 @@ class Transformer(Model):
         shape = (batch, s_loc, spec.num_kv_heads, self.cfg.head_dim)
         dt = model_dtype(self.cfg)
         return KVCache(
-            k=[torch.zeros(shape, dtype=dt, device=self.device) for _ in self.layers],
-            v=[torch.zeros(shape, dtype=dt, device=self.device) for _ in self.layers],
+            k=[torch.zeros(shape, dtype=dt, device=self.device)
+               for _ in range(self.cfg.num_layers)],
+            v=[torch.zeros(shape, dtype=dt, device=self.device)
+               for _ in range(self.cfg.num_layers)],
             length=0, seq=seq,
         )
 

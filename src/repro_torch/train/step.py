@@ -14,7 +14,10 @@ gradient norm) back to the host, one sync a step, and only then updates
 each leaf's moments and parameter in place (`Optimizer.update_`). A
 skipped step leaves every parameter and moment as it was, bit for bit,
 and no step holds a second copy of the model's state: what lets a
-3B-parameter model's AdamW step fit on one card.
+3B-parameter model's AdamW step fit on one card. On the "meta" device
+(the dry run's shapes-only step, `repro_torch.launch.dryrun`) there is
+no verdict to read back: the update runs and ``step_ok`` is the verdict
+as a tensor.
 
 On a mesh (a rank-local model from `repro_torch.distributed.shard_model`,
 its `ShardPlan` in ``model.tp``; ``serving=False`` places the FSDP × TP
@@ -235,19 +238,24 @@ def make_train_step(
             norm = functools.partial(mesh.norm, params=state.params)
             update = functools.partial(optimizer.update_, splits=mesh.splits(state.params))
         gnorm = clip_by_global_norm_(grads, clip_norm, norm=norm(grads))
-        if skip_nonfinite:
-            ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))  # the step's one sync
-        else:
-            ok = True
-        if ok:
+        verdict = torch.isfinite(loss) & torch.isfinite(gnorm) if skip_nonfinite else None
+        if verdict is not None and verdict.is_meta:
+            # shapes only (a dry run): nothing to read back, so the update runs
+            # and the verdict stays a tensor
             update(grads, state.opt_state, state.params, state.step)
+            step_ok = verdict.to(torch.float32)
+        else:
+            ok = True if verdict is None else bool(verdict)  # the step's one sync
+            if ok:
+                update(grads, state.opt_state, state.params, state.step)
+            step_ok = torch.tensor(float(ok), dtype=torch.float32, device=loss.device)
         for p in tree_leaves(state.params):
             p.grad = None
         metrics = {
             "loss": loss,
             "ce": ce,
             "grad_norm": gnorm,
-            "step_ok": torch.tensor(float(ok), dtype=torch.float32, device=loss.device),
+            "step_ok": step_ok,
             "param_norm": norm(state.params),
         }
         for k, v in (aux or {}).items():
@@ -278,6 +286,8 @@ class _MeshStep:
         coord = dict(zip(names, mesh.get_coordinate()))
         live = [a for a in names if size[a] > 1]
         self.data_groups = _data_groups(mesh)
+        # every rank of the mesh: the default group (a virtual mesh's own)
+        self.world = getattr(mesh, "world_group", None)
         tps = {a: L.TP(mesh.get_group(a), coord[a], size[a]) for a in live}
         self._split, self._owned, self._replicated = {}, {}, {}
         for name, p in model.named_parameters():
@@ -338,7 +348,7 @@ class _MeshStep:
                 for x, p in zip(leaves, tree_leaves(params)) if self._owned[id(p)]]
         total = (torch.sum(torch.stack(sums)) if sums
                  else torch.zeros((), dtype=torch.float32, device=leaves[0].device))
-        return torch.sqrt(all_reduce(total, None))
+        return torch.sqrt(all_reduce(total, self.world))
 
 
 def make_eval_step(model) -> Callable:

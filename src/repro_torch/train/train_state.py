@@ -23,15 +23,14 @@ import torch
 
 from repro_torch.optimizer.base import tree_leaves, tree_map, tree_map_
 
-__all__ = ["SCAN_LAYERS_ITEM", "TrainState", "param_tree"]
-
-SCAN_LAYERS_ITEM = "ROADMAP A12g (training under scan_layers)"
+__all__ = ["TrainState", "param_tree"]
 
 
 def param_tree(model) -> dict:
     """The model's parameters as the reference's tree: dotted names split
     into nested dicts, with the per-layer groups (``layers``, whisper's
-    ``enc_layers`` and ``dec_layers``) lists."""
+    ``enc_layers`` and ``dec_layers``) lists; under ``scan_layers`` the
+    stacked leaves stay a dict under ``layers``, as the reference's."""
     return _nest(model.named_parameters())
 
 
@@ -81,15 +80,10 @@ class TrainState(NamedTuple):
         """The state of a model about to train: its parameter tree (with
         gradients turned on), the optimizer's initial state, step 0.
 
-        Under ``scan_layers`` the reference stacks each layer's leaves,
-        so its 1-D norm scales and biases become (L, D) matrices that
-        AdamW decays and Adafactor factors over the whole stack; the
-        port's layers are separate leaves, so it refuses to train that
-        configuration rather than compute something else."""
-        if model.cfg.scan_layers:
-            raise NotImplementedError(
-                f"training a scan_layers configuration is not ported: {SCAN_LAYERS_ITEM}"
-            )
+        Under ``scan_layers`` the leaves are the stacked (L, ...) ones,
+        as the reference's: the optimizer sees a stacked norm scale or
+        bias as a matrix (AdamW decays it, Adafactor factors it over the
+        stack) and reduces Adafactor's means over the whole stack."""
         params = param_tree(model)
         tree_map_(lambda p: p.requires_grad_(True), params)
         step = torch.zeros((), dtype=torch.int64, device=model.device)

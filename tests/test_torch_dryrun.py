@@ -1,0 +1,185 @@
+"""The dry-run launcher (`repro_torch.launch.dryrun`, `launch.specs`,
+`launch.roofline`) against the JAX reference's and against real ranks.
+
+The reference compiles each cell with XLA; the port runs one rank's step
+on the meta device under a `VirtualMesh` whose groups record their
+collectives. What can be held here without an XLA compile:
+
+* `cell_supported` and `input_specs` equal the reference's for every
+  arch × shape;
+* each cell's useful FLOPs, and the bytes of parameters and optimizer
+  state a rank holds on the production meshes, equal those computed
+  from the reference's config, `param_pspecs` and `opt_state_pspecs`
+  (each leaf's bytes over the mesh axes its spec splits it on);
+* the recorder is honest: one train step and one decode tick on the
+  meta device record the all-reduce calls and bytes that four gloo CPU
+  ranks issue for the same step and tick, rank by rank, and the FLOPs
+  counted on meta equal the same counter over the real rank's step;
+* the CLI writes its JSONs and `roofline.render` reads them.
+"""
+
+import dataclasses
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.distributed import sharding as jsh
+from repro.launch import specs as jspecs
+from repro.models.model_zoo import get_model as jget_model
+from repro.optimizer import get_optimizer as jget_optimizer
+from repro_torch.configs import base as tbase
+from repro_torch.core import distributed
+from repro_torch.core.distributed import VirtualMesh
+from repro_torch.launch import dryrun, roofline
+from repro_torch.launch.mesh import make_virtual_mesh
+from repro_torch.launch.specs import build_case, input_specs, make_case
+from repro_torch.models.base import TensorSpec
+from repro_torch.optimizer.base import tree_leaves
+
+import torch_shard_ranks as R
+
+# the reference's dryrun sets XLA_FLAGS for 512 host devices when imported;
+# this process keeps its own (no jax backend starts during the import)
+_saved = os.environ.get("XLA_FLAGS")
+try:
+    from repro.launch import dryrun as jdryrun
+finally:
+    if _saved is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = _saved
+
+MESHES = {"pod": ((16, 16), ("data", "model")),
+          "multipod": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+class _Mesh:
+    """A mesh description the reference's rules read (axis names, shape)."""
+
+    def __init__(self, names, sizes):
+        self.axis_names = tuple(names)
+        self.shape = dict(zip(names, sizes))
+
+
+@pytest.mark.parametrize("arch", jbase.ARCH_IDS)
+def test_cells_and_inputs_equal_reference(arch):
+    """For every shape: whether the cell runs, and each input's name,
+    global shape and dtype."""
+    for shape_name in jbase.SHAPES:
+        assert dryrun.cell_supported(arch, shape_name) == jdryrun.cell_supported(arch,
+                                                                               shape_name)
+        want = jspecs.input_specs(jbase.get_config(arch), jbase.SHAPES[shape_name])
+        got = input_specs(tbase.get_config(arch), tbase.SHAPES[shape_name])
+        assert list(got) == list(want), shape_name
+        for k, v in want.items():
+            assert got[k] == TensorSpec(tuple(v.shape), getattr(torch, str(v.dtype))), (k, v)
+
+
+def _rank_bytes(tree, specs, sizes: dict) -> int:
+    """A rank's bytes of ``tree`` (ShapeDtypeStructs) placed by ``specs``
+    (the reference's PartitionSpecs): each leaf over the axes its spec
+    splits it on (the specs are divisibility-guarded)."""
+    leaves = jax.tree.leaves(tree)
+    spec_leaves = jax.tree.leaves(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    assert len(leaves) == len(spec_leaves)
+    total = 0
+    for leaf, spec in zip(leaves, spec_leaves):
+        parts = 1
+        for axes in spec:
+            for ax in (axes if isinstance(axes, tuple) else (axes,) if axes else ()):
+                parts *= sizes[ax]
+        n = int(np.prod(leaf.shape)) * leaf.dtype.itemsize
+        assert n % parts == 0
+        total += n // parts
+    return total
+
+
+@pytest.mark.parametrize("arch", jbase.ARCH_IDS)
+def test_rank_bytes_equal_reference_specs(arch):
+    """train_4k on the first rank of the pod and of the 2-pod mesh (the
+    dense, MoE and vlm families stacked, as the dry run trains them):
+    the useful FLOPs 6 N_active B S of the reference's config; the bytes
+    of parameters and of optimizer state the rank holds equal the
+    reference's leaves over their specs' split axes."""
+    jcfg, tcfg = jbase.get_config(arch), tbase.get_config(arch)
+    if tcfg.family in dryrun.SCANNABLE:
+        jcfg = dataclasses.replace(jcfg, scan_layers=True)
+        tcfg = dataclasses.replace(tcfg, scan_layers=True)
+    shape = jbase.SHAPES["train_4k"]
+    params = jax.eval_shape(jget_model(jcfg).init, jax.random.PRNGKey(0))
+    opt = jax.eval_shape(jget_optimizer(jcfg.optimizer, 1e-3).init, params)
+    for kind, (sizes, names) in MESHES.items():
+        desc = _Mesh(names, sizes)
+        p_specs = jsh.param_pspecs(params, desc)
+        saved, jspecs._MESH[0] = jspecs._MESH[0], desc
+        try:
+            o_specs = jspecs.opt_state_pspecs(opt, p_specs)
+        finally:
+            jspecs._MESH[0] = saved
+        axes = dict(zip(names, sizes))
+        case = build_case(arch, "train_4k", make_virtual_mesh(multi_pod=kind == "multipod"),
+                          cfg=tcfg)
+        assert case.model_flops == 6.0 * jcfg.active_param_count * shape.global_batch \
+            * shape.seq_len
+        got_p = sum(p.numel() * p.element_size() for p in case.model.parameters())
+        got_o = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(case.state.opt_state))
+        assert got_p == _rank_bytes(params, p_specs, axes), kind
+        assert got_o == _rank_bytes(opt, o_specs, axes), kind
+
+
+@pytest.fixture(scope="module")
+def real_ranks():
+    toks = np.random.default_rng(5).integers(0, 256, (4, 16)).astype(np.int32)
+    return distributed.run_ranks(R.dryrun_rank, 4, toks, device_type="cpu", timeout=300)
+
+
+def test_recorder_matches_real_ranks(real_ranks):
+    """On every rank of a 2 x 2 mesh: the meta run of each train step
+    (qwen2.5-3b stacked; mixtral-8x7b stacked at capacity factor 0.5,
+    whose expert counts are exchanged) records the all-reduce calls and
+    payload bytes the gloo rank issued, and counts its FLOPs; one decode
+    tick records the tick's calls and bytes. The wire bytes are twice
+    the payload (the reference's all-reduce charge)."""
+    for r in real_ranks:
+        coord = (r["coord"]["data"], r["coord"]["model"])
+        for case, arch, kw in R.DRY_CASES:
+            mesh = VirtualMesh((2, 2), ("data", "model"), coord)
+            c = make_case(R.dry_cfg(arch, **kw), mesh, "train",
+                          {"tokens": TensorSpec((4, 16), torch.int32)}, lr=R.FSDP_LR)
+            m = dryrun.measure(c.fn, c.args, mesh)
+            assert m["totals"] == r[case]["collectives"], (coord, case)
+            assert m["flops"] == r[case]["flops"] > 0, (coord, case)
+            assert m["colls"] == {"all-reduce": {"count": m["totals"]["calls"],
+                                                 "bytes": 2 * m["totals"]["bytes"]}}
+        mesh = VirtualMesh((2, 2), ("data", "model"), coord)
+        c = make_case(R.dry_cfg(R.DRY_CASES[0][1]), mesh, "decode",
+                      {"token": TensorSpec((4,), torch.int32)}, max_len=R.DRY_MAX_LEN)
+        m = dryrun.measure(c.fn, c.args, mesh)
+        assert m["totals"] == r["decode"]["collectives"] and m["totals"]["calls"] > 0, coord
+
+
+def test_cli_writes_and_roofline_reads(tmp_path, capsys):
+    """`dryrun.main` writes xlstm-125m x decode_32k x pod and the
+    FastMatch round on the pod, each ``ok`` with FLOPs, a bottleneck and
+    the H100's denominators; `roofline.render` reads both."""
+    out = str(tmp_path)
+    assert dryrun.main(["--arch", "xlstm-125m", "--shape", "decode_32k", "--mesh", "pod",
+                        "--out", out]) == 0
+    assert dryrun.main(["--arch", "fastmatch_round", "--mesh", "pod", "--out", out]) == 0
+    capsys.readouterr()
+    for name in ("xlstm_125m_decode_32k_pod", "fastmatch_round_pod"):
+        d = json.loads((tmp_path / f"{name}.json").read_text())
+        assert d["ok"] and d["flops_per_device"] > 0 and d["chips"] == 256
+        assert d["roofline"]["bottleneck"] in ("compute", "memory", "collective")
+        assert d["hardware"]["peak_flops"] == 989e12 and "H100" in d["hardware"]["card"]
+        assert d["collectives"]["all-reduce"]["count"] > 0
+        assert d["memory"]["argument_bytes"] > 0 and d["memory"]["temp_bytes"] > 0
+    table = roofline.render("pod", results=out)
+    assert "| xlstm_125m | decode_32k |" in table and "| fastmatch_round |" in table

@@ -6,7 +6,9 @@ against the JAX reference's jitted `make_train_step` placed by
 subprocess, as tests/test_torch_pipeline.py runs its host devices).
 
 qwen2.5-3b's smoke config (AdamW) and llama3-405b's (Adafactor), in
-float32 and bfloat16, on the reference's own weights, one step on a
+float32 and bfloat16, and qwen2.5-3b's in float32 under ``scan_layers``
+(each per-layer leaf stacked (L, ...), each layer's slice gathered over
+"data" where its block reads it), on the reference's own weights, one step on a
 4 x 16 batch (each data replica its rows) on a (2, 2) and a (4, 1)
 ("data", "model") mesh, one spawn a mesh: the loss, ce, grad_norm and
 param_norm within `torch_lm_twins.BARS` (the same bits on every rank,
@@ -21,7 +23,8 @@ apart), its post-step block within the train twins' bars
 block `launch.specs.opt_state_pspecs` gives it. Also
 `opt_state_pspecs` against the reference's for every configuration and
 both optimizers on mesh descriptions, as tests/test_torch_sharding.py
-holds `param_pspecs`.
+holds `param_pspecs`. The stacked step issues the unrolled step's
+all-reduce calls and bytes.
 """
 
 import concurrent.futures
@@ -59,7 +62,7 @@ from torch_shard_ranks import FSDP_CASES, FSDP_LR, FSDP_REMATS
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((2, 2), (4, 1))
 SEED = 3
-CASE_IDS = [f"{a}-{d}" for a, d in FSDP_CASES]
+CASE_IDS = ["-".join(c) for c in FSDP_CASES]
 
 # the reference's gradient and train step, jitted under param_pspecs and
 # opt_state_pspecs on 4 host devices shaped as argv[4] ("2x2"), for every
@@ -89,8 +92,10 @@ for shape in [tuple(int(n) for n in sys.argv[4].split("x"))]:
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(shape), ("data", "model"))
     S._MESH[0] = mesh
     toks = jnp.asarray(inp["toks"])
-    for arch, dtype in cases:
-        cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    for case in cases:
+        arch, dtype = case[:2]
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype,
+                                  scan_layers=case[2:] == ("scan",))
         model = get_model(cfg)
         opt = get_optimizer(cfg.optimizer, lr)
         state = TrainState.create(model.init(jax.random.PRNGKey(seed)), opt)
@@ -114,7 +119,7 @@ for shape in [tuple(int(n) for n in sys.argv[4].split("x"))]:
             return jax.grad(loss_fn)(state.params, batch), new.params, metrics
 
         grads, new, metrics = jax.jit(both)(state, batch)
-        key = f"{shape[0]}x{shape[1]}/{arch}/{dtype}"
+        key = f"{shape[0]}x{shape[1]}/" + "/".join(case)
         for what, tree in (("grad", grads), ("param", new)):
             for p, leaf in jax.tree_util.tree_leaves_with_path(tree):
                 out[f"{key}/{what}/{name(p)}"] = np.asarray(leaf, np.float32)
@@ -124,8 +129,9 @@ np.savez(sys.argv[5], **out)
 """
 
 
-def _tree(arch: str, dtype: str):
-    jc = dataclasses.replace(jbase.get_smoke_config(arch), dtype=dtype)
+def _tree(arch: str, dtype: str, variant=None):
+    jc = dataclasses.replace(jbase.get_smoke_config(arch), dtype=dtype,
+                             **torch_shard_ranks.FSDP_VARIANTS.get(variant, {}))
     return jax.tree.map(np.asarray, jget_model(jc).init(jax.random.PRNGKey(SEED)))
 
 
@@ -145,7 +151,7 @@ def runs(tmp_path_factory):
     one-process gradients by case)."""
     toks = np.random.default_rng(SEED).integers(0, 256, (4, 16)).astype(np.int32)
     path = tmp_path_factory.mktemp("fsdp") / "ref.npz"
-    np.savez(path, toks=toks, cases=np.array([f"{a}/{d}" for a, d in FSDP_CASES]))
+    np.savez(path, toks=toks, cases=np.array(["/".join(c) for c in FSDP_CASES]))
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     outs = [path.with_name(f"ref_{a}x{b}.npz") for a, b in SHAPES]
@@ -169,7 +175,7 @@ def runs(tmp_path_factory):
 
 
 def _key(shape, case) -> str:
-    return f"{shape[0]}x{shape[1]}/{case[0]}/{case[1]}"
+    return f"{shape[0]}x{shape[1]}/" + "/".join(case)
 
 
 def _block(whole: np.ndarray, index) -> np.ndarray:
@@ -281,9 +287,23 @@ def test_opt_state_blocks_follow_opt_state_pspecs(runs, shape):
 
             walk(shapes, blocks)
             assert r[case]["opt_shapes"] == want, case
-            assert "layers.0.attn.wq" in r[case]["fsdp"] and "lm_head.w" in r[case]["fsdp"]
+            wq = "layers.attn.wq" if cfg.scan_layers else "layers.0.attn.wq"
+            assert wq in r[case]["fsdp"] and "lm_head.w" in r[case]["fsdp"]
             assert r[case]["held"] < whole
             assert r[case]["attn"] == "heads"
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_scan_step_collectives_equal_unrolled(runs, shape):
+    """The stacked step gathers each layer's slice of a data-split leaf
+    where the unrolled step gathers the layer's leaf, and sums the
+    replicated gradients in one flattened all-reduce an axis either way
+    (AdamW reduces nothing): on every rank the same all-reduce calls and
+    payload bytes a step."""
+    for r in runs[0][shape]:
+        unrolled = r[("qwen2_5_3b", "float32")]["collectives"]
+        assert unrolled["calls"] > 0
+        assert r[("qwen2_5_3b", "float32", "scan")]["collectives"] == unrolled
 
 
 class _Mesh:

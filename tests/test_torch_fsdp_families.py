@@ -37,7 +37,9 @@ rounding noise on both sides, so the leaf's scale is floored at 1e-3 of
 the largest |grad| of the tree; post-step blocks within the train twins'
 bars; each optimizer state leaf the block `launch.specs.opt_state_pspecs`
 gives it (grok-1's 3-D expert leaves factored over their last two dims).
-A negative control: the port's per-shard slotting (``moe_impl="local"``)
+mixtral-8x7b also trains with its layers stacked (``scan_layers``),
+issuing the unrolled step's all-reduce calls and bytes. A negative
+control: the port's per-shard slotting (``moe_impl="local"``)
 misses the reference's "gather" step on this batch by more than the bar,
 so the twin tells the two apart.
 """
@@ -388,6 +390,18 @@ def test_per_shard_slotting_misses_gather(runs, shape):
     assert max(err / bar for err, bar, _ in errs) > 1.0
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_scan_step_collectives_equal_unrolled(runs, shape):
+    """mixtral-8x7b with its layers stacked issues, on every rank, the
+    all-reduce calls and payload bytes of its unrolled step: each
+    layer's slice of a data-split leaf gathered as the layer's leaf is,
+    each layer's expert counts and aux sums exchanged as before."""
+    for r in runs[0][shape]:
+        unrolled = r[("mixtral_8x7b", "float32", "gather")]["collectives"]
+        assert unrolled["calls"] > 0
+        assert r[("mixtral_8x7b", "float32", "gather", "scan")]["collectives"] == unrolled
+
+
 @pytest.mark.parametrize("shape", list(CASES_BY_SHAPE), ids=lambda s: f"{s[0]}x{s[1]}")
 def test_opt_state_blocks_follow_opt_state_pspecs(runs, shape):
     """Each rank's optimizer state leaves have the blocks opt_state_pspecs
@@ -430,6 +444,8 @@ def test_opt_state_blocks_follow_opt_state_pspecs(runs, shape):
                 assert got["fsdp"]["layers.0.moe.w_gate"] == (1, 64)
                 assert got["opt_shapes"]["layers.0.moe.w_gate.row"] == (4, 64 // shape[0])
                 assert got["opt_shapes"]["layers.0.moe.w_gate.col"] == (4, 192 // shape[1])
+            if case[3:] == ("scan",):  # (L, E, D, F): d_model is dim 2 of the stack
+                assert got["fsdp"]["layers.moe.w_gate"] == (2, 64)
             if case[0] == "xlstm_125m" and shape[1] > 1:
                 mix = "heads" if shape == (2, 2) else "whole"
                 assert got["layout"] == {"mlstm": mix, "slstm": mix,

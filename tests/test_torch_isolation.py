@@ -47,6 +47,7 @@ def test_every_module_is_covered():
         "repro_torch.models.xlstm", "repro_torch.models.whisper",
         "repro_torch.distributed", "repro_torch.distributed.sharding",
         "repro_torch.distributed.pipeline", "repro_torch.launch.mesh",
+        "repro_torch.launch.specs", "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
     ):
         assert expected in names
 

@@ -190,10 +190,13 @@ def test_vlm_forward_with_vision_embeds(dtype):
 
 
 def test_scan_layers_params_unstack():
-    """The reference's stacked ``scan_layers`` tree loads layer by layer
-    and gives its logits."""
+    """The reference's stacked ``scan_layers`` tree loads into the port's
+    stacked model (each leaf one (L, ...) parameter under the reference's
+    name) and gives its logits."""
     jm, params, tm = _pair("granite_8b", "float32", scan_layers=True)
     assert not isinstance(params["layers"], list)
+    wq = params["layers"]["attn"]["wq"]
+    np.testing.assert_array_equal(tm.layers.attn["wq"].numpy(), wq)
     toks = _tokens(jm.cfg.vocab_size, (2, 16), seed=4)
     want, _ = jm.forward(params, jnp.asarray(toks))
     got, _ = tm.forward(torch.from_numpy(toks))

@@ -211,10 +211,12 @@ def test_forward_drops_where_serving_does_not():
 
 def test_scan_layers_forward():
     """mixtral smoke under ``scan_layers``: the reference's stacked tree
-    (moe leaves (L, E, D, F)) loads layer by layer and gives its logits
+    (moe leaves (L, E, D, F)) loads into the port's stacked model, whose
+    blocks read each layer's slice of those leaves, and gives its logits
     and aux."""
     jm, params, tm = tw.pair("mixtral_8x7b", "float32", seed=6, scan_layers=True)
     assert params["layers"]["moe"]["w_gate"].ndim == 4
+    assert tm.layers.moe["w_gate"].shape == params["layers"]["moe"]["w_gate"].shape
     toks = tw.tokens(jm.cfg.vocab_size, seed=6)
     want, waux = jm.forward(params, jnp.asarray(toks))
     got, gaux = tm.forward(torch.from_numpy(toks))

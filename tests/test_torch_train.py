@@ -296,13 +296,6 @@ def test_eval_step_matches_reference():
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5)
 
 
-def test_scan_layers_refused():
-    cfg = dataclasses.replace(tbase.get_smoke_config("qwen2_5_3b"), scan_layers=True)
-    model = model_zoo.get_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12g"):
-        TrainState.create(model, get_optimizer("adamw", 1e-3))
-
-
 # ---------------------------------------------------------------------------
 # the train loop
 # ---------------------------------------------------------------------------

@@ -282,16 +282,20 @@ def pipeline_data_rank(rank, world, stages, x, cot, toks, tree, cot_qwen):
     return out
 
 
-# the FSDP × TP training twins (tests/test_torch_fsdp.py): (arch, dtype), each
-# config's own optimizer (qwen2.5-3b AdamW, llama3-405b Adafactor)
+# the FSDP × TP training twins (tests/test_torch_fsdp.py): (arch, dtype[,
+# variant]), each config's own optimizer (qwen2.5-3b AdamW, llama3-405b
+# Adafactor); the "scan" variant stacks the layers (``scan_layers``)
 FSDP_CASES = (("qwen2_5_3b", "float32"), ("qwen2_5_3b", "bfloat16"),
-              ("llama3_405b", "float32"), ("llama3_405b", "bfloat16"))
+              ("llama3_405b", "float32"), ("llama3_405b", "bfloat16"),
+              ("qwen2_5_3b", "float32", "scan"))
 FSDP_LR = 1e-3
 FSDP_REMATS = ("full", "dots")  # the first case's gradients again under each
+FSDP_VARIANTS = {"scan": dict(scan_layers=True)}
 
 
-def fsdp_cfg(arch: str, dtype: str):
-    return dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+def fsdp_cfg(arch: str, dtype: str, variant=None):
+    return dataclasses.replace(get_smoke_config(arch), dtype=dtype,
+                               **FSDP_VARIANTS.get(variant, {}))
 
 
 def fsdp_rank(rank, world, shape, trees, toks):
@@ -346,7 +350,9 @@ def _train_case(model, batch) -> dict:
     by_id = {id(p): n for n, p in model.named_parameters()}
     grad_blocks = {by_id[id(p)]: g.detach().float().numpy().copy()
                    for p, g in zip(tree_leaves(state.params), tree_leaves(grads))}
+    c0 = dict(distributed.COLLECTIVES)
     state, metrics = make_train_step(model, opt)(state, batch)
+    collectives = {k: distributed.COLLECTIVES[k] - c0[k] for k in ("calls", "bytes")}
     params = dict(model.named_parameters())
     plan = model.tp
     return dict(
@@ -355,7 +361,7 @@ def _train_case(model, batch) -> dict:
         index={n: [(sl.start, sl.stop) for sl in plan.block(n)] for n in params},
         grads=grad_blocks,
         params={n: p.detach().float().numpy() for n, p in params.items()},
-        opt_shapes=_leaf_shapes(state.opt_state),
+        opt_shapes=_leaf_shapes(state.opt_state), collectives=collectives,
         fsdp=dict(plan.fsdp), attn=plan.attn, mlp=plan.mlp, layout=dict(plan.layout),
         logits=plan.logits, held=sum(p.numel() for p in model.parameters()))
 
@@ -475,19 +481,22 @@ def family_rank(rank, world, trees, toks, frames, prompts):
 # over "model" (as whisper-medium's 51,865 does not). The "ff" variant of
 # xlstm-125m widens its sLSTM feed-forward to 96 columns, which split over
 # "model" (the config's factor 1.3333 gives 85 here and 1023 at full
-# width, which do not), so its "ff" layout is trained as well
+# width, which do not), so its "ff" layout is trained as well; the "scan"
+# variant of mixtral-8x7b stacks its layers (``scan_layers``: (L, E, D, F)
+# expert leaves)
 FAMILY_TRAIN_CASES = (
     ("mixtral_8x7b", "float32", "gather"), ("mixtral_8x7b", "float32", "local"),
     ("mixtral_8x7b", "bfloat16", "gather"), ("grok_1_314b", "float32", "gather"),
     ("internvl2_76b", "float32", None), ("recurrentgemma_2b", "float32", None),
     ("recurrentgemma_2b", "bfloat16", None), ("xlstm_125m", "float32", None),
     ("xlstm_125m", "float32", None, "ff"), ("whisper_medium", "float32", None),
+    ("mixtral_8x7b", "float32", "gather", "scan"),
 )
 FAMILY_TRAIN_CF = 0.5
 FAMILY_TRAIN_KW = {"whisper_medium": dict(vocab_size=521),
                    "grok_1_314b": dict(optimizer="adafactor"),
                    "internvl2_76b": dict(optimizer="adafactor")}
-FAMILY_TRAIN_VARIANTS = {"ff": dict(proj_factor_slstm=1.5)}
+FAMILY_TRAIN_VARIANTS = {"ff": dict(proj_factor_slstm=1.5), "scan": dict(scan_layers=True)}
 
 
 def family_train_kw(arch: str, variant=None) -> dict:
@@ -525,4 +534,57 @@ def family_train_rank(rank, world, shape, cases, trees, toks, extras):
         batch.update({k: torch.from_numpy(v[rows]).to(model.dtype)
                       for k, v in extras.get(case[0], {}).items()})
         out[case] = _train_case(model, batch)
+    return out
+
+
+# the dry run's recorder against real ranks (tests/test_torch_dryrun.py):
+# (case, arch, fields of its smoke config) trained one step on 4 x 16 tokens,
+# and one decode tick of the first after a prefill of DRY_PREFILL tokens
+DRY_CASES = (("qwen_scan", "qwen2_5_3b", dict(scan_layers=True)),
+             ("mixtral_scan", "mixtral_8x7b", dict(scan_layers=True, expert_capacity_factor=0.5)))
+DRY_PREFILL, DRY_MAX_LEN = 8, 16
+
+
+def dry_cfg(arch: str, **kw):
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
+
+
+def dryrun_rank(rank, world, toks):
+    """Each of `DRY_CASES` placed by `shard_model(serving=False)` (seed 0)
+    on a 2 x 2 mesh: one `make_train_step` step on this data replica's
+    rows of ``toks`` under `FlopCounterMode`, its all-reduce calls and
+    bytes (`COLLECTIVES`) and FLOPs; then the first case's unrolled model
+    prefilled with DRY_PREFILL tokens and the calls and bytes of one
+    decode tick."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed import shard_model
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.train import TrainState, make_train_step
+
+    torch.set_num_threads(1)  # 4 ranks share the host; smoke-sized products
+    mesh = distributed.init_mesh((2, 2), device_type="cpu")
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    rows = slice(coord["data"] * toks.shape[0] // 2, (coord["data"] + 1) * toks.shape[0] // 2)
+    batch = {"tokens": torch.from_numpy(toks[rows])}
+    out = dict(coord=coord)
+
+    def delta(c0):
+        return {k: distributed.COLLECTIVES[k] - c0[k] for k in ("calls", "bytes")}
+
+    for case, arch, kw in DRY_CASES:
+        cfg = dry_cfg(arch, **kw)
+        model = shard_model(cfg, mesh, serving=False, generator=torch.Generator().manual_seed(0))
+        opt = get_optimizer(cfg.optimizer, FSDP_LR)
+        state = TrainState.create(model, opt)
+        c0 = dict(distributed.COLLECTIVES)
+        with FlopCounterMode(display=False) as flops:
+            make_train_step(model, opt)(state, batch)
+        out[case] = dict(collectives=delta(c0), flops=flops.get_total_flops())
+    cfg = dry_cfg(DRY_CASES[0][1])
+    model = shard_model(cfg, mesh, serving=False, generator=torch.Generator().manual_seed(0))
+    _, cache = model.prefill(batch["tokens"][:, :DRY_PREFILL], DRY_MAX_LEN)
+    c0 = dict(distributed.COLLECTIVES)
+    model.decode_step(cache, batch["tokens"][:, DRY_PREFILL])
+    out["decode"] = dict(collectives=delta(c0))
     return out
