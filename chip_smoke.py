@@ -27,7 +27,14 @@ Phases, each of which raises (non-zero exit) when a check fails:
    plain version, its inputs unchanged and its scratch back at zero,
    and the fresh histograms it also serves; the same cases at phase
    11a's 64 x 128 (a 256-block window of 2048 tokens a block, each
-   block one domain); the batched distance for Q
+   block one domain), at the monitor's (1, 64) (587,776 N(0, 1) values
+   crowded into the central bins) and the registry's (1, 14) (91 ids),
+   and on both sides of the private form's bound (1 x 8,192 and
+   1 x 8,193), each also cut to a length no multiple of 4 and as a view
+   one element off its alignment, every form the shape can take pinned
+   at the C entry and, at V_Z = 1, the z-less call; then kernel B timed
+   at those four callers' shapes in its form, beside each form pinned,
+   its plain version and `torch.bincount`; the batched distance for Q
    in {1, 8} and every metric at 7548 x 24 and 64 x 128 (narrow branch) and, in the
    wide branch, at 256 x 8192, 161 x 1440 (phase 7's shape), 7548 x 1440,
    191 x 2 under a forced sweeps = 2 and 3 x 524,288 (past the shared
@@ -133,7 +140,8 @@ Phases, each of which raises (non-zero exit) when a check fails:
    ``eps_n`` Theorem 1 at its ``n_min``; the on runs' skeletons must be
    equal; ``export_trace`` and ``prometheus_metrics`` must round-trip; the
    registry's read must launch kernel B once a non-empty histogram and bin
-   bitwise as ``np.bincount``. It prints the walls, the accounted
+   bitwise as ``np.bincount`` (the z-less call, in the private form).
+   It prints the walls, the accounted
    telemetry host time (every telemetry entry point timed on the last on
    run, as the reference's benchmarks/telemetry_overhead.py accounts it)
    as a share of the off walls' median, the ``round_batch`` split of
@@ -193,9 +201,11 @@ Phases, each of which raises (non-zero exit) when a check fails:
    `ActivationMonitor` over the 72 filled K and V caches of the loop's
    final caches (8 x 287 x 2 x 128 values each), captured on batch 1 and
    checked on batch 2 with its layer-0 keys times 4: one kernel-B launch
-   a tensor, every histogram bitwise `ref.histogram_ref` on the card, the
-   planted drift flagged (the other 71 flags printed), kernel B at (1,
-   64) beside `torch.bincount`. 11c: the same configuration in float32:
+   a tensor (the z-less call, in the private form), every histogram
+   bitwise `ref.histogram_ref` on the card, the planted drift flagged
+   (the other 71 flags printed), kernel B at (1, 64) on layer 0's keys
+   beside the call with zero z ids, each form pinned and
+   `torch.bincount`. 11c: the same configuration in float32:
    prefill 128 tokens and decode the next 128, against `forward` on all
    256 (max |dlogits| <= 1e-3, equal argmax). ``{"check": "lm", ...}``.
 12. Training, last (after phase 11 freed its model). 12a: the launcher's
@@ -586,7 +596,18 @@ def phase_kernels(torch, timer) -> dict:
     scratch = histogram.delta_scratch(v_z, v_x, dev)
     # phase 11a's shape: the corpus's 64 domains x 128 token buckets, one
     # 256-block window of 2048 tokens a block, each block one domain
-    _check_ingest_cases(torch, rng, *(t(a) for a in _corpus_window_ids(rng)), 64, 128)
+    corpus_ids = [t(a) for a in _corpus_window_ids(rng)]
+    _check_ingest_cases(torch, rng, *corpus_ids, 64, 128)
+    # the V_Z = 1 shapes: the drift monitor's 587,776 activations into 64
+    # bins (crowded in the central bins) and the registry's 91 latencies
+    # into 14 buckets; the rule's threshold from both sides
+    monitor_x = t(_skewed_ids(rng, 587_776, 64))
+    registry_x = t(_skewed_ids(rng, 91, 14))
+    _check_ingest_cases(torch, rng, torch.zeros_like(monitor_x), monitor_x, 1, 64)
+    _check_ingest_cases(torch, rng, torch.zeros_like(registry_x), registry_x, 1, 14)
+    for bins in (histogram.PRIVATE_MAX_BINS, histogram.PRIVATE_MAX_BINS + 1):
+        edge_x = t(rng.integers(-2, bins + 2, size=262_144).astype(np.int32))
+        _check_ingest_cases(torch, rng, torch.zeros_like(edge_x), edge_x, 1, bins)
     # the library yardstick: one torch.bincount over the flattened kept ids
     keep = z >= 0
     flat = (z.long() * v_x + x.long())[keep]
@@ -594,10 +615,15 @@ def phase_kernels(torch, timer) -> dict:
     check(torch.equal(lib.float(), histogram.histogram(z, x, v_z=v_z, v_x=v_x)),
           "the bincount yardstick disagrees with the histogram")
     counts_out, rows_out = torch.empty_like(counts), torch.empty_like(rows)
+    # the raw C entry below trusts its sizes: hold them to the buffers
+    check(z.numel() == x.numel() == n and tuple(counts.shape) == (v_z, v_x)
+          and tuple(scratch.shape) == (v_z, v_x) and tuple(rows.shape) == (v_z,),
+          f"phase 2's pinned launch: {n} samples into {v_z} x {v_x} do not fit its buffers")
     ptrs = (z.data_ptr(), x.data_ptr(), counts.data_ptr(), rows.data_ptr(),
-            counts_out.data_ptr(), rows_out.data_ptr(), scratch.data_ptr(), n, v_z, v_x)
+            counts_out.data_ptr(), rows_out.data_ptr(), scratch.data_ptr(), n, v_z, v_x,
+            histogram.FORMS["global"])
     kern_ms, _ = timer(lambda: histogram.KERNEL.launch(*ptrs))
-    flush_ms, _ = timer(lambda: histogram.KERNEL.launch(*ptrs[:7], 0, v_z, v_x))  # no samples
+    flush_ms, _ = timer(lambda: histogram.KERNEL.launch(*ptrs[:7], 0, *ptrs[8:]))  # no samples
     ms, host = timer(lambda: histogram.ingest_counts(counts, rows, z, x, v_z=v_z, v_x=v_x))
     plain, _ = timer(lambda: histogram.ingest_counts_ref(counts, rows, z, x, v_z=v_z, v_x=v_x))
     library, _ = timer(lambda: torch.bincount(flat, minlength=v_z * v_x))
@@ -613,11 +639,20 @@ def phase_kernels(torch, timer) -> dict:
           f"multiquery.ingest ran kernels besides kernel B: {ingest_kernels}")
     # ids read once, counts and n read once and written once
     bnd, by = bound_ms(8 * n + 2 * (v_z * v_x * 4 + v_z * 4), int(keep.sum()) + 2 * v_z * v_x)
+    # kernel B at the four shapes its callers hand it, in the form each
+    # takes, beside each form pinned
+    forms = [_kernel_b_row(torch, timer, z, x, v_z, v_x, ingest=True),
+             _kernel_b_row(torch, timer, *corpus_ids, 64, 128, ingest=True),
+             _kernel_b_row(torch, timer, None, monitor_x, 1, 64, ingest=False),
+             _kernel_b_row(torch, timer, None, registry_x, 1, 14, ingest=False)]
+    for row in forms:
+        emit({"check": "kernel_b_form", **_check_fields(row)})
     main["histogram"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                             library_ms=library, host_us=host * 1e3)
+                             library_ms=library, host_us=host * 1e3, form="global", forms=forms)
     emit({"check": "ingest_counts", "shape": [n, v_z, v_x], "kept": int(keep.sum()),
           "equal": True, "inputs_unchanged": True, "scratch_zero": True,
-          **_check_fields(main["histogram"]), "kernel_only_ms": kern_ms, "flush_only_ms": flush_ms,
+          **_check_fields({k: v for k, v in main["histogram"].items() if k != "forms"}),
+          "kernel_only_ms": kern_ms, "flush_only_ms": flush_ms,
           "ingest_ms": ingest_ms, "ingest_host_us": ingest_host * 1e3,
           "ingest_kernels": ingest_kernels})
 
@@ -889,11 +924,51 @@ def _corpus_window_ids(rng, v_z: int = 64, v_x: int = 128, *, blocks: int = 256,
     x[unmarked] = -1
     return z.reshape(-1), x.reshape(-1)
 
+
+def _launch_form(torch, form: str, z, x, counts, rows, v_z: int, v_x: int, *,
+                 with_rowsums: bool = True) -> tuple:
+    """Kernel B's C entry with its form pinned: the outputs of
+    `ingest_counts` (counts and rows given) or of
+    `histogram_with_rowsums`, into new tensors; ``z`` None at V_Z = 1."""
+    from repro_torch.kernels import histogram
+
+    dev = x.device
+    out = torch.empty((v_z, v_x), dtype=torch.float32, device=dev)
+    n_out = torch.empty((v_z,), dtype=torch.float32, device=dev) if with_rowsums else None
+    histogram.KERNEL.launch(
+        None if z is None else z.data_ptr(), x.data_ptr(),
+        None if counts is None else counts.data_ptr(), None if rows is None else rows.data_ptr(),
+        out.data_ptr(), None if n_out is None else n_out.data_ptr(),
+        histogram.delta_scratch(v_z, v_x, dev).data_ptr(), x.numel(), v_z, v_x,
+        histogram.FORMS[form])
+    return out, n_out
+
+
+def _pinned_forms(v_z: int, v_x: int) -> tuple:
+    """The forms kernel B can take at (v_z, v_x): the global form always,
+    the private form where its counts fit the rule's bound."""
+    from repro_torch.kernels import histogram
+
+    return ("global",) if histogram.form_for(v_z, v_x) == "global" else ("global", "private")
+
+
+def _skewed_ids(rng, n: int, bins: int = 64):
+    """Bin ids as the drift monitor makes them from activations: N(0, 1)
+    values binned over [-8, 8), so they crowd the central bins."""
+    import numpy as np
+
+    t = np.floor((rng.standard_normal(n) + 8.0) / 16.0 * bins)
+    return np.clip(t, 0, bins - 1).astype(np.int32)
+
+
 def _check_ingest_cases(torch, rng, z, x, v_z: int, v_x: int) -> None:
     """Kernel B at (v_z, v_x), its fused ingest and its histogram forms,
     bitwise against their plain versions on the window (z, x) and on
-    uniform, out-of-range and empty batches of its size: the inputs
-    unchanged and the scratch back at zero."""
+    uniform, out-of-range and empty batches of its size, the window cut
+    to a length that is no multiple of 4 and as a view one element off
+    its 16-byte alignment: the wrapper's form and every form the shape
+    can take pinned (`_pinned_forms`), and at V_Z = 1 the z-less call;
+    the inputs unchanged and the scratch back at zero."""
     import numpy as np
 
     from repro_torch.kernels import histogram, ref
@@ -909,8 +984,11 @@ def _check_ingest_cases(torch, rng, z, x, v_z: int, v_x: int) -> None:
     counts = t(rng.integers(0, 2000, size=(v_z, v_x)).astype(np.float32))
     rows = counts.sum(dim=1)
     scratch = histogram.delta_scratch(v_z, v_x, dev)
+    cut = max(n - 1 - 4 * (n > 8), 0)
     cases = ((z, x, "window ids"), (*uniform, "uniform ids"),
-             (*dropped, "out-of-range ids"), (*empty, "empty batch"))
+             (*dropped, "out-of-range ids"), (*empty, "empty batch"),
+             (z[:cut], x[:cut], f"{cut} ids"), (z[1:], x[1:], "a view one element off"))
+    forms = _pinned_forms(v_z, v_x)
     for zz, xx, tag in cases:
         tag = f"{tag}, {v_z} x {v_x}"
         kept = [a.clone() for a in (counts, rows, zz, xx)]
@@ -929,8 +1007,108 @@ def _check_ingest_cases(torch, rng, z, x, v_z: int, v_x: int) -> None:
         check(torch.equal(c, wc) and torch.equal(r, wr) and torch.equal(c1, wc),
               f"histogram disagrees with its plain version ({tag})")
         check(not bool(scratch.any()), f"histogram left the scratch nonzero ({tag})")
+        # at V_Z = 1 also without z: every sample's row 0
+        z_sets = [(zz, want, (wc, wr))]
+        if v_z == 1:
+            zeros = torch.zeros_like(xx)
+            z_sets.append((None, histogram.ingest_counts_ref(counts, rows, zeros, xx, v_z=1,
+                                                              v_x=v_x),
+                           ref.histogram_with_rowsums_ref(zeros, xx, v_z=1, v_x=v_x)))
+            check(torch.equal(histogram.histogram(None, xx, v_z=1, v_x=v_x), z_sets[1][2][0]),
+                  f"the z-less histogram disagrees with its plain version ({tag})")
+            check(not bool(scratch.any()), f"the z-less histogram left the scratch nonzero ({tag})")
+        for form in forms:
+            for zf, w_ingest, w_hist in z_sets:
+                what = f"the {form} form{' without z' if zf is None else ''} ({tag})"
+                fc, fr = _launch_form(torch, form, zf, xx, counts, rows, v_z, v_x)
+                hc, hr = _launch_form(torch, form, zf, xx, None, None, v_z, v_x)
+                torch.cuda.synchronize()
+                check(torch.equal(fc, w_ingest[0]) and torch.equal(fr, w_ingest[1]),
+                      f"{what}: the ingest disagrees with its plain version")
+                check(torch.equal(hc, w_hist[0]) and torch.equal(hr, w_hist[1]),
+                      f"{what}: the histogram disagrees with its plain version")
+                check(not bool(scratch.any()), f"{what} left the scratch nonzero")
     emit({"check": "ingest_counts_cases", "shape": [n, v_z, v_x], "kept": int((z >= 0).sum()),
-          "equal": True, "inputs_unchanged": True, "scratch_zero": True})
+          "form": histogram.form_for(v_z, v_x), "forms_checked": list(forms),
+          "z_less": v_z == 1, "equal": True, "inputs_unchanged": True, "scratch_zero": True})
+
+
+def _kernel_b_row(torch, timer, z, x, v_z: int, v_x: int, *, ingest: bool) -> dict:
+    """Kernel B at (v_z, v_x) on the ids (z, x), timed: the wrapper's call
+    (`ingest_counts` into random counts when ``ingest``, else `histogram`;
+    ``z`` None: the z-less call), each form pinned at the C entry, the
+    plain version and `torch.bincount` of the kept ids. The bound reads
+    the ids once (z only where given) and the counts and rows in and out
+    (the counts out alone for a histogram)."""
+    import numpy as np
+
+    from repro_torch.kernels import histogram, ref
+
+    dev = x.device
+    n = x.numel()
+    zr = torch.zeros_like(x) if z is None else z
+    keep = (zr >= 0) & (zr < v_z) & (x >= 0) & (x < v_x)
+    flat = (zr.long() * v_x + x.long())[keep]
+    kept = int(keep.sum())
+    counts = rows = None
+    if ingest:
+        gen = np.random.default_rng(v_z * v_x)
+        counts = torch.from_numpy(gen.integers(0, 2000, size=(v_z, v_x)).astype(np.float32)).to(dev)
+        rows = counts.sum(dim=1)
+
+        def call():
+            return histogram.ingest_counts(counts, rows, z, x, v_z=v_z, v_x=v_x)
+
+        def plain():
+            return histogram.ingest_counts_ref(counts, rows, zr, x, v_z=v_z, v_x=v_x)
+
+        n_bytes = (4 if z is None else 8) * n + 2 * (v_z * v_x * 4 + v_z * 4)
+        n_ops = kept + 2 * v_z * v_x
+    else:
+        def call():
+            return histogram.histogram(z, x, v_z=v_z, v_x=v_x)
+
+        def plain():
+            return ref.histogram_ref(zr, x, v_z=v_z, v_x=v_x)
+
+        n_bytes = (4 if z is None else 8) * n + v_z * v_x * 4
+        n_ops = kept
+    before = dict(histogram.FORM_LAUNCHES)
+    got = call()
+    want = plain()
+    torch.cuda.synchronize()
+    got, want = (got, want) if ingest else ((got,), (want,))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"kernel B at {v_z} x {v_x} disagrees with its plain version")
+    form = histogram.form_for(v_z, v_x)
+    check(histogram.FORM_LAUNCHES[form] == before[form] + 1,
+          f"kernel B at {v_z} x {v_x} did not take its {form} form")
+    ms, host = timer(call)
+    plain_ms, _ = timer(plain)
+    library_ms, _ = timer(lambda: torch.bincount(flat, minlength=v_z * v_x))
+    bnd, by = bound_ms(n_bytes, n_ops)
+    row = dict(shape=[v_z, v_x], samples=n, kept=kept, z_less=z is None, form=form,
+               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+               library_ms=library_ms, host_us=host * 1e3)
+    scratch = histogram.delta_scratch(v_z, v_x, dev)
+
+    def still_right(outs, what: str) -> None:
+        # one more call after a timed run's ~180 back-to-back launches:
+        # bitwise the plain version, the scratch zero
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(outs, want)) and not bool(scratch.any()),
+              f"kernel B at {v_z} x {v_x} ({what}) after its timed launches: not bitwise "
+              f"the plain version, or the scratch not zero")
+
+    still_right(call() if ingest else (call(),), form)
+    for pinned in _pinned_forms(v_z, v_x):
+        def launch(pinned=pinned):
+            return _launch_form(torch, pinned, z, x, counts, rows, v_z, v_x, with_rowsums=ingest)
+
+        row[f"{pinned}_ms"], _ = timer(launch)
+        still_right(launch(), f"the {pinned} form pinned")
+    return row
+
 
 def _fixture_dataset(num_tuples: int, seed: int):
     from repro_torch.data.layout import block_layout
@@ -1506,10 +1684,19 @@ C_FORMS = ("distance_multi", "distance_multi_u16", "distance_wide", "distance_wi
 
 
 def _reset_launches() -> None:
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import histogram, ops
 
     for kern in ops.KERNELS.values():
         kern.launches = 0
+    for form in histogram.FORM_LAUNCHES:
+        histogram.FORM_LAUNCHES[form] = 0
+
+
+def _form_launches() -> dict:
+    """Kernel B's launches by form since the last `_reset_launches`."""
+    from repro_torch.kernels import histogram
+
+    return dict(histogram.FORM_LAUNCHES)
 
 
 def _launch_counts() -> dict:
@@ -2132,9 +2319,12 @@ def phase_telemetry(torch, timer, ctx) -> dict:
     torch.cuda.synchronize()
     read_ms = (time.perf_counter() - t) * 1e3
     registry_launches = _launch_counts()["histogram"]
+    registry_forms = _form_launches()
     nonempty = [name for name, v in pending.items() if v.size]
     check(registry_launches == len(nonempty),
           f"9: the registry read launched kernel B {registry_launches} times for {nonempty}")
+    check(registry_forms == {"global": 0, "private": len(nonempty)},
+          f"9: the registry read's kernel B forms {registry_forms}")
     snap = tel.registry.snapshot()
     for name, vals in pending.items():
         edges = hists[name].edges
@@ -2165,15 +2355,14 @@ def phase_telemetry(torch, timer, ctx) -> dict:
     x = torch.from_numpy(np.searchsorted(edges, vals, side="left").astype(np.int32)).cuda()
     z = torch.zeros_like(x)
     v_x = len(edges) + 1
-    got = histogram.histogram(z, x, v_z=1, v_x=v_x)
-    plain = ref.histogram_ref(z, x, v_z=1, v_x=v_x)
-    check(torch.equal(got, plain), "9: kernel B at the registry's shape differs from its plain version")
-    b_ms, b_host = timer(lambda: histogram.histogram(z, x, v_z=1, v_x=v_x))
-    b_plain, _ = timer(lambda: ref.histogram_ref(z, x, v_z=1, v_x=v_x))
-    b_lib, _ = timer(lambda: torch.bincount(x, minlength=v_x))
-    # a V_Z = 1 histogram needs only the x ids: the zero z ids that fill
-    # kernel B's (z, x) interface are not counted
-    b_bound, b_by = bound_ms(4 * x.numel() + 4 * v_x, x.numel())
+    check(torch.equal(histogram.histogram(z, x, v_z=1, v_x=v_x),
+                      ref.histogram_ref(z, x, v_z=1, v_x=v_x)),
+          "9: kernel B at the registry's shape differs from its plain version")
+    # the registry's z-less call, timed in its form and in each form
+    # pinned, beside the old call with zero z ids
+    registry_kernel = _kernel_b_row(torch, timer, None, x, 1, v_x, ingest=False)
+    registry_kernel["zeros_ms"], _ = timer(lambda: histogram.histogram(z, x, v_z=1, v_x=v_x))
+    b_ms = registry_kernel["ms"]
     flush_h = type(hists[name])(name, edges, device=source.device)
     flush_h.observe_many(vals)
     t = time.perf_counter()
@@ -2195,18 +2384,19 @@ def phase_telemetry(torch, timer, ctx) -> dict:
         profiled_wall_ms=again["wall_s"] * 1e3,
         trace_events=len(skeletons[0]), curve_points=sum(
             len(tel.trajectory(q)) for q in tel.query_ids()),
-        registry_read=dict(launches=registry_launches, histograms=nonempty, ms=read_ms,
-                           flush_us=flush_us, samples=int(vals.size)),
-        registry_kernel=dict(shape=[1, v_x], samples=int(x.numel()), ms=b_ms, host_us=b_host * 1e3,
-                             plain_ms=b_plain, library_ms=b_lib, bound_ms=b_bound, bound_by=b_by,
-                             max_abs_err=0.0),
+        registry_read=dict(launches=registry_launches, forms=registry_forms,
+                           histograms=nonempty, ms=read_ms, flush_us=flush_us,
+                           samples=int(vals.size)),
+        registry_kernel=registry_kernel,
         bitwise_phase5=True, launches=on_runs[0]["launches"],
     )
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"9 telemetry: off {out['off_walls_ms']} ms, on {out['on_walls_ms']} ms, accounted "
         f"{out['accounted_ms']:.3f} ms ({out['accounted_share_of_off_wall']:.2%}); "
         f"round_batch {splits[0]}; registry read {registry_launches} B launches, kernel B at "
-        f"(1, {v_x}) {b_ms * 1e3:.2f} us; {out['phase_s']:.1f}s")
+        f"(1, {v_x}) {b_ms * 1e3:.2f} us z-less, {registry_kernel['zeros_ms'] * 1e3:.2f} with "
+        f"zero z ids, global form {registry_kernel['global_ms'] * 1e3:.2f}; "
+        f"{out['phase_s']:.1f}s")
     emit({"check": "telemetry", **out})
     return out
 
@@ -2838,9 +3028,12 @@ def phase_lm(torch, timer, card: str) -> dict:
     report = mon.check(second)
     monitor_s = time.perf_counter() - t
     mon_launches = _launch_counts()
+    mon_forms = _form_launches()
     check(mon_launches["histogram"] == 2 * len(names)
           and sum(mon_launches.values()) == 2 * len(names),
           f"11d: launches {mon_launches} for 2 x {len(names)} tensors")
+    check(mon_forms == {"global": 0, "private": 2 * len(names)},
+          f"11d: kernel B's forms {mon_forms} for 2 x {len(names)} tensors")
     check(report["k0"]["drifted"], f"11d: the planted drift was not flagged: {report['k0']}")
     flagged = sorted(n for n in names[1:] if report[n]["drifted"])
     rows = mon._histogram(second)
@@ -2851,26 +3044,24 @@ def phase_lm(torch, timer, card: str) -> dict:
         check(np.array_equal(row, plain.cpu().numpy()),
               f"11d: {name}'s histogram is not its plain version's")
         samples.add(int(ids.numel()))
+    # kernel B on layer 0's planted keys: the monitor's z-less call in its
+    # form and each form pinned, and the old call with zero z ids
     ids = monitor_mod._bin_ids(second["k0"], mon.lo, mon.hi, mon.bins)
     zeros = torch.zeros_like(ids)
-    b_ms, b_host = timer(lambda: histogram.histogram(zeros, ids, v_z=1, v_x=mon.bins))
-    b_plain, _ = timer(lambda: ref.histogram_ref(zeros, ids, v_z=1, v_x=mon.bins))
-    b_lib, _ = timer(lambda: torch.bincount(ids, minlength=mon.bins))
-    # the bin ids read once, the counts written once: the zero z ids that
-    # fill kernel B's (z, x) interface are not counted
-    b_bound, b_by = bound_ms(4 * ids.numel() + 4 * mon.bins, ids.numel())
+    kernel = _kernel_b_row(torch, timer, None, ids, 1, mon.bins, ingest=False)
+    kernel["zeros_ms"], _ = timer(lambda: histogram.histogram(zeros, ids, v_z=1, v_x=mon.bins))
     out["monitor"] = dict(
         tensors=len(names), samples_per_tensor=sorted(samples), launches=mon_launches,
-        wall_s=monitor_s, drift_k0=report["k0"], flagged_others=flagged,
-        kernel=dict(shape=[1, mon.bins], samples=int(ids.numel()), ms=b_ms,
-                    host_us=b_host * 1e3, plain_ms=b_plain, library_ms=b_lib,
-                    bound_ms=b_bound, bound_by=b_by, max_abs_err=0.0))
+        forms=mon_forms, wall_s=monitor_s, drift_k0=report["k0"], flagged_others=flagged,
+        kernel=kernel)
     log(f"11d monitor: {len(names)} tensors of {sorted(samples)} values, {monitor_s * 1e3:.1f} ms "
         f"for capture + check, launches {mon_launches}; k0 x 4 flagged (distance "
         f"{report['k0']['distance']:.4f}, bound {report['k0']['sampling_bound']:.4f}); "
         f"{len(flagged)} of the other {len(names) - 1} flagged {flagged}; kernel B at (1, "
-        f"{mon.bins}) {b_ms * 1e3:.2f} us (plain {b_plain * 1e3:.2f}, bincount "
-        f"{b_lib * 1e3:.2f}, bound {b_bound * 1e3:.4f} us)")
+        f"{mon.bins}) {kernel['ms'] * 1e3:.2f} us z-less {kernel['form']} (zero z ids "
+        f"{kernel['zeros_ms'] * 1e3:.2f}, global {kernel['global_ms'] * 1e3:.2f}, "
+        f"plain {kernel['plain_ms'] * 1e3:.2f}, bincount {kernel['library_ms'] * 1e3:.2f}, "
+        f"bound {kernel['bound_ms'] * 1e3:.4f} us)")
     del model, loops, first, second, engine, done
     torch.cuda.empty_cache()
 
@@ -3318,6 +3509,8 @@ def _family_serve(torch, arch: str, prompts) -> tuple:
     check(mon_launches["histogram"] == len(names)
           and sum(mon_launches.values()) == len(names),
           f"13d {arch}: launches {mon_launches} for {len(names)} tensors")
+    check(_form_launches() == {"global": 0, "private": len(names)},
+          f"13d {arch}: kernel B's forms {_form_launches()} for {len(names)} tensors")
     for name, row in zip(names, rows):
         ids = monitor_mod._bin_ids(state[name], mon.lo, mon.hi, mon.bins)
         plain = ref.histogram_ref(torch.zeros_like(ids), ids, v_z=1, v_x=mon.bins)[0]

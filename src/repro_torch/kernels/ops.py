@@ -19,6 +19,8 @@ ran before plans existed), and a plan instance passes through.
   ingest_counts           kernel B (plan: or its       histogram.ingest_counts_ref
                           histogram form + adds)       (or its two-step form)
   histogram               kernel B, no input counts    ref.histogram_ref
+                          (z_idx=None at V_Z = 1: the  (z_idx=None: zeros)
+                          x ids alone)
   histogram_with_rowsums  kernel B, no input counts    ref.histogram_with_rowsums_ref
                           (impl="matmul": ref.histogram_matmul on either device)
   distance_multi          kernel C (plan: branch,      metrics.distance_multi_ref
@@ -86,10 +88,17 @@ def ingest_counts(
     )
 
 
-def histogram(z_idx: torch.Tensor, x_idx: torch.Tensor, *, v_z: int, v_x: int) -> torch.Tensor:
-    """(V_Z, V_X) f32 histogram of (z, x) pairs; out-of-range ids dropped."""
-    if _on_cuda(z_idx):
+def histogram(
+    z_idx: Optional[torch.Tensor], x_idx: torch.Tensor, *, v_z: int, v_x: int
+) -> torch.Tensor:
+    """(V_Z, V_X) f32 histogram of (z, x) pairs; out-of-range ids dropped.
+    ``z_idx=None`` (V_Z = 1 only) reads every sample's row as 0: kernel B
+    reads the x ids alone, the plain version gets zeros."""
+    if _on_cuda(x_idx):
         return _histogram.histogram(z_idx, x_idx, v_z=v_z, v_x=v_x)
+    if z_idx is None:
+        _histogram.check_z_less(v_z)
+        z_idx = torch.zeros_like(x_idx)
     return ref.histogram_ref(z_idx, x_idx, v_z=v_z, v_x=v_x)
 
 

@@ -163,7 +163,7 @@ class Histogram:
         # side="left": v == edge lands in that edge's bucket (v <= le)
         bins = np.searchsorted(self.edges, vals, side="left").astype(np.int32)
         x_idx = torch.from_numpy(bins).to(self.device)
-        counts = ops.histogram(torch.zeros_like(x_idx), x_idx, v_z=1, v_x=len(self.edges) + 1)
+        counts = ops.histogram(None, x_idx, v_z=1, v_x=len(self.edges) + 1)
         with self._lock:
             self._counts += counts[0].cpu().numpy().astype(np.int64)
 

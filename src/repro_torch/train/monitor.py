@@ -57,7 +57,7 @@ class ActivationMonitor:
         rows = []
         for name in self.names:
             ids = _bin_ids(tensors[name], self.lo, self.hi, self.bins)
-            h = ops.histogram(torch.zeros_like(ids), ids, v_z=1, v_x=self.bins)[0]
+            h = ops.histogram(None, ids, v_z=1, v_x=self.bins)[0]
             rows.append(h.cpu().numpy())
         return np.stack(rows)
 

@@ -89,6 +89,138 @@ def test_ingest_counts(cuda, kind, n):
     assert ops.KERNELS["histogram"].launches == before + 2
 
 
+def _pinned_form(form, z, x, counts, rows, v_z, v_x):
+    """Kernel B's C entry with its form pinned: the fused ingest's outputs
+    (counts and rows given) or the fresh histogram's, with row sums."""
+    dev = x.device
+    out = torch.empty((v_z, v_x), dtype=torch.float32, device=dev)
+    n_out = torch.empty((v_z,), dtype=torch.float32, device=dev)
+    histogram.KERNEL.launch(
+        None if z is None else z.data_ptr(), x.data_ptr(),
+        None if counts is None else counts.data_ptr(), None if rows is None else rows.data_ptr(),
+        out.data_ptr(), n_out.data_ptr(), histogram.delta_scratch(v_z, v_x, dev).data_ptr(),
+        x.numel(), v_z, v_x, histogram.FORMS[form])
+    return out, n_out
+
+
+def _scratch_clear(v_z, v_x, device):
+    """The scratch all zero."""
+    return not bool(histogram.delta_scratch(v_z, v_x, device).any())
+
+
+def _form_ids(rng, kind, n, v_z, v_x):
+    """(z, x) for the form tests: "skewed" crowds N(0, 1) values into the
+    central bins (the monitor's activations; z uniform), "uniform", or
+    "out-of-range" (ids from -2 to the bound + 2)."""
+    if kind == "skewed":
+        x = np.clip(np.floor((rng.standard_normal(n) + 8.0) / 16.0 * v_x), 0, v_x - 1)
+        return rng.integers(0, v_z, size=n).astype(np.int32), x.astype(np.int32)
+    lo, hi = (0, 0) if kind == "uniform" else (-2, 2)
+    return (rng.integers(lo, v_z + hi, size=n).astype(np.int32),
+            rng.integers(lo, v_x + hi, size=n).astype(np.int32))
+
+
+FORM_SHAPES = [(1, 64, 587_776), (1, 14, 91), (64, 128, 524_288), (7548, 24, 262_144)]
+
+
+@pytest.mark.parametrize("kind", ["skewed", "uniform", "out-of-range", "empty", "unaligned"])
+@pytest.mark.parametrize("v_z,v_x,n", FORM_SHAPES)
+def test_kernel_b_forms_bitwise(cuda, v_z, v_x, n, kind):
+    """Each form kernel B can take at the callers' shapes (the global form
+    always, the private one up to PRIVATE_MAX_BINS), pinned at the C
+    entry, bitwise the plain ingest and histogram; the wrapper's call in
+    the rule's form the same; inputs unchanged, the scratch zero after
+    every call. "unaligned" is a view one element off its 16-byte
+    alignment, n - 1 long (no multiple of 4)."""
+    rng = np.random.default_rng(v_z * v_x + n + len(kind))
+    z, x = (_t(a, cuda) for a in _form_ids(rng, "skewed" if kind == "unaligned" else
+                                           ("uniform" if kind == "empty" else kind),
+                                           0 if kind == "empty" else n, v_z, v_x))
+    if kind == "unaligned":
+        z, x = z[1:], x[1:]
+    counts = _t(rng.integers(0, 2000, size=(v_z, v_x)).astype(np.float32), cuda)
+    rows = counts.sum(dim=1)
+    kept = [a.clone() for a in (counts, rows, z, x)]
+    want = histogram.ingest_counts_ref(counts, rows, z, x, v_z=v_z, v_x=v_x)
+    fresh = ref.histogram_with_rowsums_ref(z, x, v_z=v_z, v_x=v_x)
+    forms = ["global"] + (["private"] if histogram.form_for(v_z, v_x) == "private" else [])
+    for form in forms:
+        got = _pinned_form(form, z, x, counts, rows, v_z, v_x)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), form
+        assert _scratch_clear(v_z, v_x, cuda), form
+        got = _pinned_form(form, z, x, None, None, v_z, v_x)
+        assert torch.equal(got[0], fresh[0]) and torch.equal(got[1], fresh[1]), form
+        assert _scratch_clear(v_z, v_x, cuda), form
+    got = histogram.ingest_counts(counts, rows, z, x, v_z=v_z, v_x=v_x)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(histogram.histogram(z, x, v_z=v_z, v_x=v_x), fresh[0])
+    assert all(torch.equal(a, b) for a, b in zip((counts, rows, z, x), kept))
+    assert _scratch_clear(v_z, v_x, cuda)
+
+
+@pytest.mark.parametrize("v_z,v_x,form", [(1, 64, "private"), (1, 14, "private"),
+                                          (64, 128, "private"), (7548, 24, "global"),
+                                          (1, histogram.PRIVATE_MAX_BINS, "private"),
+                                          (1, histogram.PRIVATE_MAX_BINS + 1, "global")])
+def test_kernel_b_form_launches(cuda, v_z, v_x, form):
+    """Each shape launches the form `form_for` names, counted once under
+    FORM_LAUNCHES and once under KERNELS["histogram"]; both sides of the
+    threshold are bitwise the plain version."""
+    rng = np.random.default_rng(v_x)
+    z, x = (_t(a, cuda) for a in _form_ids(rng, "out-of-range", 100_003, v_z, v_x))
+    assert histogram.form_for(v_z, v_x) == form
+    before, launches = dict(histogram.FORM_LAUNCHES), ops.KERNELS["histogram"].launches
+    c, r = histogram.histogram_with_rowsums(z, x, v_z=v_z, v_x=v_x)
+    wc, wr = ref.histogram_with_rowsums_ref(z, x, v_z=v_z, v_x=v_x)
+    assert torch.equal(c, wc) and torch.equal(r, wr)
+    assert histogram.FORM_LAUNCHES == {**before, form: before[form] + 1}
+    assert ops.KERNELS["histogram"].launches == launches + 1
+    assert _scratch_clear(v_z, v_x, cuda)
+
+
+@pytest.mark.parametrize("v_x,n", [(64, 587_776), (64, 4_097), (14, 91), (14, 0),
+                                   (histogram.PRIVATE_MAX_BINS + 1, 50_001)])
+def test_kernel_b_z_less(cuda, v_x, n):
+    """`histogram(None, x, v_z=1)` reads the x ids alone: bitwise the call
+    with zeros for z and the plain version, in both forms pinned too; z
+    None with V_Z > 1 raises."""
+    rng = np.random.default_rng(n)
+    _, x = (_t(a, cuda) for a in _form_ids(rng, "out-of-range", n, 1, v_x))
+    zeros = torch.zeros_like(x)
+    want = ref.histogram_ref(zeros, x, v_z=1, v_x=v_x)
+    assert torch.equal(ops.histogram(None, x, v_z=1, v_x=v_x), want)
+    assert torch.equal(histogram.histogram(zeros, x, v_z=1, v_x=v_x), want)
+    forms = ["global"] + (["private"] if histogram.form_for(1, v_x) == "private" else [])
+    for form in forms:
+        c, r = _pinned_form(form, None, x, None, None, 1, v_x)
+        assert torch.equal(c, want) and float(r[0]) == float(want.sum()), form
+        assert _scratch_clear(1, v_x, cuda)
+    with pytest.raises(ValueError, match="v_z == 1"):
+        histogram.histogram(None, x, v_z=2, v_x=v_x)
+    with pytest.raises(TypeError, match="only histogram"):
+        histogram.histogram_with_rowsums(None, x, v_z=1, v_x=v_x)
+
+
+@pytest.mark.parametrize("v_z,v_x,n", FORM_SHAPES)
+def test_kernel_b_forms_back_to_back(cuda, v_z, v_x, n):
+    """Each form, pinned, launched 200 times back to back behind a sleep
+    kernel (as the timed loops of chip_smoke.py run it), each launch into
+    its own outputs: every output bitwise the plain ingest, the scratch
+    zero at the end."""
+    rng = np.random.default_rng(n)
+    z, x = (_t(a, cuda) for a in _form_ids(rng, "out-of-range", n, v_z, v_x))
+    counts = _t(rng.integers(0, 2000, size=(v_z, v_x)).astype(np.float32), cuda)
+    rows = counts.sum(dim=1)
+    want = histogram.ingest_counts_ref(counts, rows, z, x, v_z=v_z, v_x=v_x)
+    forms = ["global"] + (["private"] if histogram.form_for(v_z, v_x) == "private" else [])
+    for form in forms:
+        torch.cuda._sleep(1_000_000)
+        outs = [_pinned_form(form, z, x, counts, rows, v_z, v_x) for _ in range(200)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(c, want[0]) and torch.equal(r, want[1]) for c, r in outs), form
+        assert _scratch_clear(v_z, v_x, cuda), form
+
+
 @pytest.mark.parametrize("metric", list(metrics.METRIC_NAMES))
 @pytest.mark.parametrize("q", [1, 8])
 @pytest.mark.parametrize("v_z", [1, 5, 7548])

@@ -22,7 +22,7 @@ import torch
 from repro.kernels import metrics as jmetrics
 from repro.kernels import ref as jref
 from repro.kernels.anyactive import anyactive_pallas
-from repro.kernels.histogram import histogram_with_rowsums_pallas
+from repro.kernels.histogram import histogram_pallas, histogram_with_rowsums_pallas
 from repro_torch.kernels import _build
 from repro_torch.kernels import anyactive as tanyactive
 from repro_torch.kernels import histogram as thistogram
@@ -105,6 +105,34 @@ class TestHistogram:
         z, x = _ids(rng, 50, 9, 4_000)
         c, r = ops.histogram_with_rowsums(_t(z), _t(x), v_z=50, v_x=9)
         np.testing.assert_array_equal(r.numpy(), c.numpy().sum(axis=1))
+
+
+    @pytest.mark.parametrize("bins", [14, 64])
+    def test_z_less_matches_pallas_interpret(self, bins):
+        """A V_Z = 1 histogram without z ids (the monitor's and the
+        registry's call) is the reference's call with zeros for z."""
+        rng = np.random.default_rng(bins)
+        x = rng.integers(-2, bins + 2, size=3_001).astype(np.int32)
+        got = ops.histogram(None, _t(x), v_z=1, v_x=bins)
+        want = histogram_pallas(jnp.zeros_like(jnp.asarray(x)), jnp.asarray(x), v_z=1,
+                                v_x=bins, interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def test_z_less_needs_one_row(self):
+        x = torch.zeros(4, dtype=torch.int32)
+        with pytest.raises(ValueError, match="v_z == 1"):
+            ops.histogram(None, x, v_z=2, v_x=3)
+
+    @pytest.mark.parametrize(
+        "v_z,v_x,form",
+        [(1, 64, "private"), (1, 14, "private"), (64, 128, "private"), (7548, 24, "global"),
+         (1, thistogram.PRIVATE_MAX_BINS, "private"),
+         (1, thistogram.PRIVATE_MAX_BINS + 1, "global")],
+    )
+    def test_form_rule(self, v_z, v_x, form):
+        """Kernel B's form is a function of (V_Z, V_X) alone: the private
+        form where the counts fit its bound, the global form past it."""
+        assert thistogram.form_for(v_z, v_x) == form
 
 
 class TestDistance:
