@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FastMatch on one NVIDIA GPU and check it.
 
-Run from the root of a checkout (one card; about 15 to 18 minutes at the
-default size, most of it generating the two datasets on the host and
-phase 14's gloo ranks):
+Run from the root of a checkout (one card; about 17 to 19 minutes at the
+default size with the kernels' build, most of it generating the two
+datasets on the host and phase 14's gloo ranks):
 
     python3 chip_smoke.py [--tuples N] [--seed S]
 
-Phases, each of which raises (non-zero exit) when a check fails:
+Phases, each of which raises (non-zero exit) when a check fails. The
+tables of phases 4 and 7 are made from the start of the run, each by a
+process of its own on host cores (`Tables`), while the kernels build and
+phases 2, 3 and 16 use the card; phase 4 then waits for its table.
+Phases run in the order 1, 2, 3, 16, 4, 5, 8, 9, 10, 6, 7, 11-15.
 
 1. Setup: build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each, in parallel) and print the card's name and power limit.
@@ -379,6 +383,41 @@ Phases, each of which raises (non-zero exit) when a check fails:
    and optimizer-state elements to what it held; the predicted argument
    + temp bytes printed beside its measured peak.
    ``{"check": "scan_dryrun", ...}``.
+16. The families trained at full width, and the examples (after phase 3,
+   while phase 4's and 7's tables are still being made on host cores;
+   under 2 GB allocated on the card when it starts). 16a: phase
+   12a's recipe for recurrentgemma-2b, xlstm-125m and whisper-medium in
+   turn (`get_config`: full width and depth, bf16, AdamW, remat "full";
+   weights from a generator seeded 0), each freed before the next is
+   built: the launcher's `train_loop`, 4 steps of 8 x 256 at lr 3e-4
+   behind its default corpus (`CorpusSpec(vocab_size=<the model's>,
+   num_blocks=512, block_tokens=2048, seed=0)`) and FastMatch's selection,
+   whisper's encoder frames N(0, 0.02^2) from a generator seeded 0 through
+   the launcher's ``extra_batch_fn``: the planted `close_ids` selected,
+   kernels A and B once a round and kernel C once a statistics step (path
+   ``families_train_select``, each family's counts at 0 just before its
+   loop and read just after, summed), every step ``step_ok`` 1 and finite,
+   every weight matrix changed (and every other leaf an update of lr can
+   move in bf16), then 12b's three steps on one batch with the loss
+   falling at each; ms a step (median of steps 2-4), tokens/s and peak
+   memory. ``{"check": "family_train", ...}``. 16b: the seven
+   `examples/torch_*.py` in this process on the card at the reference
+   examples' sizes, each run's launch counts at 0 just before and read
+   just after (path ``examples``, their sum: kernels A, B and C each
+   launched), each held to what it prints: quickstart's ids the planted
+   top-k and ``delta_upper`` < 0.01; anytime's final ids its last
+   statement's and the SLA query stopped for "tuples"; serve_match's
+   shared tuples under the solo engines' sum and its late and restored
+   queries reading 0 new tuples (as the reference example's do); census's
+   five queries answered and every variant reading at most Scan's blocks;
+   telemetry's trace, curves and scrape non-empty and parsing; serve_batch
+   (its smoke config) every output the greedy prefill + decode loop's on
+   the same left-padded batch; train_lm_fastmatch 4 steps with its
+   checkpoints in a temporary directory (its `train_loop` wrapped to
+   snapshot every 4 steps in place of the example's 100), then
+   rerun to 6 steps from that directory: "[resume] restored step 4",
+   every logged loss finite and ``step_ok`` 1. Each example's lines go to
+   ``chiprun_out/examples/<name>.txt``. ``{"check": "examples", ...}``.
 
 Every kernel must have launched on some path, each path's counts set to
 0 just before it and read just after; a kernel's ``launches`` in the
@@ -388,7 +427,8 @@ read's launches and its registry-shape timing, and the monitor's
 launches and its (1, 64) timing (phase 11d) and phase 13d's launches; every
 row's ``launches_by_path`` includes ``train_select`` (phase 12a),
 ``families_select`` (13a), ``families_monitor`` (13d),
-``sharded_select`` (14a) and ``scan_train_select`` (15b). The last lines are the
+``sharded_select`` (14a), ``scan_train_select`` (15b),
+``families_train_select`` (16a) and ``examples`` (16b). The last lines are the
 ``kernels`` JSON line, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Results
 also go to ``chiprun_out/chip_smoke.json``. Exits 2 without a CUDA
@@ -1267,32 +1307,110 @@ def minute_spec(num_tuples: int):
                      seed=47)
 
 
-def phase_engine_scale(torch, spec, seed: int, *, check_name: str, expect=None) -> tuple:
-    """FastMatch and Scan on ``spec``'s table resident on the card (see the
-    module docstring, phases 4 and 7); ``expect`` is FastMatch's (rounds,
-    blocks) where they are known. Returns the report and what phase 5
-    serves from."""
+TABLE_ARRAYS = ("z_blocks", "x_blocks", "bitmap", "target", "true_dists")
+
+
+def _make_table(spec, out: str) -> None:
+    """``spec``'s table (`make_dataset` and `block_layout`'s 512-tuple
+    blocks), saved as .npy files under ``out`` with its seconds: a
+    `Tables` process's work."""
+    import numpy as np
+
+    from repro_torch.data.layout import block_layout
+    from repro_torch.data.synth import make_dataset
+
+    t = time.perf_counter()
+    ds = make_dataset(spec)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    blocked = block_layout(ds.z, ds.x, v_z=spec.v_z, v_x=spec.v_x, block_size=512, seed=spec.seed)
+    layout_s = time.perf_counter() - t
+    arrays = dict(z_blocks=blocked.z_blocks, x_blocks=blocked.x_blocks, bitmap=blocked.bitmap,
+                  target=ds.target, true_dists=ds.true_dists)
+    for name in TABLE_ARRAYS:
+        np.save(os.path.join(out, f"{name}.npy"), arrays[name])
+    Path(out, "seconds.json").write_text(json.dumps(dict(generate_s=gen_s, layout_s=layout_s,
+                                                         done_at=time.time())))
+
+
+class Tables:
+    """Phases 4's and 7's tables, each made by `_make_table` in a process of
+    its own from the start of the run (host cores only) while the kernels
+    build and the earlier phases use the card; `get` waits for one and
+    loads it. A context manager that stops whatever is still running and
+    removes the tables' files on exit."""
+
+    def __init__(self, specs: dict):
+        self.specs = specs
+
+    def __enter__(self):
+        import multiprocessing
+
+        self.where = tempfile.mkdtemp(prefix="chip_smoke_tables_")
+        self.started = time.time()
+        ctx = multiprocessing.get_context("spawn")
+        self.procs = {}
+        for name, spec in self.specs.items():
+            os.mkdir(os.path.join(self.where, name))
+            self.procs[name] = ctx.Process(target=_make_table,
+                                           args=(spec, os.path.join(self.where, name)))
+            self.procs[name].start()
+        return self
+
+    def get(self, name: str) -> dict:
+        """``name``'s table: the BlockedDataset, the target, the true
+        distances and the seconds (made, laid out, waited for, loaded)."""
+        import numpy as np
+
+        from repro_torch.data.layout import BlockedDataset
+
+        t = time.perf_counter()
+        proc = self.procs[name]
+        proc.join()
+        wait_s = time.perf_counter() - t
+        check(proc.exitcode == 0, f"the process making the {name} table exited {proc.exitcode}")
+        out = Path(self.where, name)
+        t = time.perf_counter()
+        arrays = {key: np.load(out / f"{key}.npy") for key in TABLE_ARRAYS}
+        seconds = json.loads((out / "seconds.json").read_text())
+        seconds.update(wait_s=wait_s, load_s=time.perf_counter() - t,
+                       ready_s=seconds.pop("done_at") - self.started)
+        shutil.rmtree(out)
+        spec = self.specs[name]
+        blocked = BlockedDataset(z_blocks=arrays["z_blocks"], x_blocks=arrays["x_blocks"],
+                                 bitmap=arrays["bitmap"], v_z=spec.v_z, v_x=spec.v_x)
+        return dict(spec=spec, blocked=blocked, target=arrays["target"],
+                    true_dists=arrays["true_dists"], seconds=seconds)
+
+    def __exit__(self, *exc):
+        for proc in self.procs.values():
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+        shutil.rmtree(self.where, ignore_errors=True)
+
+
+def phase_engine_scale(torch, table: dict, seed: int, *, check_name: str, expect=None) -> tuple:
+    """FastMatch and Scan on ``table`` (`Tables.get`) resident on the card
+    (see the module docstring, phases 4 and 7); ``expect`` is FastMatch's
+    (rounds, blocks) where they are known. Returns the report and what
+    phase 5 serves from."""
     import numpy as np
 
     from repro_torch.core import engine, histsim
     from repro_torch.core.bitmap import words_for
-    from repro_torch.data.layout import block_layout
-    from repro_torch.data.synth import make_dataset
     from repro_torch.io import InMemorySource
     from repro_torch.kernels import autotune, metrics, ops
 
     k, eps, delta = 10, 0.12, 0.01
+    spec, blocked = table["spec"], table["blocked"]
+    target, true_dists = table["target"], table["true_dists"]
     num_tuples = spec.num_tuples
-    t = time.perf_counter()
-    ds = make_dataset(spec, device="cuda")  # the stable sort on the card: the same table
-    gen_s = time.perf_counter() - t
-    log(f"generated {num_tuples} tuples in {gen_s:.1f}s")
-    t = time.perf_counter()
-    blocked = block_layout(ds.z, ds.x, v_z=spec.v_z, v_x=spec.v_x, block_size=512, seed=spec.seed)
-    layout_s = time.perf_counter() - t
-    target, true_dists = ds.target, ds.true_dists
-    del ds
-    log(f"laid out {blocked.num_blocks} blocks in {layout_s:.1f}s")
+    sec = table["seconds"]
+    gen_s, layout_s = sec["generate_s"], sec["layout_s"]
+    log(f"generated {num_tuples} tuples in {gen_s:.1f}s and laid out {blocked.num_blocks} blocks "
+        f"in {layout_s:.1f}s in a process of their own, ready {sec['ready_s']:.1f}s into the "
+        f"run (waited {sec['wait_s']:.1f}s, loaded in {sec['load_s']:.1f}s)")
     nb = blocked.num_blocks
     resident_gb = (blocked.z_blocks.nbytes + blocked.x_blocks.nbytes + blocked.bitmap.nbytes) / 1e9
     t = time.perf_counter()
@@ -1440,7 +1558,7 @@ def phase_engine_scale(torch, spec, seed: int, *, check_name: str, expect=None) 
     out = dict(
         shape=[spec.v_z, spec.v_x], tuples=num_tuples, blocks=nb, resident_gb=resident_gb,
         generate_s=gen_s,
-        layout_s=layout_s, upload_s=upload_s,
+        layout_s=layout_s, table_wait_s=sec["wait_s"], upload_s=upload_s,
         fastmatch=dict(ids=fm.ids.tolist(), rounds=fm.rounds, passes=fm.passes,
                        blocks_read=fm.blocks_read, blocks_share=fm.blocks_read / nb,
                        tuples_read=fm.tuples_read, wall_s=fm_wall, host_syncs=fm.host_syncs,
@@ -3141,30 +3259,27 @@ def _smoke_models(torch, dtype: str, remat: str = "none"):
     return host, copy.deepcopy(host).to(TRAIN_DEVICE)
 
 
-def phase_train(torch, card: str) -> dict:
-    """Phase 12 (see the module docstring): training on the card."""
-    import tempfile
+def _moves(torch, p, lr: float) -> bool:
+    """Whether AdamW's first steps can change leaf ``p``: an update of
+    ``lr`` is over half an ulp of some element (in bf16, |p| < 2^8 lr; a
+    norm scale at 1.0 or a gate bias of a few units cannot move)."""
+    return bool((p.detach().float().abs() < 2 * lr / torch.finfo(p.dtype).eps).any())
 
+
+def _train_loop_checked(torch, cfg, arch: str, label: str, *, extra_batch_fn=None) -> tuple:
+    """The launcher's `train_loop` on ``cfg`` (weights from a generator
+    seeded 0), TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ at TRAIN_LR
+    behind its default corpus and FastMatch's selection, with the launch
+    counts at 0 just before the loop and read just after, held to phase
+    12a's gates: the planted domains selected, kernels A and B once a
+    round and C once a statistics step, every step ``step_ok`` 1 and
+    finite, every leaf that AdamW can move changed (`_moves`). Returns
+    the loop's output and its report (ms a step: those after the first)."""
     import numpy as np
 
-    from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs import get_config
     from repro_torch.data.corpus import CorpusSpec, make_corpus
-    from repro_torch.data.pipeline import TokenStream
     from repro_torch.launch import train as launch
-    from repro_torch.optimizer import get_optimizer
-    from repro_torch.optimizer.base import tree_leaves
-    from repro_torch.train import TrainState, make_train_step
-    from repro_torch.train.step import make_loss_fn
-    from torch.profiler import ProfilerActivity, profile
 
-    t_phase = time.perf_counter()
-    out = {}
-
-    # -- 12a: the entry point at full width
-    cfg = get_config(TRAIN_ARCH)
-    check(cfg.dtype == "bfloat16" and cfg.optimizer == "adamw" and cfg.remat == "full",
-          f"12a: {TRAIN_ARCH} is {cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}")
     spec = CorpusSpec(vocab_size=cfg.vocab_size, **TRAIN_CORPUS)
     close_ids = make_corpus(spec).close_ids
     built, step_times = {}, []
@@ -3175,6 +3290,7 @@ def phase_train(torch, card: str) -> dict:
         torch.cuda.synchronize()
         built["model"] = model
         built["digests"] = [_bits_digest(torch, p) for p in model.parameters()]
+        built["movable"] = [_moves(torch, p, TRAIN_LR) for p in model.parameters()]
         return model
 
     def log_fn(msg):
@@ -3190,7 +3306,8 @@ def phase_train(torch, card: str) -> dict:
     try:
         run = launch.train_loop(cfg=cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
                                 seq_len=TRAIN_SEQ, lr=TRAIN_LR, seed=0, log_every=1,
-                                log_fn=log_fn, device=TRAIN_DEVICE)
+                                log_fn=log_fn, device=TRAIN_DEVICE,
+                                extra_batch_fn=extra_batch_fn)
     finally:
         launch.get_model = real_get_model
     torch.cuda.synchronize()
@@ -3200,68 +3317,118 @@ def phase_train(torch, card: str) -> dict:
     model, state, sel = run["model"], run["state"], run["selection"]
     res = sel.result
     selected = np.sort(sel.selected_domains)
-    check(model is built["model"], "12a: the loop trained another model than it built")
+    check(model is built["model"], f"{label}: the loop trained another model than it built")
     check(np.array_equal(selected, close_ids),
-          f"12a: selected {selected.tolist()}, planted {close_ids.tolist()}")
+          f"{label}: selected {selected.tolist()}, planted {close_ids.tolist()}")
     c = sum(launches[name] for name in C_FORMS)
     check(launches["anyactive"] == launches["histogram"] == res.rounds
           and res.rounds <= c <= res.rounds + 1,
-          f"12a: launches {launches} for {res.rounds} rounds of the selection")
+          f"{label}: launches {launches} for {res.rounds} rounds of the selection")
     hist = run["history"]
     check(len(hist) == TRAIN_STEPS and int(state.step) == TRAIN_STEPS,
-          f"12a: {len(hist)} logged steps, state at step {int(state.step)}")
+          f"{label}: {len(hist)} logged steps, state at step {int(state.step)}")
     check(all(h["step_ok"] == 1.0 and math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-              for h in hist), f"12a: a step was skipped or not finite: {hist}")
-    # every weight matrix moved; a norm scale at 1.0 may not, in bf16: an
-    # update of lr is under half its ulp (2^-8)
-    moved = {name: d != _bits_digest(torch, p)
-             for d, (name, p) in zip(built["digests"], model.named_parameters())}
-    still = sorted(name for name, p in model.named_parameters()
-                   if not moved[name] and (p.ndim >= 2 or not name.endswith("scale")))
-    check(not still, f"12a: parameters that did not change: {still}")
+              for h in hist), f"{label}: a step was skipped or not finite: {hist}")
+    # every weight matrix moved; a leaf whose every element is over 2^8 lr
+    # (a norm scale at 1.0) may not, in bf16: an update of lr is under half
+    # its ulp
+    named = list(model.named_parameters())
+    moved = {name: d != _bits_digest(torch, p) for d, (name, p) in zip(built["digests"], named)}
+    still = sorted(name for (name, p), movable in zip(named, built["movable"])
+                   if not moved[name] and (p.ndim >= 2 or movable))
+    check(not still, f"{label}: parameters that did not change: {still}")
     step_ms = [(b - a) * 1e3 for a, b in zip(step_times, step_times[1:])]
     warm_ms = statistics.median(step_ms)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    out["loop"] = dict(
-        arch=TRAIN_ARCH, dtype=cfg.dtype, remat=cfg.remat, optimizer=cfg.optimizer,
+    report = dict(
+        arch=arch, dtype=cfg.dtype, remat=cfg.remat, optimizer=cfg.optimizer,
         params=sum(p.numel() for p in model.parameters()), steps=TRAIN_STEPS,
         leaves_moved=sum(moved.values()), leaves=len(moved),
+        leaves_unmovable=[name for (name, _), movable in zip(named, built["movable"])
+                          if not movable],
         batch=TRAIN_BATCH, seq=TRAIN_SEQ, loop_s=loop_s, step_ms_after_first=step_ms,
         ms_per_step=warm_ms, tokens_per_s=tokens / warm_ms * 1e3, peak_gb=peak_gb,
         losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
         select=dict(ids=selected.tolist(), rounds=res.rounds, blocks_read=res.blocks_read,
                     blocks_scanned_frac=sel.blocks_scanned_frac,
                     delta_upper=res.delta_upper, launches=launches))
-    log(f"12a train_loop {TRAIN_ARCH} ({out['loop']['params'] / 1e9:.3f}B params, bf16, AdamW, "
-        f"remat full), {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: selection "
-        f"{selected.tolist()} in {res.rounds} rounds, launches {launches}; ms a step after the "
-        f"first {[round(x, 1) for x in step_ms]} (median {warm_ms:.1f}, "
-        f"{out['loop']['tokens_per_s']:.0f} tokens/s), peak {peak_gb:.2f} GB, loop "
-        f"{loop_s:.1f}s; {card}")
+    return run, report
 
-    # -- 12b: learning on one fixed batch (its first step profiled)
-    corpus = make_corpus(spec)
-    batch = next(TokenStream(corpus, sel.selected_domains, batch_size=TRAIN_BATCH,
-                             seq_len=TRAIN_SEQ, seed=1))
+
+def _learn_one_batch(torch, cfg, model, state, selected, label: str, *, extra_batch_fn=None,
+                     profiled: bool = False) -> tuple:
+    """Phase 12b: three more steps on one fixed batch of the loop's
+    corpus (its stream seeded 1), the loss falling strictly at each; the
+    first under torch.profiler when ``profiled``. Returns the state, the
+    batch, the step, the losses and (the profile, its wall ms) or None."""
+    from repro_torch.data.corpus import CorpusSpec, make_corpus
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.train import make_train_step
+    from torch.profiler import ProfilerActivity, profile
+
+    corpus = make_corpus(CorpusSpec(vocab_size=cfg.vocab_size, **TRAIN_CORPUS))
+    batch = next(TokenStream(corpus, selected, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             seed=1))
     batch = {"tokens": torch.from_numpy(batch["tokens"]).to(TRAIN_DEVICE)}
+    if extra_batch_fn:
+        batch.update(extra_batch_fn(batch))
     del corpus
-    optimizer = get_optimizer(cfg.optimizer, TRAIN_LR)
-    train_step = make_train_step(model, optimizer)
-    losses = []
+    train_step = make_train_step(model, get_optimizer(cfg.optimizer, TRAIN_LR))
+    losses, prof = [], None
     for i in range(3):
-        if i == 0:
+        if i == 0 and profiled:
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
                 t = time.perf_counter()
                 state, m = train_step(state, batch)
                 torch.cuda.synchronize()
-                prof_wall_ms = (time.perf_counter() - t) * 1e3
+                prof = (p, (time.perf_counter() - t) * 1e3)
         else:
             state, m = train_step(state, batch)
-        check(float(m["step_ok"]) == 1.0, f"12b: step {i} skipped")
+        check(float(m["step_ok"]) == 1.0, f"{label}: step {i} skipped")
         losses.append(float(m["loss"]))
     check(all(a > b for a, b in zip(losses, losses[1:])),
-          f"12b: the loss on one batch did not fall at every step: {losses}")
+          f"{label}: the loss on one batch did not fall at every step: {losses}")
+    return state, batch, train_step, losses, prof
+
+
+def phase_train(torch, card: str) -> dict:
+    """Phase 12 (see the module docstring): training on the card."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.corpus import CorpusSpec, make_corpus
+    from repro_torch.launch import train as launch
+    from repro_torch.optimizer import get_optimizer
+    from repro_torch.optimizer.base import tree_leaves
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.train.step import make_loss_fn
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    # -- 12a: the entry point at full width
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.optimizer == "adamw" and cfg.remat == "full",
+          f"12a: {TRAIN_ARCH} is {cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}")
+    run, out["loop"] = _train_loop_checked(torch, cfg, TRAIN_ARCH, "12a")
+    model, state, sel = run["model"], run["state"], run["selection"]
+    lp = out["loop"]
+    log(f"12a train_loop {TRAIN_ARCH} ({lp['params'] / 1e9:.3f}B params, bf16, AdamW, "
+        f"remat full), {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: selection "
+        f"{lp['select']['ids']} in {lp['select']['rounds']} rounds, launches "
+        f"{lp['select']['launches']}; ms a step after the first "
+        f"{[round(x, 1) for x in lp['step_ms_after_first']]} (median {lp['ms_per_step']:.1f}, "
+        f"{lp['tokens_per_s']:.0f} tokens/s), peak {lp['peak_gb']:.2f} GB, loop "
+        f"{lp['loop_s']:.1f}s; {card}")
+
+    # -- 12b: learning on one fixed batch (its first step profiled)
+    state, batch, train_step, losses, (prof, prof_wall_ms) = _learn_one_batch(
+        torch, cfg, model, state, sel.selected_domains, "12b", profiled=True)
     device_ms, by_kernel, by_host_op = _profile_tables(torch, prof)
     out["learn"] = dict(losses=losses)
     out["profiled_step"] = dict(
@@ -3291,7 +3458,7 @@ def phase_train(torch, card: str) -> dict:
                         unchanged=True, step=int(state.step))
     log(f"12c guard: NaN in embedding row {row}: step_ok 0, {len(before)} leaves bitwise "
         f"unchanged, step {step_before} -> {int(state.step)}")
-    del model, state, run, built, train_step, batch, m
+    del model, state, run, sel, train_step, batch, m
     torch.cuda.empty_cache()
 
     # -- 12d: card against CPU at the smoke config, and remat on the card
@@ -5508,6 +5675,251 @@ def _meta_model(torch, meta: dict):
     return model_zoo.build(_shard_cfg(meta, SHARD_ARCH), torch.device("meta"))
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the families trained at full width, and the examples
+# ---------------------------------------------------------------------------
+
+# the families whose full model, AdamW state and a step of 8 x 256 fit one
+# card (mixtral-8x7b does not: 93.4 GB of bf16 weights alone)
+FAM_TRAIN_FULL = ("recurrentgemma_2b", "xlstm_125m", "whisper_medium")
+EXAMPLES = ("torch_quickstart", "torch_anytime_match", "torch_serve_match",
+            "torch_census_explore", "torch_telemetry_trace", "torch_serve_batch",
+            "torch_train_lm_fastmatch")
+EXAMPLE_TRAIN_STEPS = (4, 6)  # the first run's steps, then the resumed run's
+
+
+def _frames_fn(torch, cfg):
+    """Whisper's encoder frames for each batch the launcher draws, N(0,
+    0.02^2) in the model's dtype from a generator on the device seeded 0
+    (13c's and 14i's convention); None for the other families."""
+    if cfg.frontend != "audio_stub":
+        return None
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(0)
+
+    def extra(batch):
+        shape = (batch["tokens"].shape[0], cfg.encoder_seq, cfg.d_model)
+        frames = torch.randn(shape, generator=gen, device=TRAIN_DEVICE) * 0.02
+        return {"encoder_frames": frames.to(getattr(torch, cfg.dtype))}
+
+    return extra
+
+
+def phase_family_train(torch, card: str) -> dict:
+    """Phase 16a (see the module docstring): recurrentgemma-2b, xlstm-125m
+    and whisper-medium trained at full width and depth through the
+    launcher, each freed before the next is built."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    allocated = torch.cuda.memory_allocated()
+    check(allocated < FAM_MEMORY_BEFORE,
+          f"16a: {allocated / 1e9:.2f} GB allocated on the card before the phase")
+    out = dict(loop={}, learn={})
+    for arch in FAM_TRAIN_FULL:
+        cfg = get_config(arch)
+        check(cfg.dtype == "bfloat16" and cfg.optimizer == "adamw" and cfg.remat == "full",
+              f"16a: {arch} is {cfg.dtype}, {cfg.optimizer}, remat {cfg.remat}")
+        extra = _frames_fn(torch, cfg)
+        run, lp = _train_loop_checked(torch, cfg, arch, f"16a {arch}", extra_batch_fn=extra)
+        out["loop"][arch] = lp
+        state, batch, train_step, losses, _ = _learn_one_batch(
+            torch, cfg, run["model"], run["state"], run["selection"].selected_domains,
+            f"16a {arch} one batch", extra_batch_fn=extra)
+        out["learn"][arch] = dict(losses=losses, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"16a train_loop {arch} ({cfg.num_layers} layers, {lp['params'] / 1e9:.3f}B params, "
+            f"bf16, AdamW, remat full), {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: "
+            f"selection {lp['select']['ids']} in {lp['select']['rounds']} rounds, launches "
+            f"{lp['select']['launches']}; losses {[round(x, 4) for x in lp['losses']]}; ms a "
+            f"step after the first {[round(x, 1) for x in lp['step_ms_after_first']]} (median "
+            f"{lp['ms_per_step']:.1f}, {lp['tokens_per_s']:.0f} tokens/s), peak "
+            f"{lp['peak_gb']:.2f} GB, loop {lp['loop_s']:.1f}s, {lp['leaves_moved']} of "
+            f"{lp['leaves']} leaves moved ({len(lp['leaves_unmovable'])} unmovable in bf16); one "
+            f"batch, 3 steps: losses {[round(x, 5) for x in losses]} (strictly falling); {card}")
+        del run, state, batch, train_step
+        torch.cuda.empty_cache()
+    out["select_launches"] = {name: sum(r["select"]["launches"][name]
+                                        for r in out["loop"].values())
+                              for name in KERNEL_ROWS}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16a took {out['phase_s']:.1f}s")
+    emit({"check": "family_train", **out})
+    return out
+
+
+def _load_example(name: str):
+    """examples/<name>.py as a module (the examples are scripts, not a
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # a dataclass resolves its module's names there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _parses(path: Path) -> bool:
+    """Telemetry's files read back: every trace line a JSON object, the
+    CSV's header `obs.CURVE_COLUMNS` and every row that many floats,
+    every Prometheus sample line a name and a float."""
+    import csv
+
+    from repro_torch.obs import CURVE_COLUMNS
+
+    text = path.read_text()
+    if not text.strip():
+        return False
+    if path.suffix == ".jsonl":
+        return all(isinstance(json.loads(line), dict) for line in text.splitlines())
+    if path.suffix == ".csv":
+        rows = list(csv.reader(text.splitlines()))
+        return (tuple(rows[0])[-len(CURVE_COLUMNS):] == tuple(CURVE_COLUMNS) and len(rows) > 1
+                and all(len(r) == len(rows[0]) and all(math.isfinite(float(v)) for v in r)
+                        for r in rows[1:]))
+    samples = [line.rsplit(" ", 1) for line in text.splitlines()
+               if line and not line.startswith("#")]
+    return bool(samples) and all(len(s) == 2 and not math.isnan(float(s[1])) for s in samples)
+
+
+def _check_examples(torch, name: str, got: dict, tmp: Path) -> dict:
+    """Phase 16b's gates on one example, from what it returns (the values
+    it prints); returns the numbers the report keeps."""
+    import numpy as np
+
+    if name == "torch_quickstart":
+        res = got["result"]
+        check(sorted(res.ids.tolist()) == sorted(got["true_top_k"].tolist())
+              and res.delta_upper < 0.01,
+              f"16b quickstart: ids {sorted(res.ids.tolist())}, planted "
+              f"{sorted(got['true_top_k'].tolist())}, delta_upper {res.delta_upper:.3g}")
+        return dict(ids=res.ids.tolist(), rounds=res.rounds, blocks_read=res.blocks_read,
+                    num_blocks=got["num_blocks"], delta_upper=res.delta_upper)
+    if name == "torch_anytime_match":
+        final, sla = got["final"], got["sla_result"]
+        check(got["stream"][-1].ids.tolist() == final.ids.tolist()
+              and got["stream"][-1].status == "done",
+              f"16b anytime: final ids {final.ids.tolist()}, last statement "
+              f"{got['stream'][-1].ids.tolist()} ({got['stream'][-1].status})")
+        check(sla.stopped and sla.stop_reason == "tuples" and not sla.exact,
+              f"16b anytime: the SLA query stopped {sla.stopped} for {sla.stop_reason!r}")
+        return dict(rows=len(got["stream"]), ids=final.ids.tolist(),
+                    tuples=final.result.tuples_read, within_eps=bool(got["within_eps"]),
+                    sla_tuples=sla.tuples_read, sla_stop_reason=sla.stop_reason)
+    if name == "torch_serve_match":
+        shared = got["metrics"]["total_tuples_read"]
+        check(shared < got["solo_tuples"],
+              f"16b serve_match: shared {shared} tuples, solo {got['solo_tuples']}")
+        # the reference example's late and restored queries read nothing new
+        check(got["late_new_tuples"] == 0 and got["restored_new_tuples"] == 0,
+              f"16b serve_match: the late query read {got['late_new_tuples']} new tuples, the "
+              f"restored one {got['restored_new_tuples']}")
+        return dict(shared_tuples=shared, solo_tuples=got["solo_tuples"],
+                    late_new_tuples=got["late_new_tuples"],
+                    restored_new_tuples=got["restored_new_tuples"])
+    if name == "torch_census_explore":
+        topk = [got[q] for q in ("q1", "q2", "q3", "q4", "q5_topk")]
+        check(all(len(r.ids) == 10 and r.qtype == "topk" for r in topk)
+              and got["q5_closeness"].qtype == "closeness" and len(got["q5_closeness"].ids),
+              "16b census: a query did not answer")
+        scan = got["variants"]["scan"].blocks_read
+        blocks = {v: r.blocks_read for v, r in got["variants"].items()}
+        check(all(b <= scan for b in blocks.values()), f"16b census: blocks {blocks}, Scan {scan}")
+        return dict(blocks=blocks, q1_ids=sorted(got["q1"].ids.tolist()),
+                    closeness=len(got["q5_closeness"].ids), shared_tuples=got["shared_tuples"])
+    if name == "torch_telemetry_trace":
+        paths = (got["trace_path"], got["csv_path"], got["prom_path"])
+        check(all(_parses(p) for p in paths), f"16b telemetry: a file is empty or unreadable: "
+              f"{[(p.name, p.stat().st_size) for p in paths]}")
+        return dict(events=got["events"], curve_points=got["curve_points"],
+                    bytes={p.name: p.stat().st_size for p in paths})
+    if name == "torch_serve_batch":
+        done, eng = sorted(got["done"], key=lambda r: r.rid), got["engine"]
+        for lo in range(0, len(done), eng.slots):  # the queue in batches of ``slots``
+            batch = done[lo:lo + eng.slots]
+            plen = max(len(r.prompt) for r in batch)
+            prompts = np.zeros((len(batch), plen), np.int32)
+            for i, r in enumerate(batch):
+                prompts[i, plen - len(r.prompt):] = r.prompt  # left-pad, as the engine
+            new = max(r.max_new_tokens for r in batch)
+            rows, _, finite = _greedy_loop(torch, eng.model, prompts, eng.max_len, new)[:3]
+            check(finite and all(r.output == rows[i] for i, r in enumerate(batch)),
+                  f"16b serve_batch: requests {lo}-{lo + len(batch) - 1} differ from the greedy "
+                  "loop on their batch")
+        return dict(metrics=got["metrics"], wall_s=got["wall_s"],
+                    tokens_per_s=got["metrics"]["tokens_out"] / got["wall_s"])
+    # torch_train_lm_fastmatch: the first run, then its resumption (below)
+    hist = got["history"]
+    check(hist and all(h["step_ok"] == 1.0 and math.isfinite(h["loss"]) for h in hist)
+          and math.isfinite(got["final_loss"]),
+          f"16b train: a step was skipped or not finite: {hist}")
+    return dict(final_loss=got["final_loss"], step=int(got["state"].step),
+                history=[dict(step=h["step"], loss=h["loss"], step_ok=h["step_ok"])
+                         for h in hist])
+
+
+def phase_examples(torch, card: str) -> dict:
+    """Phase 16b (see the module docstring): the seven examples on the
+    card at the reference's sizes, each with its launch counts at 0 just
+    before and read just after (path ``examples``: their sum)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = dict(examples={}, walls={})
+    lines_dir = ROOT / "chiprun_out" / "examples"
+    lines_dir.mkdir(parents=True, exist_ok=True)
+    launches = dict.fromkeys(KERNEL_ROWS, 0)
+    with tempfile.TemporaryDirectory(prefix="examples_") as tmp:
+        tmp = Path(tmp)
+        for name in EXAMPLES:
+            mod = _load_example(name)
+            if name == "torch_train_lm_fastmatch":  # a snapshot at step 4, resumed to 6
+                loop = mod.train_loop  # the example snapshots every 100 steps
+                mod.train_loop = lambda **kw: loop(**dict(kw, ckpt_every=EXAMPLE_TRAIN_STEPS[0]))
+                runs = [((dataclasses.replace(mod.TrainSpec(), steps=steps,
+                                              ckpt_dir=str(tmp / "ckpt")), LM_DEVICE), {})
+                        for steps in EXAMPLE_TRAIN_STEPS]
+            elif name == "torch_telemetry_trace":
+                runs = [((mod.SPEC, LM_DEVICE), dict(out_dir=tmp / "telemetry"))]
+            elif name == "torch_serve_batch":  # its smoke config
+                runs = [((None, LM_DEVICE), {})]
+            else:
+                runs = [((mod.SPEC, LM_DEVICE), {})]
+            reports, lines = [], []
+            for a, kw in runs:
+                _reset_launches()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = mod.run(*a, **kw)
+                torch.cuda.synchronize()
+                out["walls"].setdefault(name, []).append(time.perf_counter() - t)
+                counts = _launch_counts()
+                for kernel, n in counts.items():
+                    launches[kernel] += n
+                reports.append(dict(_check_examples(torch, name, got, tmp), launches=counts))
+                lines += got["lines"]
+                del got
+            if name == "torch_train_lm_fastmatch":
+                first, resumed = reports
+                resume_line = f"[resume] restored step {EXAMPLE_TRAIN_STEPS[0]} from {tmp / 'ckpt'}"
+                check(first["step"] == EXAMPLE_TRAIN_STEPS[0]
+                      and resumed["step"] == EXAMPLE_TRAIN_STEPS[1] and resume_line in lines,
+                      f"16b train: steps {first['step']} then {resumed['step']}, resumed "
+                      f"{resume_line in lines}")
+            (lines_dir / f"{name}.txt").write_text("\n".join(lines) + "\n")
+            out["examples"][name] = reports if len(reports) > 1 else reports[0]
+            log(f"16b {name}: {reports}, wall {[round(w, 2) for w in out['walls'][name]]} s")
+            torch.cuda.empty_cache()
+    out["launches"] = launches
+    c = sum(launches[name] for name in C_FORMS)
+    check(launches["anyactive"] > 0 and launches["histogram"] > 0 and c > 0,
+          f"16b: the examples launched {launches}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16b took {out['phase_s']:.1f}s; the examples' lines in "
+        f"chiprun_out/examples/; {card}")
+    emit({"check": "examples", **out})
+    return out
+
+
 # kernel name -> (its source, the pallas_call it replaces), and the path
 # whose run gives its launches: the first of PATHS that launches it
 KERNEL_ROWS = {
@@ -5547,41 +5959,51 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
 
-    smi = phase_setup(torch)
-    timer = DeviceTimer(torch)
-    log("phase 2: kernels against their plain versions")
-    main_rows = phase_kernels(torch, timer)
-    log("phase 3: engine and server on the test fixture, card against CPU")
-    ds, blocked = phase_engine_small(torch)
-    fixture_wide_u16 = phase_serving_small(torch, ds, blocked)
-    del ds, blocked
-    full_size = (args.tuples, args.seed) == (400_000_000, 0)
-    log(f"phase 4: engine at {args.tuples} tuples")
-    scale, ctx = phase_engine_scale(torch, taxi_spec(args.tuples), args.seed,
-                                    check_name="engine_scale",
-                                    expect=(27, 12_395) if full_size else None)
-    log("phase 5: serving 12 queries on the resident table")
-    serving = phase_serving(torch, timer, ctx)
-    log("phase 8: the I/O, fault and recovery layer on the resident table")
-    t = time.perf_counter()
-    faults = phase_faults(torch, ctx, expect=(27, 12_395) if full_size else None,
-                          expect_quarantine=(2_048, 4) if full_size else None)
-    log(f"phase 8 took {time.perf_counter() - t:.1f}s")
-    log("phase 9: telemetry on the resident table")
-    telemetry = phase_telemetry(torch, timer, ctx)
-    log(f"phase 10: the mesh and the data-parallel pump, {MESH_RANKS} gloo ranks on the card")
-    mesh = phase_mesh(torch, ctx, seed=args.seed)
-    del ctx  # the resident table and the host arrays
-    torch.cuda.empty_cache()
-    log("phase 6: the tuner at the taxi keys")
-    tuner = phase_tuner(torch)
-    log(f"phase 7: wide rows, FastMatch at the minute-of-day shape, {args.tuples} tuples")
-    # [0]: phase 7's resident table (its context) is dropped here, so the LM
-    # phases start from an empty card
-    wide = phase_engine_scale(torch, minute_spec(args.tuples), args.seed,
-                              check_name="wide_rows",
-                              expect=(53, 27_134) if full_size else None)[0]
-    torch.cuda.empty_cache()
+    # phases 4's and 7's tables are made on host cores from the start, while
+    # the kernels build and phases 2 to 6 use the card
+    with Tables(dict(taxi=taxi_spec(args.tuples), minute=minute_spec(args.tuples))) as tables:
+        smi = phase_setup(torch)
+        timer = DeviceTimer(torch)
+        log("phase 2: kernels against their plain versions")
+        main_rows = phase_kernels(torch, timer)
+        log("phase 3: engine and server on the test fixture, card against CPU")
+        ds, blocked = phase_engine_small(torch)
+        fixture_wide_u16 = phase_serving_small(torch, ds, blocked)
+        del ds, blocked
+        torch.cuda.empty_cache()
+        # phase 16 needs neither table: it runs while they are still being made
+        log(f"phase 16a: {', '.join(FAM_TRAIN_FULL)} trained at full width on the card")
+        family_train = phase_family_train(torch, smi)
+        log(f"phase 16b: the {len(EXAMPLES)} examples on the card")
+        examples = phase_examples(torch, smi)
+        torch.cuda.empty_cache()
+        full_size = (args.tuples, args.seed) == (400_000_000, 0)
+        log(f"phase 4: engine at {args.tuples} tuples")
+        scale, ctx = phase_engine_scale(torch, tables.get("taxi"), args.seed,
+                                        check_name="engine_scale",
+                                        expect=(27, 12_395) if full_size else None)
+        log("phase 5: serving 12 queries on the resident table")
+        serving = phase_serving(torch, timer, ctx)
+        log("phase 8: the I/O, fault and recovery layer on the resident table")
+        t = time.perf_counter()
+        faults = phase_faults(torch, ctx, expect=(27, 12_395) if full_size else None,
+                              expect_quarantine=(2_048, 4) if full_size else None)
+        log(f"phase 8 took {time.perf_counter() - t:.1f}s")
+        log("phase 9: telemetry on the resident table")
+        telemetry = phase_telemetry(torch, timer, ctx)
+        log(f"phase 10: the mesh and the data-parallel pump, {MESH_RANKS} gloo ranks on the card")
+        mesh = phase_mesh(torch, ctx, seed=args.seed)
+        del ctx  # the resident table and the host arrays
+        torch.cuda.empty_cache()
+        log("phase 6: the tuner at the taxi keys")
+        tuner = phase_tuner(torch)
+        log(f"phase 7: wide rows, FastMatch at the minute-of-day shape, {args.tuples} tuples")
+        # [0]: phase 7's resident table (its context) is dropped here, so the LM
+        # phases start from an empty card
+        wide = phase_engine_scale(torch, tables.get("minute"), args.seed,
+                                  check_name="wide_rows",
+                                  expect=(53, 27_134) if full_size else None)[0]
+        torch.cuda.empty_cache()
     log(f"phase 11: the data layer and a full-width {LM_ARCH} on the card")
     lm = phase_lm(torch, timer, smi)
     log(f"phase 12: training a full-width {TRAIN_ARCH} on the card")
@@ -5614,6 +6036,8 @@ def main(argv=None) -> int:
                  families_monitor=families["monitor_launches"],
                  sharded_select=sharded["select"]["launches"],
                  scan_train_select=scan["train"]["select"]["launches"],
+                 families_train_select=family_train["select_launches"],
+                 examples=examples["launches"],
                  fault_chaos=faults["chaos"]["launches"],
                  fault_quarantine=faults["quarantine"]["launches"],
                  fault_recovery=faults["recovery"]["launches"],
@@ -5653,7 +6077,8 @@ def main(argv=None) -> int:
         dict(card=smi, device=device, kernels=kernels, scale=scale, serving=serving,
              faults=faults, telemetry=telemetry, mesh=mesh, tuner=tuner["report"],
              wide_rows=wide, lm=lm, train=train, families=families,
-             sharded=sharded, scan_dryrun=scan,
+             sharded=sharded, scan_dryrun=scan, family_train=family_train,
+             examples=examples,
              wall_s=time.perf_counter() - T0), indent=1))
     log(f"all checks passed in {time.perf_counter() - T0:.1f}s")
     emit({"kernels": kernels})

@@ -77,25 +77,9 @@ def _target(spec: SynthSpec, rng: np.random.Generator) -> np.ndarray:
     return q / q.sum()
 
 
-def _stable_sort(z: np.ndarray, device) -> tuple:
-    """(the stable argsort of ``z``, ``z`` sorted), on ``device`` when
-    given (the sort's indices come back as int64, as numpy's)."""
-    if device is None:
-        order = np.argsort(z, kind="stable")
-        return order, z[order]
-    import torch
-
-    values, order = torch.sort(torch.from_numpy(z).to(device), stable=True)
-    return order.cpu().numpy(), values.cpu().numpy()
-
-
-def make_dataset(spec: SynthSpec, device=None) -> SynthDataset:
+def make_dataset(spec: SynthSpec) -> SynthDataset:
     """The dataset ``spec`` describes, drawn on the host in the
-    reference's order from ``spec.seed``. With ``device`` (a torch
-    device, the card's or "cpu"), the stable sort that groups the tuples
-    by candidate runs there as ``torch.sort(stable=True)``, whose order
-    is numpy's stable ``argsort``'s: the same dataset, bit for bit, in a
-    fraction of the time at 400M tuples."""
+    reference's order from ``spec.seed``."""
     rng = np.random.default_rng(spec.seed)
     q = _target(spec, rng)
 
@@ -134,7 +118,8 @@ def make_dataset(spec: SynthSpec, device=None) -> SynthDataset:
     z = rng.choice(spec.v_z, size=spec.num_tuples, p=freq).astype(np.int32)
     x = np.empty(spec.num_tuples, dtype=np.int32)
     # Vectorized per-candidate sampling.
-    order, z_sorted = _stable_sort(z, device)
+    order = np.argsort(z, kind="stable")
+    z_sorted = z[order]
     boundaries = np.searchsorted(z_sorted, np.arange(spec.v_z + 1))
     for zv in range(spec.v_z):
         lo, hi = boundaries[zv], boundaries[zv + 1]

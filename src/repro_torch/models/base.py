@@ -12,6 +12,18 @@ reference's entry points less their ``params`` argument:
     cache = model.init_cache(batch, max_len)
     shapes = model.extra_input_shapes(batch, seq)       # frontend stubs
     ids = model.greedy_pick(logits)                     # (B,) int32 numpy
+
+``cfg.remat`` maps to activation checkpointing of each block of
+`forward` while autograd records (`Model.remat`), in every family:
+``"full"`` keeps only each block's inputs and recomputes the block in
+the backward pass (``jax.checkpoint``), ``"dots"`` also keeps the
+block's weight products (``aten.mm`` / ``aten.addmm``) and recomputes
+the rest (``checkpoint_dots_with_no_batch_dims``: the attention products
+carry batch dimensions and are recomputed). The reference checkpoints
+the transformer's blocks only; the recurrent and audio families ignore
+``cfg.remat`` there (ROADMAP Queue C, C7). Recomputation reruns the same
+operations on the same inputs, so the gradients are the same, bit for
+bit (`tests/test_torch_family_remat.py`).
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 
@@ -129,6 +142,21 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
+# the products "dots" remat keeps: the weight products, which have no batch
+# dimensions (attention's products run as bmm and are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_dots_policy)
+
+
 class Model(nn.Module):
     """The interface of every family (see the module docstring). A
     subclass sets ``cfg`` and an ``embed`` group holding ``table``."""
@@ -148,6 +176,18 @@ class Model(nn.Module):
         rank-local model holds leaves split over "data", else itself."""
         plan = getattr(self, "tp", None)
         return Whole(group, plan) if plan is not None and plan.fsdp else group
+
+    def remat(self, fn, *args):
+        """``fn(*args)``, one block of `forward`, checkpointed as
+        ``cfg.remat`` says while autograd records (the module docstring);
+        called plainly under "none" or without autograd."""
+        remat = self.cfg.remat
+        if remat not in ("none", "full", "dots"):
+            raise ValueError(f"unknown remat {remat!r}")
+        if remat == "none" or not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {} if remat == "full" else {"context_fn": _dots_context}
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
 
     def greedy_pick(self, logits: torch.Tensor) -> np.ndarray:
         """The first index of the largest logit a row (``argmax``'s rule in

@@ -316,21 +316,26 @@ class HybridLM(Model):
         return torch.arange(s, dtype=torch.int32, device=self.device).expand(b, s)
 
     def forward(self, tokens: torch.Tensor, **_) -> tuple:
-        cfg = self.cfg
         b, s = tokens.shape
         x = embed_tokens(self, tokens)
         positions = self._positions(b, s)
         for li, lp in enumerate(self.layers):
-            lp = self.weights(lp)
-            h = L.rms_norm(lp.temporal_norm, x, cfg.norm_eps)
-            if block_kind(cfg, li) == "attention":
-                y = self._attend(lp, h, positions)[0]
-            else:
-                y, _ = rg_lru_block(lp.rglru, h, tp=self._tp("lru"))
-            x = x + y
-            h = L.rms_norm(lp.mlp_norm, x, cfg.norm_eps)
-            x = x + self._mlp(lp, h)
+            x = self.remat(self._block, li, lp, x, positions)
         return self._logits(x), {}
+
+    def _block(self, li: int, lp, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Block ``li`` of `forward`: its temporal mix (RG-LRU or local
+        attention) and MLP, each behind an RMSNorm and a residual."""
+        cfg = self.cfg
+        lp = self.weights(lp)
+        h = L.rms_norm(lp.temporal_norm, x, cfg.norm_eps)
+        if block_kind(cfg, li) == "attention":
+            y = self._attend(lp, h, positions)[0]
+        else:
+            y, _ = rg_lru_block(lp.rglru, h, tp=self._tp("lru"))
+        x = x + y
+        h = L.rms_norm(lp.mlp_norm, x, cfg.norm_eps)
+        return x + self._mlp(lp, h)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int) -> tuple:

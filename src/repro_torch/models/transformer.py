@@ -35,13 +35,8 @@ scans (`forward`) or slices (`prefill`, `decode_step`) the stack. The
 forward and the gradients are the unrolled model's; what changes is what
 the optimizer sees: a stacked 1-D scale or bias is a matrix, which AdamW
 decays and Adafactor factors over the stack, as the reference's stacked
-leaves are. ``remat`` maps to activation
-checkpointing of each block in `forward` while autograd records:
-``"full"`` keeps only each block's input and recomputes the block in the
-backward pass (``jax.checkpoint``), ``"dots"`` also keeps the block's
-weight products (``aten.mm`` / ``aten.addmm``) and recomputes the rest
-(``checkpoint_dots_with_no_batch_dims``: the attention products carry
-batch dimensions and are recomputed). Parameters start without
+leaves are. ``remat`` checkpoints each block in `forward` while
+autograd records (`base.Model.remat`). Parameters start without
 gradients (serving); `repro_torch.train.TrainState.create` turns them
 on. `prefill` and `decode_step` run without autograd; `decode_step`
 writes the new keys and values into the cache's tensors in place.
@@ -80,7 +75,6 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
-from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -107,21 +101,6 @@ def _attn_spec(cfg: ModelConfig) -> AttnSpec:
         decode_seq_shard=cfg.decode_seq_shard,
         gqa_grouped=cfg.attn_gqa_grouped,
     )
-
-
-# the products "dots" remat keeps: the weight products, which have no batch
-# dimensions (attention's products run as bmm and are recomputed)
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-
-
-def _dots_policy(ctx, op, *args, **kwargs):
-    if op in _DOTS:
-        return ckpt.CheckpointPolicy.MUST_SAVE
-    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def _dots_context():
-    return ckpt.create_selective_checkpoint_contexts(_dots_policy)
 
 
 def init_layer(cfg: ModelConfig, *, generator=None, device=None) -> dict:
@@ -443,26 +422,14 @@ class Transformer(Model):
         positions = self._positions(b, s)
         auxes = []
         for lp in self._layers():
-            x, aux = self._remat_block(lp, x, positions)
+            x, aux = self.remat(functools.partial(self._block_x, lp, positions=positions), x)
             if aux:
                 auxes.append(aux)
         x = L.rms_norm(self.final_norm, x, cfg.norm_eps)
         return unembed(self, x), _sum_aux(auxes)
 
-    def _remat_block(self, lp: Group, x: torch.Tensor, positions: torch.Tensor) -> tuple:
-        """One block of `forward` -> (x, aux), checkpointed as ``cfg.remat``
-        says when autograd records it."""
-        remat = self.cfg.remat
-        if remat not in ("none", "full", "dots"):
-            raise ValueError(f"unknown remat {remat!r}")
-        fn = functools.partial(self._block_x, lp, positions=positions)
-        if remat == "none" or not torch.is_grad_enabled():
-            return fn(x)
-        if remat == "full":
-            return ckpt.checkpoint(fn, x, use_reentrant=False)
-        return ckpt.checkpoint(fn, x, use_reentrant=False, context_fn=_dots_context)
-
     def _block_x(self, lp: Group, x: torch.Tensor, *, positions: torch.Tensor) -> tuple:
+        """One block of `forward` -> (x, aux), at the training capacity."""
         x, _, _, aux = self._block(lp, x, positions, self.cfg.expert_capacity_factor)
         return x, aux
 

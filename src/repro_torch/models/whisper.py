@@ -155,13 +155,18 @@ class Whisper(Model):
         pos = torch.arange(s, dtype=torch.int32, device=frames.device)
         local = heads_spec(spec, self.tp)
         for lp in self.enc_layers:
-            lp = self.weights(lp)
-            h = L.layer_norm(lp.attn_norm, x, cfg.norm_eps)
-            q, k, v = attn_project(lp.attn, h, spec, self.tp)
-            x = x + attn_output(lp.attn, L.attention(q, k, v, local, pos, pos), self.tp)
-            h = L.layer_norm(lp.mlp_norm, x, cfg.norm_eps)
-            x = x + self._mlp(lp, h)
+            x = self.remat(self._enc_block, lp, x, spec, local, pos)
         return L.layer_norm(self.weights(self.enc_norm), x, cfg.norm_eps)
+
+    def _enc_block(self, lp, x: torch.Tensor, spec, local, pos: torch.Tensor) -> torch.Tensor:
+        """One encoder block (bidirectional self-attention, GELU MLP)."""
+        cfg = self.cfg
+        lp = self.weights(lp)
+        h = L.layer_norm(lp.attn_norm, x, cfg.norm_eps)
+        q, k, v = attn_project(lp.attn, h, spec, self.tp)
+        x = x + attn_output(lp.attn, L.attention(q, k, v, local, pos, pos), self.tp)
+        h = L.layer_norm(lp.mlp_norm, x, cfg.norm_eps)
+        return x + self._mlp(lp, h)
 
     def _encoded(self, b: int, encoder_frames: Optional[torch.Tensor]) -> torch.Tensor:
         if encoder_frames is None:
@@ -189,20 +194,10 @@ class Whisper(Model):
         x = self._embed(tokens, pos[None])
         self_spec, cross_spec = _spec(cfg, causal=True), _spec(cfg, causal=False)
         self_local, cross_local = heads_spec(self_spec, self.tp), heads_spec(cross_spec, self.tp)
+        specs = (self_spec, cross_spec, self_local, cross_local)
         sk, sv, xk, xv = [], [], [], []
         for lp in self.dec_layers:
-            lp = self.weights(lp)
-            h = L.layer_norm(lp.self_norm, x, cfg.norm_eps)
-            q, k, v = attn_project(lp.self_attn, h, self_spec, self.tp)
-            x = x + attn_output(lp.self_attn, L.attention(q, k, v, self_local, pos, pos),
-                                self.tp)
-            h = L.layer_norm(lp.cross_norm, x, cfg.norm_eps)
-            (q,) = attn_project(lp.cross_attn, h, cross_spec, self.tp, ("wq",))
-            ck, cv = attn_project(lp.cross_attn, enc, cross_spec, self.tp, ("wk", "wv"))
-            x = x + attn_output(lp.cross_attn,
-                                L.attention(q, ck, cv, cross_local, pos, enc_pos), self.tp)
-            h = L.layer_norm(lp.mlp_norm, x, cfg.norm_eps)
-            x = x + self._mlp(lp, h)
+            x, k, v, ck, cv = self.remat(self._dec_block, lp, x, enc, specs, pos, enc_pos)
             if max_len:
                 pad = (0, 0, 0, 0, 0, max_len - s)
                 sk.append(torch.nn.functional.pad(k, pad))
@@ -210,6 +205,24 @@ class Whisper(Model):
                 xk.append(ck)
                 xv.append(cv)
         return self._logits(x), (sk, sv, xk, xv)
+
+    def _dec_block(self, lp, x: torch.Tensor, enc: torch.Tensor, specs: tuple,
+                   pos: torch.Tensor, enc_pos: torch.Tensor) -> tuple:
+        """One decoder block over the whole sequence -> (x, self k, self v,
+        cross k, cross v)."""
+        cfg = self.cfg
+        self_spec, cross_spec, self_local, cross_local = specs
+        lp = self.weights(lp)
+        h = L.layer_norm(lp.self_norm, x, cfg.norm_eps)
+        q, k, v = attn_project(lp.self_attn, h, self_spec, self.tp)
+        x = x + attn_output(lp.self_attn, L.attention(q, k, v, self_local, pos, pos), self.tp)
+        h = L.layer_norm(lp.cross_norm, x, cfg.norm_eps)
+        (q,) = attn_project(lp.cross_attn, h, cross_spec, self.tp, ("wq",))
+        ck, cv = attn_project(lp.cross_attn, enc, cross_spec, self.tp, ("wk", "wv"))
+        x = x + attn_output(lp.cross_attn, L.attention(q, ck, cv, cross_local, pos, enc_pos),
+                            self.tp)
+        h = L.layer_norm(lp.mlp_norm, x, cfg.norm_eps)
+        return x + self._mlp(lp, h), k, v, ck, cv
 
     def forward(self, tokens: torch.Tensor, *, encoder_frames: Optional[torch.Tensor] = None,
                 **_) -> tuple:

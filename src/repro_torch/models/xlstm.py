@@ -481,19 +481,25 @@ class XLSTM(Model):
     def _layers(self, x: torch.Tensor, ms: list, ss: list, *, single_step: bool) -> torch.Tensor:
         """Every block over x; ``ms`` / ``ss`` hold each layer's state in
         and take its new state (None in, as `forward` passes, is zero)."""
+        for li, lp in enumerate(self.layers):
+            states = ss if is_slstm(self.cfg, li) else ms
+            x, states[li] = self.remat(self._block, li, lp, x, states[li], single_step)
+        return x
+
+    def _block(self, li: int, lp, x: torch.Tensor, state, single_step: bool) -> tuple:
+        """Block ``li`` (sLSTM or mLSTM) behind an RMSNorm and a residual,
+        from its ``state`` -> (x, its new state)."""
         cfg, plan = self.cfg, self.tp
         tp, lay = (plan.tp, plan.layout) if plan is not None else (None, _REPLICATED)
-        for li, lp in enumerate(self.layers):
-            lp = self.weights(lp)
-            h = L.rms_norm(lp.norm, x, cfg.norm_eps)
-            if is_slstm(cfg, li):
-                y, ss[li] = slstm_block(lp.slstm, h, cfg, state=ss[li], tp=tp,
-                                        layout=lay["slstm"], ffn=lay["slstm_ffn"])
-            else:
-                y, ms[li] = mlstm_block(lp.mlstm, h, cfg, state=ms[li], single_step=single_step,
-                                        tp=tp, layout=lay["mlstm"])
-            x = x + y
-        return x
+        lp = self.weights(lp)
+        h = L.rms_norm(lp.norm, x, cfg.norm_eps)
+        if is_slstm(cfg, li):
+            y, state = slstm_block(lp.slstm, h, cfg, state=state, tp=tp, layout=lay["slstm"],
+                                   ffn=lay["slstm_ffn"])
+        else:
+            y, state = mlstm_block(lp.mlstm, h, cfg, state=state, single_step=single_step, tp=tp,
+                                   layout=lay["mlstm"])
+        return x + y, state
 
     def forward(self, tokens: torch.Tensor, **_) -> tuple:
         n = self.cfg.num_layers

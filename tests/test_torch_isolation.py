@@ -68,6 +68,33 @@ def test_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_examples_import_neither_jax_nor_reference():
+    """Every `examples/torch_*.py` loads the port and nothing of JAX or the
+    reference, in a process of its own (the seven twins, one each)."""
+    examples = sorted((SRC.parent / "examples").glob("torch_*.py"))
+    assert [p.stem for p in examples] == sorted(
+        f"torch_{name}" for name in ("quickstart", "anytime_match", "serve_match",
+                                     "census_explore", "telemetry_trace", "serve_batch",
+                                     "train_lm_fastmatch"))
+    code = (
+        "import importlib.util, sys\n"
+        f"for path in {[str(p) for p in examples]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    sys.modules['ex'] = mod\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    assert callable(mod.run) and callable(mod.main), path\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.startswith('jax') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_kernel_sources_exist():
     csrc = Path(repro_torch.__file__).resolve().parent / "kernels" / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
