@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FastMatch on one NVIDIA GPU and check it.
 
-Run from the root of a checkout (one card; about 17 to 19 minutes at the
-default size with the kernels' build, most of it generating the two
-datasets on the host and phase 14's gloo ranks):
+Run from the root of a checkout (one card; about 13 to 15 minutes at the
+default size with the kernels' build, half of it phase 14's gloo ranks
+and phase 15):
 
     python3 chip_smoke.py [--tuples N] [--seed S]
 
 Phases, each of which raises (non-zero exit) when a check fails. The
 tables of phases 4 and 7 are made from the start of the run, each by a
 process of its own on host cores (`Tables`), while the kernels build and
-phases 2, 3 and 16 use the card; phase 4 then waits for its table.
-Phases run in the order 1, 2, 3, 16, 4, 5, 8, 9, 10, 6, 7, 11-15.
+phases 2, 3, 16 and 11 to 13 use the card; phase 4 then waits for its
+table. Phases run in the order 1, 2, 3, 16, 11, 12, 13, 4, 5, 8, 9, 10,
+6, 7, 14, 15.
 
 1. Setup: build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each, in parallel) and print the card's name and power limit.
@@ -188,7 +189,7 @@ Phases run in the order 1, 2, 3, 16, 4, 5, 8, 9, 10, 6, 7, 11-15.
    tau the true distances; Guarantee 1; the pinned
    lowprec plan with the same ids, rounds and blocks, tau bitwise the
    default's and kernel C only as its wide uint16 form; a profiled rerun.
-11. The data layer and the LM, last (after phase 7 freed its table),
+11. The data layer and the LM (after phase 16, while the tables are made),
    each sub-phase with the launch counts at 0 just before and read just
    after. 11a: the token corpus `make_corpus(CorpusSpec(vocab_size=
    151936, num_blocks=32768))` (seed 0, 67.1M tokens) and
@@ -212,7 +213,7 @@ Phases run in the order 1, 2, 3, 16, 4, 5, 8, 9, 10, 6, 7, 11-15.
    `torch.bincount`. 11c: the same configuration in float32:
    prefill 128 tokens and decode the next 128, against `forward` on all
    256 (max |dlogits| <= 1e-3, equal argmax). ``{"check": "lm", ...}``.
-12. Training, last (after phase 11 freed its model). 12a: the launcher's
+12. Training (after phase 11 freed its model). 12a: the launcher's
    `train_loop` on a full-width qwen2.5-3b as its config defines it (bf16,
    AdamW, remat "full"; weights from a generator seeded 0), 4 steps of 8 x
    256 tokens at lr 3e-4, behind the launcher's own default corpus
@@ -235,7 +236,7 @@ Phases run in the order 1, 2, 3, 16, 4, 5, 8, 9, 10, 6, 7, 11-15.
    10 steps against 5, a save and a resume to 10 (atol 2e-2, the
    reference test's), and a bf16 train state through `CheckpointManager`
    bitwise. ``{"check": "train", ...}``.
-13. Every model family, last (after phase 12 freed its model; under 2 GB
+13. Every model family (after phase 12 freed its model; under 2 GB
    allocated on the card when it starts), each sub-phase with the launch
    counts at 0 just before and read just after. For mixtral-8x7b (16 of
    its 32 layers: 23.48B parameters, the one cut; every width, all 8
@@ -268,7 +269,7 @@ Phases run in the order 1, 2, 3, 16, 4, 5, 8, 9, 10, 6, 7, 11-15.
    12d's bars, the MoE aux terms reported and within the loss's bar.
    ``{"check": "families", ...}``.
 
-14. Sharded serving, last (after phase 13 freed its models; under 2 GB
+14. Sharded serving (after phase 7 freed its table; under 2 GB
    allocated on the card when it starts). 14a: `select_domains` on
    qwen2.5-3b's vocabulary corpus (4,096 blocks, seed 0) in this process:
    the planted `close_ids` in 9 rounds and 457 blocks, kernels A and B once
@@ -358,11 +359,25 @@ Phases run in the order 1, 2, 3, 16, 4, 5, 8, 9, 10, 6, 7, 11-15.
    where the gradient is well over both AdamW's eps and that bar (an
    Adafactor leaf's update within 5 % of its largest); ms a step,
    all-reduces, GB and host seconds a step, peak a rank against one
-   process's. No rank holds the whole
+   process's; the FLOPs each rank counts in step 1 (`FlopCounterMode`),
+   equal on every rank and held by 15a to the dry run's; mixtral-8x7b's
+   expert rows a rank (`moe.batched_buffer`: its T*K pairs sorted by
+   expert) and the global batch's kept pairs. 14l's "whole" case
+   (SHARD_FAM_WHOLE): recurrentgemma-2b's 10 q heads do not divide over
+   4 model ranks, so on 1 x 4 q, k and v are assembled whole; its two
+   steps under the same bars.
+   14m, the "q_heads" layout (qwen2.5-3b's 16 q heads split 4 ways and
+   its 2 kv heads not, so each rank attends its 4 q heads against the
+   one kv head they read): 14e's float32 cut on 1 x 4 without
+   flash-decoding, the prefill's and 4 ticks' logits within 14e's 1e-4 of
+   one process, each rank's cache one kv head; 14k's two steps on 1 x 4
+   under 14k's bars; the FLOPs each rank counts (`FlopCounterMode`) in a
+   prefill, a tick and a train step, equal on every rank and held by 15a
+   to the dry run's. No rank holds the whole
    model, and each rank's peak is under the one-process serving peak.
    ``{"check": "sharded", ...}``.
 15. Training under ``scan_layers`` and the dry run, last (after phase 14).
-   15c's two processes start before phase 13, so their meta runs use host
+   15c's two processes start before phase 14, so their meta runs use host
    cores while the card works: `python -m repro_torch.launch.dryrun` for
    llama3-405b x train_4k (stacked, Adafactor) and for the FastMatch
    round, each on the pod's rank (0, 0) on the meta device, the card
@@ -376,12 +391,15 @@ Phases run in the order 1, 2, 3, 16, 4, 5, 8, 9, 10, 6, 7, 11-15.
    phase 12's within SCAN_LOSS_ATOL and its grad norm within
    SCAN_GNORM_RTOL (the same weights and batch), three more steps on one
    batch with the loss falling at each; ms a step beside phase 12's,
-   peak memory. 15a: 14k's cell and 14l's five, each one train step of
-   `launch.specs.make_case` on the meta device at rank (0, 0) of a
-   virtual 2 x 2 mesh: the recorded all-reduce calls and payload bytes
-   equal to what phase 14's rank 0 issued at each step, the parameter
-   and optimizer-state elements to what it held; the predicted argument
-   + temp bytes printed beside its measured peak.
+   peak memory. 15a: 14k's cell, 14l's six and 14m's, each one train
+   step of `launch.specs.make_case` on the meta device at rank (0, 0) of
+   a virtual mesh of the cell's shape (2 x 2; 1 x 4 for 14l's "whole"
+   case and 14m): the recorded all-reduce calls and payload bytes equal
+   to what phase 14's rank 0 issued at each step, the FLOPs to what it
+   counted in step 1 (`FlopCounterMode`), the parameter and
+   optimizer-state elements to what it held; the predicted argument +
+   temp bytes printed beside its measured peak. 14m's prefill and tick
+   on 1 x 4: the FLOPs equal to what 14m's rank 0 counted.
    ``{"check": "scan_dryrun", ...}``.
 16. The families trained at full width, and the examples (after phase 3,
    while phase 4's and 7's tables are still being made on host cores;
@@ -464,7 +482,11 @@ T0_WALL = time.time()  # this module's import, comparable across processes
 
 
 def log(msg: str) -> None:
-    print(f"[{time.perf_counter() - T0:8.1f}s] {msg}", flush=True)
+    """A progress line, on standard output and on standard error (so the
+    end of either shows how far a run got)."""
+    line = f"[{time.perf_counter() - T0:8.1f}s] {msg}"
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
 
 
 def emit(obj: dict) -> None:
@@ -3940,6 +3962,9 @@ TRAIN_B1 = 0.9  # AdamW's default first-moment decay (repro_torch.optimizer.adam
 SHARD_FAM_TRAIN = (("mixtral_8x7b", dict(num_layers=1)), ("internvl2_76b", dict(num_layers=1)),
                    ("recurrentgemma_2b", dict(num_layers=3)), ("xlstm_125m", {}),
                    ("whisper_medium", dict(num_layers=4, encoder_layers=4)))
+# 14l's "whole" attention case: recurrentgemma-2b's 10 q heads do not
+# divide over 4 model ranks, so q, k and v are assembled whole
+SHARD_FAM_WHOLE = ("recurrentgemma_2b", (1, 4))
 
 
 def _shard_cfg(meta: dict, arch: str, **kw):
@@ -4501,6 +4526,18 @@ def _shard_rank(rank, world, meta):
         out["f32"] = decode(model, torch.from_numpy(prompts[mine]).to(dev), SHARD_TICKS)
     del model
 
+    # -- 14m: the same float32 cut on 1 x 4 without flash-decoding: qwen2.5-3b's
+    # 16 q heads split 4 ways and its 2 kv heads do not ("q_heads")
+    _peak_reset(torch, dev)
+    model = shard_model(_shard_cfg(meta, SHARD_ARCH, dtype="float32",
+                                   num_layers=meta["f32_layers"]), mesh14, generator=gen())
+    toks = torch.from_numpy(prompts).to(dev)
+    with torch.no_grad():
+        out["q_heads"] = decode(model, toks, SHARD_TICKS)
+        out["q_heads"]["flops"] = _serve_flops(torch, model, toks,
+                                               torch.from_numpy(forced[:, 0]).to(dev))
+    del model, toks
+
     # -- 14f: GPipe, the 36 blocks as 4 stages of 9
     _peak_reset(torch, dev)
     model, layers = stage_model(cfg, mesh_pipe, n_stages=SHARD_STAGES, generator=gen())
@@ -4534,14 +4571,32 @@ def _shard_rank(rank, world, meta):
     out["grad"] = _grad_rank(torch, meta, mesh_pipe)
     # -- 14k: training under the FSDP x TP layout on 2 x 2
     out["train"] = _train_rank(torch, meta, mesh22)
+    # -- 14m: the same steps on 1 x 4, where the rank attends its own q heads
+    out["q_heads_train"] = _train_rank(torch, meta, mesh14)
     # -- 14l: every other family's training under the same layout
     t = time.perf_counter()
     out["fam_train"] = {arch: _fam_train_rank(torch, meta, arch, mesh22)
                         for arch, _ in SHARD_FAM_TRAIN}
+    # its "whole" case: the heads do not divide over the model axis
+    out["fam_train_whole"] = _fam_train_rank(torch, meta, SHARD_FAM_WHOLE[0], mesh14)
     out["fam_train_s"] = time.perf_counter() - t
     out["total_s"] = time.perf_counter() - t_start
     out["done_at"] = time.time()
     return out
+
+
+def _serve_flops(torch, model, tokens, token) -> dict:
+    """The FLOPs a rank counts (`FlopCounterMode`) in a prefill of
+    ``tokens`` to LM_MAX_LEN and in one decode tick of ``token`` after it:
+    what `launch.dryrun.measure` counts of the same cells on meta."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counted:
+        _, cache = model.prefill(tokens, LM_MAX_LEN)
+    prefill = float(counted.get_total_flops())
+    with FlopCounterMode(display=False) as counted:
+        model.decode_step(cache, token)
+    return dict(prefill=prefill, tick=float(counted.get_total_flops()))
 
 
 def _collective_delta(c0: dict, ticks: int = 1) -> dict:
@@ -4683,14 +4738,16 @@ def _grad_rank(torch, meta: dict, mesh) -> dict:
 
 
 def _train_rank(torch, meta: dict, mesh) -> dict:
-    """14k on one rank: the cut qwen2.5-3b placed by
-    `shard_model(serving=False)` (seed 0) on the 2 x 2 ``mesh``, its
-    AdamW state on its blocks, SHARD_TRAIN_STEPS steps on its data
+    """14k (and 14m) on one rank: the cut qwen2.5-3b placed by
+    `shard_model(serving=False)` (seed 0) on ``mesh`` (2 x 2; 14m's 1 x 4),
+    its AdamW state on its blocks, SHARD_TRAIN_STEPS steps on its data
     replica's rows of 14a's batch: each step's metrics, ms, collectives
     (`COLLECTIVES`) and, after it, each block's max |difference| from
     its slice of the one process's parameters (saved in
-    ``meta["train_dir"]``); parameters held, peak."""
+    ``meta["train_dir"]``); the FLOPs step 1 counted (`FlopCounterMode`),
+    parameters held, peak."""
     import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.core import distributed
     from repro_torch.distributed import shard_model
@@ -4708,9 +4765,10 @@ def _train_rank(torch, meta: dict, mesh) -> dict:
     state = TrainState.create(model, opt)
     step = make_train_step(model, opt)
     d = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["data"]
-    half = meta["prompts"].shape[0] // 2
-    batch = {"tokens": torch.from_numpy(meta["prompts"][d * half:(d + 1) * half]).to(dev)}
+    n = meta["prompts"].shape[0] // mesh.mesh.shape[0]  # rows a data replica
+    batch = {"tokens": torch.from_numpy(meta["prompts"][d * n:(d + 1) * n]).to(dev)}
     steps, walls, coll, errs = [], [], [], []
+    counted = FlopCounterMode(display=False)
     names = {id(p): name for name, p in model.named_parameters()}
     nu = {names[id(p)]: v for p, v in zip(tree_leaves(state.params),
                                           tree_leaves(state.opt_state["nu"]))}
@@ -4718,7 +4776,11 @@ def _train_rank(torch, meta: dict, mesh) -> dict:
     for i in range(SHARD_TRAIN_STEPS):
         _sync(torch, dev)
         c0, t = dict(distributed.COLLECTIVES), time.perf_counter()
-        state, metrics = step(state, batch)
+        if i == 0:
+            with counted:
+                state, metrics = step(state, batch)
+        else:
+            state, metrics = step(state, batch)
         _sync(torch, dev)
         walls.append((time.perf_counter() - t) * 1e3)
         coll.append(_collective_delta(c0))
@@ -4737,6 +4799,7 @@ def _train_rank(torch, meta: dict, mesh) -> dict:
                                  float(diff[~f].max()) if not f.all() else 0.0,
                                  int((~f).sum()))
     out = dict(steps=steps, step_ms=walls, collectives=coll, param_err=errs,
+               flops=float(counted.get_total_flops()), tokens=list(batch["tokens"].shape),
                fsdp_leaves=len(model.tp.fsdp), attn=model.tp.attn,
                params_held=sum(p.numel() for p in model.parameters()),
                state_held=sum(t.numel() for t in tree_leaves(state.opt_state)),
@@ -4749,14 +4812,20 @@ def _train_rank(torch, meta: dict, mesh) -> dict:
 
 def _fam_train_rank(torch, meta: dict, arch: str, mesh) -> dict:
     """14l on one rank for ``arch``: the cut model placed by
-    `shard_model(serving=False)` (seed 0) on the 2 x 2 ``mesh``, its
-    optimizer state on its blocks, SHARD_TRAIN_STEPS steps on its data
-    replica's rows of the batch: each step's metrics, ms and collectives;
+    `shard_model(serving=False)` (seed 0) on ``mesh`` (2 x 2; the "whole"
+    case's 1 x 4), its optimizer state on its blocks, SHARD_TRAIN_STEPS
+    steps on its data replica's rows of the batch: each step's metrics,
+    ms and collectives; the FLOPs step 1 counted (`FlopCounterMode`);
     after step 1 each block against one process's (`_fam_train_errors`),
     then one process's parameters after step 1 in place of the rank's for
-    step 2; parameters held, peak."""
+    step 2; parameters held, peak; for a MoE model, the rows each MoE
+    call's expert products ran (`moe.batched_buffer`) and the rank's
+    pairs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch.core import distributed
     from repro_torch.distributed import shard_model
+    from repro_torch.models import moe
     from repro_torch.optimizer import get_optimizer
     from repro_torch.optimizer.base import tree_leaves
     from repro_torch.train import TrainState, make_train_step
@@ -4771,13 +4840,18 @@ def _fam_train_rank(torch, meta: dict, arch: str, mesh) -> dict:
     state = TrainState.create(model, opt)
     step = make_train_step(model, opt)
     d = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["data"]
-    half = meta["prompts"].shape[0] // 2
-    batch = _fam_train_batch(torch, meta, arch, slice(d * half, (d + 1) * half))
+    n = meta["prompts"].shape[0] // mesh.mesh.shape[0]  # rows a data replica
+    batch = _fam_train_batch(torch, meta, arch, slice(d * n, (d + 1) * n))
     steps, walls, coll, errs = [], [], [], {}
+    counted = FlopCounterMode(display=False)
     for i in range(SHARD_TRAIN_STEPS):
         _sync(torch, dev)
         c0, t = dict(distributed.COLLECTIVES), time.perf_counter()
-        state, metrics = step(state, batch)
+        if i == 0:
+            with counted:
+                state, metrics = step(state, batch)
+        else:
+            state, metrics = step(state, batch)
         _sync(torch, dev)
         walls.append((time.perf_counter() - t) * 1e3)
         coll.append(_collective_delta(c0))
@@ -4786,8 +4860,19 @@ def _fam_train_rank(torch, meta: dict, arch: str, mesh) -> dict:
             errs = _fam_train_errors(torch, model, state, steps[0]["grad_norm"],
                                      SHARD_FAM_GRAD_RTOL.get(arch),
                                      f"{meta['fam_train_dir']}/{arch}", dev)
+    experts = None
+    if cfg.num_experts:
+        t_rank = batch["tokens"].numel()
+        pairs = t_rank * cfg.experts_per_token
+        capacity = int(max(1, round(pairs * mesh.mesh.shape[0] / cfg.num_experts
+                                    * cfg.expert_capacity_factor)))
+        batched = moe.batched_buffer(cfg.num_experts, capacity, t_rank, cfg.experts_per_token)
+        experts = dict(pairs=pairs, capacity=capacity,
+                       rows=cfg.num_experts * min(capacity, t_rank) if batched else pairs,
+                       batched_rows=cfg.num_experts * min(capacity, t_rank))
     peak = _peak_gb(torch, dev)
-    out = dict(steps=steps, step_ms=walls, collectives=coll, errs=errs,
+    out = dict(steps=steps, step_ms=walls, collectives=coll, errs=errs, experts=experts,
+               flops=float(counted.get_total_flops()),
                fsdp_leaves=len(model.tp.fsdp), attn=model.tp.attn, layout=dict(model.tp.layout),
                logits=model.tp.logits, optimizer=cfg.optimizer,
                params_held=sum(p.numel() for p in model.parameters()),
@@ -4852,18 +4937,25 @@ def _check_fam_train(ranks, rf: dict, gate, dev: str) -> dict:
     gradient block within its bar and the post-step blocks within
     SHARD_TRAIN_PARAM_FRAC of lr where that bar holds them (the
     SHARD_FAM_TRAIN comment), on some elements of every family; an
-    Adafactor leaf's within SHARD_TRAIN_PARAM_FRAC of its largest update.
-    Returns each family's errors and what it ran."""
+    Adafactor leaf's within SHARD_TRAIN_PARAM_FRAC of its largest update;
+    every rank's counted FLOPs the same. The same for SHARD_FAM_WHOLE's
+    case on 1 x 4, where no leaf splits over "data" and the attention is
+    "whole". Returns each case's errors and what it ran (the "whole" case
+    under "<arch> whole")."""
     out = {}
-    for arch, _ in SHARD_FAM_TRAIN:
+    cells = [(arch, arch, lambda rk, a=arch: rk["fam_train"][a]) for arch, _ in SHARD_FAM_TRAIN]
+    cells.append((f"{SHARD_FAM_WHOLE[0]} whole", SHARD_FAM_WHOLE[0],
+                  lambda rk: rk["fam_train_whole"]))
+    for key, arch, of in cells:
         want = rf[arch]
         err = dict(loss=[], grad_norm=[], param_norm=[], grad=0.0, params=0.0,
                    held_elements=0, elements=0)
-        label = f"14l {arch}"
+        label = f"14l {key}"
+        whole = key != arch
         adamw = want["optimizer"] == "adamw"
         for i, w in enumerate(want["steps"]):
             losses = [k for k in w if k in ("loss", "ce") or k.startswith("aux/")]
-            got = ranks[0]["fam_train"][arch]["steps"][i]
+            got = of(ranks[0])["steps"][i]
             if set(got) != set(w):
                 gate(False, f"{label} step {i}: metrics {sorted(got)}, one process {sorted(w)}")
                 continue
@@ -4880,10 +4972,17 @@ def _check_fam_train(ranks, rf: dict, gate, dev: str) -> dict:
                 gate(err[k][i] <= SHARD_TRAIN_NORM_RTOL, f"{label} step {i}: {k} "
                      f"{err[k][i]:.3g} relative from one process (bar {SHARD_TRAIN_NORM_RTOL})")
         for rk in ranks:
-            g = rk["fam_train"][arch]
-            gate(g["fsdp_leaves"] > 0, f"{label} rank {rk['rank']}: no leaf split over 'data'")
+            g = of(rk)
+            if whole:
+                gate(g["attn"] == "whole" and g["fsdp_leaves"] == 0,
+                     f"{label} rank {rk['rank']}: attention {g['attn']}, {g['fsdp_leaves']} "
+                     "leaves over 'data'")
+            else:
+                gate(g["fsdp_leaves"] > 0, f"{label} rank {rk['rank']}: no leaf split over 'data'")
+            gate(g["flops"] == of(ranks[0])["flops"], f"{label} rank {rk['rank']}: counted "
+                 f"{g['flops']} FLOPs in step 1, rank 0 {of(ranks[0])['flops']}")
             for i, got in enumerate(g["steps"]):
-                gate(got == ranks[0]["fam_train"][arch]["steps"][i],
+                gate(got == of(ranks[0])["steps"][i],
                      f"{label} step {i}: rank {rk['rank']}'s metrics differ from rank 0's")
                 gate(got["step_ok"] == 1.0, f"{label} step {i} rank {rk['rank']}: step_ok "
                      f"{got['step_ok']}")
@@ -4916,20 +5015,118 @@ def _check_fam_train(ranks, rf: dict, gate, dev: str) -> dict:
                      f"{want['peak_gb']:.2f} GB")
         if adamw:
             gate(err["held_elements"] > 0, f"{label}: the post-step bar holds no element")
-        r0 = ranks[0]["fam_train"][arch]
-        out[arch] = dict(
+        r0 = of(ranks[0])
+        out[key] = dict(
             err=err, optimizer=r0["optimizer"], attn=r0["attn"], layout=r0["layout"],
             logits=r0["logits"], layers=want["layers"], encoder_layers=want["encoder_layers"],
             tokens=want["tokens"], loss=[s["loss"] for s in r0["steps"]],
             loss_reference=[s["loss"] for s in want["steps"]],
             aux={k: v for k, v in r0["steps"][-1].items() if k.startswith("aux/")},
-            step_ms=[rk["fam_train"][arch]["step_ms"] for rk in ranks],
-            collectives=[rk["fam_train"][arch]["collectives"] for rk in ranks],
-            params_held=[rk["fam_train"][arch]["params_held"] for rk in ranks],
-            state_held=[rk["fam_train"][arch]["state_held"] for rk in ranks],
-            params_whole=want["params"], peak_gb=[rk["fam_train"][arch]["peak_gb"] for rk in ranks],
-            one_process_step_ms=want["step_ms"], one_process_peak_gb=want["peak_gb"])
+            step_ms=[of(rk)["step_ms"] for rk in ranks],
+            collectives=[of(rk)["collectives"] for rk in ranks],
+            params_held=[of(rk)["params_held"] for rk in ranks],
+            state_held=[of(rk)["state_held"] for rk in ranks],
+            params_whole=want["params"], peak_gb=[of(rk)["peak_gb"] for rk in ranks],
+            one_process_step_ms=want["step_ms"], one_process_peak_gb=want["peak_gb"],
+            mesh=list(SHARD_FAM_WHOLE[1]) if whole else [2, 2], flops=r0["flops"],
+            experts=r0["experts"])
     return out
+
+
+def _check_train(ranks, key: str, label: str, rt: dict, gate, dev: str, layout_ok) -> tuple:
+    """14k's checks (phase 14's ``gate``) of each rank's ``key`` steps
+    (`_train_rank`) against one process's ``rt``: the layout
+    (``layout_ok``), every rank's metrics the same bits, step_ok 1, loss
+    within SHARD_TRAIN_LOSS_ATOL, grad_norm and param_norm within
+    SHARD_TRAIN_NORM_RTOL, every block within SHARD_TRAIN_PARAM_FRAC of lr
+    where the RMS gradient was over 9 eps and within 2 lr a step elsewhere,
+    the loss falling, no rank holding the whole model, each peak under
+    one process's. Returns (the largest errors, the elements a step under
+    9 eps summed over the ranks)."""
+    train_err = dict(loss=0.0, grad_norm=0.0, param_norm=0.0, params=0.0, params_small_g=0.0)
+    small = [0] * SHARD_TRAIN_STEPS
+    for rk in ranks:
+        g = rk[key]
+        gate(layout_ok(g),
+             f"{label} rank {rk['rank']}: layout {g['attn']}, {g['fsdp_leaves']} leaves over "
+             "'data'")
+        for i, (got, want) in enumerate(zip(g["steps"], rt["steps"])):
+            gate(got == ranks[0][key]["steps"][i],
+                 f"{label} step {i}: rank {rk['rank']}'s metrics differ from rank 0's")
+            gate(got["step_ok"] == 1.0,
+                 f"{label} step {i} rank {rk['rank']}: step_ok {got['step_ok']}")
+            train_err["loss"] = max(train_err["loss"], abs(got["loss"] - want["loss"]))
+            for k in ("grad_norm", "param_norm"):
+                train_err[k] = max(train_err[k], abs(got[k] / want[k] - 1))
+            for leaf, (err, err_small, n_small) in g["param_err"][i].items():
+                train_err["params"] = max(train_err["params"], err)
+                train_err["params_small_g"] = max(train_err["params_small_g"], err_small)
+                small[i] += n_small
+                gate(err <= SHARD_TRAIN_PARAM_FRAC * TRAIN_LR,
+                     f"{label} step {i} rank {rk['rank']}: {leaf} {err:.3g} from one process "
+                     f"where its RMS gradient is over 9 eps (bar "
+                     f"{SHARD_TRAIN_PARAM_FRAC * TRAIN_LR:.3g})")
+                gate(err_small <= 2 * (i + 1) * TRAIN_LR,
+                     f"{label} step {i} rank {rk['rank']}: {leaf} {err_small:.3g} from one "
+                     f"process where its gradient is near AdamW's eps (bar {2 * (i + 1)} x lr)")
+        gate(g["steps"][-1]["loss"] < g["steps"][0]["loss"],
+             f"{label} rank {rk['rank']}: losses {[s['loss'] for s in g['steps']]} do not fall")
+        gate(g["params_held"] < rt["params"],
+             f"{label} rank {rk['rank']}: holds {g['params_held']} of {rt['params']} parameters")
+        if dev == "cuda":
+            gate(g["peak_gb"] < rt["peak_gb"],
+                 f"{label} rank {rk['rank']}: peak {g['peak_gb']:.2f} GB, one process "
+                 f"{rt['peak_gb']:.2f} GB")
+    gate(train_err["loss"] <= SHARD_TRAIN_LOSS_ATOL,
+         f"{label}: loss {train_err['loss']:.3g} from one process (bar {SHARD_TRAIN_LOSS_ATOL})")
+    gate(max(train_err["grad_norm"], train_err["param_norm"]) <= SHARD_TRAIN_NORM_RTOL,
+         f"{label}: grad_norm / param_norm {train_err['grad_norm']:.3g} / "
+         f"{train_err['param_norm']:.3g} relative (bar {SHARD_TRAIN_NORM_RTOL})")
+    return train_err, small
+
+
+def _check_q_heads(ranks, ref: dict, rt: dict, gate, dev: str, max_err, tokens) -> dict:
+    """14m's checks (phase 14's ``gate``): on 1 x 4 every rank attends its
+    own q heads ("q_heads"); the prefill's and SHARD_TICKS ticks' float32
+    logits within 14e's SHARD_F32_ATOL of one process, each rank's cache
+    the one kv head its q heads read; the training steps under 14k's
+    bars (`_check_train`); every rank's counted FLOPs the same."""
+    import numpy as np
+
+    logits = [_assemble(ranks, "q_heads", lambda rk: (0, tokens[0]), i)
+              for i in range(SHARD_TICKS + 1)]
+    errs = [max_err(g, w) for g, w in zip(logits, ref["f32"])]
+    gate(max(errs) <= SHARD_F32_ATOL,
+         f"14m: float32 logits {errs} from one process (bar {SHARD_F32_ATOL})")
+    for rk in ranks:
+        q = rk["q_heads"]
+        gate(q["attn"] == "q_heads" and q["seq"] is None and q["cache_shape"][2] == 1,
+             f"14m rank {rk['rank']}: layout {q['attn']}, cache {q['seq']} "
+             f"{q['cache_shape']}")
+        for key in ("q_heads", "q_heads_train"):
+            gate(rk[key]["flops"] == ranks[0][key]["flops"],
+                 f"14m rank {rk['rank']}: counted {rk[key]['flops']} FLOPs, rank 0 "
+                 f"{ranks[0][key]['flops']}")
+    train_err, small = _check_train(ranks, "q_heads_train", "14m", rt, gate, dev,
+                                    lambda g: g["attn"] == "q_heads" and g["fsdp_leaves"] == 0)
+    r0, t0 = ranks[0]["q_heads"], ranks[0]["q_heads_train"]
+    return dict(
+        mesh=[1, 4], layers=SHARD_F32_LAYERS, dtype="float32", tokens=list(tokens),
+        attn=r0["attn"],
+        cache_shape=r0["cache_shape"], max_abs_dlogits=errs, bar=SHARD_F32_ATOL,
+        prefill_ms=[rk["q_heads"]["prefill_ms"] for rk in ranks],
+        tick_ms=[rk["q_heads"]["tick_ms"] for rk in ranks],
+        tick_ms_median=float(np.median(r0["tick_ms"])),
+        prefill_collectives=r0["prefill_collectives"], tick_collectives=r0["tick_collectives"],
+        flops=r0["flops"], train_flops=t0["flops"],
+        train=dict(err=train_err, small_g_elements=[n / len(ranks) for n in small],
+                   loss=[s["loss"] for s in t0["steps"]],
+                   loss_reference=[s["loss"] for s in rt["steps"]],
+                   step_ms=[rk["q_heads_train"]["step_ms"] for rk in ranks],
+                   collectives=[rk["q_heads_train"]["collectives"] for rk in ranks],
+                   params_held=[rk["q_heads_train"]["params_held"] for rk in ranks],
+                   state_held=[rk["q_heads_train"]["state_held"] for rk in ranks],
+                   peak_gb=[rk["q_heads_train"]["peak_gb"] for rk in ranks]))
 
 
 def _assemble(ranks, key: str, rows_of, index=None) -> "np.ndarray":
@@ -5129,42 +5326,10 @@ def phase_sharded(torch, card: str) -> dict:
              f"14j stage {g['stage']}: the table's gradient is nonzero off the prompts' ids")
     # -- 14k: every rank's step against one process's, after each step
     rt = ref["train"]
-    train_err = dict(loss=0.0, grad_norm=0.0, param_norm=0.0, params=0.0, params_small_g=0.0)
-    small = [0] * SHARD_TRAIN_STEPS
-    for rk in ranks:
-        g = rk["train"]
-        gate(g["attn"] == "heads" and g["fsdp_leaves"] > 0,
-             f"14k rank {rk['rank']}: layout {g['attn']}, {g['fsdp_leaves']} leaves over 'data'")
-        for i, (got, want) in enumerate(zip(g["steps"], rt["steps"])):
-            gate(got == ranks[0]["train"]["steps"][i],
-                 f"14k step {i}: rank {rk['rank']}'s metrics differ from rank 0's")
-            gate(got["step_ok"] == 1.0, f"14k step {i} rank {rk['rank']}: step_ok {got['step_ok']}")
-            train_err["loss"] = max(train_err["loss"], abs(got["loss"] - want["loss"]))
-            for k in ("grad_norm", "param_norm"):
-                train_err[k] = max(train_err[k], abs(got[k] / want[k] - 1))
-            for leaf, (err, err_small, n_small) in g["param_err"][i].items():
-                train_err["params"] = max(train_err["params"], err)
-                train_err["params_small_g"] = max(train_err["params_small_g"], err_small)
-                small[i] += n_small
-                gate(err <= SHARD_TRAIN_PARAM_FRAC * TRAIN_LR,
-                     f"14k step {i} rank {rk['rank']}: {leaf} {err:.3g} from one process where "
-                     f"its RMS gradient is over 9 eps (bar {SHARD_TRAIN_PARAM_FRAC * TRAIN_LR:.3g})")
-                gate(err_small <= 2 * (i + 1) * TRAIN_LR,
-                     f"14k step {i} rank {rk['rank']}: {leaf} {err_small:.3g} from one process "
-                     f"where its gradient is near AdamW's eps (bar {2 * (i + 1)} x lr)")
-        gate(g["steps"][-1]["loss"] < g["steps"][0]["loss"],
-             f"14k rank {rk['rank']}: losses {[s['loss'] for s in g['steps']]} do not fall")
-        gate(g["params_held"] < rt["params"],
-             f"14k rank {rk['rank']}: holds {g['params_held']} of {rt['params']} parameters")
-        if dev == "cuda":
-            gate(g["peak_gb"] < rt["peak_gb"],
-                 f"14k rank {rk['rank']}: peak {g['peak_gb']:.2f} GB, one process "
-                 f"{rt['peak_gb']:.2f} GB")
-    gate(train_err["loss"] <= SHARD_TRAIN_LOSS_ATOL,
-         f"14k: loss {train_err['loss']:.3g} from one process (bar {SHARD_TRAIN_LOSS_ATOL})")
-    gate(max(train_err["grad_norm"], train_err["param_norm"]) <= SHARD_TRAIN_NORM_RTOL,
-         f"14k: grad_norm / param_norm {train_err['grad_norm']:.3g} / "
-         f"{train_err['param_norm']:.3g} relative (bar {SHARD_TRAIN_NORM_RTOL})")
+    train_err, small = _check_train(ranks, "train", "14k", rt, gate, dev,
+                                    lambda g: g["attn"] == "heads" and g["fsdp_leaves"] > 0)
+    # -- 14m: "q_heads" on 1 x 4, 14e's float32 cut served and 14k's trained
+    q_heads = _check_q_heads(ranks, ref, rt, gate, dev, max_err, prompts.shape)
     # -- 14l: every other family's steps against one process's
     fam_train = _check_fam_train(ranks, ref["fam_train"], gate, dev)
     # no rank holds the whole model; each rank's peak under one process's
@@ -5212,6 +5377,7 @@ def phase_sharded(torch, card: str) -> dict:
                  collectives=[rk["moe"]["collectives"] for rk in ranks],
                  peak_gb=[rk["moe"]["peak_gb"] for rk in ranks]),
         f32=dict(mesh=[2, 2], layers=SHARD_F32_LAYERS, max_abs_dlogits=errs_e),
+        q_heads=q_heads,
         pipeline=dict(mesh=[SHARD_STAGES, 1, 1], microbatches=SHARD_MICRO, max_abs_dhidden=err_f,
                       wall_ms=[rk["pipeline"]["wall_ms"] for rk in ranks],
                       collectives=[rk["pipeline"]["collectives"] for rk in ranks],
@@ -5259,7 +5425,8 @@ def phase_sharded(torch, card: str) -> dict:
                    state_held=[rk["train"]["state_held"] for rk in ranks],
                    params_whole=rt["params"],
                    peak_gb=[rk["train"]["peak_gb"] for rk in ranks],
-                   one_process_step_ms=rt["step_ms"], one_process_peak_gb=rt["peak_gb"]),
+                   one_process_step_ms=rt["step_ms"], one_process_peak_gb=rt["peak_gb"],
+                   flops=ranks[0]["train"]["flops"]),
         fam_train=dict(mesh=[2, 2], dtype="float32", lr=TRAIN_LR, steps=SHARD_TRAIN_STEPS,
                        families=fam_train, reference_s=out["fam_train_reference_s"],
                        ranks_s=[rk["fam_train_s"] for rk in ranks]),
@@ -5316,12 +5483,25 @@ def phase_sharded(torch, card: str) -> dict:
         f"({c1['bytes'] / 1e9:.2f} GB, {c1['host_s']:.2f} s host) a step; rank peaks "
         f"{[round(p, 2) for p in tr['peak_gb']]} GB (one process {tr['one_process_peak_gb']:.2f})"
         f", {tr['params_held'][0]} of {tr['params_whole']} parameters a rank")
-    for arch, f in fam_train.items():
+    qh, qt = out["q_heads"], out["q_heads"]["train"]
+    log(f"14m q_heads ({card}): {qh['layers']} float32 layers on 1 x 4, each rank its "
+        f"{_shard_cfg(meta, SHARD_ARCH).num_heads // 4} q heads, cache {qh['cache_shape']}; "
+        f"max |dlogits| {max(qh['max_abs_dlogits']):.3g} (bar {SHARD_F32_ATOL}), prefill "
+        f"{qh['prefill_ms'][0]:.1f} ms, tick {qh['tick_ms_median']:.1f} ms, "
+        f"{qh['tick_collectives']['calls']:.0f} all-reduces a tick; FLOPs counted a rank: prefill "
+        f"{qh['flops']['prefill']:.4g}, tick {qh['flops']['tick']:.4g}, train step "
+        f"{qh['train_flops']:.4g}; training: losses {qt['loss']} (one process "
+        f"{qt['loss_reference']}), errors {qt['err']}, step 2 "
+        f"{max(ms[-1] for ms in qt['step_ms']):.1f} ms a rank, "
+        f"{qt['collectives'][0][-1]['calls']:.0f} all-reduces a step")
+    for key, f in fam_train.items():
+        arch = key.split()[0]
         c = f["collectives"][0][-1]
         cut = dict(dict(SHARD_FAM_TRAIN)[arch])
-        log(f"14l {arch} FSDP x TP training ({card}): {f['layers']} layers"
+        log(f"14l {key} FSDP x TP training ({card}): {f['layers']} layers"
             f"{' + %d encoder layers' % f['encoder_layers'] if f['encoder_layers'] else ''}, "
-            f"cut {cut or 'none'}, float32, {f['optimizer']}, {f['tokens']} tokens on 2 x 2, "
+            f"cut {cut or 'none'}, float32, {f['optimizer']}, {f['tokens']} tokens on "
+            f"{' x '.join(map(str, f['mesh']))}, "
             f"layout {f['attn']} {f['layout']}, logits {'split' if f['logits'] else 'whole'}; "
             f"losses {f['loss']} (one process {f['loss_reference']}), aux {f['aux']}; errors "
             f"{f['err']} (gradient: the largest error over its bar; params: AdamW's largest "
@@ -5331,7 +5511,13 @@ def phase_sharded(torch, card: str) -> dict:
             f"({c['bytes'] / 1e9:.2f} GB, {c['host_s']:.2f} s host) a step; rank peaks "
             f"{[round(p, 2) for p in f['peak_gb']]} GB (one process "
             f"{f['one_process_peak_gb']:.2f}), {f['params_held'][0]} of {f['params_whole']} "
-            f"parameters a rank")
+            f"parameters a rank; step 1 counted {f['flops']:.6g} FLOPs a rank")
+        if f["experts"]:
+            x, kept = f["experts"], 1.0 - f["aux"]["aux/drop_frac"]
+            log(f"14l {key} expert products a rank, each MoE call: {x['rows']} rows for its "
+                f"{x['pairs']} pairs (the batched (E, min(C, T)) buffer: {x['batched_rows']}); "
+                f"capacity {x['capacity']}; step 2 kept a share {kept:.6g} of the global "
+                f"batch's pairs (1 - drop_frac)")
     log(f"14l took {max(rk['fam_train_s'] for rk in ranks):.1f}s in the ranks, "
         f"{out['fam_train_reference_s']:.1f}s for the one-process references")
     out["failed"] = failed
@@ -5442,23 +5628,34 @@ def _dry_inputs(torch, cfg, tokens) -> dict:
 
 
 def _scan_predictions(torch, sharded) -> dict:
-    """15a: 14k's and 14l's cells, each one step of `launch.specs.make_case`
-    on the meta device at rank (0, 0) of a virtual 2 x 2 mesh
-    (`launch.dryrun.measure`): the recorded all-reduce calls and payload
-    bytes must be what phase 14's rank 0 issued at each step
-    (`COLLECTIVES`), the parameter and optimizer-state elements what it
-    held; the predicted argument + temp bytes beside its measured peak."""
+    """15a: 14k's, 14l's and 14m's train cells, each one step of
+    `launch.specs.make_case` on the meta device at rank (0, 0) of a
+    virtual mesh of the cell's shape (2 x 2; 1 x 4 for 14m and 14l's
+    "whole" case) (`launch.dryrun.measure`): the recorded all-reduce calls
+    and payload bytes must be what phase 14's rank 0 issued at each step
+    (`COLLECTIVES`), the FLOPs what it counted in step 1
+    (`FlopCounterMode`), the parameter and optimizer-state elements what
+    it held; the predicted argument + temp bytes beside its measured
+    peak. 14m's prefill and decode tick too, each one's FLOPs what rank 0
+    counted."""
     from repro_torch.core.distributed import VirtualMesh
     from repro_torch.launch import dryrun
     from repro_torch.launch.specs import make_case
+    from repro_torch.models.base import TensorSpec
 
     meta = dict(smoke=SHARD_SMOKE, layers=SHARD_LAYERS, f32_layers=SHARD_F32_LAYERS)
     fam = sharded["fam_train"]["families"]
+    qh = sharded["q_heads"]
+    whole = SHARD_FAM_WHOLE[0]
     cells = [("14k", SHARD_ARCH, _train_cfg(meta), sharded["train"])]
     cells += [("14l", arch, _fam_train_cfg(meta, arch), fam[arch]) for arch, _ in SHARD_FAM_TRAIN]
+    cells.append(("14l whole", whole, _fam_train_cfg(meta, whole), fam[f"{whole} whole"]))
+    cells.append(("14m", SHARD_ARCH, _train_cfg(meta), dict(
+        qh["train"], tokens=qh["tokens"], flops=qh["train_flops"])))
     out = {}
     for label, arch, cfg, got in cells:
-        mesh = VirtualMesh((2, 2), ("data", "model"), (0, 0))
+        shape = (1, 4) if label in ("14m", "14l whole") else (2, 2)
+        mesh = VirtualMesh(shape, ("data", "model"), (0, 0))
         t = time.perf_counter()
         case = make_case(cfg, mesh, "train", _dry_inputs(torch, cfg, got["tokens"]), lr=TRAIN_LR)
         m = dryrun.measure(case.fn, case.args, mesh, params=list(case.model.parameters()),
@@ -5474,14 +5671,31 @@ def _scan_predictions(torch, sharded) -> dict:
                                                        got["state_held"][0]),
               f"{name}: predicted {m['params_held']} parameter and {m['state_held']} state "
               f"elements, rank 0 held {got['params_held'][0]} and {got['state_held'][0]}")
+        check(m["flops"] == got["flops"],
+              f"{name}: predicted {m['flops']} FLOPs a step, rank 0 counted {got['flops']}")
         mem = m["memory"]
         out[f"{label} {arch}"] = dict(
             predicted=predicted, measured=measured, by_axis=m["by_axis"],
             params_held=m["params_held"], state_held=m["state_held"],
             argument_gb=mem["argument_bytes"] / 1e9, temp_gb=mem["temp_bytes"] / 1e9,
             predicted_gb=(mem["argument_bytes"] + mem["temp_bytes"]) / 1e9,
-            measured_peak_gb=got["peak_gb"][0], flops=m["flops"], bytes=m["bytes"],
+            measured_peak_gb=got["peak_gb"][0], flops=m["flops"], counted=got["flops"],
+            bytes=m["bytes"],
             meta_run_s=m["run_s"], cell_s=time.perf_counter() - t)
+    # 14m's serving on meta: the FLOPs of a prefill and of a tick, each what
+    # rank 0 counted
+    cfg, (rows, seq) = _train_cfg(meta), qh["tokens"]
+    for kind, inputs, counted in (
+            ("prefill", {"tokens": TensorSpec((rows, seq), torch.int32)}, qh["flops"]["prefill"]),
+            ("decode", {"token": TensorSpec((rows,), torch.int32)}, qh["flops"]["tick"])):
+        mesh = VirtualMesh((1, 4), ("data", "model"), (0, 0))
+        case = make_case(cfg, mesh, kind, inputs, max_len=LM_MAX_LEN, serving=True)
+        m = dryrun.measure(case.fn, case.args, mesh)
+        del case
+        check(m["flops"] == counted,
+              f"15a 14m {kind}: predicted {m['flops']} FLOPs, rank 0 counted {counted}")
+        out[f"14m {kind}"] = dict(flops=m["flops"], counted=counted, predicted=m["totals"],
+                                  meta_run_s=m["run_s"])
     return out
 
 
@@ -5653,11 +5867,16 @@ def phase_scan_dryrun(torch, card: str, train: dict, sharded: dict, cells: DryRu
     out["predictions"] = _scan_predictions(torch, sharded)
     out["predictions_s"] = time.perf_counter() - t
     for name, p in out["predictions"].items():
+        if "measured" not in p:  # 14m's serving cells
+            log(f"15a {name}: {p['flops']:.6g} FLOPs predicted = rank 0's counted "
+                f"{p['counted']:.6g}; meta run {p['meta_run_s']:.1f}s")
+            continue
         log(f"15a {name}: {p['predicted']['calls']} all-reduces, "
             f"{p['predicted']['bytes'] / 1e9:.4f} GB a step predicted = rank 0's "
-            f"{p['measured']}; {p['params_held']} parameters, {p['state_held']} state "
-            f"elements held; argument + temp {p['predicted_gb']:.2f} GB predicted, peak "
-            f"{p['measured_peak_gb']:.2f} GB measured; meta run {p['meta_run_s']:.1f}s")
+            f"{p['measured']}; {p['flops']:.6g} FLOPs; {p['params_held']} parameters, "
+            f"{p['state_held']} state elements held; argument + temp {p['predicted_gb']:.2f} "
+            f"GB predicted, peak {p['measured_peak_gb']:.2f} GB measured; meta run "
+            f"{p['meta_run_s']:.1f}s")
     t = time.perf_counter()
     out["production"] = _dryrun_cells(cells.procs, cells.where)
     out["production_wait_s"] = time.perf_counter() - t
@@ -5960,7 +6179,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
 
     # phases 4's and 7's tables are made on host cores from the start, while
-    # the kernels build and phases 2 to 6 use the card
+    # the kernels build and phases 2, 3, 16 and 11 to 13 use the card
     with Tables(dict(taxi=taxi_spec(args.tuples), minute=minute_spec(args.tuples))) as tables:
         smi = phase_setup(torch)
         timer = DeviceTimer(torch)
@@ -5971,11 +6190,19 @@ def main(argv=None) -> int:
         fixture_wide_u16 = phase_serving_small(torch, ds, blocked)
         del ds, blocked
         torch.cuda.empty_cache()
-        # phase 16 needs neither table: it runs while they are still being made
+        # phases 16 and 11 to 13 need neither table: they run while the
+        # tables are still being made
         log(f"phase 16a: {', '.join(FAM_TRAIN_FULL)} trained at full width on the card")
         family_train = phase_family_train(torch, smi)
         log(f"phase 16b: the {len(EXAMPLES)} examples on the card")
         examples = phase_examples(torch, smi)
+        torch.cuda.empty_cache()
+        log(f"phase 11: the data layer and a full-width {LM_ARCH} on the card")
+        lm = phase_lm(torch, timer, smi)
+        log(f"phase 12: training a full-width {TRAIN_ARCH} on the card")
+        train = phase_train(torch, smi)
+        log(f"phase 13: every model family at full width on the card ({', '.join(FAM_ARCHS)})")
+        families = phase_families(torch, smi)
         torch.cuda.empty_cache()
         full_size = (args.tuples, args.seed) == (400_000_000, 0)
         log(f"phase 4: engine at {args.tuples} tuples")
@@ -5998,19 +6225,13 @@ def main(argv=None) -> int:
         log("phase 6: the tuner at the taxi keys")
         tuner = phase_tuner(torch)
         log(f"phase 7: wide rows, FastMatch at the minute-of-day shape, {args.tuples} tuples")
-        # [0]: phase 7's resident table (its context) is dropped here, so the LM
-        # phases start from an empty card
+        # [0]: phase 7's resident table (its context) is dropped here, so
+        # phase 14 starts from an empty card
         wide = phase_engine_scale(torch, tables.get("minute"), args.seed,
                                   check_name="wide_rows",
                                   expect=(53, 27_134) if full_size else None)[0]
         torch.cuda.empty_cache()
-    log(f"phase 11: the data layer and a full-width {LM_ARCH} on the card")
-    lm = phase_lm(torch, timer, smi)
-    log(f"phase 12: training a full-width {TRAIN_ARCH} on the card")
-    train = phase_train(torch, smi)
     with DryRunCells() as cells:  # 15c's processes, on host cores while the card works
-        log(f"phase 13: every model family at full width on the card ({', '.join(FAM_ARCHS)})")
-        families = phase_families(torch, smi)
         log(f"phase 14: sharded serving, {SHARD_RANKS} gloo ranks on the card")
         sharded = phase_sharded(torch, smi)
         log(f"phase 15: {TRAIN_ARCH} trained with its layers stacked; the dry run on the meta "

@@ -117,8 +117,10 @@ def make_dataset(spec: SynthSpec) -> SynthDataset:
     # Sample tuples: z ~ freq, x | z ~ hists[z].
     z = rng.choice(spec.v_z, size=spec.num_tuples, p=freq).astype(np.int32)
     x = np.empty(spec.num_tuples, dtype=np.int32)
-    # Vectorized per-candidate sampling.
-    order = np.argsort(z, kind="stable")
+    # Vectorized per-candidate sampling. A stable sort has one result, so
+    # the ids sort as int16 where they fit: numpy radix-sorts 16-bit keys,
+    # several times faster than its int32 sort.
+    order = np.argsort(z.astype(np.int16) if spec.v_z <= 1 << 15 else z, kind="stable")
     z_sorted = z[order]
     boundaries = np.searchsorted(z_sorted, np.arange(spec.v_z + 1))
     for zv in range(spec.v_z):
@@ -128,8 +130,8 @@ def make_dataset(spec: SynthSpec) -> SynthDataset:
 
     # Ground truth in the paper's sense: r*_i is the histogram a COMPLETE
     # SCAN of the dataset would produce (not the generating distribution).
-    emp = np.zeros((spec.v_z, spec.v_x))
-    np.add.at(emp, (z, x), 1.0)
+    emp = np.bincount(z.astype(np.int64) * spec.v_x + x, minlength=spec.v_z * spec.v_x)
+    emp = emp.reshape(spec.v_z, spec.v_x).astype(np.float64)
     row = np.maximum(emp.sum(axis=1, keepdims=True), 1.0)
     emp_hat = emp / row
     true_dists = np.abs(emp_hat - q[None, :]).sum(axis=1)

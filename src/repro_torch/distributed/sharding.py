@@ -443,10 +443,14 @@ class ShardPlan:
     the data groups sum the MoE expert counts and aux terms); ``tp`` the model group,
     rank and size the layers take; ``specs`` every parameter's spec.
     ``attn`` is "heads" (local q/k/v heads and a head-sharded cache:
-    Hkv divides by |model| and no flash-decoding), "whole" (q, k and v
-    assembled whole after their column products; the cache's sequence
-    split over "model" under ``decode_seq_shard``, else whole) or
-    "replicated" (no attention leaf split). ``mlp``: the MLPs are
+    Hkv divides by |model| and no flash-decoding), "q_heads" (H divides
+    and Hkv does not, no flash-decoding: the rank's own q heads, k and v
+    assembled whole after their column products and cut to the kv heads
+    those q heads read, which its cache holds), "whole" (H does not
+    divide, or ``decode_seq_shard``: q, k and v assembled whole, every
+    head attended; the cache's sequence split over "model" under
+    ``decode_seq_shard``, else whole) or "replicated" (no attention
+    leaf split). ``mlp``: the MLPs are
     ff-split. ``vocab`` and ``logits`` are this rank's (lo, hi) rows of
     the embedding table and columns of the logits, None where whole.
     ``layout`` holds the recurrent families' blocks: "lru" ("channels"
@@ -533,15 +537,19 @@ def _split_all(shardings: dict, leaves: list, what: str) -> bool:
     return bool(split)
 
 
-def _attn_layout(shardings: dict, num_kv_heads: int, m: int, *, seq_shard: bool = False,
-                 parts=("attn", "self_attn", "cross_attn")) -> str:
+def _attn_layout(shardings: dict, num_heads: int, num_kv_heads: int, m: int, *,
+                 seq_shard: bool = False, parts=("attn", "self_attn", "cross_attn")) -> str:
+    """The plan's ``attn`` (see `ShardPlan`) for the attention leaves'
+    blocks on a model axis of ``m``."""
     leaves = [n for part in parts for n in _leaves(shardings, part, ("wq", "wk", "wv", "wo"))]
     split = [n for n in leaves if shardings[n].split]
     if not split:
         return "replicated"
-    if not seq_shard and num_kv_heads % m == 0 and len(split) == len(leaves):
+    if seq_shard or len(split) != len(leaves):
+        return "whole"
+    if num_kv_heads % m == 0:
         return "heads"
-    return "whole"
+    return "q_heads" if num_heads % m == 0 else "whole"
 
 
 def _plan(cfg, mesh, axes, shardings: dict) -> ShardPlan:
@@ -552,7 +560,8 @@ def _plan(cfg, mesh, axes, shardings: dict) -> ShardPlan:
     specs = {name: s.spec for name, s in shardings.items()}
     attn, mlp, layout = "replicated", False, {}
     if cfg.family in ("dense", "moe", "vlm", "hybrid", "audio"):
-        attn = _attn_layout(shardings, cfg.num_kv_heads, m, seq_shard=cfg.decode_seq_shard)
+        attn = _attn_layout(shardings, cfg.num_heads, cfg.num_kv_heads, m,
+                            seq_shard=cfg.decode_seq_shard)
         mlp = _split_all(shardings, _leaves(shardings, "mlp", ("w_gate", "w_up", "w_down")),
                          "MLP")
     if cfg.family in ("dense", "moe", "vlm"):

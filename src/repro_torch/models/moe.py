@@ -23,14 +23,16 @@ the workers' expert counts) or each data shard's own
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 
-__all__ = ["combine", "init_moe", "moe_ffn", "moe_ffn_local", "moe_ffn_mesh", "route"]
+__all__ = [
+    "batched_buffer", "combine", "init_moe", "moe_ffn", "moe_ffn_local", "moe_ffn_mesh", "route",
+]
 
 
 def init_moe(d_model: int, d_ff: int, num_experts: int, dtype, *, generator=None,
@@ -155,15 +157,41 @@ def _expert_ffn(params, xt: torch.Tensor, r: dict, e: int, dtype) -> torch.Tenso
     return ye.reshape(e * capacity, d)
 
 
-def combine(ye: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+def _pair_ffn(params, xt: torch.Tensor, r: dict, sizes: list, dtype) -> torch.Tensor:
+    """(T*K, D) in ``_out_proj_dtype()``: each (token, k) pair's token
+    through its expert's SwiGLU, the rows of dropped pairs zero (as
+    ``slot_used`` zeroes a slot). The pairs are sorted by expert (token
+    order within one) into one (T*K, D) buffer and each expert runs its
+    contiguous segment, ``sizes[e]`` rows (its pair count; a split of the
+    same rows on the meta device), so the products run T*K rows whatever
+    the routing."""
+    top_k = r["experts"].shape[1]
+    flat = r["experts"].reshape(-1)
+    order = torch.sort(flat, stable=True)[1]
+    xs = xt[order // top_k] * r["keep"][order][:, None].to(dtype)
+    out_dt = L._out_proj_dtype()
+    ys = []
+    for xe, wg, wu, wd in zip(torch.split(xs, sizes), params["w_gate"].unbind(0),
+                              params["w_up"].unbind(0), params["w_down"].unbind(0)):
+        g = L.boundary_cast(L._dot(xe, wg), dtype)
+        u = L.boundary_cast(L._dot(xe, wu), dtype)
+        ys.append(L._dot((F.silu(g) * u).to(dtype), wd, out_dt))
+    inverse = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.shape[0], device=order.device))
+    return torch.cat(ys)[inverse]
+
+
+def combine(ye: torch.Tensor, slot: Optional[torch.Tensor], keep: torch.Tensor,
             weights: torch.Tensor) -> torch.Tensor:
     """(T, D) f32: each token's kept pairs' expert outputs (``ye`` (E*C,
-    D) at ``slot``) times their routing ``weights`` (T, K), summed in k
-    order (the reference's f32 scatter-add onto tokens)."""
+    D) at ``slot``, or (T*K, D) a pair where ``slot`` is None) times their
+    routing ``weights`` (T, K), summed in k order (the reference's f32
+    scatter-add onto tokens)."""
     t, top_k = weights.shape
     pair_w = torch.where(keep, weights.reshape(-1), 0.0)  # (T*K,)
-    safe_slot = torch.clamp_max(slot, ye.shape[0] - 1)
-    y_pair = (ye[safe_slot] * keep[:, None]) * pair_w[:, None]
+    if slot is not None:
+        ye = ye[torch.clamp_max(slot, ye.shape[0] - 1)]
+    y_pair = (ye * keep[:, None]) * pair_w[:, None]
     y_pair = y_pair.to(torch.float32).reshape(t, top_k, -1)
     out = y_pair[:, 0]
     for k in range(1, top_k):
@@ -172,6 +200,33 @@ def combine(ye: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
 
 
 _AUX = ("load_balance_loss", "router_z_loss", "drop_frac")
+# The most rows the batched (E, min(C, T)) buffer may run beyond the rank's
+# T*K pairs: below it the batched products beat the pairs sorted by expert,
+# whose segments cost one host read of the (E,) pair counts and three
+# products an expert. tools/torch_moe_buffers.py, mixtral-8x7b's widths in
+# bfloat16 on an H100 80GB HBM3 at 700 W: the batched buffer won at up to
+# 192 extra rows with the whole ff and 384 with half of it, the sorted
+# pairs from 576 on with either (at 3,072, 512 tokens: 2.3x and 2.1x faster).
+BATCHED_EXTRA_ROWS = 384
+
+
+def batched_buffer(num_experts: int, capacity: int, tokens: int, top_k: int) -> bool:
+    """Whether `moe_ffn_mesh` runs a rank's expert products in the
+    batched (E, min(C, T)) buffer rather than on its T*K pairs sorted by
+    expert: where the batched rows exceed the pairs by at most
+    `BATCHED_EXTRA_ROWS` (a few tokens, a decode tick's). Top-k picks
+    distinct experts, so an expert holds at most one pair a token."""
+    return num_experts * min(capacity, tokens) - tokens * top_k <= BATCHED_EXTRA_ROWS
+
+
+def _segments(counts: torch.Tensor, rows: int) -> list:
+    """Each expert's segment of the sorted pairs: its pair count, read
+    to the host (one read a call), or on the meta device, where nothing
+    can be read, an even split of the same ``rows``."""
+    if counts.device.type == "meta":
+        e = counts.shape[0]
+        return [rows // e + (i < rows % e) for i in range(e)]
+    return counts.tolist()
 
 
 def moe_ffn_local(params, x: torch.Tensor, *, num_experts: int, top_k: int,
@@ -218,9 +273,8 @@ def moe_ffn_mesh(params, x: torch.Tensor, *, num_experts: int, top_k: int,
     counts are exchanged by one all-reduce of a zero-filled (workers, E)
     buffer over the data axes (none where the capacity holds every pair
     of the global batch). An expert's output for a token does not depend
-    on its slot, so each rank runs its own kept pairs in an (E, C, D)
-    buffer, C the capacity or the rank's pair count if smaller, and no
-    token crosses ranks. The aux terms are the global batch's: the sums
+    on its slot, so each rank runs its own kept pairs and no token
+    crosses ranks. The aux terms are the global batch's: the sums
     over data of the routing probabilities, the top-1 counts and the
     squared router log-normalisers, over the global T (the load-balance
     loss a product of global means), ``drop_frac`` from the global kept
@@ -228,6 +282,15 @@ def moe_ffn_mesh(params, x: torch.Tensor, *, num_experts: int, top_k: int,
     (``moe_impl="local"``) each replica slots its own rows at its own
     capacity and the aux terms are the mean over the data axes of each
     replica's.
+
+    The expert products run on the rank's own pairs, in a buffer chosen
+    from the shapes alone (`batched_buffer`), and change no routing
+    decision: the rank's T*K pairs sorted by expert into one (T*K, D)
+    buffer, the dropped pairs' rows zero, each expert on its contiguous
+    segment (`_pair_ffn`: T*K rows whatever the routing, one host read of
+    the (E,) pair counts a call); or, for a few tokens, the kept pairs
+    slotted into an (E, min(C, T), D) buffer batched over the experts,
+    with no host read.
 
     The expert products on the rank's ff block leave the output partial
     over ff: it is summed over ``tp`` in ``_out_proj_dtype()``, as the
@@ -250,28 +313,36 @@ def moe_ffn_mesh(params, x: torch.Tensor, *, num_experts: int, top_k: int,
     if global_slots:
         capacity = int(max(1, round(t * n * top_k / e * capacity_factor)))
         # every pair kept where the capacity is at least the global pair count
-        counts, offset = None, None
-        if capacity < t * n * top_k:
-            flat = r["experts"].reshape(-1)
-            # each expert's pair count (a scatter of ones, which the meta
-            # device also propagates; bincount has no meta kernel)
-            counts = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
-                0, flat, torch.ones_like(flat)).to(torch.float32)
-            if n > 1:
-                buf = torch.zeros((n, e), dtype=torch.float32, device=x.device)
-                buf[axes.worker] = counts
-                for tp_d in data:
-                    L.all_reduce(buf, tp_d)
-                offset = torch.sum(buf[: axes.worker], dim=0).to(torch.int32)
-                counts = torch.sum(buf, dim=0)
-        r.update(_slots(r["experts"], e, capacity, offset=offset, rows=min(capacity, t * top_k)))
+        dropping = capacity < t * n * top_k
     else:
         capacity = int(max(1, round(t * top_k / e * capacity_factor)))
-        r.update(_slots(r["experts"], e, capacity))
+        dropping = False
+    batched = batched_buffer(e, capacity, t, top_k)
+    mine = None
+    if dropping or not batched:
+        flat = r["experts"].reshape(-1)
+        # each expert's pair count (a scatter of ones, which the meta
+        # device also propagates; bincount has no meta kernel)
+        mine = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+            0, flat, torch.ones_like(flat))
+    counts, offset = None, None
+    if dropping:
+        counts = mine.to(torch.float32)
+        if n > 1:
+            buf = torch.zeros((n, e), dtype=torch.float32, device=x.device)
+            buf[axes.worker] = counts
+            for tp_d in data:
+                L.all_reduce(buf, tp_d)
+            offset = torch.sum(buf[: axes.worker], dim=0).to(torch.int32)
+            counts = torch.sum(buf, dim=0)
+    r.update(_slots(r["experts"], e, capacity, offset=offset, rows=min(capacity, t)))
 
     xd = L.enter(xt, tp)  # the tokens meet the ff-split experts
-    ye = _expert_ffn(params, xd, r, e, x.dtype)
-    out = combine(ye, r["slot"], r["keep"], L.enter(r["weights"], tp))
+    if batched:
+        ye, slot = _expert_ffn(params, xd, r, e, x.dtype), r["slot"]
+    else:
+        ye, slot = _pair_ffn(params, xd, r, _segments(mine, t * top_k), x.dtype), None
+    out = combine(ye, slot, r["keep"], L.enter(r["weights"], tp))
     out = L.sum_replicated(out.to(L._out_proj_dtype()), tp)  # complete the ff contraction
     out = out.to(x.dtype).reshape(b, s, d)
 

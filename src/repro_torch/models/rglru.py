@@ -34,10 +34,14 @@ blocks of each parameter and a `ShardPlan` in ``tp``:
     whole first (one all-reduce); ``w_out`` is row-parallel (one
     all-reduce). The cache holds the rank's channels of the LRU state
     and the conv tail;
-  * attention blocks: 10 heads and 1 kv head do not split over the
-    group, so q, k and v are assembled whole from their column blocks
-    (the "whole" layout of `transformer`), every head attends, and the
-    ring cache is whole on every rank;
+  * attention blocks: where the q heads split over the group and the
+    one kv head does not (the smoke config's 2 heads on 2 ranks), the
+    rank attends its own q heads against the assembled kv head (the
+    "q_heads" layout of `transformer`), its ``wo`` rows and one
+    all-reduce; where the q heads do not split either (the full
+    config's 10 heads on 4 or 16 ranks), q, k and v are assembled whole
+    from their column blocks ("whole"), every head attends; the ring
+    cache holds the kv head on every rank;
   * GeGLU MLP: ff-split, one all-reduce after ``w_down``;
   * vocab-parallel embedding and tied logits (`transformer.embed_tokens`,
     `Model.greedy_pick`).

@@ -49,10 +49,14 @@ over the model group:
   * vocab-parallel embedding: ids outside the rank's rows give zero rows,
     then one all-reduce (adding exact zeros keeps the sum exact);
   * attention, "heads": local q/k/v heads from the column blocks, the
-    cache head-sharded, one all-reduce after ``wo``; "whole" (Hkv not
+    cache head-sharded, one all-reduce after ``wo``; "q_heads" (Hkv not
+    divisible by |model|, H divisible): the rank's q heads from its own
+    ``wq`` columns, k and v assembled whole after their column products
+    (one all-reduce of a zero-filled buffer) and only the kv heads its q
+    heads read kept (`q_heads_kv`), which the cache holds; its q heads
+    attended, its ``wo`` rows and one all-reduce; "whole" (H not
     divisible by |model|, or ``decode_seq_shard``): q, k and v assembled
-    whole after their column products (one all-reduce of a zero-filled
-    buffer), every head attended, the rank's columns into ``wo`` and one
+    whole, every head attended, the rank's columns into ``wo`` and one
     all-reduce; under ``decode_seq_shard`` the cache's sequence dim is
     split (flash-decoding: a MAX all-reduce of the scores' maxima, a SUM
     of the exp sums, the probabilities cast as the one-device softmax
@@ -60,7 +64,9 @@ over the model group:
     rank whose range holds the position);
   * MLP: one all-reduce after ``w_down``; MoE: `moe.moe_ffn_mesh`, the
     global batch's slotting (``moe_impl="gather"``) or each data shard's
-    (``"local"``), the experts' ff blocks and one all-reduce;
+    (``"local"``), the experts' ff blocks on the rank's own pairs (sorted
+    by expert, or batched over the experts for a few tokens) and one
+    all-reduce;
   * column-parallel unembedding: the logits stay vocab-sharded (no
     gather of (B, S, V)); `greedy_pick` reduces the argmax over the group
     (MAX of the values, then MIN of the indices holding it).
@@ -84,7 +90,7 @@ from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_local, moe_ffn_mes
 
 __all__ = [
     "KVCache", "TensorSpec", "Transformer", "attn_output", "attn_project", "embed_tokens",
-    "heads_spec", "init_cache", "init_layer", "project_heads",
+    "heads_spec", "init_cache", "init_layer", "project_heads", "q_heads_kv",
     "init_params", "unembed",
 ]
 
@@ -208,15 +214,15 @@ _BIAS = {"wq": "bq", "wk": "bk", "wv": "bv"}
 
 
 def project_heads(p, x: torch.Tensor, spec: AttnSpec, names=("wq", "wk", "wv"), tp=None, *,
-                  whole: bool = False) -> list:
+                  whole: tuple = ()) -> list:
     """``x @ p[w]`` (plus its bias) for each ``w`` of ``names``, cast to
     ``x``'s dtype and split into heads: (B,S,H,hd) for ``wq``,
-    (B,S,Hkv,hd) for ``wk`` / ``wv``, the head counts ``spec``'s. With
-    ``whole`` each product is the rank's column block, assembled whole by
-    one all-reduce (`layers.gather_columns`); otherwise ``spec`` gives
-    the heads the blocks hold. ``tp`` is the group whose column blocks
-    ``p`` holds (None: whole columns): ``x``, whole on every rank, enters
-    them (`layers.enter`)."""
+    (B,S,Hkv,hd) for ``wk`` / ``wv``, the head counts ``spec``'s. The
+    products named in ``whole`` are the rank's column blocks, assembled
+    whole by one all-reduce (`layers.gather_columns`); ``spec`` gives the
+    heads the others hold. ``tp`` is the group whose column blocks ``p``
+    holds (None: whole columns): ``x``, whole on every rank, enters them
+    (`layers.enter`)."""
     b, s, _ = x.shape
     x = L.enter(x, tp)
     heads = {"wq": spec.num_heads, "wk": spec.num_kv_heads, "wv": spec.num_kv_heads}
@@ -227,23 +233,65 @@ def project_heads(p, x: torch.Tensor, spec: AttnSpec, names=("wq", "wk", "wv"), 
             c = c + p[_BIAS[w]].to(c.dtype)
         parts.append(c.to(x.dtype))
     if whole:
-        parts = L.gather_columns(parts, [heads[w] * spec.head_dim for w in names], tp)
+        parts = L.gather_columns(parts, [heads[w] * spec.head_dim if w in whole else c.shape[-1]
+                                         for c, w in zip(parts, names)], tp)
     return [c.reshape(b, s, heads[w], spec.head_dim) for c, w in zip(parts, names)]
 
 
+def q_heads_kv(spec: AttnSpec, tp) -> list:
+    """The whole kv heads rank ``tp.rank`` attends with under "q_heads",
+    one a local kv head: q head h reads kv head h // (H / Hkv), and the
+    rank's q heads are its ``wq`` column block, H / |model| consecutive
+    heads. Each kv head they read appears once where they read each
+    equally often (a share of one group, or whole groups: its q heads
+    then group over them as one device's do), else one a q head (a split
+    whose blocks span groups unequally)."""
+    hl = spec.num_heads // tp.size
+    group = spec.num_heads // spec.num_kv_heads
+    reads = [(tp.rank * hl + i) // group for i in range(hl)]
+    held = sorted(set(reads))
+    if all(reads.count(g) * len(held) == hl for g in held):
+        return held
+    return reads
+
+
+def _kv_of(t: torch.Tensor, heads: list) -> torch.Tensor:
+    """``t``'s (B,S,Hkv,hd) kv heads ``heads``: a slice where they run
+    consecutively, else a gather."""
+    if heads == list(range(heads[0], heads[0] + len(heads))):
+        return t[:, :, heads[0] : heads[0] + len(heads)]
+    return t.index_select(2, torch.tensor(heads, dtype=torch.int64, device=t.device))
+
+
 def heads_spec(spec: AttnSpec, plan) -> AttnSpec:
-    """``spec`` with this rank's heads under the "heads" layout."""
-    if plan is None or plan.attn != "heads":
+    """``spec`` with this rank's heads under the "heads" and "q_heads"
+    layouts (under "q_heads" the kv heads `q_heads_kv` keeps)."""
+    if plan is None or plan.attn not in ("heads", "q_heads"):
         return spec
     m = plan.model_size
-    return dataclasses.replace(spec, num_heads=spec.num_heads // m,
-                               num_kv_heads=spec.num_kv_heads // m)
+    kv = (len(q_heads_kv(spec, plan.tp)) if plan.attn == "q_heads"
+          else spec.num_kv_heads // m)
+    return dataclasses.replace(spec, num_heads=spec.num_heads // m, num_kv_heads=kv)
+
+
+def _reduce_tp(plan) -> Optional[L.TP]:
+    """The model group ``wo``'s row blocks reduce over where the rank
+    attends its own q heads ("heads", "q_heads"), else None."""
+    return plan.tp if plan is not None and plan.attn in ("heads", "q_heads") else None
 
 
 def attn_project(p, x: torch.Tensor, spec: AttnSpec, plan, names=("wq", "wk", "wv")) -> list:
     """`project_heads` under ``plan``'s attention layout (None: one
-    device): assembled whole for "whole", this rank's heads otherwise."""
-    whole = plan is not None and plan.attn == "whole"
+    device): assembled whole for "whole"; for "q_heads" q the rank's own
+    heads and k / v assembled, then cut to the kv heads those q heads
+    read (`q_heads_kv`); this rank's heads otherwise."""
+    if plan is not None and plan.attn == "q_heads":
+        local = heads_spec(spec, plan)
+        kv = q_heads_kv(spec, plan.tp)
+        parts = project_heads(p, x, dataclasses.replace(spec, num_heads=local.num_heads), names,
+                              plan.tp, whole=("wk", "wv"))
+        return [c if w == "wq" else _kv_of(c, kv) for c, w in zip(parts, names)]
+    whole = names if plan is not None and plan.attn == "whole" else ()
     tp = plan.tp if plan is not None and plan.attn != "replicated" else None
     return project_heads(p, x, spec if whole else heads_spec(spec, plan), names, tp,
                          whole=whole)
@@ -255,7 +303,7 @@ def attn_output(p, attn: torch.Tensor, plan) -> torch.Tensor:
     where ``wo`` is split."""
     if plan is not None and plan.attn == "whole":
         return _out_whole(p, attn, plan.tp)
-    return L.attention_out(p, attn, plan.tp if plan is not None and plan.attn == "heads" else None)
+    return L.attention_out(p, attn, _reduce_tp(plan))
 
 
 def _out_whole(p, attn: torch.Tensor, tp) -> torch.Tensor:
@@ -270,16 +318,19 @@ def _out_whole(p, attn: torch.Tensor, tp) -> torch.Tensor:
     return L.row_parallel(flat, p["wo"], tp).to(attn.dtype)
 
 
-def _decode_whole(p, x, cache_k, cache_v, position: int, seq, spec: AttnSpec,
-                  rope_theta: float, tp) -> torch.Tensor:
-    """One decode step of the "whole" layout (see the module docstring):
-    every head against this rank's range of cache positions, the
-    softmax's max, its sum and the p.V product reduced over the group
-    when the cache's sequence dim is split. Writes the new key and value
-    in place into the rank whose range holds the position (clamped to
-    S_max - 1, as the one-device write is)."""
+def _decode_assembled(p, x, cache_k, cache_v, position: int, seq, spec: AttnSpec,
+                     rope_theta: float, plan) -> torch.Tensor:
+    """One decode step of the "whole" and "q_heads" layouts (see the
+    module docstring): the rank's heads (`heads_spec`: every head under
+    "whole") against this rank's range of cache positions, the softmax's
+    max, its sum and the p.V product reduced over the group when the
+    cache's sequence dim is split. Writes the new key and value in place
+    into the rank whose range holds the position (clamped to S_max - 1,
+    as the one-device write is)."""
     b = x.shape[0]
-    q, k, v = project_heads(p, x, spec, tp=tp, whole=True)
+    q, k, v = attn_project(p, x, spec, plan)
+    local = heads_spec(spec, plan)
+    tp = plan.tp
     pos = torch.full((b,), position, dtype=torch.int32, device=x.device)
     if rope_theta:
         q = L.apply_rope(q, pos[:, None], rope_theta)
@@ -291,12 +342,12 @@ def _decode_whole(p, x, cache_k, cache_v, position: int, seq, spec: AttnSpec,
         at = torch.tensor([idx - lo], dtype=torch.int64, device=x.device)
         cache_k.index_copy_(1, at, k)
         cache_v.index_copy_(1, at, v)
-    groups = spec.num_heads // spec.num_kv_heads
+    groups = local.num_heads // local.num_kv_heads
     k_pos = lo + torch.arange(s_loc, dtype=torch.int32, device=x.device)
     valid = k_pos[None, :] <= pos[:, None]
     if spec.sliding_window > 0:
         valid &= k_pos[None, :] > (pos[:, None] - spec.sliding_window)
-    q5 = q.reshape(b, 1, spec.num_kv_heads, groups, spec.head_dim)
+    q5 = q.reshape(b, 1, local.num_kv_heads, groups, spec.head_dim)
     sc = L._einsum("bqhgd,bkhd->bhgqk", q5, cache_k) * spec.head_dim ** -0.5
     sc = torch.where(valid[:, None, None, None, :], sc, -math.inf)
     m = torch.amax(sc, dim=-1, keepdim=True)
@@ -311,8 +362,8 @@ def _decode_whole(p, x, cache_k, cache_v, position: int, seq, spec: AttnSpec,
     o = L._einsum("bhgqk,bkhd->bqhgd", probs, cache_v)  # (B,1,Hkv,G,hd), partial over S
     if seq is not None:
         L.all_reduce(o, tp)
-    out = o.to(x.dtype).reshape(b, 1, spec.num_heads, spec.head_dim)
-    return _out_whole(p, out, tp)
+    out = o.to(x.dtype).reshape(b, 1, local.num_heads, spec.head_dim)
+    return attn_output(p, out, plan)
 
 
 def _sum_aux(auxes: list) -> dict:
@@ -378,10 +429,6 @@ class Transformer(Model):
                                 global_slots=cfg.moe_impl == "gather", **kw)
         ffn = moe_ffn_local if cfg.moe_impl == "local" else moe_ffn
         return ffn(lp.moe, h, **kw)
-
-    def _heads_tp(self) -> Optional[L.TP]:
-        """The model group the "heads" layout's ``wo`` reduces over."""
-        return self.tp.tp if self.tp is not None and self.tp.attn == "heads" else None
 
     def _local_spec(self) -> AttnSpec:
         """The attention spec of this rank's heads."""
@@ -478,13 +525,13 @@ class Transformer(Model):
         for li, lp in enumerate(self._layers()):
             lp = self.weights(lp)
             h = L.rms_norm(lp.attn_norm, x, cfg.norm_eps)
-            if plan is not None and plan.attn == "whole":
-                attn_out = _decode_whole(lp.attn, h, cache.k[li], cache.v[li], cache.length,
-                                         cache.seq, spec, cfg.rope_theta, plan.tp)
+            if plan is not None and plan.attn in ("whole", "q_heads"):
+                attn_out = _decode_assembled(lp.attn, h, cache.k[li], cache.v[li], cache.length,
+                                            cache.seq, _attn_spec(cfg), cfg.rope_theta, plan)
             else:
                 attn_out, _, _ = L.decode_attention(
                     lp.attn, h, cache.k[li], cache.v[li], pos, spec, cfg.rope_theta,
-                    self._heads_tp(),
+                    _reduce_tp(plan),
                 )
             x = x + attn_out
             h = L.rms_norm(lp.mlp_norm, x, cfg.norm_eps)

@@ -16,8 +16,11 @@ blocks of each parameter and a `ShardPlan` in ``tp``: every attention
 (encoder, decoder self and cross) runs on the rank's heads ("heads",
 ``bq`` / ``bk`` / ``bv`` its blocks, one all-reduce after ``wo``; the
 self and cross K/V cached per local head, the cross K/V computed once
-at prefill), or on every head from assembled q / k / v where a column
-block ends inside a head ("whole"); the GELU MLPs are ff-split with
+at prefill), on the rank's q heads against the kv heads they read where
+the kv heads alone do not split ("q_heads", `transformer.q_heads_kv`;
+whisper's heads are all kv heads, so its configs never take it), or on
+every head from assembled q / k / v where a column block ends inside a
+head ("whole"); the GELU MLPs are ff-split with
 ``b_down`` added once after the all-reduce; the embedding and the tied
 logits are vocab-sharded where the vocabulary divides (51,865 does not,
 so at full size they stay whole); ``dec_pos`` is replicated.
@@ -40,7 +43,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.base import Group, Model, model_dtype
 from repro_torch.models.layers import AttnSpec
 from repro_torch.models.transformer import (
-    _decode_whole, _placed, _whole, attn_output, attn_project, embed_tokens, heads_spec, unembed,
+    _decode_assembled, _placed, _reduce_tp, _whole, attn_output, attn_project, embed_tokens,
+    heads_spec, unembed,
 )
 
 __all__ = ["Whisper", "WhisperCache", "init_cache", "init_params"]
@@ -248,19 +252,19 @@ class Whisper(Model):
         x = self._embed(token[:, None], pos[:, None])
         self_spec, cross_spec = _spec(cfg, causal=True), _spec(cfg, causal=False)
         self_local, cross_local = heads_spec(self_spec, plan), heads_spec(cross_spec, plan)
-        whole = plan is not None and plan.attn == "whole"
+        assembled = plan is not None and plan.attn in ("whole", "q_heads")
         groups = cross_local.num_heads // cross_local.num_kv_heads
         for li, lp in enumerate(self.dec_layers):
             lp = self.weights(lp)
             h = L.layer_norm(lp.self_norm, x, cfg.norm_eps)
-            if whole:
-                attn_out = _decode_whole(lp.self_attn, h, cache.self_k[li], cache.self_v[li],
-                                         cache.length, None, self_spec, 0.0, plan.tp)
+            if assembled:
+                attn_out = _decode_assembled(lp.self_attn, h, cache.self_k[li],
+                                             cache.self_v[li], cache.length, None, self_spec,
+                                             0.0, plan)
             else:
                 attn_out, _, _ = L.decode_attention(
                     lp.self_attn, h, cache.self_k[li], cache.self_v[li], pos, self_local,
-                    rope_theta=0.0, tp=plan.tp if plan is not None and plan.attn == "heads"
-                    else None)
+                    rope_theta=0.0, tp=_reduce_tp(plan))
             x = x + attn_out
 
             h = L.layer_norm(lp.cross_norm, x, cfg.norm_eps)

@@ -15,7 +15,11 @@ collectives. What can be held here without an XLA compile:
   meta device record the all-reduce calls and bytes that four gloo CPU
   ranks issue for the same step and tick, rank by rank, and the FLOPs
   counted on meta equal the same counter over the real rank's step;
-* the CLI writes its JSONs and `roofline.render` reads them.
+* the CLI writes its JSONs and `roofline.render` reads them;
+* the port's FLOPs a device on five production cells stay within
+  `FLOPS_BAR` of the reference's (each rank attends only its q heads
+  where the kv heads do not divide "model", and runs only its own MoE
+  pairs).
 """
 
 import dataclasses
@@ -183,3 +187,37 @@ def test_cli_writes_and_roofline_reads(tmp_path, capsys):
         assert d["memory"]["argument_bytes"] > 0 and d["memory"]["temp_bytes"] > 0
     table = roofline.render("pod", results=out)
     assert "| xlstm_125m | decode_32k |" in table and "| fastmatch_round |" in table
+
+
+# The reference's FLOPs a device (XLA's cost_analysis) on rank (0, 0) of
+# the pod's (16, 16) ("data", "model") mesh, baseline profile, each from
+#   python -m repro.launch.dryrun --arch <arch> --shape <shape> --mesh pod
+# on the CPU (not compiled here: 256 placeholder devices a cell)
+REFERENCE_FLOPS = {
+    ("qwen2.5-3b", "train_4k"): 1.045e14,
+    ("mixtral-8x7b", "train_4k"): 6.711e14,
+    ("llama3-405b", "train_4k"): 1.266e16,
+    ("llama3-405b", "prefill_32k"): 3.346e15,
+    ("llama3-405b", "decode_32k"): 7.283e11,
+}
+FLOPS_BAR = 1.5
+
+
+@pytest.fixture(scope="module")
+def pod_cells():
+    """`dryrun.run_cell` of each `REFERENCE_FLOPS` cell on the pod (the
+    meta device; ~2 min together)."""
+    return {cell: dryrun.run_cell(*cell, "pod", verbose=False) for cell in REFERENCE_FLOPS}
+
+
+@pytest.mark.parametrize("cell", list(REFERENCE_FLOPS), ids=lambda c: f"{c[0]}-{c[1]}")
+def test_pod_flops_near_reference(pod_cells, cell):
+    """The port's FLOPs a device at most `FLOPS_BAR` times the
+    reference's: no rank attends heads, or runs expert rows, that the
+    reference's partitioned program does not (qwen2.5-3b's 2 kv heads
+    and llama3-405b's and mixtral-8x7b's 8 do not divide the 16-way
+    model axis: their ranks attend their own q heads, "q_heads")."""
+    got = pod_cells[cell]
+    assert got["ok"] and got["coordinate"] == {"data": 0, "model": 0}
+    assert 0 < got["flops_per_device"] <= FLOPS_BAR * REFERENCE_FLOPS[cell], \
+        f"{got['flops_per_device']:.4g} against the reference's {REFERENCE_FLOPS[cell]:.4g}"

@@ -24,7 +24,9 @@ block `launch.specs.opt_state_pspecs` gives it. Also
 `opt_state_pspecs` against the reference's for every configuration and
 both optimizers on mesh descriptions, as tests/test_torch_sharding.py
 holds `param_pspecs`. The stacked step issues the unrolled step's
-all-reduce calls and bytes.
+all-reduce calls and bytes. And the first case on a 1 x 4 mesh (in the
+(2, 2) spawn), where qwen2.5-3b's ranks attend their own q heads
+("q_heads"), under the (2, 2) step's bars.
 """
 
 import concurrent.futures
@@ -57,7 +59,7 @@ from repro_torch.train.train_state import param_tree
 
 import torch_shard_ranks
 from torch_lm_twins import BARS
-from torch_shard_ranks import FSDP_CASES, FSDP_LR, FSDP_REMATS
+from torch_shard_ranks import FSDP_CASES, FSDP_LR, FSDP_Q_HEADS, FSDP_REMATS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((2, 2), (4, 1))
@@ -189,12 +191,16 @@ def test_train_step_matches_reference(runs, shape, case):
     same bits on every rank; every rank's post-step blocks within the
     train twins' bars of the reference's jitted step."""
     ranks, ref, _ = runs
-    dtype = case[1]
-    key = _key(shape, case)
+    _check_step([r[case] for r in ranks[shape]], ref, _key(shape, case), case[1])
+
+
+def _check_step(results, ref, key: str, dtype: str) -> None:
+    """`test_train_step_matches_reference`'s checks of the ranks'
+    ``results`` of one case against the reference's entries ``key``."""
     loss_atol, gnorm_rtol, pnorm_rtol = BARS[dtype]
-    first = ranks[shape][0][case]["metrics"]
-    for r in ranks[shape]:
-        got = r[case]["metrics"]
+    first = results[0]["metrics"]
+    for res in results:
+        got = res["metrics"]
         assert got == first  # every rank took the same branch with the same numbers
         assert got["step_ok"] == float(ref[f"{key}/metric/step_ok"]) == 1.0
         for k in ("loss", "ce"):
@@ -203,9 +209,9 @@ def test_train_step_matches_reference(runs, shape, case):
                                    rtol=gnorm_rtol)
         np.testing.assert_allclose(got["param_norm"], float(ref[f"{key}/metric/param_norm"]),
                                    rtol=pnorm_rtol)
-        assert r[case]["loss"] == got["loss"]
-        for name, block in r[case]["params"].items():
-            want = _block(ref[f"{key}/param/{name}"], r[case]["index"][name])
+        assert res["loss"] == got["loss"]
+        for name, block in res["params"].items():
+            want = _block(ref[f"{key}/param/{name}"], res["index"][name])
             bar = (0.05 * FSDP_LR if dtype == "float32"
                    else 2.0 ** -8 * np.abs(want).max() + 2 * FSDP_LR)
             assert np.abs(block - want).max() <= bar, name
@@ -221,22 +227,41 @@ def test_gradient_blocks_match_reference(runs, shape, case):
     distance from the reference on the leaf); the blocks tile each
     leaf."""
     ranks, ref, one = runs
-    key = _key(shape, case)
+    _check_grads([r[case] for r in ranks[shape]], ref, _key(shape, case), case, one)
+
+
+def _check_grads(results, ref, key: str, case, one) -> None:
+    """`test_gradient_blocks_match_reference`'s checks of the ranks'
+    ``results`` of ``case`` against the reference's entries ``key``."""
     rtol = BARS[case[1]][1]
     cover: dict = {}
-    for r in ranks[shape]:
-        for name, block in r[case]["grads"].items():
+    for res in results:
+        for name, block in res["grads"].items():
             whole = ref[f"{key}/grad/{name}"]
-            want = _block(whole, r[case]["index"][name])
+            want = _block(whole, res["index"][name])
             bar = rtol * float(np.abs(whole).max())
             if case[1] == "bfloat16":
                 bar += float(np.abs(one[case][name] - whole).max())
             err = float(np.abs(block - want).max())
             assert err <= bar, f"{name}: {err:.3g} > {bar:.3g}"
-            cover.setdefault(name, set()).add(tuple(map(tuple, r[case]["index"][name])))
+            cover.setdefault(name, set()).add(tuple(map(tuple, res["index"][name])))
     for name, blocks in cover.items():
         n = int(np.prod(ref[f"{key}/grad/{name}"].shape))
         assert sum(int(np.prod([hi - lo for lo, hi in b])) for b in blocks) == n, name
+
+
+def test_q_heads_step_matches_reference(runs):
+    """The first case on 1 x 4 (run in the (2, 2) spawn): qwen2.5-3b's
+    smoke attends each rank's own q head against the assembled kv head it
+    reads ("q_heads"); its step's metrics and post-step blocks, and its
+    gradient blocks, under the (2, 2) step's bars of the reference's
+    (2, 2) step (the same batch and weights)."""
+    ranks, ref, one = runs
+    case = FSDP_CASES[0]
+    results = [r[FSDP_Q_HEADS[1]] for r in ranks[FSDP_Q_HEADS[0]]]
+    assert all(res["attn"] == "q_heads" and not res["fsdp"] for res in results)
+    _check_step(results, ref, _key(FSDP_Q_HEADS[0], case), case[1])
+    _check_grads(results, ref, _key(FSDP_Q_HEADS[0], case), case, one)
 
 
 @pytest.mark.parametrize("remat", FSDP_REMATS)

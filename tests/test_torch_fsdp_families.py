@@ -16,7 +16,10 @@ cut to 521, which does not divide over "model", so its logits stay whole
 on a mesh with "data" > 1), on the reference's own weights, one step on
 a 4 x 16 batch on a (2, 2) and a (4, 1) ("data", "model") mesh; the two
 xLSTM cases also on (1, 4), where its 2 heads do not divide over
-"model" and the mLSTM and sLSTM run "whole". The MoE
+"model" and the mLSTM and sLSTM run "whole", and the two
+recurrentgemma-2b cases, whose 2 q heads do not divide over 4 ranks
+either, so its attention assembles q, k and v whole ("whole"; on (2, 2)
+each rank attends its own q head, "q_heads"). The MoE
 configs run at capacity factor 0.5 (their smoke configs' 4.0 is
 dropless): the reference drops pairs on this batch, and "gather" must
 slot them as the reference's jitted step slots the global batch.
@@ -76,9 +79,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((2, 2), (4, 1))
 SEED = 3
 CASES = R.FAMILY_TRAIN_CASES
-# the cases each mesh shape runs: every case on SHAPES, xLSTM's on (1, 4)
+# the cases each mesh shape runs: every case on SHAPES, xLSTM's and
+# recurrentgemma's on (1, 4)
 CASES_BY_SHAPE = {**{shape: CASES for shape in SHAPES},
-                  (1, 4): tuple(c for c in CASES if c[0] == "xlstm_125m")}
+                  (1, 4): tuple(c for c in CASES
+                                if c[0] in ("xlstm_125m", "recurrentgemma_2b"))}
 PAIRS = [(shape, case) for shape, cases in CASES_BY_SHAPE.items() for case in cases]
 PAIR_IDS = [f"{a}x{b}-" + "-".join(str(c) for c in case if c) for (a, b), case in PAIRS]
 MOE_F32 = [c for c in CASES if c[2] is not None and c[1] == "float32"]
@@ -450,5 +455,8 @@ def test_opt_state_blocks_follow_opt_state_pspecs(runs, shape):
                 mix = "heads" if shape == (2, 2) else "whole"
                 assert got["layout"] == {"mlstm": mix, "slstm": mix,
                                          "slstm_ffn": "ff" if case[3:] else "replicated"}
-            if shape == (2, 2) and case[0] == "recurrentgemma_2b":
-                assert got["attn"] == "whole" and got["layout"] == {"lru": "channels"}
+            if shape[1] > 1 and case[0] == "recurrentgemma_2b":
+                # 2 q heads and 1 kv head: on 2 ranks each attends its own q
+                # head; on 4 the q heads do not divide, q, k and v assembled
+                attn = "q_heads" if shape == (2, 2) else "whole"
+                assert got["attn"] == attn and got["layout"] == {"lru": "channels"}

@@ -28,7 +28,11 @@ Then ``moe_impl="gather"`` on the same mesh in float32 at capacity
 factor 0.5, where pairs drop: `forward` on each data shard's rows
 against the reference's one-device forward of the whole batch (the
 global batch's capacity and slotting, `models.moe.moe_ffn_mesh`), and
-each data replica's `ServeEngine` against the reference engine.
+each data replica's `ServeEngine` against the reference engine. And
+`moe_ffn_mesh`'s two expert buffers on one layer of those weights, at
+that capacity and at the dropless one: the aux terms bitwise the same,
+the output and the gradients within 1e-5 of each other, and the rows
+each multiplies.
 """
 
 import concurrent.futures
@@ -38,6 +42,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import base as jbase
 from repro.models import layers as jL
@@ -46,6 +51,7 @@ from repro.models.moe import moe_ffn as jmoe_ffn
 from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.core import distributed
+from repro_torch.models.moe import route
 
 import torch_shard_ranks
 
@@ -84,6 +90,8 @@ def runs():
         engine.submit(JRequest(rid=i, prompt=p, max_new_tokens=torch_shard_ranks.GATHER_NEW))
     want["gather_engine"] = {r.rid: r.output for r in engine.run()}
     want["logits"], _ = jm.forward(params, jnp.asarray(toks))
+    want["buffer_x"] = x
+    want["buffer_router"] = np.array(params32["layers"][LAYER]["moe"]["router"], np.float32)
     shard_aux = [jm.forward(params, jnp.asarray(toks[r : r + 2]))[1] for r in (0, 2)]
     want["aux"] = {k: np.mean([float(a[k]) for a in shard_aux]) for k in shard_aux[0]}
     moe = params["layers"][LAYER]["moe"]
@@ -178,3 +186,35 @@ def test_gather_engine_on_data_mesh_matches_reference(runs):
         assert r["gather_engine"]["metrics"] == {
             "prefills": 1, "decode_ticks": torch_shard_ranks.GATHER_NEW - 1,
             "tokens_out": 2 * torch_shard_ranks.GATHER_NEW}
+
+
+@pytest.mark.parametrize("cf", (torch_shard_ranks.GATHER_CF, 4.0), ids=("drops", "dropless"))
+def test_pair_buffer_matches_expert_buffer(runs, cf):
+    """`moe_ffn_mesh` on a rank's ff block of layer 1's experts (float32,
+    the global slotting), its products on the rank's pairs sorted by
+    expert ("pairs") against the batched (E, min(C, T)) buffer
+    ("batched") on the same routing: the aux terms bitwise equal, and
+    ``drop_frac`` the share of the global batch's pairs `route` drops
+    (some at capacity factor 0.5, none at 4.0, the dropless capacity of 4
+    experts); the output and the gradients on the activations and every
+    leaf within 1e-5 of the largest |value|; the rows each buffer's
+    expert products ran, from the FLOPs its forward counted: the rank's
+    T*K pairs sorted, E x min(C, T) batched."""
+    ranks, want = runs
+    t, top_k, e, d = 2 * 16, 2, 4, want["buffer_x"].shape[-1]
+    xt = torch.from_numpy(want["buffer_x"].reshape(-1, d))
+    keep = route(torch.from_numpy(want["buffer_router"]), xt, num_experts=e, top_k=top_k,
+                 capacity_factor=cf)["keep"]
+    capacity = max(1, round(2 * t * top_k / e * cf))  # the global batch's T is 2t
+    for r in ranks:
+        got, batched = r["buffers"][(cf, "pairs")], r["buffers"][(cf, "batched")]
+        assert got["aux"] == batched["aux"]
+        assert got["aux"]["drop_frac"] == pytest.approx(1.0 - float(keep.float().mean()),
+                                                        abs=1e-7)
+        assert (got["aux"]["drop_frac"] > 0) == (cf < e)
+        for a, b, what in [(got["y"], batched["y"], "y"),
+                           *((got["grads"][k], batched["grads"][k], k) for k in batched["grads"])]:
+            assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), what
+        rows = {name: (res["flops"] - 2 * t * d * e) / (3 * 2 * d * res["ff"])
+                for name, res in (("pairs", got), ("batched", batched))}
+        assert rows == {"pairs": t * top_k, "batched": e * min(capacity, t)}

@@ -16,7 +16,8 @@ line up: the mLSTM's ``w_up`` blocks across its [x | z] halves, the
 sLSTM's whole-gate ``w_gates`` blocks against its head-split
 ``r_gates`` (whole at 4 ranks: 2 heads), the 85-wide sLSTM feed-forward
 and whisper's vocabulary whole on every rank (the guard's fallback), the
-RG-LRU's single kv head split inside the head. And `ServeEngine` on the
+RG-LRU's single kv head split inside the head (its 2 q heads one a rank
+at 2 ranks, "q_heads"; every head assembled at 4, "whole"). And `ServeEngine` on the
 2 x 2 mesh in float32, whisper's requests carrying their encoder frames:
 every output the port's one-process engine's.
 
@@ -154,8 +155,8 @@ def test_sharded_logits_match(runs, arch, shape, dtype):
 
 
 def _expected_layout(arch: str, m: int) -> dict:
-    if arch == "recurrentgemma_2b":
-        return dict(attn="whole", mlp=True, layout={"lru": "channels"})
+    if arch == "recurrentgemma_2b":  # 2 q heads, 1 kv head: the q heads split at 2 ranks
+        return dict(attn="q_heads" if m == 2 else "whole", mlp=True, layout={"lru": "channels"})
     if arch == "xlstm_125m":  # 2 heads: split at 2 ranks, inside a head at 4
         kind = "heads" if m == 2 else "whole"
         return dict(attn="replicated", mlp=False,

@@ -277,3 +277,59 @@ def test_shard_model_refuses_what_is_not_ported():
     for serving in (True, False):
         with pytest.raises(ValueError, match="unknown family 'diffusion'"):
             tsh.shard_model(cfg, None, serving=serving)
+
+
+# (arch, config changes, mesh shape, the plan's attention layout): the
+# smoke configs on a virtual mesh (rank (0, 0), the meta device)
+ATTN_LAYOUTS = (
+    ("qwen2_5_3b", {}, (1, 4), "q_heads"),  # 4 q heads split 4 ways, 2 kv heads do not
+    ("qwen2_5_3b", {}, (2, 2), "heads"),
+    ("qwen2_5_3b", dict(decode_seq_shard=True), (1, 4), "whole"),  # flash-decoding
+    ("recurrentgemma_2b", {}, (2, 2), "q_heads"),  # 2 q heads, 1 kv head
+    ("recurrentgemma_2b", {}, (1, 4), "whole"),  # 2 q heads do not split 4 ways
+    ("whisper_medium", {}, (1, 4), "heads"),
+)
+
+
+@pytest.mark.parametrize("arch,kw,shape,want", ATTN_LAYOUTS,
+                         ids=[f"{a}-{s[0]}x{s[1]}-{w}" for a, _, s, w in ATTN_LAYOUTS])
+def test_attn_layout_choice(arch, kw, shape, want):
+    """`shard_model`'s attention layout: "q_heads" where the q heads
+    divide over "model" and the kv heads do not, "whole" where the q
+    heads do not divide or under ``decode_seq_shard``; under "q_heads"
+    the local spec holds the rank's q heads and the kv heads they read."""
+    from repro_torch.core.distributed import VirtualMesh
+    from repro_torch.models.transformer import heads_spec
+
+    cfg = dataclasses.replace(tbase.get_smoke_config(arch), **kw)
+    model = tsh.shard_model(cfg, VirtualMesh(shape, ("data", "model"), (0, 0)))
+    assert model.tp.attn == want
+    spec = tL.AttnSpec(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    local = heads_spec(spec, model.tp)
+    if want == "q_heads":
+        assert (local.num_heads, local.num_kv_heads) == (cfg.num_heads // shape[1], 1)
+    elif want == "whole":
+        assert local == spec
+
+
+# (q heads, kv heads, model ranks) -> each rank's kv heads under "q_heads"
+Q_HEADS_KV = (
+    ((16, 2, 16), [[r // 8] for r in range(16)]),  # qwen2.5-3b: one q head a rank
+    ((128, 8, 16), [[r // 2] for r in range(16)]),  # llama3-405b: half a group a rank
+    ((32, 8, 4), [[2 * r, 2 * r + 1] for r in range(4)]),  # two whole groups a rank
+    ((48, 8, 16), [[r // 2] for r in range(16)]),  # grok-1: 3 of a group's 6
+    ((12, 3, 2), [[0, 0, 0, 0, 1, 1], [1, 1, 2, 2, 2, 2]]),  # blocks span groups unequally
+)
+
+
+@pytest.mark.parametrize("heads,want", Q_HEADS_KV, ids=[f"{h}-{k}-{m}" for (h, k, m), _ in
+                                                         Q_HEADS_KV])
+def test_q_heads_kv(heads, want):
+    """The kv heads each rank's q heads read (q head h reads h // (H /
+    Hkv)), each once where the rank's q heads read them equally often,
+    else one a q head."""
+    from repro_torch.models.transformer import q_heads_kv
+
+    h, kv, m = heads
+    spec = tL.AttnSpec(h, kv, 8)
+    assert [q_heads_kv(spec, tL.TP(None, r, m)) for r in range(m)] == want

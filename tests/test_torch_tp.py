@@ -15,24 +15,32 @@ its data shard. Also `ServeEngine` on the 2 x 2 mesh in f32, each data
 replica serving its half of 8 ragged requests: every output the
 reference engine's; and the qwen2.5-3b smoke under
 ``set_tp_reduce_dtype(bf16)`` in both packages (bf16 partial products
-reduced in bf16): `forward` within the LM twins' 0.06.
+reduced in bf16): `forward` within the LM twins' 0.06. And the
+qwen2.5-3b smoke in float32 on 1 x 4 without flash-decoding: its 4 q
+heads split 4 ways and its 2 kv heads do not, so each rank attends its
+own q head against the kv head it reads ("q_heads"); the prefill's last
+logits and 4 decode steps within 1e-4 of the port's one-process model,
+which is itself within 1e-4 of the reference's.
 
 One spawn of 4 ranks runs every case, re-meshing the one process group.
 """
 
 import concurrent.futures
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import base as jbase
 from repro.models import layers as jL
 from repro.models.model_zoo import get_model as jget_model
 from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
+from repro_torch import convert
 from repro_torch.configs import base as tbase
 from repro_torch.core import distributed
 
@@ -58,6 +66,11 @@ def _params(arch: str, dtype: str, seed: int = 0):
     return jm, params, jax.tree.map(np.asarray, params)
 
 
+def _arr(side: str, a: np.ndarray):
+    """``a`` as the reference's (a jax array) or the port's (a tensor) input."""
+    return jnp.asarray(a) if side == "reference" else torch.from_numpy(a)
+
+
 def _tokens(vocab: int) -> np.ndarray:
     return np.random.default_rng(1).integers(0, vocab, (B, CTX)).astype(np.int32)
 
@@ -75,12 +88,29 @@ def runs():
     toks = _tokens(vocab)
     qwen_toks = np.random.default_rng(3).integers(0, qwen[0].cfg.vocab_size, (2, 16)).astype(
         np.int32)
-    trees = {"bfloat16": refs["bfloat16"][2], "float32": refs["float32"][2], "qwen": qwen[2]}
+    qwen32 = _params("qwen2_5_3b", "float32", seed=4)
+    qwen_serve = np.random.default_rng(4).integers(0, qwen32[0].cfg.vocab_size, (B, CTX)).astype(
+        np.int32)
+    trees = {"bfloat16": refs["bfloat16"][2], "float32": refs["float32"][2], "qwen": qwen[2],
+             "qwen_f32": qwen32[2]}
     # the ranks run while this process computes the reference's side
     pool = concurrent.futures.ThreadPoolExecutor(1)
     pending = pool.submit(distributed.run_ranks, torch_shard_ranks.tp_rank, 4, trees, toks,
-                          _prompts(vocab), qwen_toks, device_type="cpu", timeout=300)
+                          _prompts(vocab), qwen_toks, qwen_serve, device_type="cpu", timeout=300)
     want = {}
+    jm, params, tree = qwen32
+    one = convert.lm_params_from_numpy(tree, _cfgs("qwen2_5_3b", "float32")[1], device="cpu")
+    want["q_heads"] = {}
+    for side, (prefill, decode_step) in (
+            ("reference", (functools.partial(jm.prefill, params),
+                           functools.partial(jm.decode_step, params))),
+            ("one_process", (one.prefill, one.decode_step))):
+        logits, cache = prefill(_arr(side, qwen_serve[:, :PREFILL]), CTX)
+        steps = [np.asarray(logits[:, -1], np.float32)]
+        for i in range(PREFILL, PREFILL + STEPS):
+            step, cache = decode_step(cache, _arr(side, qwen_serve[:, i]))
+            steps.append(np.asarray(step, np.float32))
+        want["q_heads"][side] = steps
     for dtype, (jm, params, _) in refs.items():
         logits, cache = jm.prefill(params, jnp.asarray(toks[:, :PREFILL]), CTX)
         steps = [np.asarray(logits[:, -1], np.float32)]
@@ -160,3 +190,25 @@ def test_dense_tp_reduce_bf16_matches(runs):
         assert got["attn"] == "heads"
         w = want["tp_reduce_bf16"][got["rows"][0] : got["rows"][1], :, lo:hi]
         np.testing.assert_allclose(got["logits"], w, atol=0.06, rtol=0)
+
+
+def test_q_heads_serving_matches_one_process(runs):
+    """The qwen2.5-3b smoke in float32 on 1 x 4 ("q_heads": 4 q heads
+    split 4 ways, 2 kv heads not, no flash-decoding): each rank's cache
+    holds the one kv head its q head reads, whole over the sequence; the
+    prefill's last logits and 4 decode steps, every rank's vocab
+    columns, within 1e-4 of the port's one process, which is within 1e-4
+    of the reference's."""
+    ranks, want = runs
+    w = want["q_heads"]
+    for g, r in zip(w["one_process"], w["reference"]):
+        np.testing.assert_allclose(g, r, atol=ATOL["float32"], rtol=0)
+    cfg = tbase.get_smoke_config("qwen2_5_3b")
+    for rk in ranks:
+        got = rk["q_heads"]
+        assert got["attn"] == "q_heads" and got["seq"] is None
+        assert got["cache_shape"] == (B, CTX, 1, cfg.head_dim)
+        lo, hi = got["cols"]
+        for step, (g, o) in enumerate(zip(got["logits"], w["one_process"])):
+            np.testing.assert_allclose(g, o[:, lo:hi], atol=ATOL["float32"], rtol=0,
+                                       err_msg=f"step {step}")

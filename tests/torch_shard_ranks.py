@@ -28,7 +28,7 @@ def llama_cfg(dtype: str, **kw):
     return dataclasses.replace(get_smoke_config("llama3_405b"), dtype=dtype, **WIDEN, **kw)
 
 
-def tp_rank(rank, world, trees, toks, prompts, qwen_toks):
+def tp_rank(rank, world, trees, toks, prompts, qwen_toks, qwen_serve):
     from repro_torch.distributed import batch_pspec, shard_model
     from repro_torch.models import layers as L
     from repro_torch.serve import Request, ServeEngine
@@ -87,6 +87,20 @@ def tp_rank(rank, world, trees, toks, prompts, qwen_toks):
         L.set_tp_reduce_dtype(None)
     out["tp_reduce_bf16"] = dict(attn=model.tp.attn, cols=model.tp.logits,
                                  rows=(rows.start, rows.stop), logits=logits.float().numpy())
+
+    # the qwen smoke in float32 on 1 x 4: its 4 q heads split 4 ways and
+    # its 2 kv heads do not ("q_heads"), every row on every rank
+    cfg = dataclasses.replace(get_smoke_config("qwen2_5_3b"), dtype="float32")
+    model = shard_model(cfg, mesh_of((1, 4)), params=trees["qwen_f32"])
+    t = torch.from_numpy(qwen_serve)
+    logits, cache = model.prefill(t[:, :PREFILL], CTX)
+    steps = [logits[:, -1]]
+    for i in range(PREFILL, PREFILL + STEPS):
+        step, cache = model.decode_step(cache, t[:, i])
+        steps.append(step)
+    out["q_heads"] = dict(attn=model.tp.attn, cols=model.tp.logits, seq=cache.seq,
+                          cache_shape=tuple(cache.k[0].shape),
+                          logits=[s.numpy() for s in steps])
     return out
 
 
@@ -143,11 +157,55 @@ def moe_rank(rank, world, tree, toks, x, layer, tree32, prompts):
         engine.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=GATHER_NEW))
     done = engine.run()
     out["gather_engine"] = dict(outputs={r.rid: r.output for r in done}, metrics=engine.metrics)
+    out["buffers"] = _moe_buffers(mesh, gcfg, tree32["layers"][layer]["moe"], x[rows])
     return out
 
 
 # the MoE serving twin's "gather" case (tests/test_torch_moe_local.py)
 GATHER_CF, GATHER_NEW = 0.5, 5
+
+
+def _moe_buffers(mesh, cfg, moe, x) -> dict:
+    """`moe_ffn_mesh` with the global slotting on one layer's experts
+    (this rank's ff block, float32) and the data shard's activations
+    ``x``, at `GATHER_CF` (pairs drop) and at the dropless capacity, its
+    expert products once on the rank's pairs sorted by expert ("pairs")
+    and once in the batched (E, min(C, T)) buffer ("batched"), by
+    `moe.BATCHED_EXTRA_ROWS` set each way: the output, the aux terms, the
+    FLOPs the forward counted (`FlopCounterMode`) and the gradients of
+    ``sum(y * y) + load_balance_loss`` on the activations and on every
+    leaf the rank holds."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.core.distributed import mesh_axes
+    from repro_torch.distributed.sharding import data_axes, param_shardings, serving_param_pspecs
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+
+    whole = {k: torch.from_numpy(v) for k, v in moe.items()}
+    blocks = param_shardings({"moe": whole}, mesh,
+                             pspecs=serving_param_pspecs({"moe": whole}, mesh))["moe"]
+    axes = mesh_axes(mesh, data_axes(mesh), "model")
+    tp = L.TP(axes.model_group, axes.model_rank, axes.model_size)
+    out, keep = {}, M.BATCHED_EXTRA_ROWS
+    for cf in (GATHER_CF, float(cfg.num_experts)):
+        for buffer, extra in (("pairs", float("-inf")), ("batched", float("inf"))):
+            params = {k: whole[k][blocks[k].index].clone().requires_grad_() for k in whole}
+            xs = torch.from_numpy(x).requires_grad_()
+            M.BATCHED_EXTRA_ROWS = extra
+            try:
+                with FlopCounterMode(display=False) as counted:
+                    y, aux = M.moe_ffn_mesh(params, xs, num_experts=cfg.num_experts,
+                                            top_k=cfg.experts_per_token, capacity_factor=cf,
+                                            axes=axes, tp=tp)
+            finally:
+                M.BATCHED_EXTRA_ROWS = keep
+            (torch.sum(y * y) + aux["load_balance_loss"]).backward()
+            out[(cf, buffer)] = dict(
+                y=y.detach().numpy(), aux={k: float(v) for k, v in aux.items()},
+                flops=counted.get_total_flops(), ff=params["w_gate"].shape[-1],
+                grads={"x": xs.grad.numpy(), **{k: p.grad.numpy() for k, p in params.items()}})
+    return out
 
 
 def pipeline_rank(rank, world, stages, x, toks, tree, cot):
@@ -290,6 +348,9 @@ FSDP_CASES = (("qwen2_5_3b", "float32"), ("qwen2_5_3b", "bfloat16"),
               ("qwen2_5_3b", "float32", "scan"))
 FSDP_LR = 1e-3
 FSDP_REMATS = ("full", "dots")  # the first case's gradients again under each
+# the first case again on a 1 x 4 mesh, in the (2, 2) spawn: qwen2.5-3b's 4
+# q heads split 4 ways and its 2 kv heads do not ("q_heads")
+FSDP_Q_HEADS = ((2, 2), (1, 4))
 FSDP_VARIANTS = {"scan": dict(scan_layers=True)}
 
 
@@ -303,7 +364,8 @@ def fsdp_rank(rank, world, shape, trees, toks):
     ``shape`` ("data", "model") mesh from the reference's weights
     ``trees[case]``, on this data replica's rows of ``toks``:
     `_train_case`'s results a case, then the first case's gradients under
-    each of `FSDP_REMATS`."""
+    each of `FSDP_REMATS`; in the spawn of `FSDP_Q_HEADS`' first shape,
+    the first case on its second shape too (every row on every rank)."""
     from repro_torch.distributed import shard_model
     from repro_torch.optimizer import get_optimizer
     from repro_torch.optimizer.base import tree_leaves
@@ -331,6 +393,10 @@ def fsdp_rank(rank, world, shape, trees, toks):
         by_id = {id(p): n for n, p in model.named_parameters()}
         out[("remat", remat)] = {by_id[id(p)]: g.float().numpy().copy()
                                  for p, g in zip(tree_leaves(state.params), tree_leaves(grads))}
+    if shape == FSDP_Q_HEADS[0]:
+        mesh = distributed.init_mesh(FSDP_Q_HEADS[1], device_type="cpu")
+        model = shard_model(fsdp_cfg(*case), mesh, serving=False, params=trees[case])
+        out[FSDP_Q_HEADS[1]] = _train_case(model, {"tokens": torch.from_numpy(toks)})
     return out
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Phase 14 of chip_smoke.py alone: the kernels' build (phase_setup),
 then sharded serving, the pipeline's backward and sharded training on
-gloo ranks sharing one GPU (phase_sharded, 14a-14l), without the phases
-before it:
+gloo ranks sharing one GPU (phase_sharded, 14a-14m), without the phases
+before it, then phase 15a's predictions of its cells on the meta device
+(_scan_predictions):
 
     python3 tools/torch_phase14.py
 
@@ -33,5 +34,10 @@ if __name__ == "__main__":  # the spawned ranks import this file again
         out = chip_smoke.phase_sharded(torch, smi)
     finally:
         chip_smoke.log(f"phase 14 took {time.perf_counter() - t:.1f}s")
+    out["card"] = smi
+    out["predictions"] = chip_smoke._scan_predictions(torch, out)
+    for name, p in out["predictions"].items():
+        chip_smoke.log(f"15a {name}: {p['flops']:.6g} FLOPs predicted, all-reduces "
+                       f"{p.get('predicted')} (rank 0: {p.get('measured', p.get('counted'))})")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "phase14.json").write_text(json.dumps(out, default=str))
