@@ -306,7 +306,8 @@ table. Phases run in the order 1, 2, 3, 16, 11, 12, 13, 4, 5, 8, 9, 10,
    recurrent and audio families at full width and depth from seed 0,
    each served by `shard_model` on its mesh: recurrentgemma-2b on 1 x 4
    in bf16 (LRU channels split, the conv output assembled for the gates;
-   10 heads and 1 kv head assembled whole), xlstm-125m on 2 x 2 in
+   "q_heads" with uneven heads: each rank attends its own 3, 3, 2 or 2 of
+   the 10 q heads against the one kv head), xlstm-125m on 2 x 2 in
    float32 (mLSTM and sLSTM heads split, ``w_up`` and ``w_gates``
    assembled; in bf16 one process is itself 1.0-1.5 from float32 and two
    bf16 evaluations land 0.65 apart, `tools/torch_bf16_spread.py`, as the
@@ -362,10 +363,24 @@ table. Phases run in the order 1, 2, 3, 16, 11, 12, 13, 4, 5, 8, 9, 10,
    process's; the FLOPs each rank counts in step 1 (`FlopCounterMode`),
    equal on every rank and held by 15a to the dry run's; mixtral-8x7b's
    expert rows a rank (`moe.batched_buffer`: its T*K pairs sorted by
-   expert) and the global batch's kept pairs. 14l's "whole" case
-   (SHARD_FAM_WHOLE): recurrentgemma-2b's 10 q heads do not divide over
-   4 model ranks, so on 1 x 4 q, k and v are assembled whole; its two
-   steps under the same bars.
+   expert) and the global batch's kept pairs. 14l's uneven cases
+   (SHARD_FAM_UNEVEN), on 1 x 4, where the heads do not divide over 4
+   model ranks (`transformer.rank_heads`): recurrentgemma-2b's 10 q
+   heads, each rank attending its own 3, 3, 2 or 2 (the "q_heads"
+   layout: q, k and v assembled after their column products, the rank's
+   q heads and the kv head they read kept, its output against ``wo``'s
+   even row block through one collective more,
+   `layers.row_parallel_span`); and xlstm-125m at its full width with 6
+   heads in place of 4 (which divide), cut to one mLSTM and one sLSTM
+   layer (SHARD_FAM_VARIANTS, printed), each rank running its own 2, 2,
+   1 or 1 ("heads": the mLSTM's q, k and v assembled and cut to them,
+   ``mix_norm`` over the rank's span, ``w_down`` through
+   `layers.row_parallel_span`; the sLSTM's whole ``r_gates`` cut to
+   them, its hidden states assembled by `layers.gather_span`), as the
+   pod's 16 model ranks run xlstm-125m's 4. Each case's two steps under
+   the same bars, and the ranks' FLOPs differing by design: each rank's
+   held by 15a to the dry run at its own coordinate. 14g serves
+   recurrentgemma-2b on 1 x 4 in the "q_heads" layout.
    14m, the "q_heads" layout (qwen2.5-3b's 16 q heads split 4 ways and
    its 2 kv heads not, so each rank attends its 4 q heads against the
    one kv head they read): 14e's float32 cut on 1 x 4 without
@@ -391,13 +406,15 @@ table. Phases run in the order 1, 2, 3, 16, 11, 12, 13, 4, 5, 8, 9, 10,
    phase 12's within SCAN_LOSS_ATOL and its grad norm within
    SCAN_GNORM_RTOL (the same weights and batch), three more steps on one
    batch with the loss falling at each; ms a step beside phase 12's,
-   peak memory. 15a: 14k's cell, 14l's six and 14m's, each one train
+   peak memory. 15a: 14k's cell, 14l's seven and 14m's, each one train
    step of `launch.specs.make_case` on the meta device at rank (0, 0) of
-   a virtual mesh of the cell's shape (2 x 2; 1 x 4 for 14l's "whole"
-   case and 14m): the recorded all-reduce calls and payload bytes equal
+   a virtual mesh of the cell's shape (2 x 2; 1 x 4 for 14l's uneven
+   cases and 14m): the recorded all-reduce calls and payload bytes equal
    to what phase 14's rank 0 issued at each step, the FLOPs to what it
    counted in step 1 (`FlopCounterMode`), the parameter and
-   optimizer-state elements to what it held; the predicted argument +
+   optimizer-state elements to what it held; for 14l's uneven cases the
+   same at every rank's own coordinate, each rank's FLOPs its own meta
+   run's (not one rank's for all); the predicted argument +
    temp bytes printed beside its measured peak. 14m's prefill and tick
    on 1 x 4: the FLOPs equal to what 14m's rank 0 counted.
    ``{"check": "scan_dryrun", ...}``.
@@ -3894,7 +3911,7 @@ SHARD_FAMILIES = (("recurrentgemma_2b", (1, 4), "bfloat16"), ("xlstm_125m", (2, 
 SHARD_FAM_F32_ATOL = 1e-3
 SHARD_FAM_NEW = 8
 SHARD_FAM_LAYOUT = {  # each family's plan on its mesh (full width)
-    "recurrentgemma_2b": dict(attn="whole", mlp=True, layout={"lru": "channels"}),
+    "recurrentgemma_2b": dict(attn="q_heads", mlp=True, layout={"lru": "channels"}),
     "xlstm_125m": dict(attn="replicated", mlp=False,
                        layout={"mlstm": "heads", "slstm": "heads", "slstm_ffn": "replicated"}),
     "whisper_medium": dict(attn="heads", mlp=True, layout={}),
@@ -3955,16 +3972,34 @@ TRAIN_B2 = 0.95  # AdamW's default second-moment decay (repro_torch.optimizer.ad
 # check holds them. Adafactor's step scales with the parameter's RMS, not
 # with lr, and follows the gradient smoothly: its post-step blocks are
 # held to SHARD_TRAIN_PARAM_FRAC of the leaf's largest update
+# the AdamW families (internvl2-76b's smoke config takes AdamW too, in a
+# CPU rehearsal)
 SHARD_FAM_GRAD_RTOL = dict(mixtral_8x7b=1e-4, recurrentgemma_2b=1e-4, xlstm_125m=1e-3,
-                           whisper_medium=1e-4)  # the AdamW families
+                           whisper_medium=1e-4, internvl2_76b=1e-4)
 SHARD_FAM_GRAD_FLOOR, SHARD_FAM_GRAD_MARGIN = 1e-3, 4
 TRAIN_B1 = 0.9  # AdamW's default first-moment decay (repro_torch.optimizer.adamw)
 SHARD_FAM_TRAIN = (("mixtral_8x7b", dict(num_layers=1)), ("internvl2_76b", dict(num_layers=1)),
                    ("recurrentgemma_2b", dict(num_layers=3)), ("xlstm_125m", {}),
                    ("whisper_medium", dict(num_layers=4, encoder_layers=4)))
-# 14l's "whole" attention case: recurrentgemma-2b's 10 q heads do not
-# divide over 4 model ranks, so q, k and v are assembled whole
-SHARD_FAM_WHOLE = ("recurrentgemma_2b", (1, 4))
+# 14l's uneven cases, on 1 x 4, by name: the plan each rank must take.
+# recurrentgemma-2b's 10 q heads do not divide over 4 model ranks, so each
+# rank attends its own 3, 3, 2 or 2 ("q_heads"). xlstm-125m's 4 heads do,
+# so its case takes 6 (mLSTM heads of 256 channels, sLSTM heads of 128, at
+# the full width of 768), cut to one mLSTM and one sLSTM layer: each rank
+# runs its own 2, 2, 1 or 1 mLSTM and sLSTM heads ("heads"), as the pod's
+# 16 model ranks run xlstm-125m's 4 (SHARD_FAM_VARIANTS)
+SHARD_FAM_UNEVEN = {
+    "recurrentgemma_2b": dict(attn="q_heads", layout={"lru": "channels"}),
+    "xlstm_125m_h6": dict(attn="replicated", layout={"mlstm": "heads", "slstm": "heads",
+                                                     "slstm_ffn": "replicated"}),
+}
+SHARD_FAM_UNEVEN_MESH = (1, 4)
+# a 14l name that is not a family's: (its family, the fields it changes,
+# the fields a CPU rehearsal's smoke config also changes: 6 heads need
+# d_model 96 there)
+SHARD_FAM_VARIANTS = {"xlstm_125m_h6": ("xlstm_125m", dict(num_heads=6, num_kv_heads=6,
+                                                           num_layers=2, slstm_every=2),
+                                          dict(d_model=96))}
 
 
 def _shard_cfg(meta: dict, arch: str, **kw):
@@ -4203,13 +4238,22 @@ def _train_references(torch, meta: dict, where: str) -> dict:
     return out
 
 
-def _fam_train_cfg(meta: dict, arch: str):
-    """14l's config for ``arch``: float32, cut in depth as SHARD_FAM_TRAIN
-    says (a CPU rehearsal's smoke config keeps its own depth where the
-    cut is deeper)."""
-    cut = dict(dict(SHARD_FAM_TRAIN)[arch])
-    cfg = _shard_cfg(meta, arch, dtype="float32")
-    cut = {k: min(v, getattr(cfg, k)) for k, v in cut.items()}
+def _fam_train_cut(name: str) -> dict:
+    """The fields 14l's ``name`` changes in its family's config: its cut
+    in depth (SHARD_FAM_TRAIN), or a variant's (SHARD_FAM_VARIANTS)."""
+    if name in SHARD_FAM_VARIANTS:
+        return dict(SHARD_FAM_VARIANTS[name][1])
+    return dict(dict(SHARD_FAM_TRAIN)[name])
+
+
+def _fam_train_cfg(meta: dict, name: str):
+    """14l's config for ``name`` (a family, or a SHARD_FAM_VARIANTS
+    name): float32, cut as `_fam_train_cut` says (a CPU rehearsal's
+    smoke config keeps its own depth where the cut is deeper)."""
+    arch, _, smoke_kw = SHARD_FAM_VARIANTS.get(name, (name, None, {}))
+    cfg = _shard_cfg(meta, arch, dtype="float32", **(smoke_kw if meta["smoke"] else {}))
+    cut = {k: min(v, getattr(cfg, k)) if k in ("num_layers", "encoder_layers") else v
+           for k, v in _fam_train_cut(name).items()}
     return dataclasses.replace(cfg, **cut)
 
 
@@ -4251,7 +4295,8 @@ def _fam_train_references(torch, meta: dict, where: str) -> dict:
     dev = meta["device"]
     _fp32_matmuls(torch)
     out = {}
-    for arch, _ in SHARD_FAM_TRAIN:
+    for arch in [a for a, _ in SHARD_FAM_TRAIN] + [n for n in SHARD_FAM_UNEVEN
+                                                    if n in SHARD_FAM_VARIANTS]:
         cfg = _fam_train_cfg(meta, arch)
         _peak_reset(torch, dev)
         model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
@@ -4577,8 +4622,9 @@ def _shard_rank(rank, world, meta):
     t = time.perf_counter()
     out["fam_train"] = {arch: _fam_train_rank(torch, meta, arch, mesh22)
                         for arch, _ in SHARD_FAM_TRAIN}
-    # its "whole" case: the heads do not divide over the model axis
-    out["fam_train_whole"] = _fam_train_rank(torch, meta, SHARD_FAM_WHOLE[0], mesh14)
+    # its uneven cases: the heads do not divide over the model axis
+    out["fam_train_uneven"] = {name: _fam_train_rank(torch, meta, name, mesh14)
+                               for name in SHARD_FAM_UNEVEN}
     out["fam_train_s"] = time.perf_counter() - t
     out["total_s"] = time.perf_counter() - t_start
     out["done_at"] = time.time()
@@ -4812,7 +4858,7 @@ def _train_rank(torch, meta: dict, mesh) -> dict:
 
 def _fam_train_rank(torch, meta: dict, arch: str, mesh) -> dict:
     """14l on one rank for ``arch``: the cut model placed by
-    `shard_model(serving=False)` (seed 0) on ``mesh`` (2 x 2; the "whole"
+    `shard_model(serving=False)` (seed 0) on ``mesh`` (2 x 2; the uneven
     case's 1 x 4), its optimizer state on its blocks, SHARD_TRAIN_STEPS
     steps on its data replica's rows of the batch: each step's metrics,
     ms and collectives; the FLOPs step 1 counted (`FlopCounterMode`);
@@ -4858,7 +4904,8 @@ def _fam_train_rank(torch, meta: dict, arch: str, mesh) -> dict:
         steps.append({k: float(v) for k, v in metrics.items()})
         if i == 0:
             errs = _fam_train_errors(torch, model, state, steps[0]["grad_norm"],
-                                     SHARD_FAM_GRAD_RTOL.get(arch),
+                                     SHARD_FAM_GRAD_RTOL.get(
+                                         SHARD_FAM_VARIANTS.get(arch, (arch,))[0]),
                                      f"{meta['fam_train_dir']}/{arch}", dev)
     experts = None
     if cfg.num_experts:
@@ -4938,20 +4985,22 @@ def _check_fam_train(ranks, rf: dict, gate, dev: str) -> dict:
     SHARD_TRAIN_PARAM_FRAC of lr where that bar holds them (the
     SHARD_FAM_TRAIN comment), on some elements of every family; an
     Adafactor leaf's within SHARD_TRAIN_PARAM_FRAC of its largest update;
-    every rank's counted FLOPs the same. The same for SHARD_FAM_WHOLE's
-    case on 1 x 4, where no leaf splits over "data" and the attention is
-    "whole". Returns each case's errors and what it ran (the "whole" case
-    under "<arch> whole")."""
+    every rank's counted FLOPs the same. The same for SHARD_FAM_UNEVEN's
+    cases on 1 x 4, where no leaf splits over "data" and each rank takes
+    the plan SHARD_FAM_UNEVEN gives, with uneven heads, so the ranks'
+    FLOPs differ (15a holds each rank's to the dry run at its
+    coordinate). Returns each case's errors and what it ran (an uneven
+    case under "<name> uneven")."""
     out = {}
     cells = [(arch, arch, lambda rk, a=arch: rk["fam_train"][a]) for arch, _ in SHARD_FAM_TRAIN]
-    cells.append((f"{SHARD_FAM_WHOLE[0]} whole", SHARD_FAM_WHOLE[0],
-                  lambda rk: rk["fam_train_whole"]))
+    cells += [(f"{name} uneven", name, lambda rk, n=name: rk["fam_train_uneven"][n])
+              for name in SHARD_FAM_UNEVEN]
     for key, arch, of in cells:
         want = rf[arch]
         err = dict(loss=[], grad_norm=[], param_norm=[], grad=0.0, params=0.0,
                    held_elements=0, elements=0)
         label = f"14l {key}"
-        whole = key != arch
+        uneven = key != arch
         adamw = want["optimizer"] == "adamw"
         for i, w in enumerate(want["steps"]):
             losses = [k for k in w if k in ("loss", "ce") or k.startswith("aux/")]
@@ -4973,14 +5022,16 @@ def _check_fam_train(ranks, rf: dict, gate, dev: str) -> dict:
                      f"{err[k][i]:.3g} relative from one process (bar {SHARD_TRAIN_NORM_RTOL})")
         for rk in ranks:
             g = of(rk)
-            if whole:
-                gate(g["attn"] == "whole" and g["fsdp_leaves"] == 0,
-                     f"{label} rank {rk['rank']}: attention {g['attn']}, {g['fsdp_leaves']} "
-                     "leaves over 'data'")
+            if uneven:
+                plan = SHARD_FAM_UNEVEN[arch]
+                gate(g["attn"] == plan["attn"] and g["layout"] == plan["layout"]
+                     and g["fsdp_leaves"] == 0,
+                     f"{label} rank {rk['rank']}: attention {g['attn']}, layout {g['layout']}, "
+                     f"{g['fsdp_leaves']} leaves over 'data'; not {plan}")
             else:
                 gate(g["fsdp_leaves"] > 0, f"{label} rank {rk['rank']}: no leaf split over 'data'")
-            gate(g["flops"] == of(ranks[0])["flops"], f"{label} rank {rk['rank']}: counted "
-                 f"{g['flops']} FLOPs in step 1, rank 0 {of(ranks[0])['flops']}")
+                gate(g["flops"] == of(ranks[0])["flops"], f"{label} rank {rk['rank']}: counted "
+                     f"{g['flops']} FLOPs in step 1, rank 0 {of(ranks[0])['flops']}")
             for i, got in enumerate(g["steps"]):
                 gate(got == of(ranks[0])["steps"][i],
                      f"{label} step {i}: rank {rk['rank']}'s metrics differ from rank 0's")
@@ -5028,7 +5079,8 @@ def _check_fam_train(ranks, rf: dict, gate, dev: str) -> dict:
             state_held=[of(rk)["state_held"] for rk in ranks],
             params_whole=want["params"], peak_gb=[of(rk)["peak_gb"] for rk in ranks],
             one_process_step_ms=want["step_ms"], one_process_peak_gb=want["peak_gb"],
-            mesh=list(SHARD_FAM_WHOLE[1]) if whole else [2, 2], flops=r0["flops"],
+            mesh=list(SHARD_FAM_UNEVEN_MESH) if uneven else [2, 2], flops=r0["flops"],
+            flops_ranks=[of(rk)["flops"] for rk in ranks], ranks=[rk["rank"] for rk in ranks],
             experts=r0["experts"])
     return out
 
@@ -5437,6 +5489,13 @@ def phase_sharded(torch, card: str) -> dict:
             cut={k: [v, getattr(full, k)] for k, v in cut.items()},
             why="the one process's float32 model, gradients and optimizer state must fit the "
                 "card before the spawn, and every FSDP byte crosses gloo" if cut else "uncut")
+    for name, (arch, kw, _) in SHARD_FAM_VARIANTS.items():
+        full = _shard_cfg(dict(smoke=False), arch)
+        out["reduced"][f"14l {name} uneven"] = dict(
+            cut={k: [v, getattr(full, k)] for k, v in kw.items()},
+            why="xlstm-125m's 4 heads divide over 1 x 4: 6 heads at its full width split "
+                "unevenly, as its 4 do over the pod's 16 model ranks; one mLSTM and one sLSTM "
+                "layer hold each block's uneven path")
     out["phase_s"] = time.perf_counter() - t_phase
     p0 = out["serve"]["per_rank"][0]
     log(f"14 sharded serving ({card}): 14a {out['select']['ids']} in "
@@ -5495,9 +5554,8 @@ def phase_sharded(torch, card: str) -> dict:
         f"{max(ms[-1] for ms in qt['step_ms']):.1f} ms a rank, "
         f"{qt['collectives'][0][-1]['calls']:.0f} all-reduces a step")
     for key, f in fam_train.items():
-        arch = key.split()[0]
         c = f["collectives"][0][-1]
-        cut = dict(dict(SHARD_FAM_TRAIN)[arch])
+        cut = _fam_train_cut(key.split()[0])
         log(f"14l {key} FSDP x TP training ({card}): {f['layers']} layers"
             f"{' + %d encoder layers' % f['encoder_layers'] if f['encoder_layers'] else ''}, "
             f"cut {cut or 'none'}, float32, {f['optimizer']}, {f['tokens']} tokens on "
@@ -5631,13 +5689,15 @@ def _scan_predictions(torch, sharded) -> dict:
     """15a: 14k's, 14l's and 14m's train cells, each one step of
     `launch.specs.make_case` on the meta device at rank (0, 0) of a
     virtual mesh of the cell's shape (2 x 2; 1 x 4 for 14m and 14l's
-    "whole" case) (`launch.dryrun.measure`): the recorded all-reduce calls
+    uneven cases) (`launch.dryrun.measure`): the recorded all-reduce calls
     and payload bytes must be what phase 14's rank 0 issued at each step
     (`COLLECTIVES`), the FLOPs what it counted in step 1
     (`FlopCounterMode`), the parameter and optimizer-state elements what
     it held; the predicted argument + temp bytes beside its measured
-    peak. 14m's prefill and decode tick too, each one's FLOPs what rank 0
-    counted."""
+    peak. Each of 14l's uneven cases the same at every rank's coordinate
+    (0, r) against what rank r issued, counted and held: its ranks' FLOPs
+    differ by design. 14m's prefill and decode tick too, each one's FLOPs what
+    rank 0 counted."""
     from repro_torch.core.distributed import VirtualMesh
     from repro_torch.launch import dryrun
     from repro_torch.launch.specs import make_case
@@ -5646,41 +5706,48 @@ def _scan_predictions(torch, sharded) -> dict:
     meta = dict(smoke=SHARD_SMOKE, layers=SHARD_LAYERS, f32_layers=SHARD_F32_LAYERS)
     fam = sharded["fam_train"]["families"]
     qh = sharded["q_heads"]
-    whole = SHARD_FAM_WHOLE[0]
-    cells = [("14k", SHARD_ARCH, _train_cfg(meta), sharded["train"])]
-    cells += [("14l", arch, _fam_train_cfg(meta, arch), fam[arch]) for arch, _ in SHARD_FAM_TRAIN]
-    cells.append(("14l whole", whole, _fam_train_cfg(meta, whole), fam[f"{whole} whole"]))
+    cells = [("14k", SHARD_ARCH, _train_cfg(meta), sharded["train"], 0)]
+    cells += [("14l", arch, _fam_train_cfg(meta, arch), fam[arch], 0)
+              for arch, _ in SHARD_FAM_TRAIN]
+    for name in SHARD_FAM_UNEVEN:
+        got = fam[f"{name} uneven"]
+        cells += [("14l uneven" + (f" rank {r}" if i else ""), name, _fam_train_cfg(meta, name),
+                   dict(got, flops=got["flops_ranks"][i]), i) for i, r in enumerate(got["ranks"])]
     cells.append(("14m", SHARD_ARCH, _train_cfg(meta), dict(
-        qh["train"], tokens=qh["tokens"], flops=qh["train_flops"])))
+        qh["train"], tokens=qh["tokens"], flops=qh["train_flops"]), 0))
     out = {}
-    for label, arch, cfg, got in cells:
-        shape = (1, 4) if label in ("14m", "14l whole") else (2, 2)
-        mesh = VirtualMesh(shape, ("data", "model"), (0, 0))
+    for label, arch, cfg, got, i in cells:
+        shape = (1, 4) if label.startswith(("14m", "14l uneven")) else (2, 2)
+        # the rank's coordinate: row-major over (1, 4), rank r is model rank r
+        each = label.startswith("14l uneven")
+        coord = (0, got["ranks"][i]) if each else (0, 0)
+        mesh = VirtualMesh(shape, ("data", "model"), coord)
         t = time.perf_counter()
         case = make_case(cfg, mesh, "train", _dry_inputs(torch, cfg, got["tokens"]), lr=TRAIN_LR)
         m = dryrun.measure(case.fn, case.args, mesh, params=list(case.model.parameters()),
                            state=case.state.opt_state)
         del case
         predicted = m["totals"]
-        measured = [dict(calls=c["calls"], bytes=c["bytes"]) for c in got["collectives"][0]]
+        measured = [dict(calls=c["calls"], bytes=c["bytes"]) for c in got["collectives"][i]]
         name = f"15a {label} {arch}"
+        who = f"rank {coord[1]}"
         check(all(c == predicted for c in measured),
-              f"{name}: predicted {predicted} all-reduce calls / bytes a step, rank 0 issued "
+              f"{name}: predicted {predicted} all-reduce calls / bytes a step, {who} issued "
               f"{measured}")
-        check((m["params_held"], m["state_held"]) == (got["params_held"][0],
-                                                       got["state_held"][0]),
+        check((m["params_held"], m["state_held"]) == (got["params_held"][i],
+                                                       got["state_held"][i]),
               f"{name}: predicted {m['params_held']} parameter and {m['state_held']} state "
-              f"elements, rank 0 held {got['params_held'][0]} and {got['state_held'][0]}")
+              f"elements, {who} held {got['params_held'][i]} and {got['state_held'][i]}")
         check(m["flops"] == got["flops"],
-              f"{name}: predicted {m['flops']} FLOPs a step, rank 0 counted {got['flops']}")
+              f"{name}: predicted {m['flops']} FLOPs a step, {who} counted {got['flops']}")
         mem = m["memory"]
         out[f"{label} {arch}"] = dict(
             predicted=predicted, measured=measured, by_axis=m["by_axis"],
             params_held=m["params_held"], state_held=m["state_held"],
             argument_gb=mem["argument_bytes"] / 1e9, temp_gb=mem["temp_bytes"] / 1e9,
             predicted_gb=(mem["argument_bytes"] + mem["temp_bytes"]) / 1e9,
-            measured_peak_gb=got["peak_gb"][0], flops=m["flops"], counted=got["flops"],
-            bytes=m["bytes"],
+            measured_peak_gb=got["peak_gb"][i], flops=m["flops"], counted=got["flops"],
+            bytes=m["bytes"], coordinate=list(coord),
             meta_run_s=m["run_s"], cell_s=time.perf_counter() - t)
     # 14m's serving on meta: the FLOPs of a prefill and of a tick, each what
     # rank 0 counted
@@ -5872,8 +5939,9 @@ def phase_scan_dryrun(torch, card: str, train: dict, sharded: dict, cells: DryRu
                 f"{p['counted']:.6g}; meta run {p['meta_run_s']:.1f}s")
             continue
         log(f"15a {name}: {p['predicted']['calls']} all-reduces, "
-            f"{p['predicted']['bytes'] / 1e9:.4f} GB a step predicted = rank 0's "
-            f"{p['measured']}; {p['flops']:.6g} FLOPs; {p['params_held']} parameters, "
+            f"{p['predicted']['bytes'] / 1e9:.4f} GB a step predicted = rank "
+            f"{p['coordinate'][1]}'s {p['measured']}; {p['flops']:.6g} FLOPs predicted = "
+            f"counted; {p['params_held']} parameters, "
             f"{p['state_held']} state elements held; argument + temp {p['predicted_gb']:.2f} "
             f"GB predicted, peak {p['measured_peak_gb']:.2f} GB measured; meta run "
             f"{p['meta_run_s']:.1f}s")

@@ -443,20 +443,22 @@ class ShardPlan:
     the data groups sum the MoE expert counts and aux terms); ``tp`` the model group,
     rank and size the layers take; ``specs`` every parameter's spec.
     ``attn`` is "heads" (local q/k/v heads and a head-sharded cache:
-    Hkv divides by |model| and no flash-decoding), "q_heads" (H divides
-    and Hkv does not, no flash-decoding: the rank's own q heads, k and v
-    assembled whole after their column products and cut to the kv heads
-    those q heads read, which its cache holds), "whole" (H does not
-    divide, or ``decode_seq_shard``: q, k and v assembled whole, every
-    head attended; the cache's sequence split over "model" under
-    ``decode_seq_shard``, else whole) or "replicated" (no attention
-    leaf split). ``mlp``: the MLPs are
+    Hkv divides by |model| and no flash-decoding), "q_heads" (Hkv does
+    not divide, no flash-decoding: the rank's own q heads,
+    `transformer.rank_heads`' contiguous range, which need not be even,
+    k and v assembled whole after their column products and cut to the
+    kv heads those q heads read, which its cache holds), "whole"
+    (``decode_seq_shard``, or some attention leaves whole: q, k and v
+    assembled whole, every head attended; the cache's sequence split
+    over "model" under ``decode_seq_shard``, else whole) or "replicated"
+    (no attention leaf split). ``mlp``: the MLPs are
     ff-split. ``vocab`` and ``logits`` are this rank's (lo, hi) rows of
     the embedding table and columns of the logits, None where whole.
     ``layout`` holds the recurrent families' blocks: "lru" ("channels"
     or "replicated") for the RG-LRU; "mlstm" and "slstm" ("heads",
-    "whole" or "replicated") and "slstm_ffn" ("ff" or "replicated") for
-    xLSTM (the models' docstrings say what each computes).
+    or "replicated") and "slstm_ffn" ("ff" or "replicated") for
+    xLSTM (the models' docstrings say what each computes; "heads" runs
+    the rank's `transformer.rank_heads`, an even share or not).
 
     Under the training layout (``shard_model(serving=False)``, every
     family) ``specs`` are `param_pspecs`' and the layouts above are
@@ -537,8 +539,8 @@ def _split_all(shardings: dict, leaves: list, what: str) -> bool:
     return bool(split)
 
 
-def _attn_layout(shardings: dict, num_heads: int, num_kv_heads: int, m: int, *,
-                 seq_shard: bool = False, parts=("attn", "self_attn", "cross_attn")) -> str:
+def _attn_layout(shardings: dict, num_kv_heads: int, m: int, *, seq_shard: bool = False,
+                 parts=("attn", "self_attn", "cross_attn")) -> str:
     """The plan's ``attn`` (see `ShardPlan`) for the attention leaves'
     blocks on a model axis of ``m``."""
     leaves = [n for part in parts for n in _leaves(shardings, part, ("wq", "wk", "wv", "wo"))]
@@ -547,9 +549,7 @@ def _attn_layout(shardings: dict, num_heads: int, num_kv_heads: int, m: int, *,
         return "replicated"
     if seq_shard or len(split) != len(leaves):
         return "whole"
-    if num_kv_heads % m == 0:
-        return "heads"
-    return "q_heads" if num_heads % m == 0 else "whole"
+    return "heads" if num_kv_heads % m == 0 else "q_heads"
 
 
 def _plan(cfg, mesh, axes, shardings: dict) -> ShardPlan:
@@ -560,8 +560,7 @@ def _plan(cfg, mesh, axes, shardings: dict) -> ShardPlan:
     specs = {name: s.spec for name, s in shardings.items()}
     attn, mlp, layout = "replicated", False, {}
     if cfg.family in ("dense", "moe", "vlm", "hybrid", "audio"):
-        attn = _attn_layout(shardings, cfg.num_heads, cfg.num_kv_heads, m,
-                            seq_shard=cfg.decode_seq_shard)
+        attn = _attn_layout(shardings, cfg.num_kv_heads, m, seq_shard=cfg.decode_seq_shard)
         mlp = _split_all(shardings, _leaves(shardings, "mlp", ("w_gate", "w_up", "w_down")),
                          "MLP")
     if cfg.family in ("dense", "moe", "vlm"):
@@ -579,13 +578,10 @@ def _plan(cfg, mesh, axes, shardings: dict) -> ShardPlan:
         layout["lru"] = "channels" if _split_all(shardings, lru, "RG-LRU") else "replicated"
     elif cfg.family == "ssm":
         mq = _leaves(shardings, "mlstm", ("conv_w", "conv_b", "wq", "wk", "wv", "w_down"))
-        if not _split_all(shardings, mq, "mLSTM"):
-            layout["mlstm"] = "replicated"
-        else:
-            layout["mlstm"] = "heads" if cfg.num_heads % m == 0 else "whole"
-        r = _leaves(shardings, "slstm", ("r_gates",))
-        layout["slstm"] = ("heads" if _split_all(shardings, r, "sLSTM") else
-                           "whole" if m > 1 else "replicated")
+        layout["mlstm"] = "heads" if _split_all(shardings, mq, "mLSTM") else "replicated"
+        # r_gates splits over its heads where they divide, else every rank
+        # holds it whole and reads its own heads' slice
+        layout["slstm"] = "heads"
         ffn = _leaves(shardings, "slstm", ("w_ff_gate", "w_ff_up", "w_ff_down"))
         layout["slstm_ffn"] = "ff" if _split_all(shardings, ffn, "sLSTM FFN") else "replicated"
     vocab = _split_range(shardings["embed.table"], 0)

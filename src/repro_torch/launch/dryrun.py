@@ -243,12 +243,13 @@ def _print(res: dict) -> None:
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, verbose: bool = True,
-             profile: str = "baseline") -> dict:
+             profile: str = "baseline", coordinate=None) -> dict:
     """One (arch × shape) cell on the first rank of the production mesh
-    ``mesh_kind`` ("pod" or "multipod"). Train cells of the dense, MoE
-    and vlm families run under ``scan_layers``, as the reference
-    compiles them."""
-    mesh = make_virtual_mesh(multi_pod=mesh_kind == "multipod")
+    ``mesh_kind`` ("pod" or "multipod"), or on the rank at
+    ``coordinate`` (one index an axis: ranks whose heads are uneven do
+    unequal work). Train cells of the dense, MoE and vlm families run
+    under ``scan_layers``, as the reference compiles them."""
+    mesh = make_virtual_mesh(multi_pod=mesh_kind == "multipod", coordinate=coordinate)
     try:
         cfg = get_config(arch)
         if SHAPES[shape_name].kind == "train" and cfg.family in SCANNABLE:

@@ -42,11 +42,12 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     return _mesh(*PRODUCTION[multi_pod], device_type)
 
 
-def make_virtual_mesh(*, multi_pod: bool = False) -> VirtualMesh:
-    """The production mesh as its first rank sees it, with no process
-    group: a `VirtualMesh` on "meta"."""
+def make_virtual_mesh(*, multi_pod: bool = False, coordinate=None) -> VirtualMesh:
+    """The production mesh as its rank at ``coordinate`` (one index an
+    axis; the first rank by default) sees it, with no process group: a
+    `VirtualMesh` on "meta"."""
     shape, names = PRODUCTION[multi_pod]
-    return VirtualMesh(shape, names, (0,) * len(shape))
+    return VirtualMesh(shape, names, tuple(coordinate or (0,) * len(shape)))
 
 
 def make_mesh_for(shape: tuple, axes: tuple, *, device_type: str = "cuda"):

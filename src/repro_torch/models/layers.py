@@ -356,6 +356,31 @@ def gather_columns(parts, widths, tp, *, backward: str = "sum") -> list:
             for c, span in zip(parts, spans)]
 
 
+def gather_span(t: torch.Tensor, lo: int, width: int, tp, *, backward: str = "sum"
+                ) -> torch.Tensor:
+    """The whole of a tensor ``width`` wide in its last dim, of which
+    ``t`` is this rank's channels [lo, lo + n), the ranks' spans tiling
+    it in any sizes (some may be empty, as uneven heads give): ``t``
+    written into a zero-filled buffer, one all-reduce over ``tp``'s group
+    (exact, as `gather_columns`, whose ``backward`` it takes)."""
+    buf = torch.zeros((*t.shape[:-1], width), dtype=t.dtype, device=t.device)
+    buf[..., lo : lo + t.shape[-1]] = t
+    return sum_partial(buf, tp) if backward == "sum" else sum_replicated(buf, tp)
+
+
+def row_parallel_span(x: torch.Tensor, lo: int, width: int, w: torch.Tensor, tp) -> torch.Tensor:
+    """``x @ W`` summed over ``tp``'s group, as `row_parallel`, where ``x``
+    is this rank's channels [lo, lo + n) of a ``width``-wide activation
+    (`gather_span`'s spans) and ``w`` its even row block of ``W`` (width,
+    d_out), so the two do not line up: ``x`` is assembled whole
+    (`gather_span`, one collective more than `row_parallel`) and cut to
+    the row block. Under autograd each rank's cotangent is its row
+    block's, summed where assembled. Not cast."""
+    rows = w.shape[0]
+    whole = gather_span(x, lo, width, tp)
+    return row_parallel(whole[..., tp.rank * rows : (tp.rank + 1) * rows], w, tp)
+
+
 def column_parallel(x: torch.Tensor, width: int, weights, tp) -> list:
     """``x @ w`` (f32) for each of ``weights``, column blocks reading
     every input channel, when ``x`` is this rank's channel block of a
@@ -365,18 +390,21 @@ def column_parallel(x: torch.Tensor, width: int, weights, tp) -> list:
     return [_dot(x, w) for w in weights]
 
 
-def norm_split(params, x: torch.Tensor, eps: float, tp, *, kind: str = "rms") -> torch.Tensor:
+def norm_split(params, x: torch.Tensor, eps: float, tp, *, kind: str = "rms", lo=None,
+               width=None) -> torch.Tensor:
     """`rms_norm` (``kind="rms"``) or `layer_norm` (``"layer"``) over the
     whole last dim when ``x`` holds this rank's contiguous block of it
     (``params`` whole): the statistics' f32 sums are all-reduced over
     ``tp``'s group, then the rank's block is normalised and scaled by its
     block of the scale (and bias). One all-reduce for RMS, two for a
     layer norm (its mean, then its centred second moment, as the
-    one-device norm computes them)."""
+    one-device norm computes them). The block is the even split's, or
+    channels [``lo``, ``lo`` + n) of a ``width``-wide whole (uneven
+    heads' spans, `gather_span`)."""
     xf = x.to(torch.float32)
     n = x.shape[-1]
-    lo = tp.rank * n
-    width = n * tp.size
+    lo = tp.rank * n if lo is None else lo
+    width = n * tp.size if width is None else width
     # the whole scale (and bias) meets the rank's block: under autograd the
     # ranks' block gradients are summed into the whole leaf's
     scale = enter(params["scale"], tp)[lo : lo + n].to(torch.float32)
@@ -638,6 +666,8 @@ def attention_chunked(q, k, v, spec: AttnSpec, q_pos, k_pos) -> torch.Tensor:
 
 
 def attention(q, k, v, spec: AttnSpec, q_pos, k_pos) -> torch.Tensor:
+    if spec.num_heads == 0:  # a rank that holds no heads (uneven "q_heads"): empty,
+        return q  # and on the graph, so its collectives' backward runs as every rank's
     impl = spec.impl
     if impl == "auto":
         impl = "chunked" if k.shape[1] > 2048 else "direct"

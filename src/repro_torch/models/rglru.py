@@ -34,14 +34,17 @@ blocks of each parameter and a `ShardPlan` in ``tp``:
     whole first (one all-reduce); ``w_out`` is row-parallel (one
     all-reduce). The cache holds the rank's channels of the LRU state
     and the conv tail;
-  * attention blocks: where the q heads split over the group and the
-    one kv head does not (the smoke config's 2 heads on 2 ranks), the
-    rank attends its own q heads against the assembled kv head (the
-    "q_heads" layout of `transformer`), its ``wo`` rows and one
-    all-reduce; where the q heads do not split either (the full
-    config's 10 heads on 4 or 16 ranks), q, k and v are assembled whole
-    from their column blocks ("whole"), every head attends; the ring
-    cache holds the kv head on every rank;
+  * attention blocks: the one kv head does not split over the group, so
+    each rank attends its own q heads (`transformer.rank_heads`) against
+    the assembled kv head (the "q_heads" layout of `transformer`): its
+    ``wq`` columns and ``wo`` rows with one all-reduce where the heads
+    divide (the smoke config's 2 heads on 2 ranks); where they do not
+    (the full config's 10 heads: 3, 3, 2, 2 on 4 ranks, one each on 10
+    of 16), q is assembled with k and v and cut to the rank's heads,
+    and its output meets ``wo``'s even row block through one collective
+    more (`layers.row_parallel_span`); a rank without heads attends
+    nothing. The ring cache holds the kv head on every rank that has q
+    heads (none on the others);
   * GeGLU MLP: ff-split, one all-reduce after ``w_down``;
   * vocab-parallel embedding and tied logits (`transformer.embed_tokens`,
     `Model.greedy_pick`).
@@ -247,7 +250,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None, lru_w
     def zeros(shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    kv = (kv_heads or cfg.num_kv_heads, cfg.head_dim)
+    kv = (cfg.num_kv_heads if kv_heads is None else kv_heads, cfg.head_dim)
     attn_k, attn_v, lru_h, conv = [], [], [], []
     for li in range(cfg.num_layers):
         attn = block_kind(cfg, li) == "attention"
@@ -397,7 +400,7 @@ class HybridLM(Model):
                 slot = (pos[:1] % window).to(torch.int64)
                 attn_k[li].index_copy_(1, slot, k)
                 attn_v[li].index_copy_(1, slot, v)
-                groups = local.num_heads // local.num_kv_heads
+                groups = local.num_heads // max(local.num_kv_heads, 1)  # 0: no heads
                 kk = torch.repeat_interleave(attn_k[li], groups, dim=2)
                 vv = torch.repeat_interleave(attn_v[li], groups, dim=2)
                 s = L._einsum("bqhd,bkhd->bhqk", q, kk) * (spec.head_dim ** -0.5)

@@ -50,12 +50,18 @@ over the model group:
     then one all-reduce (adding exact zeros keeps the sum exact);
   * attention, "heads": local q/k/v heads from the column blocks, the
     cache head-sharded, one all-reduce after ``wo``; "q_heads" (Hkv not
-    divisible by |model|, H divisible): the rank's q heads from its own
-    ``wq`` columns, k and v assembled whole after their column products
-    (one all-reduce of a zero-filled buffer) and only the kv heads its q
-    heads read kept (`q_heads_kv`), which the cache holds; its q heads
-    attended, its ``wo`` rows and one all-reduce; "whole" (H not
-    divisible by |model|, or ``decode_seq_shard``): q, k and v assembled
+    divisible by |model|): the rank's q heads (`rank_heads`: a contiguous
+    range, H / |model| of them where that divides, else ceil or floor of
+    it, some ranks none where H < |model|), k and v assembled whole after
+    their column products (one all-reduce of a zero-filled buffer) and
+    only the kv heads its q heads read kept (`q_heads_kv`), which the
+    cache holds; its q heads attended. Where H divides, q is the rank's
+    own ``wq`` columns and its ``wo`` rows take one all-reduce; where it
+    does not, a column block ends inside a head, so q is assembled with
+    k and v and cut to the rank's heads, and the output meets ``wo``'s
+    even row block through one collective more
+    (`layers.row_parallel_span`); "whole" (``decode_seq_shard``, or some
+    attention leaves whole): q, k and v assembled
     whole, every head attended, the rank's columns into ``wo`` and one
     all-reduce; under ``decode_seq_shard`` the cache's sequence dim is
     split (flash-decoding: a MAX all-reduce of the scores' maxima, a SUM
@@ -91,7 +97,7 @@ from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_local, moe_ffn_mes
 __all__ = [
     "KVCache", "TensorSpec", "Transformer", "attn_output", "attn_project", "embed_tokens",
     "heads_spec", "init_cache", "init_layer", "project_heads", "q_heads_kv",
-    "init_params", "unembed",
+    "init_params", "rank_heads", "unembed",
 ]
 
 
@@ -238,40 +244,56 @@ def project_heads(p, x: torch.Tensor, spec: AttnSpec, names=("wq", "wk", "wv"), 
     return [c.reshape(b, s, heads[w], spec.head_dim) for c, w in zip(parts, names)]
 
 
+def rank_heads(num_heads: int, tp) -> tuple:
+    """(lo, hi): the contiguous heads model rank ``tp.rank`` of
+    ``tp.size`` holds, every head on exactly one rank: ceil(H / m) on
+    each of the first H mod m ranks, floor(H / m) (none where H < m) on
+    the rest, so rank 0 is a busiest. Where m divides H, rank r's
+    heads are its even column block's."""
+    share, extra = divmod(num_heads, tp.size)
+    lo = tp.rank * share + min(tp.rank, extra)
+    return lo, lo + share + (tp.rank < extra)
+
+
 def q_heads_kv(spec: AttnSpec, tp) -> list:
     """The whole kv heads rank ``tp.rank`` attends with under "q_heads",
     one a local kv head: q head h reads kv head h // (H / Hkv), and the
-    rank's q heads are its ``wq`` column block, H / |model| consecutive
-    heads. Each kv head they read appears once where they read each
-    equally often (a share of one group, or whole groups: its q heads
-    then group over them as one device's do), else one a q head (a split
-    whose blocks span groups unequally)."""
-    hl = spec.num_heads // tp.size
+    rank's q heads are `rank_heads`'. Each kv head they read appears once
+    where they read each equally often (a share of one group, or whole
+    groups: its q heads then group over them as one device's do), else
+    one a q head (a split whose blocks span groups unequally); none for a
+    rank without q heads."""
+    lo, hi = rank_heads(spec.num_heads, tp)
     group = spec.num_heads // spec.num_kv_heads
-    reads = [(tp.rank * hl + i) // group for i in range(hl)]
+    reads = [h // group for h in range(lo, hi)]
     held = sorted(set(reads))
-    if all(reads.count(g) * len(held) == hl for g in held):
+    if all(reads.count(g) * len(held) == hi - lo for g in held):
         return held
     return reads
 
 
 def _kv_of(t: torch.Tensor, heads: list) -> torch.Tensor:
     """``t``'s (B,S,Hkv,hd) kv heads ``heads``: a slice where they run
-    consecutively, else a gather."""
-    if heads == list(range(heads[0], heads[0] + len(heads))):
-        return t[:, :, heads[0] : heads[0] + len(heads)]
+    consecutively (none for no heads), else a gather."""
+    if not heads or heads == list(range(heads[0], heads[0] + len(heads))):
+        first = heads[0] if heads else 0
+        return t[:, :, first : first + len(heads)]
     return t.index_select(2, torch.tensor(heads, dtype=torch.int64, device=t.device))
 
 
 def heads_spec(spec: AttnSpec, plan) -> AttnSpec:
     """``spec`` with this rank's heads under the "heads" and "q_heads"
-    layouts (under "q_heads" the kv heads `q_heads_kv` keeps)."""
+    layouts (under "q_heads" its `rank_heads` and the kv heads
+    `q_heads_kv` keeps)."""
     if plan is None or plan.attn not in ("heads", "q_heads"):
         return spec
     m = plan.model_size
-    kv = (len(q_heads_kv(spec, plan.tp)) if plan.attn == "q_heads"
-          else spec.num_kv_heads // m)
-    return dataclasses.replace(spec, num_heads=spec.num_heads // m, num_kv_heads=kv)
+    if plan.attn == "heads":
+        return dataclasses.replace(spec, num_heads=spec.num_heads // m,
+                                   num_kv_heads=spec.num_kv_heads // m)
+    lo, hi = rank_heads(spec.num_heads, plan.tp)
+    return dataclasses.replace(spec, num_heads=hi - lo,
+                               num_kv_heads=len(q_heads_kv(spec, plan.tp)))
 
 
 def _reduce_tp(plan) -> Optional[L.TP]:
@@ -283,14 +305,18 @@ def _reduce_tp(plan) -> Optional[L.TP]:
 def attn_project(p, x: torch.Tensor, spec: AttnSpec, plan, names=("wq", "wk", "wv")) -> list:
     """`project_heads` under ``plan``'s attention layout (None: one
     device): assembled whole for "whole"; for "q_heads" q the rank's own
-    heads and k / v assembled, then cut to the kv heads those q heads
+    heads (its columns, or assembled and cut where the heads do not
+    divide) and k / v assembled, then cut to the kv heads those q heads
     read (`q_heads_kv`); this rank's heads otherwise."""
     if plan is not None and plan.attn == "q_heads":
-        local = heads_spec(spec, plan)
+        lo, hi = rank_heads(spec.num_heads, plan.tp)
         kv = q_heads_kv(spec, plan.tp)
-        parts = project_heads(p, x, dataclasses.replace(spec, num_heads=local.num_heads), names,
-                              plan.tp, whole=("wk", "wv"))
-        return [c if w == "wq" else _kv_of(c, kv) for c, w in zip(parts, names)]
+        even = spec.num_heads % plan.model_size == 0
+        parts = project_heads(p, x, dataclasses.replace(spec, num_heads=hi - lo) if even
+                              else spec, names, plan.tp,
+                              whole=tuple(w for w in names if w != "wq" or not even))
+        return [_kv_of(c, kv) if w != "wq" else c if even else c[:, :, lo:hi]
+                for c, w in zip(parts, names)]
     whole = names if plan is not None and plan.attn == "whole" else ()
     tp = plan.tp if plan is not None and plan.attn != "replicated" else None
     return project_heads(p, x, spec if whole else heads_spec(spec, plan), names, tp,
@@ -300,9 +326,20 @@ def attn_project(p, x: torch.Tensor, spec: AttnSpec, plan, names=("wq", "wk", "w
 def attn_output(p, attn: torch.Tensor, plan) -> torch.Tensor:
     """The attention output (local heads, or every head under "whole")
     through ``wo`` under ``plan``'s layout, reduced over the model group
-    where ``wo`` is split."""
+    where ``wo`` is split; under "q_heads" with heads that do not divide,
+    the rank's heads against ``wo``'s even row block through
+    `layers.row_parallel_span`."""
     if plan is not None and plan.attn == "whole":
         return _out_whole(p, attn, plan.tp)
+    if plan is not None and plan.attn == "q_heads":
+        b, s, n, hd = attn.shape
+        wo = p["wo"]  # read once: a leaf split over "data" is gathered where read
+        width = wo.shape[0] * plan.model_size
+        if (width // hd) % plan.model_size:
+            lo = rank_heads(width // hd, plan.tp)[0]
+            return L.row_parallel_span(attn.reshape(b, s, n * hd), lo * hd, width, wo,
+                                       plan.tp).to(attn.dtype)
+        return L.attention_out({"wo": wo}, attn, plan.tp)  # not p: a second read gathers again
     return L.attention_out(p, attn, _reduce_tp(plan))
 
 
@@ -311,11 +348,12 @@ def _out_whole(p, attn: torch.Tensor, tp) -> torch.Tensor:
     against its row block and one all-reduce, or the whole product."""
     b, s, h, hd = attn.shape
     flat = attn.reshape(b, s, h * hd)
-    rows = p["wo"].shape[0]
+    wo = p["wo"]  # read once: a leaf split over "data" is gathered where read
+    rows = wo.shape[0]
     if rows == h * hd:
-        return L.row_parallel(flat, p["wo"]).to(attn.dtype)
+        return L.row_parallel(flat, wo).to(attn.dtype)
     flat = flat[..., tp.rank * rows : (tp.rank + 1) * rows]
-    return L.row_parallel(flat, p["wo"], tp).to(attn.dtype)
+    return L.row_parallel(flat, wo, tp).to(attn.dtype)
 
 
 def _decode_assembled(p, x, cache_k, cache_v, position: int, seq, spec: AttnSpec,
@@ -342,7 +380,7 @@ def _decode_assembled(p, x, cache_k, cache_v, position: int, seq, spec: AttnSpec
         at = torch.tensor([idx - lo], dtype=torch.int64, device=x.device)
         cache_k.index_copy_(1, at, k)
         cache_v.index_copy_(1, at, v)
-    groups = local.num_heads // local.num_kv_heads
+    groups = local.num_heads // max(local.num_kv_heads, 1)  # 0 on a rank without heads
     k_pos = lo + torch.arange(s_loc, dtype=torch.int32, device=x.device)
     valid = k_pos[None, :] <= pos[:, None]
     if spec.sliding_window > 0:

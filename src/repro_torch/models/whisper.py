@@ -17,10 +17,11 @@ blocks of each parameter and a `ShardPlan` in ``tp``: every attention
 ``bq`` / ``bk`` / ``bv`` its blocks, one all-reduce after ``wo``; the
 self and cross K/V cached per local head, the cross K/V computed once
 at prefill), on the rank's q heads against the kv heads they read where
-the kv heads alone do not split ("q_heads", `transformer.q_heads_kv`;
-whisper's heads are all kv heads, so its configs never take it), or on
-every head from assembled q / k / v where a column block ends inside a
-head ("whole"); the GELU MLPs are ff-split with
+the kv heads do not split ("q_heads", `transformer.q_heads_kv`;
+whisper's heads are all kv heads, so only where its heads do not divide:
+each rank its `transformer.rank_heads`, which its configs never give),
+or on every head from assembled q / k / v where some attention leaves
+stay whole ("whole"); the GELU MLPs are ff-split with
 ``b_down`` added once after the all-reduce; the embedding and the tied
 logits are vocab-sharded where the vocabulary divides (51,865 does not,
 so at full size they stay whole); ``dec_pos`` is replicated.
@@ -106,7 +107,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
     """Zero caches; ``kv_heads`` a rank-local model's (its heads), the
     config's by default."""
     dt = model_dtype(cfg)
-    kv_heads = kv_heads or cfg.num_kv_heads
+    kv_heads = cfg.num_kv_heads if kv_heads is None else kv_heads
     kshape = (batch, max_len, kv_heads, cfg.head_dim)
     xshape = (batch, cfg.encoder_seq, kv_heads, cfg.head_dim)
     n = cfg.num_layers
@@ -253,7 +254,7 @@ class Whisper(Model):
         self_spec, cross_spec = _spec(cfg, causal=True), _spec(cfg, causal=False)
         self_local, cross_local = heads_spec(self_spec, plan), heads_spec(cross_spec, plan)
         assembled = plan is not None and plan.attn in ("whole", "q_heads")
-        groups = cross_local.num_heads // cross_local.num_kv_heads
+        groups = cross_local.num_heads // max(cross_local.num_kv_heads, 1)  # 0: no heads
         for li, lp in enumerate(self.dec_layers):
             lp = self.weights(lp)
             h = L.layer_norm(lp.self_norm, x, cfg.norm_eps)

@@ -23,20 +23,24 @@ how each block computes:
     up-projection is assembled whole (one all-reduce); the conv runs on
     the rank's channels and its output is assembled whole too, since
     ``wq`` and ``wk`` read every channel; ``w_if`` (replicated) reads the
-    whole x branch. "heads" (the heads divide over the group): the
-    rank's q / k / v columns are its own heads, the cell and its state
-    run on them, ``mix_norm`` reduces its statistics over the group and
-    ``w_down`` is row-parallel. "whole" (they do not: a column block
-    ends inside a head): q, k and v are assembled whole, every rank runs
-    every head, and only ``w_down`` is split;
+    whole x branch. "heads": the cell and its state run on the rank's
+    heads (`transformer.rank_heads`: an even share where the heads
+    divide over the group, else ceil or floor of it, none on some ranks
+    where there are fewer heads than ranks), ``mix_norm`` reduces its
+    statistics over the group. Where the heads divide, the rank's
+    q / k / v columns are its heads and ``w_down`` is row-parallel;
+    where they do not, a column block ends inside a head, so q, k and v
+    are assembled whole and cut to the rank's heads, and its channels
+    meet ``w_down``'s even row block through one collective more
+    (`layers.row_parallel_span`);
   * sLSTM: ``w_gates``' column blocks are whole gates [z, i, f, o]
-    while ``r_gates`` splits over heads, so the gate inputs are
-    assembled whole (one all-reduce) and each rank runs the recurrence
-    on its heads' channels of every gate ("heads"), or every channel
-    when ``r_gates`` is whole ("whole"); the hidden states are then
-    assembled for ``group_norm`` and the feed-forward, which stays whole
-    on every rank where its width does not divide (1,023 of
-    xlstm-125m);
+    while ``r_gates`` splits over heads (or stays whole on every rank
+    where they do not divide), so the gate inputs are assembled whole
+    (one all-reduce) and each rank runs the recurrence on its
+    `transformer.rank_heads`' channels of every gate ("heads"); the
+    hidden states are then assembled for ``group_norm`` and the
+    feed-forward, which stays whole on every rank where its width does
+    not divide (1,023 of xlstm-125m);
   * vocab-parallel embedding (unscaled) and an ``lm_head`` whose column
     blocks give vocab-sharded logits (`Model.greedy_pick`).
 
@@ -46,12 +50,12 @@ leaves are read through `Model.weights`, so a block split over "data"
 gathered whole where it is read. Under autograd each assembled tensor
 takes the backward its readers imply (`layers.gather_columns`): summed
 where each rank reads its own part (the mLSTM's up-projection, conv
-and q / k / v under "heads" and "whole", which end in ``w_down``'s row
-blocks; the sLSTM's gate inputs under "heads"), the rank's own where
+and q / k / v under "heads", which end in ``w_down``'s row blocks; the
+sLSTM's gate inputs), the rank's own where
 every rank runs the rest whole (the sLSTM's hidden states before a
 replicated feed-forward); a whole leaf or activation read in part
-enters it (`layers.enter`: ``w_if``, ``b_i``, ``b_f``, ``b_gates``,
-the block's input).
+enters it (`layers.enter`: ``w_if``, ``b_i``, ``b_f``, ``b_gates``, a
+whole ``r_gates``, the block's input).
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.base import Group, Model, model_dtype
-from repro_torch.models.transformer import _placed, _whole, embed_tokens, unembed
+from repro_torch.models.transformer import _placed, _whole, embed_tokens, rank_heads, unembed
 
 __all__ = [
     "MLSTMState", "SLSTMState", "XLSTM", "XLSTMCache", "init_cache", "init_params", "is_slstm",
@@ -236,7 +240,7 @@ def _zero_mlstm_state(cfg: ModelConfig, b: int, dt, device, *, heads=None,
     """Zero state; ``heads`` and ``conv_width`` are a rank's (its heads,
     its conv channels), the config's by default."""
     _, d_inner, h, dh = _dims(cfg)
-    h = heads or h
+    h = h if heads is None else heads
     f32 = dict(dtype=torch.float32, device=device)
     return MLSTMState(
         c=torch.zeros((b, h, dh, dh), **f32),
@@ -249,27 +253,28 @@ def _zero_mlstm_state(cfg: ModelConfig, b: int, dt, device, *, heads=None,
 def mlstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
                 single_step: bool = False, tp=None, layout: str = "replicated") -> tuple:
     """x: (B,S,D). Returns (y (B,S,D), MLSTMState). On a rank-local
-    model ``tp`` is the model group and ``layout`` "heads" or "whole"
-    (see the module docstring); the state is then the rank's heads and
-    conv channels, or every head."""
+    model ``tp`` is the model group and ``layout`` "heads" (see the
+    module docstring); the state is then the rank's heads and conv
+    channels."""
     d, d_inner, h, dh = _dims(cfg)
     dt = x.dtype
     b, s, _ = x.shape
     f32 = torch.float32
-    # Under autograd: "heads" and "whole" end in w_down's row blocks, so
-    # every tensor assembled below feeds only the rank's part of the output
-    # (its cotangent summed over the group, `gather_columns`' "sum"), and a
+    # Under autograd: "heads" ends in w_down's row blocks, so every tensor
+    # assembled below feeds only the rank's part of the output (its
+    # cotangent summed over the group, `gather_columns`' "sum"), and a
     # whole leaf read there meets that part (`layers.enter`); "replicated"
     # runs the block whole on every rank ("keep")
     split = layout != "replicated"
-    if p["w_up"].shape[-1] != 2 * d_inner:
+    w_up = p["w_up"]  # read once: a leaf split over "data" is gathered where read
+    if w_up.shape[-1] != 2 * d_inner:
         x = L.enter(x, tp)  # the whole activation meets w_up's column block
-    (up,) = L.gather_columns([L._dot(x, p["w_up"]).to(dt)], [2 * d_inner], tp,
+    (up,) = L.gather_columns([L._dot(x, w_up).to(dt)], [2 * d_inner], tp,
                              backward="sum" if split else "keep")
     inner, z = up[..., :d_inner], up[..., d_inner:]
     # this rank's conv channels of the x branch (every channel when replicated)
     c_n = p["conv_b"].shape[0]
-    c_lo = 0 if layout == "replicated" else tp.rank * c_n
+    c_lo = tp.rank * c_n if split else 0
     inner_c = inner[..., c_lo : c_lo + c_n]
 
     # short causal conv on the q/k path (streaming form carries K-1 taps)
@@ -291,14 +296,16 @@ def mlstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
 
     qkv = [L._dot(conv, p["wq"]).to(dt), L._dot(conv, p["wk"]).to(dt),
            L._dot(inner, p["wv"]).to(dt)]
-    if layout == "whole":
-        qkv = L.gather_columns(qkv, [d_inner] * 3, tp)
-    h_lo, h_n = (tp.rank * (h // tp.size), h // tp.size) if layout == "heads" else (0, h)
+    h_lo, h_hi = rank_heads(h, tp) if split else (0, h)
+    even = not split or h % tp.size == 0
+    if not even:  # a column block ends inside a head: assembled, cut to the rank's heads
+        qkv = [t[..., h_lo * dh : h_hi * dh] for t in L.gather_columns(qkv, [d_inner] * 3, tp)]
+    h_n = h_hi - h_lo
     q, k, v = (t.reshape(b, s, h_n, dh) for t in qkv)
     w_if, b_i, b_f = (L.enter(p[n], tp) if split else p[n] for n in ("w_if", "b_i", "b_f"))
     gates = torch.matmul(inner.to(f32), w_if)  # (B,S,2H)
-    log_i = (gates[..., :h] + b_i)[..., h_lo : h_lo + h_n]
-    log_f = F.logsigmoid(gates[..., h:] + b_f)[..., h_lo : h_lo + h_n]
+    log_i = (gates[..., :h] + b_i)[..., h_lo:h_hi]
+    log_f = F.logsigmoid(gates[..., h:] + b_f)[..., h_lo:h_hi]
 
     if state is None:
         state = _zero_mlstm_state(cfg, b, dt, x.device, heads=h_n, conv_width=c_n)
@@ -311,18 +318,15 @@ def mlstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
             q.to(f32), k.to(f32), v.to(f32), log_i, log_f, cfg.mlstm_chunk, state)
     state = state._replace(conv=new_conv_state)
     h_out = h_out.reshape(b, s, h_n * dh).to(dt)
-    if layout == "heads":  # the rank's heads: its channels of h, z and w_down's rows
-        h_mixed = L.norm_split(p["mix_norm"], h_out, cfg.norm_eps, tp)
-        z = z[..., h_lo * dh : (h_lo + h_n) * dh]
-    else:
-        norm = {"scale": L.enter(p["mix_norm"]["scale"], tp) if split else p["mix_norm"]["scale"]}
-        h_mixed = L.rms_norm(norm, h_out, cfg.norm_eps)
-    y = h_mixed * F.silu(z.to(f32)).to(dt)
-    if layout == "replicated":
+    if not split:
+        y = L.rms_norm(p["mix_norm"], h_out, cfg.norm_eps) * F.silu(z.to(f32)).to(dt)
         return L._dot(y, p["w_down"]).to(dt), state
-    rows = p["w_down"].shape[0]
-    lo = 0 if layout == "heads" else tp.rank * rows  # "whole": the rank's rows of every head
-    return L.row_parallel(y[..., lo : lo + rows], p["w_down"], tp).to(dt), state
+    # the rank's heads: its channels of h, z and w_down's rows
+    h_mixed = L.norm_split(p["mix_norm"], h_out, cfg.norm_eps, tp, lo=h_lo * dh, width=d_inner)
+    y = h_mixed * F.silu(z[..., h_lo * dh : h_hi * dh].to(f32)).to(dt)
+    if even:
+        return L.row_parallel(y, p["w_down"], tp).to(dt), state
+    return L.row_parallel_span(y, h_lo * dh, d_inner, p["w_down"], tp).to(dt), state
 
 
 # ---------------------------------------------------------------------------
@@ -372,37 +376,44 @@ def _slstm_scan(r: torch.Tensor, x_gates: torch.Tensor, state: SLSTMState) -> tu
 def slstm_block(p, x: torch.Tensor, cfg: ModelConfig, *, state=None, tp=None,
                 layout: str = "replicated", ffn: str = "replicated") -> tuple:
     """x: (B,S,D). Returns (y (B,S,D), SLSTMState). On a rank-local model
-    ``tp`` is the model group, ``layout`` "heads" or "whole" and ``ffn``
-    "ff" or "replicated" (see the module docstring): with "heads" the
-    state holds the rank's heads' channels."""
+    ``tp`` is the model group, ``layout`` "heads" and ``ffn`` "ff" or
+    "replicated" (see the module docstring): the state holds the rank's
+    heads' channels."""
     b, s, d = x.shape
     dt = x.dtype
-    # Under autograd the feed-forward decides the cotangents: a replicated
-    # one ("replicated") gives every rank the whole cotangent of the block's
-    # output, so the assembled hidden states and, under "whole", the
-    # assembled gate inputs keep the rank's own (`gather_columns`' "keep");
-    # an ff-split one gives each rank its part, summed where assembled, and
-    # every whole leaf read on the way meets that part (`layers.enter`).
-    # Under "heads" the recurrence runs on the rank's heads, whose gate
-    # inputs and bias slice each rank reads alone
+    # Under autograd the feed-forward decides the cotangents of the
+    # assembled hidden states: a replicated one ("replicated") gives every
+    # rank the whole cotangent of the block's output, so they keep the
+    # rank's own (`gather_columns`' "keep"); an ff-split one gives each
+    # rank its part, summed where assembled, and every whole leaf read on
+    # the way meets that part (`layers.enter`). Under "heads" the
+    # recurrence runs on the rank's heads, whose gate inputs and bias (and
+    # a whole r_gates') slice each rank reads alone
     part = ffn == "ff"
-    if p["w_gates"].shape[-1] != 4 * d:
+    heads = layout == "heads"
+    w_gates = p["w_gates"]  # read once: a leaf split over "data" is gathered where read
+    if w_gates.shape[-1] != 4 * d:
         x = L.enter(x, tp)  # the whole activation meets w_gates' column block
-    (xg,) = L.gather_columns([L._dot(x, p["w_gates"])], [4 * d], tp,
-                             backward="sum" if part or layout == "heads" else "keep")
-    xg = xg + (L.enter(p["b_gates"], tp) if part or layout == "heads" else p["b_gates"])
+    (xg,) = L.gather_columns([L._dot(x, w_gates)], [4 * d], tp,
+                             backward="sum" if part or heads else "keep")
+    xg = xg + (L.enter(p["b_gates"], tp) if part or heads else p["b_gates"])
     r = p["r_gates"]
-    if layout == "whole" and part:
-        r = L.enter(r, tp)
-    n = r.shape[1] * r.shape[2]
-    if layout == "heads":  # this rank's heads: their channels of each gate
-        lo = tp.rank * n
+    if heads:  # this rank's heads: their channels of each gate
+        h_lo, h_hi = rank_heads(cfg.num_heads, tp)
+        if r.shape[1] == cfg.num_heads:  # whole: the heads do not divide
+            r = L.enter(r, tp)[:, h_lo:h_hi]
+        dh = d // cfg.num_heads
+        lo, n = h_lo * dh, (h_hi - h_lo) * dh
         xg = torch.cat([xg[..., g * d + lo : g * d + lo + n] for g in range(4)], dim=-1)
+    else:
+        n = d
     if state is None:
         z = torch.zeros((b, n), dtype=torch.float32, device=x.device)
         state = SLSTMState(z, z, z, z)
     h, state = _slstm_scan(r, xg, state)
-    (h,) = L.gather_columns([h.to(dt)], [d], tp, backward="sum" if part else "keep")
+    h = h.to(dt)
+    if heads:
+        h = L.gather_span(h, lo, d, tp, backward="sum" if part else "keep")
     scale = p["group_norm"]["scale"]
     h = L.rms_norm({"scale": L.enter(scale, tp) if part else scale}, h, cfg.norm_eps)
     g = L._dot(h, p["w_ff_gate"])
@@ -437,7 +448,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None, mlstm
     ms, ss = [], []
     for li in range(cfg.num_layers):
         if is_slstm(cfg, li):
-            z = torch.zeros((batch, slstm_width or cfg.d_model), dtype=torch.float32,
+            z = torch.zeros((batch, cfg.d_model if slstm_width is None else slstm_width),
+                            dtype=torch.float32,
                             device=device)
             ss.append(SLSTMState(z, z, z, z))
             ms.append(None)
@@ -527,11 +539,13 @@ class XLSTM(Model):
             return init_cache(self.cfg, batch, max_len, device=self.device)
         cfg, lay, size = self.cfg, self.tp.layout, self.tp.model_size
         d_inner = _dims(cfg)[1]
+        lo, hi = rank_heads(cfg.num_heads, self.tp.tp) if size > 1 else (0, cfg.num_heads)
         return init_cache(
             cfg, batch, max_len, device=self.device,
-            mlstm_heads=cfg.num_heads // size if lay["mlstm"] == "heads" else cfg.num_heads,
+            mlstm_heads=hi - lo if lay["mlstm"] == "heads" else cfg.num_heads,
             conv_width=d_inner if lay["mlstm"] == "replicated" else d_inner // size,
-            slstm_width=cfg.d_model // size if lay["slstm"] == "heads" else cfg.d_model)
+            slstm_width=(hi - lo) * (cfg.d_model // cfg.num_heads) if lay["slstm"] == "heads"
+            else cfg.d_model)
 
 
 def init_params(cfg: ModelConfig, *, device, generator=None) -> XLSTM:

@@ -19,7 +19,10 @@ collectives. What can be held here without an XLA compile:
 * the port's FLOPs a device on five production cells stay within
   `FLOPS_BAR` of the reference's (each rank attends only its q heads
   where the kv heads do not divide "model", and runs only its own MoE
-  pairs).
+  pairs), and on four cells whose heads do not divide "model" either
+  (recurrentgemma-2b's 10 q heads, xlstm-125m's 4 heads, on 16 ranks),
+  measured at a busiest model rank (each rank attends or recurs only its
+  own heads, `transformer.rank_heads`).
 """
 
 import dataclasses
@@ -43,6 +46,8 @@ from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import make_virtual_mesh
 from repro_torch.launch.specs import build_case, input_specs, make_case
 from repro_torch.models.base import TensorSpec
+from repro_torch.models.layers import TP
+from repro_torch.models.transformer import rank_heads
 from repro_torch.optimizer.base import tree_leaves
 
 import torch_shard_ranks as R
@@ -192,7 +197,11 @@ def test_cli_writes_and_roofline_reads(tmp_path, capsys):
 # The reference's FLOPs a device (XLA's cost_analysis) on rank (0, 0) of
 # the pod's (16, 16) ("data", "model") mesh, baseline profile, each from
 #   python -m repro.launch.dryrun --arch <arch> --shape <shape> --mesh pod
-# on the CPU (not compiled here: 256 placeholder devices a cell)
+# on the CPU (not compiled here: 256 placeholder devices a cell). XLA
+# counts a loop's body once, and the reference's chunked attention loops
+# over KV chunks of 1,024 where the keys are longer than 2,048, so the
+# figures of the 32k and 4k cells below count one chunk's attention: they
+# are lower bounds, which makes their bars stricter than they read
 REFERENCE_FLOPS = {
     ("qwen2.5-3b", "train_4k"): 1.045e14,
     ("mixtral-8x7b", "train_4k"): 6.711e14,
@@ -221,3 +230,51 @@ def test_pod_flops_near_reference(pod_cells, cell):
     assert got["ok"] and got["coordinate"] == {"data": 0, "model": 0}
     assert 0 < got["flops_per_device"] <= FLOPS_BAR * REFERENCE_FLOPS[cell], \
         f"{got['flops_per_device']:.4g} against the reference's {REFERENCE_FLOPS[cell]:.4g}"
+
+
+# Cells whose heads do not divide the pod's 16 model ranks: the
+# reference's FLOPs a device as above, the two chunked cells with every
+# attention in one KV chunk (one trip of the loop XLA counts once, the
+# same math), from
+#   PYTHONPATH=src python tools/ref_dryrun_one_trip.py --arch recurrentgemma-2b --shape <shape>
+# and the decode cells' plain figures from the reference's dry run
+REFERENCE_FLOPS_UNEVEN = {
+    ("recurrentgemma-2b", "train_4k"): 1.167e14,  # one trip (XLA's count: 9.179e13)
+    ("recurrentgemma-2b", "prefill_32k"): 1.128e14,  # one trip (XLA's count: 2.688e13)
+    ("recurrentgemma-2b", "decode_32k"): 3.909e9,
+    ("xlstm-125m", "decode_32k"): 2.039e8,
+}
+
+
+def _busiest(arch: str) -> int:
+    """The last model rank of the pod holding the most heads (rank 0
+    holds as many; `transformer.rank_heads`)."""
+    h = tbase.get_config(arch).num_heads
+    counts = [hi - lo for lo, hi in (rank_heads(h, TP(None, r, 16)) for r in range(16))]
+    return max(r for r in range(16) if counts[r] == max(counts))
+
+
+@pytest.fixture(scope="module")
+def uneven_cells():
+    """`dryrun.run_cell` of each `REFERENCE_FLOPS_UNEVEN` cell on the pod
+    at data rank 0 and its busiest model rank (the meta device)."""
+    return {cell: dryrun.run_cell(*cell, "pod", verbose=False,
+                                  coordinate=(0, _busiest(cell[0])))
+            for cell in REFERENCE_FLOPS_UNEVEN}
+
+
+@pytest.mark.parametrize("cell", list(REFERENCE_FLOPS_UNEVEN), ids=lambda c: f"{c[0]}-{c[1]}")
+def test_uneven_heads_flops_near_reference(uneven_cells, cell):
+    """The port's FLOPs a device at a busiest model rank at most
+    `FLOPS_BAR` times the reference's: each rank attends (recurrentgemma-2b)
+    or recurs (xlstm-125m's mLSTM and sLSTM) only its own heads, though
+    they do not divide "model"; a rank with fewer heads does less."""
+    got = uneven_cells[cell]
+    busiest = _busiest(cell[0])
+    assert got["ok"] and got["coordinate"] == {"data": 0, "model": busiest} and busiest > 0
+    assert 0 < got["flops_per_device"] <= FLOPS_BAR * REFERENCE_FLOPS_UNEVEN[cell], \
+        f"{got['flops_per_device']:.4g} against the reference's {REFERENCE_FLOPS_UNEVEN[cell]:.4g}"
+    if cell[1] == "decode_32k":  # cheap enough to run every model rank: none does more
+        flops = [dryrun.run_cell(*cell, "pod", verbose=False, coordinate=(0, r))[
+            "flops_per_device"] for r in range(16)]
+        assert max(flops) == got["flops_per_device"] == flops[0] > min(flops)

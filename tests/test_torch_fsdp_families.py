@@ -16,10 +16,17 @@ cut to 521, which does not divide over "model", so its logits stay whole
 on a mesh with "data" > 1), on the reference's own weights, one step on
 a 4 x 16 batch on a (2, 2) and a (4, 1) ("data", "model") mesh; the two
 xLSTM cases also on (1, 4), where its 2 heads do not divide over
-"model" and the mLSTM and sLSTM run "whole", and the two
-recurrentgemma-2b cases, whose 2 q heads do not divide over 4 ranks
-either, so its attention assembles q, k and v whole ("whole"; on (2, 2)
-each rank attends its own q head, "q_heads"). The MoE
+"model" and the mLSTM and sLSTM run each rank's own heads, 1, 1, 0 and
+0 ("heads"), and the two recurrentgemma-2b cases, whose 2 q heads do
+not divide over 4 ranks either, so each rank attends its own q heads
+likewise ("q_heads", as on (2, 2), where they divide); on (1, 4) too,
+uneven heads with every rank holding one
+(`torch_shard_ranks.FAMILY_TRAIN_UNEVEN`): recurrentgemma-2b with 6 q
+heads and xlstm-125m with 6 heads at d_model 96; and on (1, 4) the
+"whole" attention layout, which serving's flash-decoding takes
+(`torch_shard_ranks.FAMILY_TRAIN_WHOLE`: the qwen2.5-3b smoke under
+``decode_seq_shard``, q, k and v assembled whole and every head attended
+on every rank). The MoE
 configs run at capacity factor 0.5 (their smoke configs' 4.0 is
 dropless): the reference drops pairs on this batch, and "gather" must
 slot them as the reference's jitted step slots the global batch.
@@ -80,10 +87,13 @@ SHAPES = ((2, 2), (4, 1))
 SEED = 3
 CASES = R.FAMILY_TRAIN_CASES
 # the cases each mesh shape runs: every case on SHAPES, xLSTM's and
-# recurrentgemma's on (1, 4)
+# recurrentgemma's on (1, 4) with the uneven heads' cases and the "whole"
+# attention layout's
 CASES_BY_SHAPE = {**{shape: CASES for shape in SHAPES},
                   (1, 4): tuple(c for c in CASES
-                                if c[0] in ("xlstm_125m", "recurrentgemma_2b"))}
+                                if c[0] in ("xlstm_125m", "recurrentgemma_2b"))
+                  + R.FAMILY_TRAIN_UNEVEN + R.FAMILY_TRAIN_WHOLE}
+ALL_CASES = CASES + R.FAMILY_TRAIN_UNEVEN + R.FAMILY_TRAIN_WHOLE
 PAIRS = [(shape, case) for shape, cases in CASES_BY_SHAPE.items() for case in cases]
 PAIR_IDS = [f"{a}x{b}-" + "-".join(str(c) for c in case if c) for (a, b), case in PAIRS]
 MOE_F32 = [c for c in CASES if c[2] is not None and c[1] == "float32"]
@@ -206,7 +216,7 @@ def _extras() -> dict:
     """Each stub frontend's input for the 4 rows, N(0, 0.02^2) (as
     tests/test_models.py draws whisper's frames), in float32."""
     out = {}
-    for arch in {c[0] for c in CASES}:
+    for arch in {c[0] for c in ALL_CASES}:
         cfg = R.family_train_cfg(arch, "float32")
         rng = np.random.default_rng(SEED + 1)
         if cfg.frontend == "vision_stub":
@@ -245,7 +255,7 @@ def runs(tmp_path_factory):
     extras = _extras()
     path = tmp_path_factory.mktemp("fsdp_families") / "ref.npz"
     flat = {f"{arch}/{k}": v for arch, d in extras.items() for k, v in d.items()}
-    kw = {_ckey(c): R.family_train_kw(c[0], *c[3:]) for c in CASES}
+    kw = {_ckey(c): R.family_train_kw(c[0], *c[3:]) for c in ALL_CASES}
     np.savez(path, toks=toks, cf=R.FAMILY_TRAIN_CF, kw=json.dumps(kw), **flat)
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
@@ -255,14 +265,14 @@ def runs(tmp_path_factory):
                                ",".join(_ckey(c) for c in CASES_BY_SHAPE[(a, b)])], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for (a, b), o in zip(CASES_BY_SHAPE, outs)]  # one a mesh, side by side
-    trees = {case: _tree(case) for case in CASES}
+    trees = {case: _tree(case) for case in ALL_CASES}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         pending = {shape: pool.submit(distributed.run_ranks, R.family_train_rank, 4, shape,
                                       cases, {c: trees[c] for c in cases}, toks, extras,
                                       device_type="cpu", timeout=400)
                    for shape, cases in CASES_BY_SHAPE.items()}
         one = {case: _one_process(trees[case], case, toks, extras)
-               for case in CASES if _slack(case)}
+               for case in ALL_CASES if _slack(case)}
         ranks = {shape: f.result() for shape, f in pending.items()}
     ref = {}
     for shape, proc, o in zip(CASES_BY_SHAPE, procs, outs):
@@ -451,12 +461,13 @@ def test_opt_state_blocks_follow_opt_state_pspecs(runs, shape):
                 assert got["opt_shapes"]["layers.0.moe.w_gate.col"] == (4, 192 // shape[1])
             if case[3:] == ("scan",):  # (L, E, D, F): d_model is dim 2 of the stack
                 assert got["fsdp"]["layers.moe.w_gate"] == (2, 64)
-            if case[0] == "xlstm_125m" and shape[1] > 1:
-                mix = "heads" if shape == (2, 2) else "whole"
-                assert got["layout"] == {"mlstm": mix, "slstm": mix,
-                                         "slstm_ffn": "ff" if case[3:] else "replicated"}
+            if case[0] == "xlstm_125m" and shape[1] > 1:  # each rank's heads, even or not
+                assert got["layout"] == {"mlstm": "heads", "slstm": "heads",
+                                         "slstm_ffn": "ff" if case[3:] == ("ff",)
+                                         else "replicated"}
             if shape[1] > 1 and case[0] == "recurrentgemma_2b":
-                # 2 q heads and 1 kv head: on 2 ranks each attends its own q
-                # head; on 4 the q heads do not divide, q, k and v assembled
-                attn = "q_heads" if shape == (2, 2) else "whole"
-                assert got["attn"] == attn and got["layout"] == {"lru": "channels"}
+                # 1 kv head: each rank attends its own q heads, on 2 ranks one
+                # each, on 4 unevenly (1, 1, 0, 0; 2, 2, 1, 1 of 6)
+                assert got["attn"] == "q_heads" and got["layout"] == {"lru": "channels"}
+            if case[3:] == ("seq_shard",):  # flash-decoding's layout: every head on every rank
+                assert got["attn"] == "whole"

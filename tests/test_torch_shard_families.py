@@ -17,7 +17,11 @@ sLSTM's whole-gate ``w_gates`` blocks against its head-split
 ``r_gates`` (whole at 4 ranks: 2 heads), the 85-wide sLSTM feed-forward
 and whisper's vocabulary whole on every rank (the guard's fallback), the
 RG-LRU's single kv head split inside the head (its 2 q heads one a rank
-at 2 ranks, "q_heads"; every head assembled at 4, "whole"). And `ServeEngine` on the
+at 2 ranks, "q_heads"; at 4 ranks 1, 1, 0, 0, the same layout with
+uneven heads, as the xLSTM's "heads"). Uneven heads with every rank
+holding one, on 1 x 4 (`torch_shard_ranks.FAM_UNEVEN`): recurrentgemma-2b
+with 6 q heads (2, 2, 1, 1) and xlstm-125m with 6 heads at d_model 96.
+And `ServeEngine` on the
 2 x 2 mesh in float32, whisper's requests carrying their encoder frames:
 every output the port's one-process engine's.
 
@@ -42,15 +46,17 @@ from repro_torch.serve import Request, ServeEngine
 import torch_shard_ranks as R
 
 ATOL = {"float32": 1e-4, "bfloat16": 0.06}
-CASES = [(arch, shape) for arch in R.FAMILIES for shape in R.FAM_MESHES]
+CASES = [(arch, shape) for arch in R.FAMILIES for shape in R.FAM_MESHES] + [
+    (name, (1, 4)) for name in R.FAM_UNEVEN]
+NAMES = R.FAMILIES + tuple(R.FAM_UNEVEN)
 PROMPT_LENS = (6, 8, 8, 7)
 
 
 def _jcfg(arch: str, dtype: str):
     import dataclasses
 
-    return dataclasses.replace(jbase.get_smoke_config(arch), dtype=dtype,
-                               **R.FAM_KW.get(arch, {}))
+    return dataclasses.replace(jbase.get_smoke_config(R.fam_arch(arch)), dtype=dtype,
+                               **R.fam_kw(arch))
 
 
 def _inputs(arch: str) -> tuple:
@@ -87,7 +93,7 @@ def _reference(jm, params, toks, frames) -> dict:
 @pytest.fixture(scope="module")
 def runs():
     trees, toks, frames, prompts, jref = {}, {}, {}, {}, {}
-    for arch in R.FAMILIES:
+    for arch in NAMES:
         toks[arch], f, prompts[arch] = _inputs(arch)
         if f is not None:
             frames[arch] = f
@@ -103,7 +109,7 @@ def runs():
     pending = pool.submit(distributed.run_ranks, R.family_rank, 4, trees, toks, frames, prompts,
                           device_type="cpu", timeout=600)
     want = {}
-    for arch in R.FAMILIES:
+    for arch in NAMES:
         jm, params = jref[arch]
         want[(arch, "float32")] = _reference(jm, params, toks[arch], frames.get(arch))
         # the port's one-process model in bf16, and its engine in f32
@@ -113,6 +119,8 @@ def runs():
         want[(arch, "bfloat16")] = R._family_case(
             model, torch.from_numpy(toks[arch]),
             None if f is None else torch.from_numpy(f).to(torch.bfloat16))
+        if arch not in R.FAMILIES:
+            continue
         model = convert.lm_params_from_numpy(trees[arch]["float32"],
                                              R.family_cfg(arch, "float32"), device="cpu")
         engine = ServeEngine(model, slots=2, max_len=R.FAM_MAX_LEN)
@@ -155,12 +163,11 @@ def test_sharded_logits_match(runs, arch, shape, dtype):
 
 
 def _expected_layout(arch: str, m: int) -> dict:
-    if arch == "recurrentgemma_2b":  # 2 q heads, 1 kv head: the q heads split at 2 ranks
-        return dict(attn="q_heads" if m == 2 else "whole", mlp=True, layout={"lru": "channels"})
-    if arch == "xlstm_125m":  # 2 heads: split at 2 ranks, inside a head at 4
-        kind = "heads" if m == 2 else "whole"
+    if arch == "recurrentgemma_2b":  # 1 kv head: each rank its own q heads, even or not
+        return dict(attn="q_heads", mlp=True, layout={"lru": "channels"})
+    if arch == "xlstm_125m":  # each rank its own heads, even or not
         return dict(attn="replicated", mlp=False,
-                    layout={"mlstm": kind, "slstm": kind, "slstm_ffn": "replicated"})
+                    layout={"mlstm": "heads", "slstm": "heads", "slstm_ffn": "replicated"})
     return dict(attn="heads", mlp=True, layout={})
 
 
@@ -172,8 +179,9 @@ def test_layout_and_blocks(runs, arch, shape):
     m = shape[1]
     tree = convert._flatten(trees[arch]["float32"])
     whole = sum(np.prod(a.shape) for a in tree.values())
+    case, arch = arch, R.fam_arch(arch)
     for r in ranks:
-        got = r[(arch, shape, "float32")]
+        got = r[(case, shape, "float32")]
         k = got["coord"]["model"]
         assert {key: got[key] for key in ("attn", "mlp", "layout")} == _expected_layout(arch, m)
         assert got["held"] < whole
@@ -188,9 +196,9 @@ def test_layout_and_blocks(runs, arch, shape):
                 d = leaf.shape[0]  # gate blocks [z, i, f, o]: 2 gates a rank, or 1
                 want = leaf[:, k * 4 * d // m : (k + 1) * 4 * d // m]
             elif name.endswith("r_gates"):
-                want = leaf[:, k : k + 1] if m == 2 else leaf  # 2 heads do not split 4 ways
+                want = leaf[:, k : k + 1] if m == 2 else leaf  # 2 or 6 heads do not split 4 ways
             elif name.endswith("w_ff_up") or name == "embed.table":
-                want = leaf  # 85 and 521 divide by neither 2 nor 4: the guard keeps them
+                want = leaf  # 85, 127 and 521 divide by neither 2 nor 4: the guard keeps them
             elif name.endswith("w_out"):
                 n = leaf.shape[0] // m
                 want = leaf[k * n : (k + 1) * n]

@@ -286,18 +286,20 @@ ATTN_LAYOUTS = (
     ("qwen2_5_3b", {}, (2, 2), "heads"),
     ("qwen2_5_3b", dict(decode_seq_shard=True), (1, 4), "whole"),  # flash-decoding
     ("recurrentgemma_2b", {}, (2, 2), "q_heads"),  # 2 q heads, 1 kv head
-    ("recurrentgemma_2b", {}, (1, 4), "whole"),  # 2 q heads do not split 4 ways
+    ("recurrentgemma_2b", {}, (1, 4), "q_heads"),  # 2 q heads on 4 ranks: 1, 1, 0, 0
+    ("recurrentgemma_2b", dict(num_heads=6), (1, 4), "q_heads"),  # 2, 2, 1, 1
     ("whisper_medium", {}, (1, 4), "heads"),
 )
 
 
 @pytest.mark.parametrize("arch,kw,shape,want", ATTN_LAYOUTS,
-                         ids=[f"{a}-{s[0]}x{s[1]}-{w}" for a, _, s, w in ATTN_LAYOUTS])
+                         ids=[f"{a}-{s[0]}x{s[1]}-{w}" + (f"-h{kw['num_heads']}" if kw.get(
+                             "num_heads") else "") for a, kw, s, w in ATTN_LAYOUTS])
 def test_attn_layout_choice(arch, kw, shape, want):
-    """`shard_model`'s attention layout: "q_heads" where the q heads
-    divide over "model" and the kv heads do not, "whole" where the q
-    heads do not divide or under ``decode_seq_shard``; under "q_heads"
-    the local spec holds the rank's q heads and the kv heads they read."""
+    """`shard_model`'s attention layout: "q_heads" where the kv heads do
+    not divide over "model" (the q heads evenly or not), "whole" under
+    ``decode_seq_shard``; under "q_heads" the local spec of rank 0 holds
+    its ceil(H / |model|) q heads and the kv head they read."""
     from repro_torch.core.distributed import VirtualMesh
     from repro_torch.models.transformer import heads_spec
 
@@ -307,9 +309,71 @@ def test_attn_layout_choice(arch, kw, shape, want):
     spec = tL.AttnSpec(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     local = heads_spec(spec, model.tp)
     if want == "q_heads":
-        assert (local.num_heads, local.num_kv_heads) == (cfg.num_heads // shape[1], 1)
+        assert (local.num_heads, local.num_kv_heads) == (-(-cfg.num_heads // shape[1]), 1)
     elif want == "whole":
         assert local == spec
+
+
+# (heads, model ranks) for the head rule: the pod's recurrentgemma-2b and
+# xlstm-125m, the smoke configs on 4 ranks, 1 x 4's full recurrentgemma-2b,
+# the uneven twins' 6 heads, and even splits
+RANK_HEADS = ((10, 16), (4, 16), (2, 4), (10, 4), (6, 4), (16, 16), (128, 16), (3, 2), (1, 2))
+
+
+@pytest.mark.parametrize("heads,m", RANK_HEADS, ids=[f"{h}-on-{m}" for h, m in RANK_HEADS])
+def test_rank_heads(heads, m):
+    """`transformer.rank_heads`: every head on exactly one rank, each
+    rank a contiguous range of floor(H / m) or ceil(H / m) heads, rank 0
+    a largest share, and the even column block's heads where m divides
+    H."""
+    from repro_torch.models.transformer import rank_heads
+
+    spans = [rank_heads(heads, tL.TP(None, r, m)) for r in range(m)]
+    assert spans[0][0] == 0 and spans[-1][1] == heads
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))  # contiguous, in rank order
+    counts = [hi - lo for lo, hi in spans]
+    assert set(counts) <= {heads // m, -(-heads // m)} and counts[0] == max(counts)
+    if heads % m == 0:
+        assert spans == [(r * heads // m, (r + 1) * heads // m) for r in range(m)]
+
+
+@pytest.mark.parametrize("arch", ("recurrentgemma_2b", "xlstm_125m"))
+def test_pod_ranks_share_no_head(arch):
+    """On the pod's (16, 16) mesh (full configs, the meta device), the
+    model ranks of a data group attend (recurrentgemma-2b's 10 q heads)
+    or recur (xlstm-125m's 4 mLSTM and 4 sLSTM heads) disjoint heads
+    that together are every head: each rank's local spec and its cache's
+    head and channel counts are its `rank_heads`', which tile the heads;
+    ranks past the heads hold none."""
+    from repro_torch.core.distributed import VirtualMesh
+    from repro_torch.models.transformer import heads_spec, rank_heads
+
+    cfg = tbase.get_config(arch)
+    spans, attended, recurred = [], 0, [0, 0]
+    for r in range(16):
+        model = tsh.shard_model(cfg, VirtualMesh((16, 16), ("data", "model"), (0, r)))
+        lo, hi = rank_heads(cfg.num_heads, model.tp.tp)
+        spans.append((lo, hi))
+        cache = model.init_cache(2, 64)
+        if arch == "recurrentgemma_2b":
+            assert model.tp.attn == "q_heads"
+            spec = tL.AttnSpec(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+            local = heads_spec(spec, model.tp)
+            assert local.num_heads == hi - lo
+            assert {k.shape[2] for k in cache.attn_k if k.shape[1]} == {int(hi > lo)}
+            attended += local.num_heads
+        else:
+            assert model.tp.layout["mlstm"] == model.tp.layout["slstm"] == "heads"
+            mheads = {st.c.shape[1] for st in cache.mlstm if st is not None}
+            swidth = {st.h.shape[1] for st in cache.slstm if st is not None}
+            assert mheads == {hi - lo} and swidth == {(hi - lo) * cfg.d_model // cfg.num_heads}
+            recurred[0] += hi - lo
+            recurred[1] += swidth.pop()
+    assert [h for lo, hi in spans for h in range(lo, hi)] == list(range(cfg.num_heads))
+    if arch == "recurrentgemma_2b":
+        assert attended == cfg.num_heads
+    else:
+        assert recurred == [cfg.num_heads, cfg.d_model]
 
 
 # (q heads, kv heads, model ranks) -> each rank's kv heads under "q_heads"

@@ -449,6 +449,12 @@ FAM_B, FAM_FWD, FAM_PREFILL, FAM_STEPS, FAM_MAX_LEN = 4, 24, 8, 4, 16
 # whisper-medium's 51,865-token vocabulary does not divide over "model"; the
 # twin's smoke vocabulary is cut to a size that does not divide either
 FAM_KW = {"whisper_medium": dict(vocab_size=521)}
+# heads that split unevenly with every rank holding one (1 x 4 only): 6 q
+# heads of recurrentgemma-2b's smoke config (2, 2, 1, 1), and 6 xLSTM heads
+# at a width whose leaves all split 4 ways (d_inner 192: mLSTM heads of 32,
+# sLSTM heads of 16); the smoke configs' own 2 heads give 1, 1, 0, 0
+FAM_UNEVEN = {"recurrentgemma_2b_h6": ("recurrentgemma_2b", dict(num_heads=6)),
+              "xlstm_125m_h6": ("xlstm_125m", dict(num_heads=6, d_model=96))}
 FAM_LEAVES = {  # leaves whose blocks the twins check, by family
     "xlstm_125m": ("layers.0.mlstm.w_up", "layers.0.mlstm.wq", "layers.2.slstm.w_gates",
                    "layers.2.slstm.r_gates", "layers.2.slstm.w_ff_up"),
@@ -457,8 +463,18 @@ FAM_LEAVES = {  # leaves whose blocks the twins check, by family
 }
 
 
+def fam_arch(name: str) -> str:
+    """The configuration a `FAMILIES` or `FAM_UNEVEN` name is a smoke config of."""
+    return FAM_UNEVEN[name][0] if name in FAM_UNEVEN else name
+
+
+def fam_kw(name: str) -> dict:
+    """The fields ``name`` changes in its smoke config."""
+    return FAM_UNEVEN[name][1] if name in FAM_UNEVEN else FAM_KW.get(name, {})
+
+
 def family_cfg(arch: str, dtype: str):
-    return dataclasses.replace(get_smoke_config(arch), dtype=dtype, **FAM_KW.get(arch, {}))
+    return dataclasses.replace(get_smoke_config(fam_arch(arch)), dtype=dtype, **fam_kw(arch))
 
 
 def _family_case(model, toks, frames):
@@ -494,7 +510,7 @@ def family_rank(rank, world, trees, toks, frames, prompts):
         coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
         d, nd = coord["data"], shape[0]
         rows = slice(d * FAM_B // nd, (d + 1) * FAM_B // nd)
-        for arch in FAMILIES:
+        for arch in FAMILIES + (tuple(FAM_UNEVEN) if shape == (1, 4) else ()):
             for dtype in ("float32", "bfloat16"):
                 cfg = family_cfg(arch, dtype)
                 model = shard_model(cfg, mesh, params=trees[arch][dtype])
@@ -506,7 +522,7 @@ def family_rank(rank, world, trees, toks, frames, prompts):
                            attn=model.tp.attn, mlp=model.tp.mlp, layout=model.tp.layout,
                            vocab=model.tp.vocab,
                            blocks={n: params[n].detach().float().numpy()
-                                   for n in FAM_LEAVES[arch]},
+                                   for n in FAM_LEAVES[fam_arch(arch)]},
                            held=sum(p.numel() for p in model.parameters()))
                 out[(arch, shape, dtype)] = res
         if shape == (1, 4):  # a norm over a channel-split activation, both kinds
@@ -562,7 +578,17 @@ FAMILY_TRAIN_CF = 0.5
 FAMILY_TRAIN_KW = {"whisper_medium": dict(vocab_size=521),
                    "grok_1_314b": dict(optimizer="adafactor"),
                    "internvl2_76b": dict(optimizer="adafactor")}
-FAMILY_TRAIN_VARIANTS = {"ff": dict(proj_factor_slstm=1.5), "scan": dict(scan_layers=True)}
+FAMILY_TRAIN_VARIANTS = {"ff": dict(proj_factor_slstm=1.5), "scan": dict(scan_layers=True),
+                         "seq_shard": dict(decode_seq_shard=True),
+                         **{f"uneven_{arch}": kw for arch, kw in FAM_UNEVEN.values()}}
+# heads split unevenly with every rank holding one, trained on 1 x 4 only
+# (`FAM_UNEVEN`'s configs)
+FAMILY_TRAIN_UNEVEN = tuple((arch, "float32", None, f"uneven_{arch}")
+                            for arch, _ in FAM_UNEVEN.values())
+# the "whole" attention layout trained, on 1 x 4 only: the dense qwen smoke
+# under ``decode_seq_shard`` (its 2 kv heads do not divide over 4 ranks, so
+# it would take "q_heads" without it)
+FAMILY_TRAIN_WHOLE = (("qwen2_5_3b", "float32", None, "seq_shard"),)
 
 
 def family_train_kw(arch: str, variant=None) -> dict:

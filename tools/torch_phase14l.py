@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Phase 14l of chip_smoke.py alone: every family besides the dense one
 trained two steps under the FSDP x TP layout on 4 gloo ranks sharing one
-GPU (2 x 2), against one process on the card, on random prompts in
-place of 14a's selection:
+GPU (2 x 2; the uneven heads' cases on 1 x 4), against one process on the
+card, on random prompts in place of 14a's selection:
 
     python3 tools/torch_phase14l.py          # on a GPU: full width, cut in depth
     python3 tools/torch_phase14l.py --cpu    # a rehearsal: smoke configs on the CPU
@@ -32,9 +32,13 @@ def _rank(rank, world, meta):
     from repro_torch.core import distributed
 
     mesh = distributed.init_mesh((2, 2), device_type=meta["device"])
+    mesh14 = distributed.init_mesh((1, 4), device_type=meta["device"])
     t = time.perf_counter()
     out = dict(rank=rank, fam_train={arch: chip_smoke._fam_train_rank(torch, meta, arch, mesh)
                                      for arch, _ in chip_smoke.SHARD_FAM_TRAIN})
+    # the uneven cases: the heads do not divide over the model axis
+    out["fam_train_uneven"] = {name: chip_smoke._fam_train_rank(torch, meta, name, mesh14)
+                               for name in chip_smoke.SHARD_FAM_UNEVEN}
     out["fam_train_s"] = time.perf_counter() - t
     return out
 
